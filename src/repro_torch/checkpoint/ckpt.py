@@ -1,0 +1,148 @@
+"""Read side of the checkpoint layout (reference: ``repro.checkpoint.ckpt``).
+
+Layout of one committed step::
+
+    <dir>/step_000000007/
+        manifest.json      # n_leaves, meta, per-leaf {file, shape, dtype, crc32}
+        arr_00000.npy ...  # one file per leaf, in jax ``tree_flatten`` order
+
+Leaves come back as CPU ``torch`` tensors. bfloat16 leaves are stored as
+same-width unsigned views (numpy has no bf16 dtype); the manifest records
+the true dtype and the port reinterprets the 16 bits as
+``torch.bfloat16``, bit for bit. Every leaf's crc32 is checked before the
+file is parsed: a damaged artifact raises :class:`SnapshotCorrupt`.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import zlib
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+_STEP_RE = re.compile(r"^step_(\d{9})$")
+
+# dtypes .npy cannot express, stored as a same-width integer view
+_VIEW_DTYPES = {"bfloat16": (np.int16, torch.bfloat16)}
+
+
+class SnapshotCorrupt(ValueError):
+    """A committed checkpoint that cannot be trusted: a truncated or
+    garbage manifest, a leaf whose checksum does not match, or a leaf
+    file missing outright. Distinct from ``FileNotFoundError`` (no
+    checkpoint at all) so recovery can walk back to an older step."""
+
+
+def _step_dir(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step:09d}")
+
+
+def _crc_file(path: str) -> int:
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                return crc
+            crc = zlib.crc32(chunk, crc)
+
+
+def all_steps(directory: str) -> List[int]:
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in os.listdir(directory):
+        m = _STEP_RE.match(name)
+        if m and os.path.exists(os.path.join(directory, name,
+                                             "manifest.json")):
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = all_steps(directory)
+    return steps[-1] if steps else None
+
+
+def _read_manifest(path: str) -> dict:
+    """Parse ``<step dir>/manifest.json``; every way a damaged file can
+    fail to parse becomes one :class:`SnapshotCorrupt`."""
+    mf = os.path.join(path, "manifest.json")
+    try:
+        with open(mf, "rb") as f:
+            manifest = json.loads(f.read().decode("utf-8"))
+    except FileNotFoundError:
+        raise
+    except (json.JSONDecodeError, UnicodeDecodeError, ValueError) as e:
+        raise SnapshotCorrupt(
+            f"{mf}: manifest is truncated or garbage ({e}); fall back to "
+            f"an older step or re-build the artifact") from e
+    if not isinstance(manifest, dict) or "meta" not in manifest \
+            or "leaves" not in manifest:
+        raise SnapshotCorrupt(
+            f"{mf}: manifest parses as JSON but is not a checkpoint "
+            f"manifest (missing meta/leaves blocks)")
+    return manifest
+
+
+def _resolve_step(directory: str, step: Optional[int]) -> int:
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+    return step
+
+
+def read_meta(directory: str, *, step: Optional[int] = None
+              ) -> Tuple[dict, int]:
+    """The ``meta`` block of a committed step, without touching any leaf
+    file. Returns ``(meta, step)``."""
+    step = _resolve_step(directory, step)
+    return _read_manifest(_step_dir(directory, step))["meta"], step
+
+
+def _load_leaf(path: str, info: dict, i: int) -> torch.Tensor:
+    want_crc = info.get("crc32")
+    try:
+        if want_crc is not None and _crc_file(path) != want_crc:
+            raise SnapshotCorrupt(
+                f"leaf {i} ({path}): checksum mismatch vs manifest — the "
+                f"committed file was damaged")
+        arr = np.load(path)
+    except FileNotFoundError as e:
+        raise SnapshotCorrupt(
+            f"leaf {i} ({path}): missing from a committed checkpoint") from e
+    except SnapshotCorrupt:
+        raise
+    except ValueError as e:
+        raise SnapshotCorrupt(
+            f"leaf {i} ({path}): not a readable .npy ({e})") from e
+    want = info.get("dtype")
+    if want in _VIEW_DTYPES:
+        np_view, torch_dtype = _VIEW_DTYPES[want]
+        return torch.from_numpy(arr.view(np_view)).view(torch_dtype)
+    if want and str(arr.dtype) != want:
+        arr = arr.view(np.dtype(want))
+    if list(arr.shape) != list(info.get("shape", arr.shape)):
+        raise SnapshotCorrupt(f"leaf {i} ({path}): shape {arr.shape} != "
+                              f"manifest {info['shape']}")
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def restore(directory: str, *, step: Optional[int] = None
+            ) -> Tuple[List[torch.Tensor], int, dict]:
+    """All leaves of a committed step, in manifest (= ``tree_flatten``)
+    order, as CPU tensors. Returns ``(leaves, step, meta)``."""
+    step = _resolve_step(directory, step)
+    path = _step_dir(directory, step)
+    manifest = _read_manifest(path)
+    infos = manifest["leaves"]
+    if len(infos) != manifest.get("n_leaves", len(infos)):
+        raise SnapshotCorrupt(f"{path}: manifest lists {len(infos)} leaves "
+                              f"but declares {manifest['n_leaves']}")
+    leaves = [_load_leaf(os.path.join(path, info["file"]), info, i)
+              for i, info in enumerate(infos)]
+    return leaves, step, manifest["meta"]

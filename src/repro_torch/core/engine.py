@@ -1,0 +1,486 @@
+"""The LIST query engine, unsharded (reference: ``repro.core.engine``).
+
+The query phase (paper Algorithm 1): encode the query → router features
+(Eq. 9–10) → top-``cr`` clusters (Eq. 11) → score the routed clusters'
+resident objects with ST and keep the top ``k`` → merge the delta
+segment.
+
+Backends (``backend=``):
+
+* ``"cuda"`` — the routed CUDA kernel (twin of the reference's
+  ``pallas``): one block per query over its routed clusters.
+* ``"cuda-cm"`` — the cluster-major CUDA kernel (twin of ``pallas-cm``):
+  the batch's routed clusters are deduped (``serving.cluster_major_plan``)
+  and each distinct cluster is streamed once against its query roster.
+* ``"dense"`` / ``"dense-cm"`` — the plain PyTorch versions of the two
+  kernels, for snapshots on the CPU.
+* ``"auto"`` — by the snapshot's device: ``"cuda"`` on a CUDA device,
+  ``"dense"`` on the CPU; :meth:`QueryEngine.query` then upgrades to the
+  ``-cm`` twin per batch when the route dedup factor ``B·cr/U`` reaches
+  :data:`CLUSTER_MAJOR_DEDUP_THRESHOLD`.
+
+The CUDA backends run only on CUDA snapshots and the dense ones only on
+CPU snapshots: asking for the other raises instead of falling back.
+
+Inputs: ``q_tokens (B, L)`` int token ids (0 = padding), ``q_mask (B, L)``
+bool, ``q_loc (B, 2)`` float32. Outputs: ``ids (B, k)`` global object ids
+(-1 past the end) and ``scores (B, k)`` f32 descending, as numpy arrays.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import filters as filters_lib
+from repro_torch.core import index as index_lib
+from repro_torch.core import relevance
+from repro_torch.core import serving as serving_lib
+from repro_torch.core.index import topk_stable
+from repro_torch.device import require_device
+from repro_torch.kernels import fused_topk_score as fts
+
+NEG_INF = fts.NEG_INF
+
+BACKENDS = ("cuda", "cuda-cm", "dense", "dense-cm", "auto")
+
+# query-major backends and their cluster-major twins
+_CM_TWIN = {"cuda": "cuda-cm", "dense": "dense-cm"}
+# the device type each explicit backend runs on
+_BACKEND_DEVICE = {"cuda": "cuda", "cuda-cm": "cuda", "dense": "cpu",
+                   "dense-cm": "cpu"}
+
+# auto upgrades to cluster-major when the batch would stream each
+# distinct cluster at least this many times under query-major execution
+CLUSTER_MAJOR_DEDUP_THRESHOLD = 2.0
+
+DEFAULT_PLAN_CACHE_SIZE = 32
+
+# delta scans pad the row count up to a multiple of this
+DELTA_PAD_BUCKET = 128
+
+# with tombstones, the base top-k is over-fetched by the tombstone count
+# rounded up to this bucket: each tombstone can knock one entry out
+TOMBSTONE_K_BUCKET = 32
+
+
+def resolve_backend(backend: str, device) -> str:
+    """``"auto"`` → ``"cuda"`` on a CUDA device, ``"dense"`` on the CPU;
+    an explicit backend must match the device it runs on."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    dev = torch.device(device)
+    if backend == "auto":
+        return "cuda" if dev.type == "cuda" else "dense"
+    if _BACKEND_DEVICE[backend] != dev.type:
+        raise ValueError(
+            f"backend {backend!r} runs on {_BACKEND_DEVICE[backend]} "
+            f"snapshots, this one is on {dev}")
+    return backend
+
+
+def cluster_major_variant(backend: str, dedup_factor: float, *,
+                          threshold: float = CLUSTER_MAJOR_DEDUP_THRESHOLD
+                          ) -> str:
+    """Upgrade a query-major backend to its cluster-major twin when the
+    batch dedup factor ``B·cr/U`` reaches ``threshold``."""
+    if dedup_factor >= threshold:
+        return _CM_TWIN.get(backend, backend)
+    return backend
+
+
+def cluster_major_feasible(batch: int, cr: int, n_clusters: int,
+                           capacity: int) -> bool:
+    """Shape guard of the auto upgrade: ``min(B·cr, c) ≤ cap``."""
+    return min(batch * cr, n_clusters) <= capacity
+
+
+# ---------------------------------------------------------------------------
+# Scoring: the plain versions live beside the kernels
+# ---------------------------------------------------------------------------
+
+score_candidates = fts.score_candidates
+dense_routed_topk = fts.routed_topk_plain
+
+
+def merge_cluster_major(pair_scores, pair_ids, *, b: int, cr: int, k: int):
+    """Fold the per-(query, route) partial lists ``(B·cr, k)`` into one
+    top-k per query. Pair ``q·cr + r`` holds route ``r`` of query ``q``,
+    so a stable top-k over ``(B, cr·k)`` ranks equal scores by route,
+    then by row: the routed path's order. (The reference's scatter of
+    roster slots to pairs happens inside the cluster-major kernel and
+    its plain version.)"""
+    per_v = pair_scores.reshape(b, cr * k)
+    per_i = pair_ids.reshape(b, cr * k)
+    scores, pos = topk_stable(per_v, k)
+    return scores, torch.gather(per_i, 1, pos).to(torch.int32)
+
+
+def dense_cluster_major(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc, buf_ids,
+                        w_hat, *, k: int, dist_max: float, buf_scale=None,
+                        buf_attrs=None, q_filt=None):
+    """Plain cluster-major path: plan → score each distinct cluster once
+    against its roster → fold. Same contract as :func:`dense_routed_topk`."""
+    b, cr = top_c.shape
+    u, roster, _ = serving_lib.cluster_major_plan(
+        top_c, n_clusters=buf_emb.shape[0])
+    ps, pi = fts.cluster_major_partials_plain(
+        q_emb, q_loc, w_st, u, roster, buf_emb, buf_loc, buf_ids, w_hat,
+        k=k, dist_max=dist_max, cr=cr, buf_scale=buf_scale,
+        buf_attrs=buf_attrs, q_filt=q_filt)
+    return merge_cluster_major(ps, pi, b=b, cr=cr, k=k)
+
+
+def _routed_topk(q_emb, q_loc, w, top_c, buffers: dict, w_hat, *, k: int,
+                 backend: str, dist_max: float, precision: str,
+                 q_filt=None):
+    """Backend dispatch of the routed scan. ``backend`` is resolved.
+    ``q_filt`` engages the filtered variants. Returns ``(ids, scores)``."""
+    scale = buffers["scale"] if precision == "int8" else None
+    attrs = buffers["attrs"] if q_filt is not None else None
+    args = (q_emb, q_loc, w, top_c, buffers["emb"], buffers["loc"],
+            buffers["ids"], w_hat)
+    kw = dict(k=k, dist_max=dist_max, buf_scale=scale, buf_attrs=attrs,
+              q_filt=q_filt)
+    if backend == "cuda":
+        score, ids = fts.fused_topk_score_routed(*args, **kw)
+    elif backend == "cuda-cm":
+        b, cr = top_c.shape
+        u, roster, _ = serving_lib.cluster_major_plan(
+            top_c, n_clusters=buffers["emb"].shape[0])
+        ps, pi = fts.fused_topk_score_cluster_major(
+            q_emb, q_loc, w, u, roster, buffers["emb"], buffers["loc"],
+            buffers["ids"], w_hat, cr=cr, **kw)
+        score, ids = merge_cluster_major(ps, pi, b=b, cr=cr, k=k)
+    elif backend == "dense-cm":
+        score, ids = dense_cluster_major(*args, **kw)
+    else:
+        score, ids = dense_routed_topk(*args, **kw)
+    return ids, score
+
+
+# ---------------------------------------------------------------------------
+# Query-phase functions
+# ---------------------------------------------------------------------------
+
+
+def make_prefix_fn(*, cr: int = 1, weight_mode: str = "mlp") -> Callable:
+    """encode → mixing weights → route: ``fn(rel, index, norm, q_tokens,
+    q_mask, q_loc) -> (q_emb (B, d), w (B, 2), top_c (B, cr) int32)``."""
+    @torch.no_grad()
+    def prefix_fn(rel, index, norm, q_tokens, q_mask, q_loc):
+        q_emb = relevance.encode_queries(rel, q_tokens, q_mask)
+        feats = index_lib.build_features(q_emb, q_loc, norm)
+        top_c, _ = index_lib.route_queries(index, feats, cr=cr)
+        w = relevance.st_weights(rel, q_emb, weight_mode=weight_mode)
+        return q_emb, w, top_c
+
+    return prefix_fn
+
+
+def make_query_fn(*, cr: int = 1, k: int = 20, backend: str,
+                  dist_max: float = 1.4142, weight_mode: str = "mlp",
+                  precision: str = "f32") -> Callable:
+    """The query phase for one plan: ``fn(snapshot, q_tokens, q_mask,
+    q_loc, q_filt=None) -> (ids (B, k), scores (B, k))`` as device
+    tensors. ``backend`` must be resolved (not ``"auto"``)."""
+    if precision not in index_lib.PRECISIONS:
+        raise ValueError(f"precision must be one of {index_lib.PRECISIONS}, "
+                         f"got {precision!r}")
+    prefix = make_prefix_fn(cr=cr, weight_mode=weight_mode)
+
+    @torch.no_grad()
+    def query_fn(snap, q_tokens, q_mask, q_loc, q_filt=None):
+        q_emb, w, top_c = prefix(snap.rel, snap.index, snap.norm, q_tokens,
+                                 q_mask, q_loc)
+        return _routed_topk(q_emb, q_loc, w, top_c, snap.buffers,
+                            snap.w_hat, k=k, backend=backend,
+                            dist_max=dist_max, precision=precision,
+                            q_filt=q_filt)
+
+    return query_fn
+
+
+def make_delta_scan_fn(*, k: int = 20, dist_max: float = 1.4142,
+                       weight_mode: str = "mlp", precision: str = "f32"
+                       ) -> Callable:
+    """Brute-force scan of a delta segment's rows, no routing: every
+    query sees every delta row. ``fn(rel, w_hat, d_emb (m, d), d_scale
+    (m,), d_loc (m, 2), d_ids (m,), d_attrs (m, 3) | None, q_tokens,
+    q_mask, q_loc, q_filt | None) -> (ids (B, k), scores (B, k))``."""
+    if precision not in index_lib.PRECISIONS:
+        raise ValueError(f"precision must be one of {index_lib.PRECISIONS}, "
+                         f"got {precision!r}")
+
+    @torch.no_grad()
+    def scan_fn(rel, w_hat, d_emb, d_scale, d_loc, d_ids, d_attrs,
+                q_tokens, q_mask, q_loc, q_filt):
+        q_emb = relevance.encode_queries(rel, q_tokens, q_mask)
+        w = relevance.st_weights(rel, q_emb, weight_mode=weight_mode)
+        scale = d_scale if precision == "int8" else None
+        ids_eff = d_ids[None].expand(q_emb.shape[0], -1)
+        if d_attrs is not None:
+            ok = filters_lib.predicate_mask(d_attrs[None], q_filt[:, None, :])
+            ids_eff = torch.where(ok, ids_eff, torch.full_like(ids_eff, -1))
+        st = score_candidates(q_emb, q_loc, w, d_emb, d_loc, ids_eff, w_hat,
+                              dist_max=dist_max, cand_scale=scale)  # (B, m)
+        kk = min(k, d_emb.shape[0])
+        vals, pos = topk_stable(st, kk)
+        ids = torch.gather(ids_eff, 1, pos).to(torch.int32)
+        if kk < k:
+            vals = torch.nn.functional.pad(vals, (0, k - kk), value=NEG_INF)
+            ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
+        return ids, vals
+
+    return scan_fn
+
+
+def merge_delta(base_ids, base_scores, delta_ids=None, delta_scores=None, *,
+                tombstones=None, k=None):
+    """Merge a delta scan's top-k into the base one (host, numpy).
+
+    Tombstoned base entries become ``(-1, NEG_INF)``; the stable sort puts
+    base entries first on an exact tie. Returns ``(ids (B, k) int32,
+    scores (B, k) f32)``; ``k`` defaults to the base width."""
+    base_ids = np.asarray(base_ids)
+    base_scores = np.asarray(base_scores, np.float32)
+    if k is None:
+        k = base_ids.shape[-1]
+    if tombstones is not None and len(tombstones):
+        dead = np.isin(base_ids, np.asarray(tombstones))
+        base_ids = np.where(dead, -1, base_ids)
+        base_scores = np.where(dead, NEG_INF, base_scores)
+    if delta_ids is None:
+        cat_i, cat_v = base_ids, base_scores
+    else:
+        cat_i = np.concatenate([base_ids, np.asarray(delta_ids)], axis=-1)
+        cat_v = np.concatenate(
+            [base_scores, np.asarray(delta_scores, np.float32)], axis=-1)
+    order = np.argsort(-cat_v, axis=-1, kind="stable")[..., :k]
+    ids = np.take_along_axis(cat_i, order, axis=-1).astype(np.int32)
+    scores = np.take_along_axis(cat_v, order, axis=-1).astype(np.float32)
+    return ids, scores
+
+
+# ---------------------------------------------------------------------------
+# Static-shape batching
+# ---------------------------------------------------------------------------
+
+
+def pad_leading(arr: np.ndarray, batch: int) -> np.ndarray:
+    """Zero-pad axis 0 of ``arr`` up to ``batch`` rows."""
+    n = arr.shape[0]
+    if n == batch:
+        return arr
+    if n > batch:
+        raise ValueError(f"{n} rows exceed the batch of {batch}")
+    return np.pad(arr, ((0, batch - n),) + ((0, 0),) * (arr.ndim - 1))
+
+
+def run_batched(fn: Callable, arrays: Sequence[np.ndarray], *, batch: int,
+                device):
+    """Map ``fn`` over ``arrays`` in chunks of exactly ``batch`` rows.
+
+    Each chunk is zero-padded to ``batch`` rows and moved to ``device``;
+    the padded output rows are trimmed. Chunk ``i``'s results are copied
+    to the host only after chunk ``i+1`` is dispatched, so the copy
+    overlaps the next chunk's device work. Returns numpy arrays (a tuple
+    when ``fn`` returns one)."""
+    n = arrays[0].shape[0]
+    if any(a.shape[0] != n for a in arrays):
+        raise ValueError(f"leading dims differ: {[a.shape for a in arrays]}")
+    outs, pending = None, None
+    for s in range(0, n, batch):
+        e = min(s + batch, n)
+        chunk = [torch.from_numpy(pad_leading(np.asarray(a[s:e]), batch))
+                 .to(device) for a in arrays]
+        res = fn(*chunk)
+        res = res if isinstance(res, (tuple, list)) else (res,)
+        if outs is None:
+            outs = [[] for _ in res]
+        if pending is not None:
+            for o, r in zip(outs, pending[0]):
+                o.append(r.cpu().numpy()[:pending[1]])
+        pending = (res, e - s)
+    if pending is not None:
+        for o, r in zip(outs, pending[0]):
+            o.append(r.cpu().numpy()[:pending[1]])
+    cat = tuple(np.concatenate(o, axis=0) for o in outs)
+    return cat if len(cat) > 1 else cat[0]
+
+
+# ---------------------------------------------------------------------------
+# The engine
+# ---------------------------------------------------------------------------
+
+
+class QueryEngine:
+    """Query executor over an immutable :class:`IndexSnapshot` on one
+    device, with an LRU cache of plans keyed ``(batch, k, cr, backend,
+    precision, filtered)``.
+
+    ``device`` (default ``"cuda"``) is where the snapshot is served; a
+    snapshot elsewhere is moved there. Raises when CUDA is asked for and
+    absent."""
+
+    def __init__(self, snapshot, *, backend: str = "auto", device="cuda"):
+        dev = require_device(device)
+        if dev.type == "cuda":
+            # f32 products in full precision: the reference has no TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.device = dev
+        self._snapshot = snapshot.to(dev)
+        self.backend = resolve_backend(backend, dev)
+        self._auto_cm = backend == "auto"
+        self.last_dedup_factor: Optional[float] = None
+        self._plans: "collections.OrderedDict" = collections.OrderedDict()
+        self._delta_plans = {}
+
+    @property
+    def snapshot(self):
+        return self._snapshot
+
+    def query_fn(self, *, k: int, cr: int, backend: Optional[str] = None,
+                 batch: Optional[int] = None,
+                 precision: Optional[str] = None, filtered: bool = False):
+        backend = self.backend if backend is None else backend
+        if precision is None:
+            precision = self._snapshot.meta.precision
+        key = (batch, k, cr, backend, precision, filtered)
+        if key not in self._plans:
+            while len(self._plans) >= DEFAULT_PLAN_CACHE_SIZE:
+                self._plans.popitem(last=False)
+            self._plans[key] = make_query_fn(
+                cr=cr, k=k, backend=backend, dist_max=self._snapshot.dist_max,
+                weight_mode=self._snapshot.meta.weight_mode,
+                precision=precision)
+        self._plans.move_to_end(key)
+        return self._plans[key]
+
+    def route(self, q_tokens, q_mask, q_loc, *, cr: int = 1, snapshot=None):
+        """Route-only prefix → ``top_c (n, cr)`` int32 device tensor."""
+        snap = self._snapshot if snapshot is None else snapshot
+        dev = snap.device
+        with torch.no_grad():
+            q_emb = relevance.encode_queries(
+                snap.rel, torch.as_tensor(q_tokens).to(dev),
+                torch.as_tensor(q_mask).to(dev))
+            feats = index_lib.build_features(
+                q_emb, torch.as_tensor(q_loc).to(dev), snap.norm)
+            return index_lib.route_queries(snap.index, feats, cr=cr)[0]
+
+    def pick_backend(self, q_tokens, q_mask, q_loc, *, cr: int, batch: int,
+                     snapshot=None, base: Optional[str] = None) -> str:
+        """Per-batch backend of an auto request: upgrade ``base`` to its
+        cluster-major twin when the dedup factor ``B·cr/U`` reaches the
+        threshold — structurally when the batch saturates the clusters,
+        else measured by routing the first chunk."""
+        snap = self._snapshot if snapshot is None else snapshot
+        base = self.backend if base is None else base
+        c, cap = snap.buffers["emb"].shape[:2]
+        if not cluster_major_feasible(batch, cr, c, cap):
+            self.last_dedup_factor = None
+            return base
+        eff = min(batch, q_tokens.shape[0])
+        dedup = (eff * cr) / min(eff * cr, c)
+        if dedup < CLUSTER_MAJOR_DEDUP_THRESHOLD:
+            tok = pad_leading(np.asarray(q_tokens[:eff]), batch)
+            msk = pad_leading(np.asarray(q_mask[:eff]), batch)
+            loc = pad_leading(np.asarray(q_loc[:eff]), batch)
+            top_c = self.route(tok, msk, loc, cr=cr, snapshot=snap)[:eff]
+            dedup = (eff * cr) / max(int(torch.unique(top_c).numel()), 1)
+        self.last_dedup_factor = float(dedup)
+        return cluster_major_variant(base, dedup)
+
+    def delta_scan_fn(self, *, k: int, precision: str):
+        key = (k, precision)
+        if key not in self._delta_plans:
+            self._delta_plans[key] = make_delta_scan_fn(
+                k=k, dist_max=self._snapshot.dist_max,
+                weight_mode=self._snapshot.meta.weight_mode,
+                precision=precision)
+        return self._delta_plans[key]
+
+    def _scan_delta(self, snap, q_tokens, q_mask, q_loc, *, k: int,
+                    batch: int, fvals=None, filtered: bool = False):
+        """Every query × every delta row, padded to the bucketed shape."""
+        arrs = snap.delta.arrays()
+        m = arrs["ids"].shape[0]
+        m_pad = -(-m // DELTA_PAD_BUCKET) * DELTA_PAD_BUCKET
+        dev = snap.device
+        emb = torch.zeros((m_pad,) + tuple(arrs["emb"].shape[1:]),
+                          dtype=arrs["emb"].dtype)
+        emb[:m] = arrs["emb"]
+        scale = torch.ones(m_pad, dtype=torch.float32)
+        scale[:m] = arrs["scale"]
+        loc = torch.full((m_pad, 2), index_lib.PAD_LOC, dtype=torch.float32)
+        loc[:m] = arrs["loc"]
+        ids = torch.full((m_pad,), -1, dtype=torch.int32)
+        ids[:m] = arrs["ids"]
+        attrs = None
+        if filtered:
+            attrs = torch.zeros((m_pad, filters_lib.N_ATTRS),
+                                dtype=torch.int32)
+            attrs[:m] = arrs["attrs"]
+            attrs = attrs.to(dev)
+        de, ds, dl, di = (t.to(dev) for t in (emb, scale, loc, ids))
+        fn = self.delta_scan_fn(k=k, precision=snap.meta.precision)
+        w_hat = snap.w_hat
+        if filtered:
+            return run_batched(
+                lambda t, mk, l, f: fn(snap.rel, w_hat, de, ds, dl, di,
+                                       attrs, t, mk, l, f),
+                [q_tokens, q_mask, q_loc, fvals], batch=batch, device=dev)
+        return run_batched(
+            lambda t, mk, l: fn(snap.rel, w_hat, de, ds, dl, di, None,
+                                t, mk, l, None),
+            [q_tokens, q_mask, q_loc], batch=batch, device=dev)
+
+    def query(self, q_tokens, q_mask, q_loc, *, k: int = 20, cr: int = 1,
+              batch: int = 256, backend: Optional[str] = None,
+              snapshot=None, filters=None):
+        """Batched routed query → ``(ids (n, k), scores (n, k))`` numpy.
+
+        Reads the snapshot reference once. ``backend`` overrides the
+        engine's for this call; an auto request picks query- or
+        cluster-major per call (:meth:`pick_backend`). ``filters``: None,
+        one :class:`~repro_torch.core.filters.FilterSpec`, or one per row.
+        A delta segment is scanned and merged on the host, with the base
+        top-k over-fetched by the tombstone count."""
+        snap = self._snapshot if snapshot is None else snapshot
+        q_tokens, q_mask, q_loc = (np.asarray(a) for a in
+                                   (q_tokens, q_mask, q_loc))
+        fvals, filtered = filters_lib.compile_filters(filters,
+                                                      q_tokens.shape[0])
+        if backend == "auto" or (backend is None and self._auto_cm):
+            base = resolve_backend("auto", snap.device)
+            backend = self.pick_backend(q_tokens, q_mask, q_loc, cr=cr,
+                                        batch=batch, snapshot=snap, base=base)
+        elif backend is not None:
+            backend = resolve_backend(backend, snap.device)
+        buf = snap.buffers
+        delta = snap.delta
+        use_delta = delta is not None and not delta.is_empty
+        k_fetch = k
+        if use_delta and delta.n_tombstones:
+            extra = (-(-delta.n_tombstones // TOMBSTONE_K_BUCKET)
+                     * TOMBSTONE_K_BUCKET)
+            pool = cr * int(buf["capacity"])
+            k_fetch = max(k, min(k + extra, pool))
+        fn = self.query_fn(k=k_fetch, cr=cr, backend=backend, batch=batch,
+                           precision=snap.meta.precision, filtered=filtered)
+        arrays = [q_tokens, q_mask, q_loc] + ([fvals] if filtered else [])
+        ids, scores = run_batched(lambda *a: fn(snap, *a), arrays,
+                                  batch=batch, device=snap.device)
+        if not use_delta:
+            return ids, scores
+        d_ids = d_scores = None
+        if delta.n_rows:
+            d_ids, d_scores = self._scan_delta(snap, q_tokens, q_mask, q_loc,
+                                               k=k, batch=batch, fvals=fvals,
+                                               filtered=filtered)
+        return merge_delta(ids, scores, d_ids, d_scores,
+                           tombstones=delta.tombstone_array(), k=k)

@@ -1,0 +1,238 @@
+"""Load side of the index artifact (reference: ``repro.core.snapshot``).
+
+An :class:`IndexSnapshot` is everything the query phase needs: the model
+config, the relevance model and cluster classifier (as modules), the
+location normalizer, the packed cluster buffers, an optional delta
+segment, and the identity block :class:`SnapshotMeta`. It lives on one
+device; :meth:`IndexSnapshot.to` moves it.
+
+On disk a snapshot is one checkpoint step written by the reference. The
+manifest's ``meta.tree_spec`` records the container structure of the
+saved tree, whose leaves are stored in ``jax.tree_util.tree_flatten``
+order — dict keys sorted. The loader rebuilds that order from the spec;
+the schema and precision gates run before any leaf file is read.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import hashlib
+import json
+import time
+from typing import Any, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs.base import DualEncoderConfig
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import delta as delta_lib
+from repro_torch.core import index as index_lib
+from repro_torch.core import spatial as sp
+from repro_torch.core.index import ClusterIndex
+from repro_torch.core.relevance import RelevanceModel
+from repro_torch.device import require_device
+
+# the reference's on-disk schema this loader reads (v5: filter attributes)
+SCHEMA_VERSION = 5
+
+_BUFFER_ARRAYS = ("emb", "loc", "ids", "counts", "scale", "attrs")
+_BUFFER_SCALARS = ("capacity", "n_spilled")
+
+
+def cfg_digest(cfg) -> str:
+    """The reference's config identity: sha256 of the sorted-key JSON."""
+    blob = json.dumps(dataclasses.asdict(cfg), sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def _cfg_from_dict(d: dict) -> DualEncoderConfig:
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+    return DualEncoderConfig(**kw)
+
+
+def _spec_leaf_count(spec) -> int:
+    if spec is None:
+        return 1
+    if "d" in spec:
+        return sum(_spec_leaf_count(v) for v in spec["d"].values())
+    return sum(_spec_leaf_count(v) for v in spec.get("l", spec.get("t", [])))
+
+
+def _unflatten(spec, leaves: Iterator[torch.Tensor]) -> Any:
+    """Rebuild the saved tree from its spec, taking leaves in flatten
+    order: dict children by sorted key, lists and tuples in order."""
+    if spec is None:
+        return next(leaves)
+    if "d" in spec:
+        return {k: _unflatten(spec["d"][k], leaves) for k in sorted(spec["d"])}
+    if "l" in spec:
+        return [_unflatten(v, leaves) for v in spec["l"]]
+    return tuple(_unflatten(v, leaves) for v in spec["t"])
+
+
+@dataclasses.dataclass(frozen=True)
+class SnapshotMeta:
+    """Identity and provenance of a snapshot (fields of the reference)."""
+    schema_version: int
+    cfg_digest: str
+    n_objects: int
+    built_at: float
+    version: int
+    dist_max: float
+    spatial_mode: str = "step"
+    weight_mode: str = "mlp"
+    precision: str = "f32"
+    delta_rows: int = 0
+    n_tombstones: int = 0
+    n_shards: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexSnapshot:
+    cfg: DualEncoderConfig
+    rel: RelevanceModel
+    index: ClusterIndex
+    norm: dict
+    buffers: dict
+    meta: SnapshotMeta
+    delta: Optional[delta_lib.DeltaSegment] = None
+
+    @classmethod
+    def from_parts(cls, cfg, rel: RelevanceModel, index: ClusterIndex,
+                   norm: dict, buffers: dict, *, dist_max: float,
+                   spatial_mode: str = "step", weight_mode: str = "mlp",
+                   version: int = 0, delta=None) -> "IndexSnapshot":
+        """A fresh snapshot over in-memory parts (``buffers`` as returned
+        by ``index.build_cluster_buffers``)."""
+        missing = [k for k in _BUFFER_ARRAYS + _BUFFER_SCALARS
+                   if k not in buffers]
+        if missing:
+            raise ValueError(f"buffers missing keys {missing}")
+        precision = buffers.get("precision", "f32")
+        if precision not in index_lib.PRECISIONS:
+            raise ValueError(f"buffers carry unknown precision {precision!r}")
+        meta = SnapshotMeta(
+            schema_version=SCHEMA_VERSION, cfg_digest=cfg_digest(cfg),
+            n_objects=int(buffers["counts"].sum()), built_at=time.time(),
+            version=int(version), dist_max=float(dist_max),
+            spatial_mode=spatial_mode, weight_mode=weight_mode,
+            precision=precision,
+            delta_rows=0 if delta is None else delta.n_rows,
+            n_tombstones=0 if delta is None else delta.n_tombstones)
+        return cls(cfg=cfg, rel=rel, index=index, norm=norm, buffers=buffers,
+                   meta=meta, delta=delta)
+
+    @property
+    def device(self) -> torch.device:
+        return self.buffers["emb"].device
+
+    def to(self, device) -> "IndexSnapshot":
+        """The same snapshot with its modules and arrays on ``device``
+        (the delta segment stays host-side). ``self`` is left as it was:
+        modules are copied before they move."""
+        device = require_device(device)
+        if self.device == device:
+            return self
+        return self._moved(device, copy_modules=True)
+
+    def _moved(self, device: torch.device, *, copy_modules: bool):
+        def mod(m):
+            return (copy.deepcopy(m) if copy_modules else m).to(device)
+
+        buffers = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+                   for k, v in self.buffers.items()}
+        return dataclasses.replace(
+            self, rel=mod(self.rel), index=mod(self.index),
+            norm={k: v.to(device) for k, v in self.norm.items()},
+            buffers=buffers)
+
+    @property
+    def w_hat(self) -> torch.Tensor:
+        """Serve-form spatial step table (Eq. 5)."""
+        if self.meta.spatial_mode == "step":
+            return sp.extract_lookup(self.rel.spatial["w_s"].data)
+        return torch.linspace(0, 1, self.cfg.spatial_t, device=self.device)
+
+    @property
+    def dist_max(self) -> float:
+        return self.meta.dist_max
+
+    @classmethod
+    def load(cls, directory: str, step: Optional[int] = None, *,
+             device="cuda") -> "IndexSnapshot":
+        """Load a committed snapshot (latest unless ``step``) onto
+        ``device``. A schema or precision mismatch raises ``ValueError``
+        before any leaf is read; a damaged artifact raises
+        :class:`~repro_torch.checkpoint.ckpt.SnapshotCorrupt`."""
+        device = require_device(device)
+        meta, step = ckpt.read_meta(directory, step=step)
+        got = meta.get("schema_version")
+        if got != SCHEMA_VERSION:
+            raise ValueError(
+                f"snapshot schema mismatch in {directory}: artifact has "
+                f"schema_version={got!r}, this build reads {SCHEMA_VERSION}")
+        precision = meta.get("precision")
+        if precision not in index_lib.PRECISIONS:
+            raise ValueError(
+                f"snapshot precision mismatch in {directory}: artifact "
+                f"declares precision={precision!r}, this build understands "
+                f"{index_lib.PRECISIONS}")
+        cfg = _cfg_from_dict(meta["cfg"])
+        if cfg_digest(cfg) != meta["cfg_digest"]:
+            raise ckpt.SnapshotCorrupt(
+                f"snapshot cfg_digest mismatch in {directory}: manifest says "
+                f"{meta['cfg_digest']} but the stored config hashes to "
+                f"{cfg_digest(cfg)}")
+        leaves, _, _ = ckpt.restore(directory, step=step)
+        spec = meta["tree_spec"]
+        if _spec_leaf_count(spec) != len(leaves):
+            raise ckpt.SnapshotCorrupt(
+                f"{directory}: tree_spec has {_spec_leaf_count(spec)} leaves, "
+                f"the manifest {len(leaves)}")
+        tree = _unflatten(spec, iter(leaves))
+        rel, index = params_from_numpy(tree["rel_params"],
+                                       tree["index_params"], cfg)
+        buffers = dict(tree["buffers"])
+        for k in _BUFFER_SCALARS:
+            buffers[k] = int(meta[k])
+        buffers["precision"] = precision
+        delta = None
+        if "delta" in tree:
+            delta = delta_lib.DeltaSegment.from_leaves(
+                int(buffers["emb"].shape[-1]), precision, tree["delta"])
+        sm = SnapshotMeta(
+            schema_version=meta["schema_version"],
+            cfg_digest=meta["cfg_digest"], n_objects=meta["n_objects"],
+            built_at=meta["built_at"], version=meta["version"],
+            dist_max=meta["dist_max"], spatial_mode=meta["spatial_mode"],
+            weight_mode=meta["weight_mode"], precision=precision,
+            delta_rows=meta.get("delta_rows", 0),
+            n_tombstones=meta.get("n_tombstones", 0), n_shards=1)
+        snap = cls(cfg=cfg, rel=rel, index=index, norm=dict(tree["norm"]),
+                   buffers=buffers, meta=sm, delta=delta)
+        # the modules are this load's own: move them without a copy
+        return snap._moved(device, copy_modules=False)
+
+
+def load(directory: str, step: Optional[int] = None, *,
+         device="cuda") -> IndexSnapshot:
+    """Module-level alias of :meth:`IndexSnapshot.load`."""
+    return IndexSnapshot.load(directory, step=step, device=device)
+
+
+def load_latest_good(directory: str, *, device="cuda") -> IndexSnapshot:
+    """The newest committed snapshot that restores; steps raising
+    :class:`SnapshotCorrupt` are skipped, other errors propagate."""
+    steps = ckpt.all_steps(directory)
+    if not steps:
+        raise FileNotFoundError(f"no committed snapshots in {directory}")
+    corrupt: List = []
+    for step in reversed(steps):
+        try:
+            return IndexSnapshot.load(directory, step=step, device=device)
+        except ckpt.SnapshotCorrupt as e:
+            corrupt.append((step, str(e)))
+    raise FileNotFoundError(f"no loadable snapshot in {directory}: every "
+                            f"committed step is corrupt — {corrupt}")

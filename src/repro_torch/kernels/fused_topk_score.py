@@ -1,0 +1,356 @@
+"""Fused spatio-textual score + running top-k: the query phase's hot loop.
+
+Two hand-written CUDA kernels for Hopper (``csrc/fused_topk_score.cu``),
+each with its plain PyTorch version beside it:
+
+* :func:`fused_topk_score_routed` replaces the Pallas kernel
+  ``repro/kernels/fused_topk_score.py::fused_topk_score_routed`` (the
+  reference engine's ``pallas`` backend). Query-major: one block per
+  query scans the live rows of its ``cr`` routed clusters. Plain version:
+  :func:`routed_topk_plain` (gather + one stable top-k).
+* :func:`fused_topk_score_cluster_major` replaces
+  ``fused_topk_score_cluster_major`` (the ``pallas-cm`` backend). One
+  block per (distinct routed cluster, 8 roster slots) streams the
+  cluster's live rows once for all 8 queries, reading each query row
+  through the roster; it writes one partial top-k list per (query, route)
+  pair, which ``engine.merge_cluster_major`` folds per query. Plain
+  version: :func:`cluster_major_partials_plain`.
+
+What bounds both on an H100 is the bytes of the routed clusters' embedding
+rows; the kernels read only live rows (padding is skipped by id before its
+row is loaded) and dequantize int8/bf16 in registers. See the CUDA source
+for the design and its numerics.
+
+Each wrapper sends a CPU tensor to the plain version and launches the
+kernel for a CUDA tensor (or raises); ``launches`` counts kernel launches.
+Scores follow the reference's contract: ``NEG_INF`` (-1e30) with id -1
+past the last valid candidate, and equal scores rank in scan order (route,
+then row), the tie rule of ``jax.lax.top_k``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core import filters as filters_lib
+from repro_torch.core import serving as serving_lib
+from repro_torch.core import spatial as sp
+from repro_torch.core.index import topk_stable
+
+NEG_INF = -1e30
+
+# the largest k a kernel keeps in its per-warp lists (shared memory)
+K_MAX = 256
+# the cluster-major kernel holds a query row in registers: d ≤ 1024
+D_MAX = 1024
+
+# kernel launches since the last reset, by kernel
+launches = {"routed": 0, "cluster_major": 0}
+
+_EMB_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_LIB_INFO: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib():
+    """The compiled kernels; built by nvcc at first use (kernels/build.py)."""
+    if not _LIB_INFO:
+        from repro_torch.kernels import build
+        lib, info = build.load_library("fused_topk_score",
+                                       ["fused_topk_score.cu"])
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fts_routed.argtypes = ([ptr] * 5 + [i32] + [ptr] * 6
+                                   + [i32] * 8 + [f32] + [ptr] * 3)
+        lib.fts_routed.restype = i32
+        lib.fts_cluster_major.argtypes = ([ptr] * 6 + [i32] + [ptr] * 6
+                                          + [i32] * 10 + [f32] + [ptr] * 3)
+        lib.fts_cluster_major.restype = i32
+        _LIB_INFO.update(lib=lib, info=info)
+    return _LIB_INFO["lib"]
+
+
+def build_info() -> dict:
+    """Build seconds, nvcc/ptxas output and path of the loaded library."""
+    _lib()
+    return dict(_LIB_INFO["info"])
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the kernels' oracles; the engine's dense backends)
+# ---------------------------------------------------------------------------
+
+
+def score_candidates(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids, w_hat,
+                     *, dist_max: float, cand_scale=None):
+    """ST(q, o) (Eq. 5 serve form) of every query against every candidate.
+
+    ``q_emb (..., Q, d)``, ``q_loc``/``w_st (..., Q, 2)`` against
+    ``cand_emb (..., N, d)``, ``cand_loc (..., N, 2)``; ``cand_ids``
+    broadcastable to ``(..., Q, N)``. Returns ``(..., Q, N)`` f32 with
+    candidates of id < 0 at ``NEG_INF``. ``cand_scale (..., N)``
+    dequantizes int8 rows as ``float(o) * scale`` before the product."""
+    ce = cand_emb.float()
+    if cand_scale is not None:
+        ce = ce * cand_scale[..., None]
+    trel = q_emb.float() @ ce.transpose(-1, -2)
+    s_in = sp.s_in_from_locs(q_loc[..., :, None, :], cand_loc[..., None, :, :],
+                             dist_max)
+    srel = sp.spatial_relevance_serve(w_hat, s_in)
+    st = w_st[..., :, 0:1] * trel + w_st[..., :, 1:2] * srel
+    return torch.where(cand_ids >= 0, st, torch.full_like(st, NEG_INF))
+
+
+def routed_topk_plain(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc, buf_ids,
+                      w_hat, *, k: int, dist_max: float, buf_scale=None,
+                      buf_attrs=None, q_filt=None):
+    """Gather the routed clusters' rows and take one stable top-k.
+
+    Returns ``(scores (B, k) f32, ids (B, k) int32)`` global object ids;
+    a row failing the filter takes the padding semantics (id -1 before
+    scoring, so NEG_INF)."""
+    b = q_emb.shape[0]
+    tc = top_c.long()
+    cand_emb = buf_emb[tc].reshape(b, -1, buf_emb.shape[-1])
+    cand_loc = buf_loc[tc].reshape(b, -1, 2)
+    cand_ids = buf_ids[tc].reshape(b, -1)
+    cand_scale = None if buf_scale is None else buf_scale[tc].reshape(b, -1)
+    if buf_attrs is not None:
+        cand_attrs = buf_attrs[tc].reshape(b, -1, buf_attrs.shape[-1])
+        ok = filters_lib.predicate_mask(cand_attrs, q_filt[:, None, :])
+        cand_ids = torch.where(ok, cand_ids, torch.full_like(cand_ids, -1))
+    st = score_candidates(q_emb[:, None], q_loc[:, None], w_st[:, None],
+                          cand_emb, cand_loc, cand_ids[:, None], w_hat,
+                          dist_max=dist_max,
+                          cand_scale=cand_scale)[:, 0]          # (B, N)
+    scores, pos = topk_stable(st, k)
+    return scores, torch.gather(cand_ids, 1, pos).to(torch.int32)
+
+
+def _scatter_to_pairs(part_s, part_i, roster, n_total: int):
+    """Roster-slot partials ``(u, Q, k)`` → one row per (query, route)
+    pair ``(n_total, k)``; empty slots are dropped. The plan puts every
+    pair in exactly one slot, so every row is written."""
+    k = part_s.shape[-1]
+    flat = roster.reshape(-1).long()
+    back_s = torch.empty((n_total, k), dtype=torch.float32,
+                         device=part_s.device)
+    back_i = torch.empty((n_total, k), dtype=torch.int32,
+                         device=part_s.device)
+    live = flat < n_total
+    back_s[flat[live]] = part_s.reshape(-1, k)[live]
+    back_i[flat[live]] = part_i.reshape(-1, k).to(torch.int32)[live]
+    return back_s, back_i
+
+
+def cluster_major_partials_plain(q_emb, q_loc, w_st, u, roster, buf_emb,
+                                 buf_loc, buf_ids, w_hat, *, k: int,
+                                 dist_max: float, cr: int, buf_scale=None,
+                                 buf_attrs=None, q_filt=None):
+    """Per-(query, route) partial top-k lists of the cluster-major plan.
+
+    ``u (u_max,)`` / ``roster (u_max, qcap)`` come from
+    ``serving.cluster_major_plan``; query rows are ``roster // cr``.
+    Each distinct cluster is gathered once and scored against its whole
+    roster. Returns ``(scores (B·cr, k), ids (B·cr, k) int32)``, the
+    row of pair ``o`` holding the partial list of its roster slot.
+
+    Only roster rows with a live slot, and slots up to the last live one,
+    are scored: the rest are empty by construction, and skipping them
+    keeps the full-size plain version within device memory."""
+    n_total = q_emb.shape[0] * cr
+    c, cap, d = buf_emb.shape
+    live = (roster >= 0) & (roster < n_total)
+    rows = live.any(dim=1).nonzero().reshape(-1)
+    cols = live.any(dim=0).nonzero().reshape(-1)
+    q_len = int(cols.max()) + 1 if cols.numel() else 0
+    u, roster, live = u[rows].long(), roster[rows, :q_len], live[rows, :q_len]
+    qidx = serving_lib.roster_query_rows(roster, cr=cr, n_total=n_total).long()
+    cand_ids = buf_ids[u][:, None]                          # (U, 1, cap)
+    if buf_attrs is not None:
+        ok = filters_lib.predicate_mask(buf_attrs[u][:, None],
+                                        q_filt[qidx][:, :, None, :])
+        cand_ids = torch.where(ok, cand_ids, torch.full_like(cand_ids, -1))
+    cand_scale = None if buf_scale is None else buf_scale[u]
+    st = score_candidates(q_emb[qidx], q_loc[qidx], w_st[qidx], buf_emb[u],
+                          buf_loc[u], cand_ids, w_hat, dist_max=dist_max,
+                          cand_scale=cand_scale)            # (U, Q, cap)
+    st = torch.where(live[..., None], st, torch.full_like(st, NEG_INF))
+    kk = min(k, cap)
+    vals, pos = topk_stable(st, kk)
+    ids = torch.gather(cand_ids.expand(st.shape), -1, pos)
+    ids = torch.where(live[..., None], ids, torch.full_like(ids, -1))
+    if kk < k:
+        vals = torch.nn.functional.pad(vals, (0, k - kk), value=NEG_INF)
+        ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
+    return _scatter_to_pairs(vals, ids, roster, n_total)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name, x, *, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale, buf_attrs, w_hat,
+                   *, k: int, device):
+    if buf_emb.dtype not in _EMB_KIND:
+        raise TypeError(f"buf_emb dtype {buf_emb.dtype} not in "
+                        f"{list(_EMB_KIND)}")
+    c, cap, d = buf_emb.shape
+    if d % 16 or d > D_MAX:
+        raise ValueError(f"embedding width {d} must be a multiple of 16 "
+                         f"and at most {D_MAX}")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k={k} outside the kernels' range [1, {K_MAX}]; "
+                         f"the per-warp top-k lists hold at most {K_MAX}")
+    if (buf_emb.dtype == torch.int8) != (buf_scale is not None):
+        raise ValueError("int8 buffers need buf_scale (the dequant body); "
+                         "f32/bf16 buffers take none")
+    _check("buf_emb", buf_emb, dtype=buf_emb.dtype, shape=(c, cap, d),
+           device=device)
+    _check("buf_loc", buf_loc, dtype=torch.float32, shape=(c, cap, 2),
+           device=device)
+    _check("buf_ids", buf_ids, dtype=torch.int32, shape=(c, cap),
+           device=device)
+    _check("w_hat", w_hat, dtype=torch.float32, shape=w_hat.shape,
+           device=device)
+    if buf_scale is not None:
+        _check("buf_scale", buf_scale, dtype=torch.float32, shape=(c, cap),
+               device=device)
+    if buf_attrs is not None:
+        _check("buf_attrs", buf_attrs, dtype=torch.int32, shape=(c, cap, 3),
+               device=device)
+    return c, cap, d
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
+                            buf_ids, w_hat, *, k: int, dist_max: float,
+                            buf_scale=None, buf_attrs=None, q_filt=None):
+    """Routed fused score + top-k: ``(scores (B, k) f32, ids (B, k)
+    int32)`` over each query's ``top_c (B, cr)`` clusters.
+
+    Replaces ``repro/kernels/fused_topk_score.py::fused_topk_score_routed``.
+    Bound by the bytes of the routed rows: one block per query reads
+    only the live rows of its clusters, dequantizing in registers.
+
+    ``q_emb (B, d)`` f32; ``q_loc``/``w_st (B, 2)`` f32; ``buf_emb (c,
+    cap, d)`` f32, bf16, or int8 with ``buf_scale (c, cap)``; ``buf_loc
+    (c, cap, 2)``; ``buf_ids (c, cap)`` int32; ``w_hat (t,)``. Filtered
+    search: ``buf_attrs (c, cap, 3)`` and ``q_filt (B, 4)`` together."""
+    if (buf_attrs is None) != (q_filt is None):
+        raise ValueError("pass buf_attrs and q_filt together or not at all")
+    if q_emb.device.type == "cpu":
+        return routed_topk_plain(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
+                                 buf_ids, w_hat, k=k, dist_max=dist_max,
+                                 buf_scale=buf_scale, buf_attrs=buf_attrs,
+                                 q_filt=q_filt)
+    if q_emb.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q_emb.device}")
+    dev = q_emb.device
+    c, cap, d = _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale,
+                               buf_attrs, w_hat, k=k, device=dev)
+    b, cr = top_c.shape
+    _check("q_emb", q_emb, dtype=torch.float32, shape=(b, d), device=dev)
+    _check("q_loc", q_loc, dtype=torch.float32, shape=(b, 2), device=dev)
+    _check("w_st", w_st, dtype=torch.float32, shape=(b, 2), device=dev)
+    _check("top_c", top_c, dtype=torch.int32, shape=(b, cr), device=dev)
+    if q_filt is not None:
+        _check("q_filt", q_filt, dtype=torch.int32, shape=(b, 4), device=dev)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_s, out_i
+    err = _lib().fts_routed(
+        _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(top_c), _ptr(buf_emb),
+        _EMB_KIND[buf_emb.dtype], _ptr(buf_scale), _ptr(buf_loc),
+        _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt), _ptr(w_hat),
+        int(buf_attrs is not None), b, cr, c, cap, d, w_hat.shape[0], k,
+        float(dist_max), _ptr(out_s), _ptr(out_i),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"fts_routed launch failed: cudaError {err}")
+    launches["routed"] += 1
+    return out_s, out_i
+
+
+def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
+                                   buf_loc, buf_ids, w_hat, *, k: int,
+                                   dist_max: float, cr: int, buf_scale=None,
+                                   buf_attrs=None, q_filt=None):
+    """Cluster-major fused score + top-k over a batch plan.
+
+    Replaces ``repro/kernels/fused_topk_score.py::
+    fused_topk_score_cluster_major``. Bound by the bytes of the distinct
+    routed clusters' rows: a block stages a tile of live rows once in
+    shared memory for 8 roster slots, one warp each.
+
+    ``u (u_max,)`` / ``roster (u_max, qcap)`` int32 from
+    ``serving.cluster_major_plan`` (``B·cr`` marks an empty slot), which
+    puts every (query, route) pair in exactly one slot; query row of slot
+    value ``o`` is ``o // cr``, read from ``q_emb (B, d)`` directly.
+    Returns per-pair partial lists ``(scores (B·cr, k) f32, ids (B·cr, k)
+    int32)``, every row written by the kernel; fold them with
+    ``engine.merge_cluster_major``."""
+    if (buf_attrs is None) != (q_filt is None):
+        raise ValueError("pass buf_attrs and q_filt together or not at all")
+    if q_emb.device.type == "cpu":
+        return cluster_major_partials_plain(
+            q_emb, q_loc, w_st, u, roster, buf_emb, buf_loc, buf_ids, w_hat,
+            k=k, dist_max=dist_max, cr=cr, buf_scale=buf_scale,
+            buf_attrs=buf_attrs, q_filt=q_filt)
+    if q_emb.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q_emb.device}")
+    dev = q_emb.device
+    c, cap, d = _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale,
+                               buf_attrs, w_hat, k=k, device=dev)
+    b = q_emb.shape[0]
+    u_max, qcap = roster.shape
+    if u_max > 65535:
+        raise ValueError(f"u_max={u_max} exceeds the grid's y limit")
+    _check("q_emb", q_emb, dtype=torch.float32, shape=(b, d), device=dev)
+    _check("q_loc", q_loc, dtype=torch.float32, shape=(b, 2), device=dev)
+    _check("w_st", w_st, dtype=torch.float32, shape=(b, 2), device=dev)
+    _check("u", u, dtype=torch.int32, shape=(u_max,), device=dev)
+    _check("roster", roster, dtype=torch.int32, shape=(u_max, qcap),
+           device=dev)
+    if q_filt is not None:
+        _check("q_filt", q_filt, dtype=torch.int32, shape=(b, 4), device=dev)
+    n_total = b * cr
+    out_s = torch.empty((n_total, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_total, k), dtype=torch.int32, device=dev)
+    if n_total == 0 or u_max == 0 or qcap == 0:
+        return out_s, out_i
+    err = _lib().fts_cluster_major(
+        _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(u), _ptr(roster),
+        _ptr(buf_emb), _EMB_KIND[buf_emb.dtype], _ptr(buf_scale),
+        _ptr(buf_loc), _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt),
+        _ptr(w_hat), int(buf_attrs is not None), u_max, qcap, cr, n_total,
+        c, cap, d, w_hat.shape[0], k, float(dist_max), _ptr(out_s),
+        _ptr(out_i), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"fts_cluster_major launch failed: cudaError {err}")
+    launches["cluster_major"] += 1
+    return out_s, out_i

@@ -1,0 +1,156 @@
+"""Shared inputs of the PyTorch-port parity tests (no tests of its own).
+
+Everything is made with numpy (and the reference's own seeded init),
+handed to the reference as numpy / jax arrays and to the port as torch
+CPU tensors, so both packages see bit-identical inputs.
+"""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.configs import get_config
+from repro.core import delta as ref_delta
+from repro.core import engine as ref_engine
+from repro.core import filters as ref_filters
+from repro.core import index as ref_index
+from repro.core import relevance as ref_relevance
+from repro.core.snapshot import IndexSnapshot as RefSnapshot
+
+DIST_MAX = 1.414
+N_OBJ = 160
+CAP = 64
+
+
+def tiny_cfg(**kw):
+    """The ``tiny_de_cfg`` geometry: 2 layers, d 32, c 4."""
+    base = dict(n_layers=2, d_model=32, n_heads=2, d_ff=64, vocab_size=2048,
+                max_len=16, spatial_t=50, n_clusters=4, neg_start=200,
+                neg_end=300, index_mlp_hidden=(32,))
+    base.update(kw)
+    return dataclasses.replace(get_config("list-dual-encoder"), **base)
+
+
+def make_attrs(n, seed=3):
+    rng = np.random.default_rng(seed)
+    return ref_filters.make_attrs(
+        tenant=rng.integers(0, 3, n),
+        category_mask=rng.integers(0, 16, n),
+        timestamp=rng.integers(0, 1000, n))
+
+
+def make_ref_snapshot(cfg, *, seed=17):
+    """A reference f32 snapshot with random (seeded) params, objects and
+    filter attributes, placed by the reference's own router."""
+    rng = np.random.default_rng(seed)
+    rel = ref_relevance.relevance_init(jax.random.PRNGKey(0), cfg)
+    obj_emb = rng.normal(size=(N_OBJ, cfg.d_model)).astype(np.float32)
+    obj_loc = rng.uniform(size=(N_OBJ, 2)).astype(np.float32)
+    norm = ref_index.loc_normalizer(jnp.asarray(obj_loc))
+    iparams = ref_index.index_init(jax.random.PRNGKey(5), cfg.d_model,
+                                   cfg.n_clusters,
+                                   hidden=cfg.index_mlp_hidden)
+    feats = ref_index.build_features(jnp.asarray(obj_emb),
+                                     jnp.asarray(obj_loc), norm)
+    top = np.asarray(ref_index.assign_clusters(iparams, feats, top=2))
+    buf = ref_index.build_cluster_buffers(top, obj_emb, obj_loc,
+                                          n_clusters=cfg.n_clusters,
+                                          capacity=CAP,
+                                          attrs=make_attrs(N_OBJ))
+    return RefSnapshot.from_parts(cfg, rel, iparams, norm, buf,
+                                  dist_max=DIST_MAX)
+
+
+def with_delta(snap, seed=23):
+    """``snap`` plus a delta segment: 5 inserted rows, 3 tombstones."""
+    rng = np.random.default_rng(seed)
+    d = snap.cfg.d_model
+    seg = ref_delta.DeltaSegment.empty(d, snap.meta.precision)
+    seg = seg.insert(rng.normal(size=(5, d)).astype(np.float32),
+                     rng.uniform(size=(5, 2)).astype(np.float32),
+                     np.arange(9000, 9005), new_attrs=make_attrs(5, seed=4))
+    seg = seg.delete([0, 1, 2])
+    return snap.with_delta(seg)
+
+
+def make_requests(rng, n, cfg):
+    tok = rng.integers(2, cfg.vocab_size, (n, cfg.max_len)).astype(np.int32)
+    tok[:, 0] = 1
+    msk = np.ones((n, cfg.max_len), bool)
+    msk[:, cfg.max_len // 2:] = rng.uniform(size=(n, cfg.max_len // 2)) < 0.5
+    tok[~msk] = 0
+    loc = rng.uniform(size=(n, 2)).astype(np.float32)
+    return tok, msk, loc
+
+
+def ref_prefix(snap, tok, msk, loc, *, cr):
+    """The reference's (q_emb, w, top_c) as numpy."""
+    fn = ref_engine.make_prefix_fn(snap.cfg, cr=cr,
+                                   weight_mode=snap.meta.weight_mode)
+    return tuple(np.asarray(x) for x in fn(
+        snap.rel_params, snap.index_params, snap.norm, jnp.asarray(tok),
+        jnp.asarray(msk), jnp.asarray(loc)))
+
+
+def ref_buffers_np(snap):
+    return {k: np.asarray(snap.buffers[k]) for k in
+            ("emb", "loc", "ids", "scale", "attrs")}
+
+
+def to_torch(x):
+    x = np.array(x, copy=True)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def numpy_oracle(q_emb, w, top_c, q_loc, buf, w_hat, fvals, *, k, precision,
+                 dist_max=DIST_MAX):
+    """Pure-numpy routed scan (dequant, Eq. 5, predicate, stable top-k):
+    the oracle of ``tests/test_filters.py``, fed explicit routes."""
+    be = buf["emb"].astype(np.float32)
+    if precision == "int8":
+        be = be * buf["scale"][..., None]
+    t = w_hat.shape[0]
+    d = be.shape[-1]
+    out_i, out_s = [], []
+    for q in range(q_emb.shape[0]):
+        ce = be[top_c[q]].reshape(-1, d)
+        cl = buf["loc"][top_c[q]].reshape(-1, 2)
+        ci = buf["ids"][top_c[q]].reshape(-1).copy()
+        ca = buf["attrs"][top_c[q]].reshape(-1, 3)
+        if fvals is not None:
+            ok = ref_filters.predicate_mask_np(ca, fvals[q][None])
+            ci[~ok] = -1
+        trel = ce @ q_emb[q]
+        dist = np.linalg.norm(q_loc[q] - cl, axis=-1)
+        s_in = 1.0 - np.clip(dist / dist_max, 0.0, 1.0)
+        srel = w_hat[np.clip(np.floor(s_in * t).astype(np.int32), 0, t - 1)]
+        st = w[q, 0] * trel + w[q, 1] * srel
+        st = np.where(ci >= 0, st, ref_engine.NEG_INF).astype(np.float32)
+        order = np.argsort(-st, kind="stable")[:k]
+        out_i.append(np.where(st[order] > ref_engine.NEG_INF / 2,
+                              ci[order], -1))
+        out_s.append(st[order])
+    return np.stack(out_i).astype(np.int32), np.stack(out_s)
+
+
+def assert_topk_match(ids, scores, want_ids, want_scores, *, atol=1e-5,
+                      rtol=1e-5):
+    """Scores allclose; ids equal except where scores tie (within the
+    tolerance): a swap of near-equal scores, or a different pick among
+    entries tied with the k-th score."""
+    ids, want_ids = np.asarray(ids), np.asarray(want_ids)
+    scores, want_scores = np.asarray(scores), np.asarray(want_scores)
+    np.testing.assert_allclose(scores, want_scores, atol=atol, rtol=rtol)
+    tol = atol + rtol * np.abs(want_scores)
+    for q in range(ids.shape[0]):
+        for p in np.flatnonzero(ids[q] != want_ids[q]):
+            same = np.flatnonzero(want_ids[q] == ids[q, p])
+            tied = np.abs(want_scores[q] - want_scores[q, p]) <= 2 * tol[q, p]
+            at_edge = abs(scores[q, p] - want_scores[q, -1]) <= 2 * tol[q, -1]
+            assert (same.size and tied[same].any()) or at_edge, (
+                f"row {q} position {p}: id {ids[q, p]} vs {want_ids[q, p]} "
+                f"(scores {scores[q, p]} / {want_scores[q, p]}) is no tie")
