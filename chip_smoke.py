@@ -5,8 +5,9 @@
 
 Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
 
-0. Print the card's name and power limit; build the scan kernels from
-   ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) and print the build time.
+0. Print the card's name and power limit; build the four kernel libraries
+   of ``src/repro_torch/kernels/csrc`` (one nvcc per source, sm_90a, side
+   by side) and print each build's time and ptxas register/spill lines.
 1. Hold each kernel (routed, cluster-major) against its plain PyTorch
    version on the card: f32 / bf16 / int8 × unfiltered / filtered × cr 1, 2,
    at a small shape and at d = 768, at k = 20 and k > 32.
@@ -20,6 +21,19 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    cr 2). The kernels' launch counters are read around this run; the first
    queries are checked against the plain versions; each kernel is timed
    against its plain version and its bound.
+4. The kernel entry point ``repro_torch.kernels.ops``: the gather-path
+   scan, flash attention, dot interaction and embedding bag are first held
+   against their plain versions at small shapes over the edge cases of
+   ``tests/test_torch_ops.py``, then driven once each at full width with
+   the launch counters zeroed around the run: the gather scan over the
+   first 32 queries of phase 3's chunk (candidates ``buf[top_c]``, 38,144
+   rows of d 768, f32 / bf16 / int8), also held against ``fts_routed`` on
+   the same routes; flash attention at ``qwen2-7b`` (H 28, KV 4, D 128) in
+   bf16 and f32 and a ``gemma3-27b`` local layer (H 32, KV 16, window
+   1024) in bf16, S 2048; dot interaction and embedding bag at
+   ``dlrm-mlperf`` widths (F 27, d 128; a 39,060-row table, bags of 16)
+   for B 512 and 262,144. Each output is checked against the plain
+   version, then kernel, plain version and one library call are timed.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -530,7 +544,403 @@ def phase3(dev):
                 distinct_clusters=n_distinct, route_loads=loads,
                 picks=picks, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 queries=n_q, batch=batch, k=k, cr=cr,
-                qps={f"{p}/{b}": n_q / wall for (p, b), wall in walls.items()})
+                qps={f"{p}/{b}": n_q / wall for (p, b), wall in walls.items()},
+                ctx=dict(buf32=buf32, buf8=buf8, w_hat=snaps["f32"].w_hat,
+                         q_emb=q_emb, ql=ql, w=w, top_c=top_c))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the kernel entry point (repro_torch.kernels.ops) at full width
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12        # tensor cores, dense
+# published widths, from the reference's configs (src/repro/configs/):
+# qwen2_7b.py, a local (sliding-window) layer of gemma3_27b.py, and
+# dlrm_mlperf.py (26 sparse features + the bottom MLP's output; its second
+# table, 39,060 rows, is in the TPU kernel's small-vocab regime)
+FLASH_CFGS = {"qwen2-7b": dict(h=28, kv=4, d=128, window=0),
+              "gemma3-27b-local": dict(h=32, kv=16, d=128, window=1024)}
+FLASH_S = 2048
+DLRM = dict(f=27, d=128, vocab=39_060, bag=16)
+DLRM_BATCHES = {"serve_p99": 512, "serve_bulk": 262_144}
+N_GATHER = 32                    # queries of phase 3's first chunk
+# kernel vs plain, as the reference holds its kernels (tests/test_kernels.py)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
+# half-precision outputs: kernel and plain round f32 sums once each, so
+# they may differ by one unit in the last place, at most |x|·2^-mantissa
+HALF_ULP = {"bfloat16": 2 ** -7, "float16": 2 ** -10}
+DOT_TOL = 1e-5                   # atol and rtol (f32)
+EBAG_TOL = 1e-4
+
+
+def roof(nbytes, flops, peak):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / peak * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=int(nbytes), flops=int(flops))
+
+
+def gather_case(g, dev, *, b, n, d, precision, k, t=100, pad_from=None,
+                ties=False):
+    """Random candidates ``(b, n, d)`` on ``dev`` in a precision tier."""
+    import torch
+    from repro_torch.core import index as index_lib
+    q = torch.randn(b, d, generator=g, device=dev)
+    ql = torch.rand(b, 2, generator=g, device=dev)
+    w = torch.rand(b, 2, generator=g, device=dev) + 0.5
+    ce = torch.randn(b, n, d, generator=g, device=dev)
+    cl = torch.rand(b, n, 2, generator=g, device=dev)
+    ci = torch.randint(-1, 10_000, (b, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    if pad_from is not None:
+        ci[:, :pad_from] = torch.arange(pad_from, device=dev,
+                                        dtype=torch.int32)
+        ci[:, pad_from:] = -1
+    if ties:                     # exact integer scores in one spatial bucket
+        q = torch.randint(-2, 3, (b, d), generator=g, device=dev).float()
+        ce = torch.randint(-2, 3, (b, n, d), generator=g, device=dev).float()
+        cl[:] = ql[:, None, :]
+        w[:] = torch.tensor([1.0, 0.5], device=dev)
+    w_hat = torch.cumsum(torch.rand(t, generator=g, device=dev) * 0.01, 0)
+    scale = None
+    if precision == "int8":
+        ce, scale = index_lib.quantize_rows(ce, "int8")
+    elif precision == "bf16":
+        ce = ce.to(torch.bfloat16)
+    return (q, ql, w, ce, cl, ci, w_hat), dict(k=k, dist_max=1.4142,
+                                                cand_scale=scale)
+
+
+def phase4_checks(dev):
+    """The four new kernels against their plain versions at small shapes,
+    over the edge cases of tests/test_torch_ops.py → max |Δ| by kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_topk_score as fts
+    from repro_torch.kernels import ops as kops
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    err = dict(gather=0.0, flash_attention=0.0, dot_interaction=0.0,
+               embedding_bag=0.0)
+    n_cases = dict.fromkeys(err, 0)
+    for precision in ("f32", "bf16", "int8"):
+        for cs in (dict(b=8, n=1024, d=32, k=5), dict(b=16, n=2048, d=64, k=10),
+                   dict(b=4, n=512, d=128, k=20), dict(b=4, n=4000, d=768, k=20),
+                   dict(b=6, n=300, d=64, k=84),
+                   dict(b=4, n=256, d=32, k=12, pad_from=7),
+                   dict(b=4, n=16, d=32, k=20),              # k > N
+                   dict(b=3, n=512, d=16, k=40, ties=precision != "int8")):
+            args, kw = gather_case(g, dev, precision=precision, **cs)
+            got = kops.fused_topk_score(*args, **kw)
+            want = fts.gather_topk_plain(*args, **kw)
+            torch.cuda.synchronize()
+            e = topk_match(got[1].cpu(), got[0].cpu(), want[1].cpu(),
+                           want[0].cpu())
+            if cs.get("ties") or cs.get("pad_from"):
+                if not torch.equal(got[1], want[1]):
+                    raise AssertionError(f"gather {precision} {cs}: "
+                                         f"positions differ")
+            if cs.get("pad_from") and not (got[1][:, 7:] == -1).all():
+                raise AssertionError("gather: padding tail not -1")
+            err["gather"] = max(err["gather"], e)
+            n_cases["gather"] += 1
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        for b, s, h, kv, d, causal, window in (
+                (2, 256, 4, 2, 32, True, 0), (1, 128, 4, 4, 64, True, 64),
+                (2, 200, 2, 1, 16, True, 0), (1, 256, 8, 2, 32, True, 100),
+                (1, 64, 2, 2, 32, False, 0), (1, 130, 4, 4, 128, False, 0),
+                (1, 300, 8, 2, 128, True, 100), (1, 520, 4, 2, 128, True, 1)):
+            q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
+            got = kops.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            if not e < tol or got.dtype != dtype:
+                raise AssertionError(f"flash {dtype} {(b, s, h, kv, d, causal, window)}: "
+                                     f"max |err| {e} >= {tol}")
+            err["flash_attention"] = max(err["flash_attention"], e)
+            n_cases["flash_attention"] += 1
+    for dtype, shapes in ((torch.float32, ((128, 27, 16), (256, 27, 128),
+                                           (64, 8, 8), (32, 5, 6))),
+                          (torch.bfloat16, ((300, 27, 128), (64, 27, 16))),
+                          (torch.float16, ((300, 27, 128),))):
+        for b, f, d in shapes:
+            x = torch.randn(b, f, d, generator=g, device=dev).to(dtype)
+            got = kops.dot_interaction(x).float()
+            want = di.dot_interaction_plain(x).float()
+            torch.cuda.synchronize()
+            tol = (DOT_TOL + DOT_TOL * want.abs() if dtype == torch.float32
+                   else want.abs() * HALF_ULP[str(dtype).split(".")[1]]
+                   + 1e-6)
+            if ((got - want).abs() > tol).any():
+                raise AssertionError(f"dot_interaction {dtype} {(b, f, d)}")
+            err["dot_interaction"] = max(err["dot_interaction"],
+                                         (got - want).abs().max().item())
+            n_cases["dot_interaction"] += 1
+    rng = np.random.default_rng(SEED + 8)
+    for v, d, b, p, dtype in ((1000, 32, 128, 8, torch.float32),
+                              (500, 16, 64, 4, torch.float32),
+                              (4096, 64, 256, 16, torch.float32),
+                              (4096, 128, 256, 16, torch.bfloat16),
+                              (300, 12, 64, 5, torch.bfloat16),
+                              (1000, 64, 128, 8, torch.float16)):
+        tab = torch.randn(v, d, generator=g, device=dev).to(dtype)
+        idx = rng.integers(-1, v + 50, (b, p)).astype(np.int32)  # -1 and >= V
+        idx[0] = [3] * (p - 1) + [-1]                            # duplicates
+        idx = torch.from_numpy(idx).to(dev)
+        got = kops.embedding_bag(tab, idx)
+        want = eb.embedding_bag_plain(tab, idx)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        if ((got - want).abs() > EBAG_TOL + EBAG_TOL * want.abs()).any():
+            raise AssertionError(f"embedding_bag {(v, d, b, p, dtype)}: {e}")
+        err["embedding_bag"] = max(err["embedding_bag"], e)
+        n_cases["embedding_bag"] += 1
+    log(f"phase 4 checks ok: {n_cases} cases, max |kernel - plain| {err}")
+    return err
+
+
+def phase4(dev, ctx):
+    """Drive ``repro_torch.kernels.ops`` once per full-width shape with the
+    launch counters zeroed around the run, then hold each output against
+    the plain version and time kernel, plain version and library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_topk_score as fts
+    from repro_torch.kernels import ops as kops
+
+    err = phase4_checks(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    # ---- full-width inputs ------------------------------------------------
+    buf32, buf8, w_hat = ctx["buf32"], ctx["buf8"], ctx["w_hat"]
+    tc = ctx["top_c"][:N_GATHER].long()
+    qa = tuple(x[:N_GATHER].contiguous()
+               for x in (ctx["q_emb"], ctx["ql"], ctx["w"]))
+    cap, d = buf32["emb"].shape[1:]
+    n_cand = tc.shape[1] * cap
+
+    def copy_of(buf, dtype=None):
+        """The candidate copy the reference's caller materializes."""
+        emb = buf["emb"][tc].reshape(N_GATHER, n_cand, d)
+        scale = (buf["scale"][tc].reshape(N_GATHER, n_cand)
+                 if buf["emb"].dtype == torch.int8 else None)
+        return ((emb if dtype is None else emb.to(dtype)), scale,
+                buf["loc"][tc].reshape(N_GATHER, n_cand, 2),
+                buf["ids"][tc].reshape(N_GATHER, n_cand))
+
+    ce32, _, cl, ci = copy_of(buf32)
+    cand = {"f32": (ce32, None), "bf16": (ce32.to(torch.bfloat16), None),
+            "int8": copy_of(buf8)[:2]}
+    copy_src = {"f32": (buf32, None), "bf16": (buf32, torch.bfloat16),
+                "int8": (buf8, None)}
+    flash_in = {}
+    for name, c in FLASH_CFGS.items():
+        for dtype in ((torch.bfloat16, torch.float32) if name == "qwen2-7b"
+                      else (torch.bfloat16,)):
+            flash_in[(name, str(dtype).split(".")[1])] = tuple(
+                torch.randn(1, FLASH_S, hh, c["d"], generator=g,
+                            device=dev).to(dtype)
+                for hh in (c["h"], c["kv"], c["kv"]))
+    table = torch.randn(DLRM["vocab"], DLRM["d"], generator=g, device=dev)
+    dlrm_in = {}
+    for shape, b in DLRM_BATCHES.items():
+        x = torch.randn(b, DLRM["f"], DLRM["d"], generator=g, device=dev)
+        idx = torch.randint(0, DLRM["vocab"], (b, DLRM["bag"]), generator=g,
+                            device=dev, dtype=torch.int32)
+        pad = torch.rand(b, DLRM["bag"], generator=g, device=dev) < 0.25
+        dlrm_in[shape] = (x, torch.where(pad, torch.full_like(idx, -1), idx))
+    torch.cuda.synchronize()
+    log(f"phase 4 inputs: gather copy ({N_GATHER}, {n_cand}, {d}) "
+        f"{ce32.numel() * 4 / 1e9:.2f} GB f32; flash S {FLASH_S} "
+        f"{list(flash_in)}; dlrm F {DLRM['f']} d {DLRM['d']} B "
+        f"{list(DLRM_BATCHES.values())}, table ({DLRM['vocab']}, "
+        f"{DLRM['d']}) P {DLRM['bag']}")
+
+    # ---- the main path: every entry point at full width, counted --------
+    kops.reset_launch_counts()
+    out = {}
+    for p, (ce, sc) in cand.items():
+        out[("gather", p)] = kops.fused_topk_score(
+            *qa, ce, cl, ci, w_hat, k=20, dist_max=1.4142, cand_scale=sc)
+    for key, (q, k, v) in flash_in.items():
+        out[("flash", key)] = kops.flash_attention(
+            q, k, v, causal=True, window=FLASH_CFGS[key[0]]["window"])
+    for shape, (x, idx) in dlrm_in.items():
+        out[("dot", shape)] = kops.dot_interaction(x)
+        out[("ebag", shape)] = kops.embedding_bag(table, idx)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    log(f"phase 4 main path: launches {counts}")
+    for name in ("gather", "flash_attention", "dot_interaction",
+                 "embedding_bag"):
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} not launched on the main path")
+    for key, o in out.items():
+        for t in (o if isinstance(o, tuple) else (o,)):
+            if not torch.isfinite(t.float()).all():
+                raise AssertionError(f"phase 4 {key}: non-finite output")
+
+    rep = {}
+    # ---- gather: vs plain, vs the routed kernel, timings ------------------
+    gk = {}
+    for p, (ce, sc) in cand.items():
+        args = (*qa, ce, cl, ci, w_hat)
+        kw = dict(k=20, dist_max=1.4142, cand_scale=sc)
+        got = out[("gather", p)]
+        want = fts.gather_topk_plain(*args, **kw)
+        e = topk_match(got[1].cpu(), got[0].cpu(), want[1].cpu(),
+                       want[0].cpu())
+        rec = dict(err=e)
+        if p != "bf16":                # the routed kernel on the same routes
+            buf = buf32 if p == "f32" else buf8
+            rs, ri = fts.fused_topk_score_routed(
+                *qa, ctx["top_c"][:N_GATHER].contiguous(), buf["emb"],
+                buf["loc"], buf["ids"], w_hat, k=20, dist_max=1.4142,
+                buf_scale=buf["scale"] if p == "int8" else None)
+            ids = torch.where(got[1] >= 0, torch.gather(
+                ci, 1, got[1].clamp(min=0).long()), -1)
+            e_r = topk_match(ids.cpu(), got[0].cpu(), ri.cpu(), rs.cpu())
+            rec.update(routed_err=e_r, routed_bit_equal=bool(
+                torch.equal(ids, ri) and torch.equal(got[0], rs)))
+        rec["ms"] = time_ms(lambda: kops.fused_topk_score(*args, **kw))
+        rec["plain_ms"] = time_ms(lambda: fts.gather_topk_plain(*args, **kw),
+                                  reps=3)
+        rec["copy_ms"] = time_ms(lambda: copy_of(*copy_src[p]), reps=3)
+        live = int((ci >= 0).sum())
+        esz = ce.element_size()
+        nbytes = (live * d * esz + ci.numel() * (8 + 4 + (4 if sc is not None
+                                                          else 0))
+                  + N_GATHER * (d * 4 + 16) + w_hat.numel() * 4
+                  + N_GATHER * 20 * 8)
+        flops = live * 2 * d + (live * d if sc is not None else 0)
+        rec.update(roof(nbytes, flops, F32_FLOPS_PER_S), live_rows=live)
+        gk[p] = rec
+        log(f"phase 4 gather {p}: {rec['ms']:.3f} ms (copy {rec['copy_ms']:.3f} "
+            f"ms) vs plain {rec['plain_ms']:.3f} ms; bound "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}); max|err| "
+            f"{e:.3g}; vs routed {rec.get('routed_err', 'n/a')} "
+            f"bit-equal {rec.get('routed_bit_equal', 'n/a')}")
+    err["gather"] = max(err["gather"], *(r["err"] for r in gk.values()),
+                        *(r.get("routed_err", 0.0) for r in gk.values()))
+    rep["gather"] = dict(main="f32", shapes=gk, library_ms=None,
+                         library_note="no single PyTorch call computes a "
+                                      "fused score + top-k")
+    del cand, copy_src, ce32, cl, ci, ctx, buf32, buf8
+    torch.cuda.empty_cache()
+
+    # ---- flash attention ------------------------------------------------------
+    fk = {}
+    for (name, dt), (q, k, v) in flash_in.items():
+        c = FLASH_CFGS[name]
+        got = out[("flash", (name, dt))]
+        want = fa.flash_attention_plain(q, k, v, causal=True,
+                                        window=c["window"])
+        e = (got.float() - want.float()).abs().max().item()
+        if not e < FLASH_TOL[dt]:
+            raise AssertionError(f"flash {name} {dt}: max |err| {e}")
+        del want
+        rec = dict(err=e)
+        rec["ms"] = time_ms(lambda: kops.flash_attention(
+            q, k, v, causal=True, window=c["window"]), reps=3)
+        rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=c["window"]), reps=3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = fa.attention_mask(FLASH_S, FLASH_S, causal=True,
+                                 window=c["window"], device=dev)
+        if c["window"]:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        rec["library_ms"] = time_ms(lib, reps=3)
+        lib_err = (lib().transpose(1, 2).float() - got.float()).abs().max().item()
+        pairs = int(mask.sum()) * c["h"]
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = BF16_FLOPS_PER_S if dt == "bfloat16" else F32_FLOPS_PER_S
+        rec.update(roof(nbytes, 4 * c["d"] * pairs, peak),
+                   library_err=lib_err)
+        fk[f"{name}/{dt}"] = rec
+        log(f"phase 4 flash {name} {dt}: {rec['ms']:.3f} ms vs plain "
+            f"{rec['plain_ms']:.3f} ms, SDPA {rec['library_ms']:.3f} ms "
+            f"(|Δ| {lib_err:.3g}); bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, {rec['flops'] / 1e9:.2f} GFLOP); max|err| {e:.3g}")
+        del qt, kt, vt, mask
+    err["flash_attention"] = max(err["flash_attention"],
+                                 *(r["err"] for r in fk.values()))
+    rep["flash_attention"] = dict(main="qwen2-7b/bfloat16", shapes=fk)
+
+    # ---- dot interaction and embedding bag ------------------------------------
+    dk, ek = {}, {}
+    iu, ju = di.triu_pairs(DLRM["f"], dev)
+    table_pad = torch.cat([table, table.new_zeros(1, DLRM["d"])])
+    for shape, (x, idx) in dlrm_in.items():
+        b = x.shape[0]
+        got = out[("dot", shape)]
+        want = di.dot_interaction_plain(x)
+        if ((got - want).abs() > DOT_TOL + DOT_TOL * want.abs()).any():
+            raise AssertionError(f"dot_interaction {shape}")
+        rec = dict(err=(got - want).abs().max().item())
+        del want
+        rec["ms"] = time_ms(lambda: kops.dot_interaction(x))
+        rec["plain_ms"] = time_ms(lambda: di.dot_interaction_plain(x), reps=3)
+        rec["library_ms"] = time_ms(lambda: torch.bmm(x, x.mT)[:, iu, ju],
+                                    reps=3)
+        n_pairs = iu.numel()
+        rec.update(roof(x.numel() * 4 + b * n_pairs * 4,
+                        b * n_pairs * 2 * DLRM["d"], F32_FLOPS_PER_S), batch=b)
+        dk[shape] = rec
+        log(f"phase 4 dot_interaction {shape} (B {b}): {rec['ms']:.3f} ms vs "
+            f"plain {rec['plain_ms']:.3f} ms, bmm+triu {rec['library_ms']:.3f} "
+            f"ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+            f"max|err| {rec['err']:.3g}")
+
+        got = out[("ebag", shape)]
+        want = eb.embedding_bag_plain(table, idx)
+        e = (got - want).abs().max().item()
+        if ((got - want).abs() > EBAG_TOL + EBAG_TOL * want.abs()).any():
+            raise AssertionError(f"embedding_bag {shape}: {e}")
+        rec = dict(err=e)
+        rec["ms"] = time_ms(lambda: kops.embedding_bag(table, idx))
+        rec["plain_ms"] = time_ms(lambda: eb.embedding_bag_plain(table, idx),
+                                  reps=3)
+        idx_lib = torch.where(idx >= 0, idx, DLRM["vocab"]).long()
+        rec["library_ms"] = time_ms(lambda: F.embedding_bag(
+            idx_lib, table_pad, mode="sum", padding_idx=DLRM["vocab"]), reps=3)
+        lib_err = (F.embedding_bag(idx_lib, table_pad, mode="sum",
+                                   padding_idx=DLRM["vocab"]) - got
+                   ).abs().max().item()
+        valid = idx[idx >= 0]
+        rows = int(torch.unique(valid).numel())
+        rec.update(roof(rows * DLRM["d"] * 4 + idx.numel() * 4
+                        + b * DLRM["d"] * 4, int(valid.numel()) * DLRM["d"],
+                        F32_FLOPS_PER_S), batch=b, rows_touched=rows,
+                   library_err=lib_err)
+        ek[shape] = rec
+        log(f"phase 4 embedding_bag {shape} (B {b}): {rec['ms']:.3f} ms vs "
+            f"plain {rec['plain_ms']:.3f} ms, F.embedding_bag "
+            f"{rec['library_ms']:.3f} ms (|Δ| {lib_err:.3g}); bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {rows} rows); "
+            f"max|err| {e:.3g}")
+    err["dot_interaction"] = max(err["dot_interaction"],
+                                 *(r["err"] for r in dk.values()))
+    err["embedding_bag"] = max(err["embedding_bag"],
+                               *(r["err"] for r in ek.values()))
+    rep["dot_interaction"] = dict(main="serve_bulk", shapes=dk)
+    rep["embedding_bag"] = dict(main="serve_bulk", shapes=ek)
+    return dict(report=rep, launches=counts, err=err,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def main() -> int:
@@ -552,14 +962,16 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    from repro_torch.kernels import fused_topk_score as fts
+    from repro_torch.kernels import ops as kops
     t0 = time.perf_counter()
-    info = fts.build_info()
-    log(f"phase 0: kernels built in {info['seconds']:.1f} s "
-        f"({time.perf_counter() - t0:.1f} s with loading) -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    infos = kops.build_all()
+    log(f"phase 0: {len(infos)} kernel libraries built side by side in "
+        f"{time.perf_counter() - t0:.1f} s with loading")
+    for name, info in infos.items():
+        log(f"phase 0: {name} nvcc {info['seconds']:.1f} s -> {info['path']}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
 
     t0 = time.perf_counter()
     err1 = phase1(dev)
@@ -571,6 +983,10 @@ def main() -> int:
     p3 = phase3(dev)
     log(f"phase 3 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p3['peak_gb']:.1f} GB")
+    t0 = time.perf_counter()
+    p4 = phase4(dev, p3.pop("ctx"))
+    log(f"phase 4 took {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{p4['peak_gb']:.1f} GB")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -585,6 +1001,8 @@ def main() -> int:
             "ms": f32[name]["ms"], "plain_ms": f32[name]["plain_ms"],
             "bound_ms": f32["bound"]["bound_ms"],
             "bound_by": f32["bound"]["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes a fused "
+                            "score + top-k",
             "shape": {"queries": p3["batch"], "cr": p3["cr"], "k": p3["k"],
                       "precision": "f32",
                       "distinct_clusters": p3["distinct_clusters"]},
@@ -592,6 +1010,35 @@ def main() -> int:
                      "bound_ms": i8["bound"]["bound_ms"],
                      "bound_by": i8["bound"]["bound_by"]},
         })
+    csrc = "src/repro_torch/kernels/csrc/"
+    new = {"gather": ("fused_topk_score.cu",
+                      "src/repro/kernels/fused_topk_score.py:173"),
+           "flash_attention": ("flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:82"),
+           "dot_interaction": ("dot_interaction.cu",
+                               "src/repro/kernels/dot_interaction.py:26"),
+           "embedding_bag": ("embedding_bag.cu",
+                             "src/repro/kernels/embedding_bag.py:47")}
+    for name, (cu, where) in new.items():
+        r = p4["report"][name]
+        main_rec = r["shapes"][r["main"]]
+        entry = {
+            "name": name, "route": "cuda", "source": csrc + cu,
+            "replaces": where, "launches": p4["launches"][name],
+            "max_abs_err": p4["err"][name], "ms": main_rec["ms"],
+            "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"],
+            "library_ms": r.get("library_ms", main_rec.get("library_ms")),
+            "shape": r["main"],
+            "shapes": {key: {f: v for f, v in rec.items()
+                             if f in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "copy_ms",
+                                      "routed_bit_equal", "err")}
+                       for key, rec in r["shapes"].items()}}
+        if "library_note" in r:
+            entry["library_note"] = r["library_note"]
+        kernels.append(entry)
     rep = p3["report"]
     log(json.dumps({
         "card": card, "route_loads": p3["route_loads"], "qps": p3["qps"],

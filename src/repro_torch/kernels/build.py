@@ -5,7 +5,9 @@ into a plain-C-interface shared library (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``. The library lands in
 ``<repo>/build/kernels/<name>-<hash>/``, keyed by a hash of the sources
 and flags, so an edited source rebuilds and an unchanged one is reused.
-Nothing here runs at import time.
+Each kernel module holds one :class:`KernelLibrary` (one source, one
+library), so a compile error names its kernel and the libraries can be
+built side by side. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -62,3 +64,27 @@ def load_library(name: str, sources: Sequence[str]) -> Tuple[ctypes.CDLL, dict]:
                                f"{name}:\n{info['log']}")
         os.replace(tmp, lib_path)           # atomic: readers see all or none
     return ctypes.CDLL(str(lib_path)), info
+
+
+class KernelLibrary:
+    """A library built from ``sources`` at its first call, then bound by
+    ``bind(lib)`` (which sets each C function's ``argtypes``/``restype``).
+    Calling it returns the loaded ``ctypes.CDLL``."""
+
+    def __init__(self, name: str, sources: Sequence[str],
+                 bind: Callable[[ctypes.CDLL], None]):
+        self.name, self.sources, self._bind = name, tuple(sources), bind
+        self._lib = None
+        self._info: dict = {}
+
+    def __call__(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib, info = load_library(self.name, self.sources)
+            self._bind(lib)
+            self._lib, self._info = lib, info
+        return self._lib
+
+    def info(self) -> dict:
+        """Build seconds, nvcc/ptxas output and path (builds if needed)."""
+        self()
+        return dict(self._info)

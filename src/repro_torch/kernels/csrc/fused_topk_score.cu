@@ -1,11 +1,14 @@
 // Fused spatio-textual score + running top-k for Hopper (sm_90a).
 //
-// Replaces the two Pallas kernels of the query phase in
-// src/repro/kernels/fused_topk_score.py:
+// Replaces the three Pallas kernels in src/repro/kernels/fused_topk_score.py:
 //   fts_routed         <- fused_topk_score_routed          (query-major)
 //   fts_cluster_major  <- fused_topk_score_cluster_major   (cluster-major)
+//   fts_gather         <- fused_topk_score                 (gather path)
+// The gather kernel is the routed kernel's scan over a candidate copy the
+// caller materialized, (B, n, d) with per-query loc/ids (and int8 scales); it
+// returns local positions in [0, n) instead of ids.
 //
-// Both compute, for a query q and a resident object o of a routed cluster,
+// All compute, for a query q and a resident object o of a routed cluster,
 //   ST = w0 * (q . o) + w1 * w_hat[clip(int(S_in * t), 0, t - 1)],
 //   S_in = 1 - clip(|q_loc - o_loc| / dist_max, 0, 1),
 // skip padding rows (id < 0) and rows failing the filter predicate (the
@@ -216,6 +219,84 @@ __device__ __forceinline__ bool passes(const int* __restrict__ a, int4 f) {
          ts >= f.z && ts <= f.w;
 }
 
+// ---- query-major scan: shared by the routed and the gather kernels ------------
+
+// Warp `warp` of the block scans the 32-row chunks warp, warp+8, ... of the
+// `rows` rows at `base` (one routed cluster, or one query's candidate copy) and
+// pushes each live row's score into its list, keyed by scan position pos0+row.
+template <typename T, bool DEQUANT, bool FILTERED>
+__device__ __forceinline__ void scan_rows(
+    const T* __restrict__ emb, const float* __restrict__ scale,
+    const float* __restrict__ loc, const int* __restrict__ ids,
+    const int* __restrict__ attrs, int4 f, size_t base, int rows, uint32_t pos0,
+    const float* qs, float qx, float qy, float w0, float w1, int d, int t,
+    float dist_max, const float* __restrict__ w_hat, int warp, int lane,
+    uint64_t* mine, int k, uint64_t& min_key, int& min_slot) {
+  const int n_chunks = (rows + 31) / 32;
+  for (int ch = warp; ch < n_chunks; ch += kWarps) {
+    const int n = ch * 32 + lane;
+    bool live = false;
+    float sterm = 0.f;
+    if (n < rows) {
+      live = ids[base + n] >= 0;
+      if (FILTERED && live) live = passes(attrs + (base + n) * 3, f);
+      if (live)
+        sterm = spatial_term(qx, qy, loc[(base + n) * 2], loc[(base + n) * 2 + 1], w1,
+                             dist_max, t, w_hat);
+    }
+    unsigned todo = __ballot_sync(kFull, live);
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int row = ch * 32 + j;
+      const float sc = DEQUANT ? scale[base + row] : 1.f;
+      const float trel = warp_sum(dot_row<T, DEQUANT>(emb + (base + row) * size_t(d), qs, d, lane, sc));
+      const float st = __fadd_rn(__fmul_rn(w0, trel), __shfl_sync(kFull, sterm, j));
+      list_push(mine, k, lane, make_key(st, pos0 + uint32_t(row)), min_key, min_slot);
+    }
+  }
+}
+
+// Merge the 8 warp lists into out_s/out_i[0, k) (this block's output row):
+// sort each, then rank every entry by binary search in the others. The slot
+// of a real entry gets id_of(scan position); slots past the last real entry
+// get (NEG_INF, -1).
+template <typename IdOf>
+__device__ __forceinline__ void merge_warp_lists(const uint64_t* mine, uint64_t* sorted,
+                                                 int* n_real, int k, int warp, int lane,
+                                                 int tid, float* __restrict__ out_s,
+                                                 int* __restrict__ out_i, IdOf id_of) {
+  const int n_mine = list_sort(mine, sorted + warp * k, k, lane);
+  if (lane == 0) n_real[warp] = n_mine;
+  __syncthreads();
+  int total = 0;
+  for (int o = 0; o < kWarps; ++o) total += n_real[o];
+  for (int e = tid; e < kWarps * k; e += kThreads) {
+    const int ow = e / k, j = e % k;
+    if (j >= n_real[ow]) continue;
+    const uint64_t key = sorted[e];
+    int rank = j;
+    for (int o = 0; o < kWarps; ++o) {
+      if (o == ow) continue;
+      const uint64_t* so = sorted + o * k;
+      int lo = 0, hi = n_real[o];
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (so[mid] > key) lo = mid + 1; else hi = mid;
+      }
+      rank += lo;
+    }
+    if (rank < k) {
+      out_s[rank] = key_score(key);
+      out_i[rank] = id_of(key_pos(key));
+    }
+  }
+  for (int s = total + tid; s < k; s += kThreads) {
+    out_s[s] = kNegInf;
+    out_i[s] = -1;
+  }
+}
+
 // ---- routed (query-major) kernel ---------------------------------------------
 // grid (B); block 256. The block scans its query's cr routed clusters; warp w
 // takes the 32-row chunks w, w+8, ... of each cluster.
@@ -248,67 +329,54 @@ routed_kernel(const float* __restrict__ q, const float* __restrict__ q_loc,
   int min_slot = 0;
   __syncthreads();
 
-  const int n_chunks = (cap + 31) / 32;
   for (int r = 0; r < cr; ++r) {
     const int cl = top_c[b * cr + r];
     if (cl < 0 || cl >= c) continue;
-    const size_t base = size_t(cl) * cap;
-    for (int ch = warp; ch < n_chunks; ch += kWarps) {
-      const int n = ch * 32 + lane;
-      bool live = false;
-      float sterm = 0.f;
-      if (n < cap) {
-        live = ids[base + n] >= 0;
-        if (FILTERED && live) live = passes(attrs + (base + n) * 3, f);
-        if (live)
-          sterm = spatial_term(qx, qy, loc[(base + n) * 2], loc[(base + n) * 2 + 1], w1,
-                               dist_max, t, w_hat);
-      }
-      unsigned todo = __ballot_sync(kFull, live);
-      while (todo) {
-        const int j = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const int row = ch * 32 + j;
-        const float sc = DEQUANT ? scale[base + row] : 1.f;
-        const float trel = warp_sum(dot_row<T, DEQUANT>(emb + (base + row) * size_t(d), qs, d, lane, sc));
-        const float st = __fadd_rn(__fmul_rn(w0, trel), __shfl_sync(kFull, sterm, j));
-        list_push(mine, k, lane, make_key(st, uint32_t(r * cap + row)), min_key, min_slot);
-      }
-    }
+    scan_rows<T, DEQUANT, FILTERED>(emb, scale, loc, ids, attrs, f, size_t(cl) * cap, cap,
+                                    uint32_t(r * cap), qs, qx, qy, w0, w1, d, t, dist_max,
+                                    w_hat, warp, lane, mine, k, min_key, min_slot);
   }
+  merge_warp_lists(mine, sorted, n_real, k, warp, lane, tid, out_s + size_t(b) * k,
+                   out_i + size_t(b) * k, [&](uint32_t pos) {
+                     const int r = pos / cap, row = pos % cap;
+                     return ids[size_t(top_c[b * cr + r]) * cap + row];
+                   });
+}
 
-  // merge the 8 warp lists: sort each, then rank every entry by binary search
-  const int n_mine = list_sort(mine, sorted + warp * k, k, lane);
-  if (lane == 0) n_real[warp] = n_mine;
+// ---- gather kernel ---------------------------------------------------------------
+// grid (B); block 256. The routed kernel's scan over one query's materialized
+// candidate copy (n rows at b * n): the same helpers, so a row scores
+// bit-identically in both. Outputs local positions in [0, n), not ids.
+
+template <typename T, bool DEQUANT>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const float* __restrict__ q, const float* __restrict__ q_loc,
+              const float* __restrict__ w, const T* __restrict__ emb,
+              const float* __restrict__ scale, const float* __restrict__ loc,
+              const int* __restrict__ ids, const float* __restrict__ w_hat, int n, int d,
+              int t, int k, float dist_max, float* __restrict__ out_s,
+              int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  uint64_t* lists = reinterpret_cast<uint64_t*>(smem + align16(size_t(d) * 4));
+  uint64_t* sorted = lists + kWarps * k;
+  int* n_real = reinterpret_cast<int*>(sorted + kWarps * k);
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < d; i += kThreads) qs[i] = q[size_t(b) * d + i];
+  uint64_t* mine = lists + warp * k;
+  for (int s = lane; s < k; s += 32) mine[s] = 0;
+  uint64_t min_key = 0;
+  int min_slot = 0;
   __syncthreads();
-  int total = 0;
-  for (int o = 0; o < kWarps; ++o) total += n_real[o];
-  for (int e = tid; e < kWarps * k; e += kThreads) {
-    const int ow = e / k, j = e % k;
-    if (j >= n_real[ow]) continue;
-    const uint64_t key = sorted[e];
-    int rank = j;
-    for (int o = 0; o < kWarps; ++o) {
-      if (o == ow) continue;
-      const uint64_t* so = sorted + o * k;
-      int lo = 0, hi = n_real[o];
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (so[mid] > key) lo = mid + 1; else hi = mid;
-      }
-      rank += lo;
-    }
-    if (rank < k) {
-      const uint32_t pos = key_pos(key);
-      const int r = pos / cap, row = pos % cap;
-      out_s[size_t(b) * k + rank] = key_score(key);
-      out_i[size_t(b) * k + rank] = ids[size_t(top_c[b * cr + r]) * cap + row];
-    }
-  }
-  for (int s = total + tid; s < k; s += kThreads) {
-    out_s[size_t(b) * k + s] = kNegInf;
-    out_i[size_t(b) * k + s] = -1;
-  }
+
+  scan_rows<T, DEQUANT, false>(emb, scale, loc, ids, nullptr, make_int4(0, 0, 0, 0),
+                               size_t(b) * n, n, 0u, qs, q_loc[2 * b], q_loc[2 * b + 1],
+                               w[2 * b], w[2 * b + 1], d, t, dist_max, w_hat, warp, lane,
+                               mine, k, min_key, min_slot);
+  merge_warp_lists(mine, sorted, n_real, k, warp, lane, tid, out_s + size_t(b) * k,
+                   out_i + size_t(b) * k, [](uint32_t pos) { return int(pos); });
 }
 
 // ---- cluster-major kernel ------------------------------------------------------
@@ -464,6 +532,20 @@ cudaError_t routed(const float* q, const float* q_loc, const float* w, const int
   return cudaGetLastError();
 }
 
+template <typename T, bool DQ>
+cudaError_t gather(const float* q, const float* q_loc, const float* w, const void* emb,
+                   const float* scale, const float* loc, const int* ids, const float* w_hat,
+                   int B, int n, int d, int t, int k, float dist_max, float* out_s,
+                   int* out_i, cudaStream_t stream) {
+  const size_t smem = align16(size_t(d) * 4) + 2 * size_t(kWarps) * k * 8 + kWarps * 4;
+  cudaError_t e = set_smem(gather_kernel<T, DQ>, smem);
+  if (e != cudaSuccess) return e;
+  gather_kernel<T, DQ><<<B, kThreads, smem, stream>>>(
+      q, q_loc, w, static_cast<const T*>(emb), scale, loc, ids, w_hat, n, d, t, k, dist_max,
+      out_s, out_i);
+  return cudaGetLastError();
+}
+
 template <typename T, bool DQ, bool F>
 cudaError_t cluster_major(const float* q, const float* q_loc, const float* w, const int* u,
                           const int* roster, const void* emb, const float* scale,
@@ -532,5 +614,24 @@ extern "C" int fts_cluster_major(const void* q, const void* q_loc, const void* w
     case 5: return FTS_CM(int8_t, true, true);
   }
 #undef FTS_CM
+  return int(cudaErrorInvalidValue);
+}
+
+// Gather path: cand (B, n, d) of emb_kind (int8 requires scale (B, n)),
+// cand_loc (B, n, 2), cand_ids (B, n); outputs local positions (B, k).
+extern "C" int fts_gather(const void* q, const void* q_loc, const void* w, const void* emb,
+                          int emb_kind, const void* scale, const void* loc, const void* ids,
+                          const void* w_hat, int B, int n, int d, int t, int k,
+                          float dist_max, void* out_s, void* out_i, void* stream) {
+#define FTS_GATHER(T, DQ)                                                                     \
+  gather<T, DQ>((const float*)q, (const float*)q_loc, (const float*)w, emb,                  \
+                (const float*)scale, (const float*)loc, (const int*)ids, (const float*)w_hat, \
+                B, n, d, t, k, dist_max, (float*)out_s, (int*)out_i, (cudaStream_t)stream)
+  switch (emb_kind) {
+    case 0: return FTS_GATHER(float, false);
+    case 1: return FTS_GATHER(__nv_bfloat16, false);
+    case 2: return FTS_GATHER(int8_t, true);
+  }
+#undef FTS_GATHER
   return int(cudaErrorInvalidValue);
 }

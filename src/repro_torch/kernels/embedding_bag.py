@@ -1,0 +1,80 @@
+"""Pooled multi-hot embedding lookup (EmbeddingBag, mode sum).
+
+:func:`embedding_bag` launches the hand-written CUDA kernel
+``csrc/embedding_bag.cu`` for a CUDA tensor; it replaces the Pallas
+kernel ``repro/kernels/embedding_bag.py::embedding_bag``. The TPU kernel
+streams the whole table per batch tile (O(V·d)); this one gathers each
+bag's rows (O(B·P·d)), one warp per bag. Bound by the bytes of the rows
+the bags touch, the indices and the output. For a CPU tensor it runs
+:func:`embedding_bag_plain`; any other device raises.
+
+Semantics (the TPU kernel's): ``out[b] = Σ_p table[idx[b, p]]`` in f32
+over ``0 <= idx < V``; a duplicate counts each time, a negative index is
+padding, and an index ``>= V`` adds nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+# kernel launches since the last reset (kernels.ops.reset_launch_counts)
+launches = {"embedding_bag": 0}
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _bind(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.embedding_bag.argtypes = [ptr, i32, ptr, i32, i32, i32, i32, i32,
+                                  ptr, ptr]
+    lib.embedding_bag.restype = i32
+
+
+_lib = build.KernelLibrary("embedding_bag", ["embedding_bag.cu"], _bind)
+
+
+def embedding_bag_plain(table: torch.Tensor, idx: torch.Tensor
+                        ) -> torch.Tensor:
+    """Gather every bag's rows and sum the valid ones in f32."""
+    valid = (idx >= 0) & (idx < table.shape[0])
+    rows = table[torch.where(valid, idx, torch.zeros_like(idx)).long()]
+    rows = torch.where(valid[..., None], rows.float(),
+                       torch.zeros((), device=table.device))
+    return rows.sum(dim=1)
+
+
+def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table (V, d)`` f32/bf16/f16, ``idx (B, P)`` int32 (-1 padded)
+    → pooled sums ``(B, d)`` f32."""
+    if table.device.type == "cpu":
+        return embedding_bag_plain(table, idx)
+    if table.device.type != "cuda":
+        raise ValueError(f"no kernel for device {table.device}")
+    if table.dtype not in _DTYPE:
+        raise TypeError(f"table dtype {table.dtype} not in {list(_DTYPE)}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if table.dim() != 2 or idx.dim() != 2:
+        raise ValueError("table must be (V, d) and idx (B, P)")
+    if idx.device != table.device:
+        raise ValueError(f"idx is on {idx.device}, table on {table.device}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("table and idx must be contiguous")
+    v, d = table.shape
+    b, p = idx.shape
+    out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    if out.numel() == 0:
+        return out
+    vec = int((d * table.element_size()) % 16 == 0
+              and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    err = _lib().embedding_bag(
+        table.data_ptr(), _DTYPE[table.dtype], idx.data_ptr(), b, p, v, d,
+        vec, out.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"embedding_bag launch failed: cudaError {err}")
+    launches["embedding_bag"] += 1
+    return out

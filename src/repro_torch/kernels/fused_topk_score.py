@@ -1,6 +1,6 @@
 """Fused spatio-textual score + running top-k: the query phase's hot loop.
 
-Two hand-written CUDA kernels for Hopper (``csrc/fused_topk_score.cu``),
+Three hand-written CUDA kernels for Hopper (``csrc/fused_topk_score.cu``),
 each with its plain PyTorch version beside it:
 
 * :func:`fused_topk_score_routed` replaces the Pallas kernel
@@ -15,8 +15,14 @@ each with its plain PyTorch version beside it:
   through the roster; it writes one partial top-k list per (query, route)
   pair, which ``engine.merge_cluster_major`` folds per query. Plain
   version: :func:`cluster_major_partials_plain`.
+* :func:`fused_topk_score` replaces the gather-path Pallas kernel
+  ``fused_topk_score`` (``repro.kernels.ops.fused_topk_score``; no engine
+  backend calls it). The caller materializes a per-query candidate copy
+  ``(B, N, d)``; the routed kernel's scan runs over it, one block per
+  query, and returns local positions in ``[0, N)``. Plain version:
+  :func:`gather_topk_plain`.
 
-What bounds both on an H100 is the bytes of the routed clusters' embedding
+What bounds all three on an H100 is the bytes of the scanned embedding
 rows; the kernels read only live rows (padding is skipped by id before its
 row is loaded) and dequantize int8/bf16 in registers. See the CUDA source
 for the design and its numerics.
@@ -25,7 +31,8 @@ Each wrapper sends a CPU tensor to the plain version and launches the
 kernel for a CUDA tensor (or raises); ``launches`` counts kernel launches.
 Scores follow the reference's contract: ``NEG_INF`` (-1e30) with id -1
 past the last valid candidate, and equal scores rank in scan order (route,
-then row), the tie rule of ``jax.lax.top_k``.
+then row), the tie rule of ``jax.lax.top_k``. The gather path returns
+position -1 there instead of id -1.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from repro_torch.core import filters as filters_lib
 from repro_torch.core import serving as serving_lib
 from repro_torch.core import spatial as sp
 from repro_torch.core.index import topk_stable
+from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
@@ -47,10 +55,9 @@ K_MAX = 256
 D_MAX = 1024
 
 # kernel launches since the last reset, by kernel
-launches = {"routed": 0, "cluster_major": 0}
+launches = {"routed": 0, "cluster_major": 0, "gather": 0}
 
 _EMB_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_LIB_INFO: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -58,27 +65,21 @@ def reset_launch_counts() -> None:
         launches[name] = 0
 
 
-def _lib():
-    """The compiled kernels; built by nvcc at first use (kernels/build.py)."""
-    if not _LIB_INFO:
-        from repro_torch.kernels import build
-        lib, info = build.load_library("fused_topk_score",
-                                       ["fused_topk_score.cu"])
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fts_routed.argtypes = ([ptr] * 5 + [i32] + [ptr] * 6
-                                   + [i32] * 8 + [f32] + [ptr] * 3)
-        lib.fts_routed.restype = i32
-        lib.fts_cluster_major.argtypes = ([ptr] * 6 + [i32] + [ptr] * 6
-                                          + [i32] * 10 + [f32] + [ptr] * 3)
-        lib.fts_cluster_major.restype = i32
-        _LIB_INFO.update(lib=lib, info=info)
-    return _LIB_INFO["lib"]
+def _bind(lib) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fts_routed.argtypes = ([ptr] * 5 + [i32] + [ptr] * 6
+                               + [i32] * 8 + [f32] + [ptr] * 3)
+    lib.fts_routed.restype = i32
+    lib.fts_cluster_major.argtypes = ([ptr] * 6 + [i32] + [ptr] * 6
+                                      + [i32] * 10 + [f32] + [ptr] * 3)
+    lib.fts_cluster_major.restype = i32
+    lib.fts_gather.argtypes = ([ptr] * 4 + [i32] + [ptr] * 4 + [i32] * 5
+                               + [f32] + [ptr] * 3)
+    lib.fts_gather.restype = i32
 
 
-def build_info() -> dict:
-    """Build seconds, nvcc/ptxas output and path of the loaded library."""
-    _lib()
-    return dict(_LIB_INFO["info"])
+# the compiled kernels; built by nvcc at first use (kernels/build.py)
+_lib = build.KernelLibrary("fused_topk_score", ["fused_topk_score.cu"], _bind)
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +131,26 @@ def routed_topk_plain(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc, buf_ids,
                           cand_scale=cand_scale)[:, 0]          # (B, N)
     scores, pos = topk_stable(st, k)
     return scores, torch.gather(cand_ids, 1, pos).to(torch.int32)
+
+
+def gather_topk_plain(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids,
+                      w_hat, *, k: int, dist_max: float, cand_scale=None):
+    """Score a materialized candidate copy and take one stable top-k.
+
+    Returns ``(scores (B, k) f32, positions (B, k) int32)``: local
+    positions in ``[0, N)``; a masked row (id < 0) never enters the list,
+    so slots past the last valid candidate are ``(NEG_INF, -1)``."""
+    st = score_candidates(q_emb[:, None], q_loc[:, None], w_st[:, None],
+                          cand_emb, cand_loc, cand_ids[:, None], w_hat,
+                          dist_max=dist_max, cand_scale=cand_scale)[:, 0]
+    scores, pos = topk_stable(st, k)
+    pos = torch.where(torch.gather(cand_ids, 1, pos) >= 0, pos,
+                      torch.full_like(pos, -1)).to(torch.int32)
+    if pos.shape[1] < k:                        # fewer candidates than k
+        pad = k - pos.shape[1]
+        scores = torch.nn.functional.pad(scores, (0, pad), value=NEG_INF)
+        pos = torch.nn.functional.pad(pos, (0, pad), value=-1)
+    return scores, pos
 
 
 def _scatter_to_pairs(part_s, part_i, roster, n_total: int):
@@ -353,4 +374,66 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
     if err:
         raise RuntimeError(f"fts_cluster_major launch failed: cudaError {err}")
     launches["cluster_major"] += 1
+    return out_s, out_i
+
+
+def fused_topk_score(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids, w_hat,
+                     *, k: int, dist_max: float, cand_scale=None):
+    """Gather-path fused score + top-k: ``(scores (B, k) f32, positions
+    (B, k) int32)`` over each query's materialized candidates.
+
+    Replaces ``repro/kernels/fused_topk_score.py::fused_topk_score``.
+    Bound by the bytes of the live candidate rows: one block per query
+    scans its ``N`` rows with the routed kernel's scan (padding skipped
+    by id before its row is read) and returns local positions, -1 past
+    the last valid candidate.
+
+    ``q_emb (B, d)`` f32; ``q_loc``/``w_st (B, 2)`` f32; ``cand_emb (B,
+    N, d)`` f32, bf16, or int8 with ``cand_scale (B, N)`` f32;
+    ``cand_loc (B, N, 2)`` f32; ``cand_ids (B, N)`` int32 (-1 pad);
+    ``w_hat (t,)`` f32."""
+    if q_emb.device.type == "cpu":
+        return gather_topk_plain(q_emb, q_loc, w_st, cand_emb, cand_loc,
+                                 cand_ids, w_hat, k=k, dist_max=dist_max,
+                                 cand_scale=cand_scale)
+    if q_emb.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q_emb.device}")
+    dev = q_emb.device
+    if cand_emb.dtype not in _EMB_KIND:
+        raise TypeError(f"cand_emb dtype {cand_emb.dtype} not in "
+                        f"{list(_EMB_KIND)}")
+    b, n, d = cand_emb.shape
+    if d % 16 or d > D_MAX:
+        raise ValueError(f"embedding width {d} must be a multiple of 16 "
+                         f"and at most {D_MAX}")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k={k} outside the kernel's range [1, {K_MAX}]")
+    if (cand_emb.dtype == torch.int8) != (cand_scale is not None):
+        raise ValueError("int8 candidates need cand_scale (the dequant "
+                         "body); f32/bf16 candidates take none")
+    _check("cand_emb", cand_emb, dtype=cand_emb.dtype, shape=(b, n, d),
+           device=dev)
+    _check("cand_loc", cand_loc, dtype=torch.float32, shape=(b, n, 2),
+           device=dev)
+    _check("cand_ids", cand_ids, dtype=torch.int32, shape=(b, n), device=dev)
+    if cand_scale is not None:
+        _check("cand_scale", cand_scale, dtype=torch.float32, shape=(b, n),
+               device=dev)
+    _check("q_emb", q_emb, dtype=torch.float32, shape=(b, d), device=dev)
+    _check("q_loc", q_loc, dtype=torch.float32, shape=(b, 2), device=dev)
+    _check("w_st", w_st, dtype=torch.float32, shape=(b, 2), device=dev)
+    _check("w_hat", w_hat, dtype=torch.float32, shape=w_hat.shape, device=dev)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_s, out_i
+    err = _lib().fts_gather(
+        _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(cand_emb),
+        _EMB_KIND[cand_emb.dtype], _ptr(cand_scale), _ptr(cand_loc),
+        _ptr(cand_ids), _ptr(w_hat), b, n, d, w_hat.shape[0], k,
+        float(dist_max), _ptr(out_s), _ptr(out_i),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"fts_gather launch failed: cudaError {err}")
+    launches["gather"] += 1
     return out_s, out_i

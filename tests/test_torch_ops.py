@@ -1,0 +1,426 @@
+"""The port's kernel entry point ``repro_torch.kernels.ops`` against the
+reference's ``repro.kernels.ops`` (Pallas in interpret mode) and the
+model oracles.
+
+Inputs come from numpy with a seed; the same arrays go to the reference
+as jax arrays and to the port as CPU tensors, where every function runs
+its kernel's plain PyTorch version. Tolerances are those the reference
+holds its own kernels to (tests/test_kernels.py): gather scores 1e-5
+(ids equal up to ties), flash attention 2e-5 in f32 and 2e-2 absolute in
+bf16, dot interaction 1e-5, embedding bag 1e-4.
+
+The CUDA kernels themselves are compared with the plain versions on the
+card (``@pytest.mark.cuda``, skipped without one).
+"""
+import inspect
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import ops
+
+from test_torch_common import assert_topk_match
+
+DIST_MAX = 1.414
+
+
+def _gather_inputs(rng, b, n, d, t, *, precision="f32", pad_from=None):
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    ql = rng.uniform(size=(b, 2)).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, size=(b, 2)).astype(np.float32)
+    ce = rng.normal(size=(b, n, d)).astype(np.float32)
+    cl = rng.uniform(size=(b, n, 2)).astype(np.float32)
+    ci = rng.integers(-1, 10_000, size=(b, n)).astype(np.int32)
+    if pad_from is not None:
+        ci[:, pad_from:] = -1
+    wh = np.cumsum(rng.uniform(0, 0.01, size=t)).astype(np.float32)
+    scale = None
+    if precision == "int8":
+        scale = (np.abs(ce).max(-1) / 127).astype(np.float32)
+        ce = np.clip(np.rint(ce / scale[..., None]), -127, 127).astype(np.int8)
+    return dict(q=q, ql=ql, w=w, ce=ce, cl=cl, ci=ci, wh=wh, scale=scale)
+
+
+def _gather_both(x, *, k, precision="f32"):
+    """(reference (scores, pos), port (scores, pos)) as numpy."""
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.int8}
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+    sc = x["scale"]
+    ref = ref_ops.fused_topk_score(
+        jnp.asarray(x["q"]), jnp.asarray(x["ql"]), jnp.asarray(x["w"]),
+        jnp.asarray(x["ce"], jdt[precision]), jnp.asarray(x["cl"]),
+        jnp.asarray(x["ci"]), jnp.asarray(x["wh"]), k=k, dist_max=DIST_MAX,
+        cand_scale=None if sc is None else jnp.asarray(sc), interpret=True)
+    t = {key: torch.from_numpy(v) for key, v in x.items() if v is not None}
+    port = ops.fused_topk_score(
+        t["q"], t["ql"], t["w"], t["ce"].to(tdt[precision]), t["cl"],
+        t["ci"], t["wh"], k=k, dist_max=DIST_MAX, cand_scale=t.get("scale"))
+    return ((np.asarray(ref[0]), np.asarray(ref[1])),
+            (port[0].numpy(), port[1].numpy()))
+
+
+# ---------------------------------------------------------------------------
+# gather-path fused_topk_score
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,n,d,t,k", [
+    (8, 1024, 32, 50, 5),
+    (16, 2048, 64, 100, 10),
+    (4, 512, 128, 1000, 20),
+])
+def test_gather_matches_reference(b, n, d, t, k):
+    x = _gather_inputs(np.random.default_rng(0), b, n, d, t)
+    (rs, ri), (ps, pi) = _gather_both(x, k=k)
+    assert ps.dtype == np.float32 and pi.dtype == np.int32
+    assert_topk_match(pi, ps, ri, rs, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_gather_precision_tiers(precision):
+    """bf16 candidates are widened exactly; int8 ones are dequantized as
+    ``float(o) * scale[b, n]`` before the product."""
+    x = _gather_inputs(np.random.default_rng(1), 6, 768, 64, 100,
+                       precision=precision)
+    (rs, ri), (ps, pi) = _gather_both(x, k=12, precision=precision)
+    assert_topk_match(pi, ps, ri, rs, atol=1e-5, rtol=1e-5)
+
+
+def test_gather_padding_only_tail():
+    """Fewer valid candidates than k: the slots past the last valid one
+    are (-1e30, -1), as the reference's running-list init leaves them."""
+    x = _gather_inputs(np.random.default_rng(2), 4, 256, 32, 50, pad_from=7)
+    x["ci"][:, :7] = np.arange(7)
+    (rs, ri), (ps, pi) = _gather_both(x, k=12)
+    np.testing.assert_array_equal(pi, ri)
+    assert (pi[:, 7:] == -1).all() and (ps[:, 7:] == -1e30).all()
+    assert (np.sort(pi[:, :7], axis=1) == np.arange(7)).all()
+    np.testing.assert_allclose(ps, rs, atol=1e-5, rtol=1e-5)
+
+
+def test_gather_fewer_candidates_than_k():
+    """k > N: every candidate is ranked and the rest is (-1e30, -1)."""
+    x = _gather_inputs(np.random.default_rng(6), 5, 16, 32, 50)
+    (rs, ri), (ps, pi) = _gather_both(x, k=20)
+    assert ps.shape == (5, 20)
+    assert_topk_match(pi, ps, ri, rs, atol=1e-5, rtol=1e-5)
+    assert ((pi == -1) == (ps == -1e30)).all()
+
+
+def test_gather_exact_ties_rank_by_position():
+    """Equal scores rank by local position, lowest first (the tie rule of
+    ``jax.lax.top_k`` over [running list, tile]). Integer-valued inputs
+    make every score exact, so positions must be equal bit for bit."""
+    rng = np.random.default_rng(3)
+    x = _gather_inputs(rng, 3, 512, 16, 20)
+    x["q"] = rng.integers(-2, 3, size=x["q"].shape).astype(np.float32)
+    x["ce"] = rng.integers(-2, 3, size=x["ce"].shape).astype(np.float32)
+    x["cl"][:] = x["ql"][:, None, :]                  # one spatial bucket
+    x["w"][:] = (1.0, 0.5)                            # exact products
+    (rs, ri), (ps, pi) = _gather_both(x, k=40)
+    np.testing.assert_array_equal(ps, rs)
+    np.testing.assert_array_equal(pi, ri)
+    assert (np.diff(ps, axis=1) <= 0).all()
+    tied = (np.diff(ps, axis=1) == 0) & (pi[:, 1:] >= 0)
+    assert tied.any() and (np.diff(pi, axis=1)[tied] > 0).all()
+
+
+def test_gather_positions_map_to_routed_ids():
+    """Over a copy gathered from resident buffers (``buf[top_c]``), the
+    gather path's positions mapped through ``cand_ids`` are the routed
+    path's ids, with the same scores."""
+    rng = np.random.default_rng(4)
+    c, cap, d, b, cr, k = 5, 64, 32, 6, 2, 9
+    emb = torch.from_numpy(rng.normal(size=(c, cap, d)).astype(np.float32))
+    ids = rng.permutation(c * cap).reshape(c, cap).astype(np.int32)
+    ids[rng.uniform(size=(c, cap)) < 0.3] = -1
+    ids = torch.from_numpy(ids)
+    loc = torch.from_numpy(rng.uniform(size=(c, cap, 2)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    ql = torch.from_numpy(rng.uniform(size=(b, 2)).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (b, 2)).astype(np.float32))
+    top_c = torch.from_numpy(rng.integers(0, c, (b, cr)).astype(np.int32))
+    wh = torch.cumsum(torch.from_numpy(rng.uniform(0, .01, 50)
+                                       .astype(np.float32)), 0)
+    tc = top_c.long()
+    cand_ids = ids[tc].reshape(b, -1)
+    gs, gp = ops.fused_topk_score(q, ql, w, emb[tc].reshape(b, -1, d),
+                                  loc[tc].reshape(b, -1, 2), cand_ids, wh,
+                                  k=k, dist_max=DIST_MAX)
+    rs, ri = ops.fused_topk_score_routed(q, ql, w, top_c, emb, loc, ids, wh,
+                                         k=k, dist_max=DIST_MAX)
+    mapped = torch.where(gp >= 0, torch.gather(cand_ids, 1, gp.clamp(min=0)
+                                               .long()), -1)
+    np.testing.assert_array_equal(mapped.numpy(), ri.numpy())
+    np.testing.assert_array_equal(gs.numpy(), rs.numpy())
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _qkv(rng, b, s, h, kv, d, dtype=np.float32):
+    return tuple(rng.normal(size=shape).astype(dtype) for shape in
+                 ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
+    (2, 256, 4, 2, 32, True, 0),
+    (1, 128, 4, 4, 64, True, 64),
+    (2, 200, 2, 1, 16, True, 0),          # S not a multiple of 64
+    (1, 256, 8, 2, 32, True, 100),        # window not a multiple of 64
+    (1, 64, 2, 2, 32, False, 0),          # non-causal
+])
+def test_flash_matches_reference(b, s, h, kv, d, causal, window):
+    q, k, v = _qkv(np.random.default_rng(0), b, s, h, kv, d)
+    want = ref_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal,
+                                   window=window, block_q=64, block_k=64,
+                                   interpret=True)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              window=window)
+    assert got.shape == (b, s, h, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_bf16_matches_reference():
+    q, k, v = _qkv(np.random.default_rng(1), 2, 128, 4, 2, 32)
+    want = ref_ops.flash_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), interpret=True)
+    got = ops.flash_attention(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - np.asarray(want, np.float32))
+    assert err.max() < 2e-2
+
+
+def test_flash_matches_layers_oracle():
+    """Also the model's chunked online-softmax attention, with a window."""
+    from repro.models import layers
+    q, k, v = _qkv(np.random.default_rng(2), 2, 192, 4, 2, 32)
+    for window in (0, 72):
+        want = layers.attention_full(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=True,
+                                     window=window, chunk=64)
+        got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=True,
+                                  window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# dot_interaction
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,f,d", [(128, 27, 16), (256, 27, 128), (64, 8, 8)])
+def test_dot_interaction_matches_reference(b, f, d):
+    from repro.models.recsys import dlrm_dot_interaction
+    x = np.random.default_rng(0).normal(size=(b, f, d)).astype(np.float32)
+    got = ops.dot_interaction(torch.from_numpy(x))
+    assert got.shape == (b, f * (f - 1) // 2)
+    want = ref_ops.dot_interaction(jnp.asarray(x), block_m=64, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(dlrm_dot_interaction(x)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dot_interaction_bf16():
+    """f32 sums rounded once to bf16, as the reference's kernel does."""
+    x = np.random.default_rng(1).normal(size=(64, 27, 16)).astype(np.float32)
+    want = ref_ops.dot_interaction(jnp.asarray(x, jnp.bfloat16), block_m=64,
+                                   interpret=True)
+    got = ops.dot_interaction(torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    g, w = got.float().numpy(), np.asarray(want, np.float32)
+    # at most one bf16 rounding step apart (f32 sums in another order)
+    assert (np.abs(g - w) <= np.abs(w) * 2 ** -7 + 1e-5).all()
+    assert (g == w).mean() > 0.95
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("v,d,b,p,block_v", [
+    (1000, 32, 128, 8, 256),
+    (500, 16, 64, 4, 512),     # block_v > v (single tile)
+    (4096, 64, 256, 16, 512),
+])
+def test_embedding_bag_matches_reference(v, d, b, p, block_v):
+    rng = np.random.default_rng(0)
+    tab = rng.normal(size=(v, d)).astype(np.float32)
+    idx = rng.integers(-1, v, size=(b, p)).astype(np.int32)   # -1 anywhere
+    want = ref_ops.embedding_bag(jnp.asarray(tab), jnp.asarray(idx),
+                                 block_v=block_v, interpret=True)
+    got = ops.embedding_bag(torch.from_numpy(tab), torch.from_numpy(idx))
+    assert got.dtype == torch.float32 and got.shape == (b, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_embedding_bag_duplicates_and_padding():
+    tab = np.random.default_rng(1).normal(size=(100, 8)).astype(np.float32)
+    idx = np.array([[3, -1, 3, 3], [-1, -1, -1, -1], [7, 9, -1, 7]],
+                   np.int32)
+    got = ops.embedding_bag(torch.from_numpy(tab), torch.from_numpy(idx))
+    want = ref_ops.embedding_bag(jnp.asarray(tab), jnp.asarray(idx),
+                                 interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got[0].numpy(), 3 * tab[3], rtol=1e-5)
+    assert (got[1].numpy() == 0).all()
+
+
+def test_embedding_bag_index_past_vocab_adds_nothing():
+    """An index >= V lands on the TPU kernel's zero padding rows (or in no
+    tile at all): it adds nothing. The port follows the kernel."""
+    rng = np.random.default_rng(2)
+    v, d = 300, 16
+    tab = rng.normal(size=(v, d)).astype(np.float32)
+    idx = rng.integers(0, v, size=(32, 6)).astype(np.int32)
+    idx[:, 2] = v + rng.integers(0, 500, 32)
+    want = ref_ops.embedding_bag(jnp.asarray(tab), jnp.asarray(idx),
+                                 block_v=128, interpret=True)
+    got = ops.embedding_bag(torch.from_numpy(tab), torch.from_numpy(idx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    keep = np.delete(idx, 2, axis=1)
+    np.testing.assert_allclose(got.numpy(), tab[keep].sum(1), rtol=1e-4,
+                               atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the entry point itself
+# ---------------------------------------------------------------------------
+
+TPU_KNOBS = {"block_m", "block_n", "block_q", "block_k", "block_v",
+             "interpret"}
+
+
+@pytest.mark.parametrize("name", ["fused_topk_score", "flash_attention",
+                                  "dot_interaction", "embedding_bag"])
+def test_signature_is_the_reference_minus_tpu_knobs(name):
+    def params(fn):
+        return [(p.name, p.kind) for p in
+                inspect.signature(fn).parameters.values()
+                if p.name not in TPU_KNOBS]
+    assert params(getattr(ops, name)) == params(getattr(ref_ops, name))
+
+
+def test_cpu_tensors_never_launch_and_counters_cover_every_kernel():
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == {
+        "routed": 0, "cluster_major": 0, "gather": 0, "flash_attention": 0,
+        "dot_interaction": 0, "embedding_bag": 0}
+    ops.dot_interaction(torch.ones(2, 3, 4))
+    ops.embedding_bag(torch.ones(5, 4), torch.zeros(2, 3, dtype=torch.int32))
+    ops.flash_attention(*(torch.ones(1, 8, 2, 16) for _ in range(3)))
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_other_devices_raise():
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.dot_interaction(torch.ones(2, 3, 4, device=meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.embedding_bag(torch.ones(5, 4, device=meta),
+                          torch.zeros(2, 3, dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(*(torch.ones(1, 8, 2, 16, device=meta)
+                              for _ in range(3)))
+    x = torch.ones(2, 4, 16, device=meta)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.fused_topk_score(torch.ones(2, 16, device=meta),
+                             torch.ones(2, 2, device=meta),
+                             torch.ones(2, 2, device=meta), x,
+                             torch.ones(2, 4, 2, device=meta),
+                             torch.ones(2, 4, dtype=torch.int32, device=meta),
+                             torch.ones(5, device=meta), k=2, dist_max=1.0)
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16", "int8"])
+def test_cuda_gather_matches_plain(cuda_device, precision):
+    from repro_torch.kernels import fused_topk_score as fts
+    x = _gather_inputs(np.random.default_rng(5), 8, 1000, 64, 100,
+                       precision=precision, pad_from=990)
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+    t = {key: torch.from_numpy(v).to(cuda_device)
+         for key, v in x.items() if v is not None}
+    args = (t["q"], t["ql"], t["w"], t["ce"].to(tdt[precision]), t["cl"],
+            t["ci"], t["wh"])
+    kw = dict(k=40, dist_max=DIST_MAX, cand_scale=t.get("scale"))
+    before = fts.launches["gather"]
+    got = ops.fused_topk_score(*args, **kw)
+    want = fts.gather_topk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert fts.launches["gather"] == before + 1
+    assert_topk_match(got[1].cpu(), got[0].cpu(), want[1].cpu(),
+                      want[0].cpu(), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_flash_matches_plain(cuda_device, dtype, tol):
+    from repro_torch.kernels import flash_attention as fa
+    for b, s, h, kv, d, causal, window in [(2, 200, 4, 2, 32, True, 0),
+                                           (1, 256, 8, 2, 64, True, 100),
+                                           (1, 130, 4, 4, 128, False, 0)]:
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in
+                   _qkv(np.random.default_rng(6), b, s, h, kv, d))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dot_interaction_matches_plain(cuda_device, dtype):
+    from repro_torch.kernels import dot_interaction as di
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(300, 27, 128))
+                         .astype(np.float32)).to(cuda_device, dtype)
+    got = ops.dot_interaction(x)
+    want = di.dot_interaction_plain(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-5 if
+                               dtype == torch.float32 else 2 ** -7,
+                               atol=1e-5 if dtype == torch.float32 else 1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_matches_plain(cuda_device):
+    from repro_torch.kernels import embedding_bag as eb
+    rng = np.random.default_rng(8)
+    tab = torch.from_numpy(rng.normal(size=(4096, 128)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-1, 4100, (500, 16)).astype(np.int32))
+    tab, idx = tab.to(cuda_device), idx.to(cuda_device)
+    got = ops.embedding_bag(tab, idx)
+    want = eb.embedding_bag_plain(tab, idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
