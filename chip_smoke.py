@@ -7,7 +7,9 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
 
 0. Print the card's name and power limit; build the four kernel libraries
    of ``src/repro_torch/kernels/csrc`` (one nvcc per source, sm_90a, side
-   by side) and print each build's time and ptxas register/spill lines.
+   by side) and print each build's time and ptxas register/spill lines;
+   ``cuobjdump -sass`` of the flash library must show HMMA or HGMMA
+   (tensor-core) instructions in each bf16 and fp16 instantiation.
 1. Hold each kernel (routed, cluster-major) against its plain PyTorch
    version on the card: f32 / bf16 / int8 × unfiltered / filtered × cr 1, 2,
    at a small shape and at d = 768, at k = 20 and k > 32.
@@ -34,6 +36,11 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    ``dlrm-mlperf`` widths (F 27, d 128; a 39,060-row table, bags of 16)
    for B 512 and 262,144. Each output is checked against the plain
    version, then kernel, plain version and one library call are timed.
+   Flash attention in bf16 and fp16 must also stay within one rounding of
+   the plain version on the inputs widened to f32 (``FLASH_ONE_ROUNDING``),
+   at every small shape and both main shapes; SDPA's distance under the
+   same rule is printed for the record. Dot interaction and bmm + triangle
+   are timed in turns over several rounds, and the medians kept.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -569,8 +576,18 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # half-precision outputs: kernel and plain round f32 sums once each, so
 # they may differ by one unit in the last place, at most |x|·2^-mantissa
 HALF_ULP = {"bfloat16": 2 ** -7, "float16": 2 ** -10}
+# flash in 16 bits, one rounding: |kernel - plain_f32| ≤ rel·|plain_f32| +
+# 1e-4, plain_f32 the plain version on the inputs widened to f32, not
+# rounded; rel is half a unit in the last place of the output's type
+FLASH_ONE_ROUNDING = {"bfloat16": 2 ** -8, "float16": 2 ** -11}
 DOT_TOL = 1e-5                   # atol and rtol (f32)
+DOT_ROUNDS, DOT_REPS = 5, 10     # dot vs bmm + triangle, timed in turns
 EBAG_TOL = 1e-4
+
+
+def median(xs):
+    xs = sorted(xs)
+    return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
 
 
 def roof(nbytes, flops, peak):
@@ -612,6 +629,54 @@ def gather_case(g, dev, *, b, n, d, precision, k, t=100, pad_from=None,
                                                 cand_scale=scale)
 
 
+def one_rounding_excess(out, q, k, v, *, causal, window):
+    """max over elements of |out - plain_f32| / (rel·|plain_f32| + 1e-4),
+    plain_f32 on q, k, v widened to f32 and not rounded: ≤ 1 passes."""
+    from repro_torch.kernels import flash_attention as fa
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal, window=window)
+    rel = FLASH_ONE_ROUNDING[str(q.dtype).split(".")[1]]
+    return ((out.float() - want).abs()
+            / (rel * want.abs() + 1e-4)).max().item()
+
+
+def one_rounding_check(out, q, k, v, *, causal, window, what):
+    x = one_rounding_excess(out, q, k, v, causal=causal, window=window)
+    if not x <= 1.0:
+        raise AssertionError(f"{what}: |kernel - plain_f32| is {x:.3g}× the "
+                             f"one-rounding bound")
+    return x
+
+
+def flash_sass_check(lib_path):
+    """→ {function: tensor-core instruction count} for the 16-bit flash
+    instantiations in the built library; raises unless each of them has
+    HMMA or HGMMA instructions."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    found = {}
+    for tag, mangled in (("bfloat16", "13__nv_bfloat16"), ("float16", "6__half")):
+        fns = {n: c for n, c in counts.items()
+               if "flash_tc_kernel" in n and mangled in n}
+        if len(fns) != 4 or min(fns.values()) == 0:
+            raise AssertionError(f"flash {tag}: tensor-core instructions "
+                                 f"per instantiation {fns}; want HMMA or "
+                                 f"HGMMA in all four head dims")
+        found[tag] = sorted(fns.values())
+    return found
+
+
 def phase4_checks(dev):
     """The four new kernels against their plain versions at small shapes,
     over the edge cases of tests/test_torch_ops.py → max |Δ| by kernel."""
@@ -648,12 +713,15 @@ def phase4_checks(dev):
             err["gather"] = max(err["gather"], e)
             n_cases["gather"] += 1
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        dt = str(dtype).split(".")[1]
+        tol = FLASH_TOL[dt]
         for b, s, h, kv, d, causal, window in (
                 (2, 256, 4, 2, 32, True, 0), (1, 128, 4, 4, 64, True, 64),
                 (2, 200, 2, 1, 16, True, 0), (1, 256, 8, 2, 32, True, 100),
                 (1, 64, 2, 2, 32, False, 0), (1, 130, 4, 4, 128, False, 0),
-                (1, 300, 8, 2, 128, True, 100), (1, 520, 4, 2, 128, True, 1)):
+                (1, 300, 8, 2, 128, True, 100), (1, 520, 4, 2, 128, True, 1),
+                (2, 100, 7, 1, 64, True, 0), (1, 333, 7, 7, 16, True, 1),
+                (1, 190, 14, 2, 32, False, 50)):
             q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
             k = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
             v = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
@@ -662,15 +730,23 @@ def phase4_checks(dev):
                                             window=window)
             torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
+            case = (b, s, h, kv, d, causal, window)
             if not e < tol or got.dtype != dtype:
-                raise AssertionError(f"flash {dtype} {(b, s, h, kv, d, causal, window)}: "
-                                     f"max |err| {e} >= {tol}")
+                raise AssertionError(f"flash {dtype} {case}: max |err| {e} "
+                                     f">= {tol}")
+            if dtype != torch.float32:
+                one_rounding_check(got, q, k, v, causal=causal,
+                                   window=window, what=f"flash {dt} {case}")
             err["flash_attention"] = max(err["flash_attention"], e)
             n_cases["flash_attention"] += 1
     for dtype, shapes in ((torch.float32, ((128, 27, 16), (256, 27, 128),
-                                           (64, 8, 8), (32, 5, 6))),
-                          (torch.bfloat16, ((300, 27, 128), (64, 27, 16))),
-                          (torch.float16, ((300, 27, 128),))):
+                                           (64, 8, 8), (32, 5, 6),
+                                           (70, 2, 128), (70, 3, 36),
+                                           (70, 26, 128), (70, 28, 64),
+                                           (70, 33, 130), (9, 27, 7))),
+                          (torch.bfloat16, ((300, 27, 128), (64, 27, 16),
+                                            (70, 33, 12), (70, 2, 8))),
+                          (torch.float16, ((300, 27, 128), (70, 26, 6)))):
         for b, f, d in shapes:
             x = torch.randn(b, f, d, generator=g, device=dev).to(dtype)
             got = kops.dot_interaction(x).float()
@@ -851,8 +927,12 @@ def phase4(dev, ctx):
             raise AssertionError(f"flash {name} {dt}: max |err| {e}")
         del want
         rec = dict(err=e)
+        if dt != "float32":
+            rec["one_rounding"] = one_rounding_check(
+                got, q, k, v, causal=True, window=c["window"],
+                what=f"flash {name} {dt}")
         rec["ms"] = time_ms(lambda: kops.flash_attention(
-            q, k, v, causal=True, window=c["window"]), reps=3)
+            q, k, v, causal=True, window=c["window"]), reps=20)
         rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=True, window=c["window"]), reps=3)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -864,8 +944,13 @@ def phase4(dev, ctx):
         else:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=True, enable_gqa=True)
-        rec["library_ms"] = time_ms(lib, reps=3)
-        lib_err = (lib().transpose(1, 2).float() - got.float()).abs().max().item()
+        rec["library_ms"] = time_ms(lib, reps=20)
+        lib_out = lib().transpose(1, 2)
+        lib_err = (lib_out.float() - got.float()).abs().max().item()
+        if dt != "float32":        # for the record: SDPA rounds P once
+            rec["library_one_rounding"] = one_rounding_excess(
+                lib_out, q, k, v, causal=True, window=c["window"])
+        del lib_out
         pairs = int(mask.sum()) * c["h"]
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         peak = BF16_FLOPS_PER_S if dt == "bfloat16" else F32_FLOPS_PER_S
@@ -875,7 +960,10 @@ def phase4(dev, ctx):
         log(f"phase 4 flash {name} {dt}: {rec['ms']:.3f} ms vs plain "
             f"{rec['plain_ms']:.3f} ms, SDPA {rec['library_ms']:.3f} ms "
             f"(|Δ| {lib_err:.3g}); bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}, {rec['flops'] / 1e9:.2f} GFLOP); max|err| {e:.3g}")
+            f"({rec['bound_by']}, {rec['flops'] / 1e9:.2f} GFLOP); max|err| "
+            f"{e:.3g}; |err| / one-rounding bound: kernel "
+            f"{rec.get('one_rounding', 'n/a')}, SDPA "
+            f"{rec.get('library_one_rounding', 'n/a')}")
         del qt, kt, vt, mask
     err["flash_attention"] = max(err["flash_attention"],
                                  *(r["err"] for r in fk.values()))
@@ -893,17 +981,25 @@ def phase4(dev, ctx):
             raise AssertionError(f"dot_interaction {shape}")
         rec = dict(err=(got - want).abs().max().item())
         del want
-        rec["ms"] = time_ms(lambda: kops.dot_interaction(x))
+        # kernel and bmm + triangle in turns, DOT_ROUNDS rounds of
+        # DOT_REPS launches each: the medians, and the ratio per round
+        ks, ls = [], []
+        for _ in range(DOT_ROUNDS):
+            ks.append(time_ms(lambda: kops.dot_interaction(x), reps=DOT_REPS))
+            ls.append(time_ms(lambda: torch.bmm(x, x.mT)[:, iu, ju],
+                              reps=DOT_REPS))
+        rec["ms"], rec["library_ms"] = median(ks), median(ls)
+        rec["rounds_ms"], rec["rounds_library_ms"] = ks, ls
+        rec["library_over_kernel"] = sorted(b_ / a_ for a_, b_ in zip(ks, ls))
         rec["plain_ms"] = time_ms(lambda: di.dot_interaction_plain(x), reps=3)
-        rec["library_ms"] = time_ms(lambda: torch.bmm(x, x.mT)[:, iu, ju],
-                                    reps=3)
         n_pairs = iu.numel()
         rec.update(roof(x.numel() * 4 + b * n_pairs * 4,
                         b * n_pairs * 2 * DLRM["d"], F32_FLOPS_PER_S), batch=b)
         dk[shape] = rec
         log(f"phase 4 dot_interaction {shape} (B {b}): {rec['ms']:.3f} ms vs "
             f"plain {rec['plain_ms']:.3f} ms, bmm+triu {rec['library_ms']:.3f} "
-            f"ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+            f"ms (per round {[round(r, 3) for r in rec['library_over_kernel']]}"
+            f"× the kernel); bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
             f"max|err| {rec['err']:.3g}")
 
         got = out[("ebag", shape)]
@@ -972,6 +1068,9 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
+    sass = flash_sass_check(infos["flash_attention"]["path"])
+    log(f"phase 0: flash_attention SASS, tensor-core instructions per "
+        f"16-bit instantiation (D 16..128): {sass}")
 
     t0 = time.perf_counter()
     err1 = phase1(dev)
@@ -1034,7 +1133,9 @@ def main() -> int:
             "shapes": {key: {f: v for f, v in rec.items()
                              if f in ("ms", "plain_ms", "library_ms",
                                       "bound_ms", "bound_by", "copy_ms",
-                                      "routed_bit_equal", "err")}
+                                      "routed_bit_equal", "err",
+                                      "one_rounding", "library_one_rounding",
+                                      "library_over_kernel")}
                        for key, rec in r["shapes"].items()}}
         if "library_note" in r:
             entry["library_note"] = r["library_note"]

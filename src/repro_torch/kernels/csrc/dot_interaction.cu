@@ -5,15 +5,34 @@
 // input's dtype) and leaves the upper-triangle compaction to XLA. This kernel
 // writes the triangle directly: out[b, p] = round(Σ_c x[b,i,c]·x[b,j,c]) for
 // the p-th pair (i < j) in np.triu_indices(F, k=1) order (row-major), summed
-// in f32 and rounded once to the input's dtype.
+// in f32 along c in order and rounded once to the input's dtype. No TF32.
 //
 // What bounds it on an H100: the bytes of X (F·d values per row; 27×128 f32
 // is 13.8 KB) and of the output; it does F(F-1)/2·2d flops per row, about 6.5
-// per input byte at f32. Design: a block stages `rows` batch rows in shared
-// memory as f32 (16-byte loads where the row allows), with a row stride of
-// d + 1 floats so the threads of a warp, which read consecutive rows j, hit
-// distinct banks; then each thread owns whole pairs and sums along d with
-// f32 FMAs. Simple, not register-blocked: two shared loads per FMA.
+// per input byte at f32, so the FMAs must keep pace with HBM. Design:
+// * Register-blocked pairs. F is padded up to Fp, a multiple of 4, and cut
+//   into 4-feature blocks; a thread owns one (i-block ≤ j-block) tile of 4×4
+//   pairs of one batch row (28 tiles for F 27) and keeps its 16 sums in
+//   registers. Per 16 bytes of d it reads 4 + 4 vectors from shared memory
+//   and runs 16 FMAs per element pair: one 16-byte shared load per 8 FMAs in
+//   f32, four times fewer than one pair per thread. It writes only the
+//   i < j < F entries.
+// * Conflict-free layout. A stage holds `rows` batch rows × Fp features × one
+//   128-byte chunk of d, in the input's own dtype; rows are `row_elems` apart,
+//   which is 16 bytes past a multiple of 128, and threads take consecutive
+//   rows first, so the 8 threads of a quarter-warp read 8 distinct 16-byte
+//   bank groups. bf16 and fp16 values are widened exactly as they are read
+//   (the same numbers as widening them when staged).
+// * Overlapped loads. Stages are filled by cp.async 16-byte copies in a
+//   double buffer: a block walks its (group of rows, chunk of d) steps and
+//   copies step s+1 while it computes step s. A thread walks its copies with
+//   carrying counters: integer divisions per copy cost as much as the FMAs.
+//   The grid is the blocks the card holds at once (the occupancy API); each
+//   block strides over groups of rows. When
+//   d·sizeof(T) is not a multiple of 16 (or x is not 16-byte aligned) the
+//   stage is filled by plain loads and read one element at a time.
+// The launch shape (rows, threads, row_elems, shared bytes) comes from
+// kernels/dot_interaction.py::launch_shape.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -22,7 +41,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
+constexpr int kStages = 2;                     // the cp.async ring: a double buffer
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -37,73 +57,177 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+// 16 bytes of shared memory → 16 / sizeof(T) floats
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dot_interaction_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int F, int d,
-                       int rows, int vec) {
-  extern __shared__ float xs[];                 // rows × F × (d + 1) floats
-  const int stride = d + 1;
-  const int b0 = blockIdx.x * rows;
-  const int nrows = min(rows, B - b0);
-  const int n_el = nrows * F * d;
-  const T* src = x + size_t(b0) * F * d;
-  if (vec) {                                    // d % V == 0: a vector stays in its row
-    constexpr int V = 16 / sizeof(T);
-    const uint4* src4 = reinterpret_cast<const uint4*>(src);
-    for (int e = threadIdx.x; e < n_el / V; e += kThreads) {
-      const uint4 raw = __ldg(src4 + e);
-      const T* vals = reinterpret_cast<const T*>(&raw);
-      const int row = (e * V) / d, c = (e * V) - row * d;
+__device__ __forceinline__ void load_vec(const T* p, float (&o)[16 / sizeof(T)]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* vals = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int i = 0; i < V; ++i) xs[row * stride + c + i] = to_f32(vals[i]);
-    }
-  } else {
-    for (int e = threadIdx.x; e < n_el; e += kThreads) {
-      const int row = e / d, c = e - row * d;
-      xs[row * stride + c] = to_f32(src[e]);
-    }
+  for (int i = 0; i < int(16 / sizeof(T)); ++i) o[i] = to_f32(vals[i]);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+dot_interaction_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int F, int d,
+                       int rows, int row_elems) {
+  constexpr int DC = 128 / sizeof(T);          // elements of d per chunk
+  constexpr int V = 16 / sizeof(T);            // elements per 16-byte piece
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const stages = reinterpret_cast<T*>(smem_raw);      // kStages × rows × row_elems
+  const int stage_elems = rows * row_elems;
+
+  const int nb = (F + 3) / 4, n_tiles = nb * (nb + 1) / 2, n_pairs = F * (F - 1) / 2;
+  const int tid = threadIdx.x;
+  const bool active = tid < rows * n_tiles;
+  const int r = tid % rows;
+  int ib = 0, jb = 0;
+  if (active) {                                // tile t → (ib ≤ jb), row-major
+    int t = tid / rows;
+    while (t >= nb - ib) { t -= nb - ib; ++ib; }
+    jb = ib + t;
   }
-  __syncthreads();
-  const int n_pairs = F * (F - 1) / 2;
-  for (int e = threadIdx.x; e < nrows * n_pairs; e += kThreads) {
-    const int r = e / n_pairs, p0 = e - r * n_pairs;
-    int i = 0, p = p0;
-    while (p >= F - 1 - i) { p -= F - 1 - i; ++i; }   // row-major triu order
-    const int j = i + 1 + p;
-    const float* xi = xs + (r * F + i) * stride;
-    const float* xj = xs + (r * F + j) * stride;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < d; ++c) acc = fmaf(xi[c], xj[c], acc);
-    out[size_t(b0 + r) * n_pairs + p0] = from_f32<T>(acc);
+
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int n_groups = (B + rows - 1) / rows, n_chunks = (d + DC - 1) / DC;
+  if (bx >= n_groups) return;
+  const int n_steps = ((n_groups - 1 - bx) / gx + 1) * n_chunks;
+
+  // step s = (this block's group s / n_chunks, chunk s % n_chunks) → dst.
+  // A thread's copies e = tid, tid + nthr, ... split into (row rr, feature
+  // f, piece p) by counters that carry instead of dividing per copy.
+  const int nthr = blockDim.x;
+  auto stage_step = [&](int s, T* dst) {
+    const int b0 = (bx + (s / n_chunks) * gx) * rows;
+    const int c0 = (s % n_chunks) * DC, cn = min(DC, d - c0);
+    const int w = VEC ? V : 1, pieces = cn / w, total = rows * F * pieces;
+    const int dp = nthr % pieces, df = (nthr / pieces) % F, dr = nthr / pieces / F;
+    int p = tid % pieces, f = (tid / pieces) % F, rr = tid / pieces / F;
+    const T* src = x + size_t(b0) * F * d + c0;
+    for (int e = tid; e < total; e += nthr) {
+      if (b0 + rr < B) {
+        if constexpr (VEC) {
+          cp_async16(dst + rr * row_elems + f * DC + p * V, src + (rr * F + f) * d + p * V);
+        } else {
+          dst[rr * row_elems + f * DC + p] = src[(rr * F + f) * d + p];
+        }
+      }
+      p += dp;
+      int carry = p >= pieces;
+      p -= carry ? pieces : 0;
+      f += df + carry;
+      carry = f >= F;
+      f -= carry ? F : 0;
+      rr += dr + carry;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {      // one commit group per step
+    if (s < n_steps) stage_step(s, stages + s * stage_elems);
+    else asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    const int ahead = s + kStages - 1;
+    if (ahead < n_steps) stage_step(ahead, stages + (ahead % kStages) * stage_elems);
+    else asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
+    __syncthreads();
+    const int c0 = (s % n_chunks) * DC, cn = min(DC, d - c0);
+    if (active) {
+      const T* st = stages + (s % kStages) * stage_elems;
+      const T* xi = st + r * row_elems + 4 * ib * DC;
+      const T* xj = st + r * row_elems + 4 * jb * DC;
+      if constexpr (VEC) {
+        for (int c = 0; c < cn; c += V) {
+          float a[4][V], bq[4][V];
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) load_vec<T>(xi + ii * DC + c, a[ii]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) load_vec<T>(xj + jj * DC + c, bq[jj]);
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+              for (int cc = 0; cc < V; ++cc) acc[ii][jj] = fmaf(a[ii][cc], bq[jj][cc], acc[ii][jj]);
+        }
+      } else {
+        for (int c = 0; c < cn; ++c) {
+          float a[4], bq[4];
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) a[ii] = to_f32(xi[ii * DC + c]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) bq[jj] = to_f32(xj[jj * DC + c]);
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(a[ii], bq[jj], acc[ii][jj]);
+        }
+      }
+    }
+    if (s % n_chunks == n_chunks - 1) {        // the group's last chunk: write, reset
+      const int b = (bx + (s / n_chunks) * gx) * rows + r;
+      if (active && b < B) {
+        T* ob = out + size_t(b) * n_pairs;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int i = 4 * ib + ii;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = 4 * jb + jj;
+            if (i < j && j < F) ob[i * F - i * (i + 1) / 2 + j - i - 1] = from_f32<T>(acc[ii][jj]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    }
+    __syncthreads();                           // this stage is free for a later step
   }
 }
 
 template <typename T>
-int launch(const void* x, void* out, int B, int F, int d, int rows, int vec,
-           cudaStream_t stream) {
-  const size_t smem = size_t(rows) * F * (d + 1) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(dot_interaction_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return int(e);
-  const int grid = (B + rows - 1) / rows;
-  dot_interaction_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), B, F, d, rows, vec);
+int launch(const void* x, void* out, int B, int F, int d, int rows, int row_elems, int threads,
+           int smem, int vec, cudaStream_t stream) {
+  if (threads > kMaxThreads || size_t(smem) < size_t(kStages) * rows * row_elems * sizeof(T))
+    return int(cudaErrorInvalidValue);
+  auto kern = vec ? dot_interaction_kernel<T, true> : dot_interaction_kernel<T, false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int occ = 0, dev = 0, n_sm = 0;              // grid: the blocks the card holds at once
+  if (e || (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem)) ||
+      (e = cudaGetDevice(&dev)) ||
+      (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)))
+    return int(e);
+  const int grid = min((B + rows - 1) / rows, max(occ, 1) * n_sm);
+  kern<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), B, F,
+                                        d, rows, row_elems);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. x (B, F, d) → out (B, F(F-1)/2).
-// rows: batch rows per block (the wrapper sizes it to the shared memory);
+// rows, row_elems, threads (≤ 256) and smem (≥ 2 stages) from launch_shape;
 // vec: 1 when d·sizeof(T) is a multiple of 16 bytes and x is 16-byte aligned.
 extern "C" int dot_interaction(const void* x, int dtype, int B, int F, int d, int rows,
-                               int vec, void* out, void* stream) {
+                               int row_elems, int threads, int smem, int vec, void* out,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(x, out, B, F, d, rows, vec, s);
-    case 1: return launch<__nv_bfloat16>(x, out, B, F, d, rows, vec, s);
-    case 2: return launch<__half>(x, out, B, F, d, rows, vec, s);
+    case 0: return launch<float>(x, out, B, F, d, rows, row_elems, threads, smem, vec, s);
+    case 1: return launch<__nv_bfloat16>(x, out, B, F, d, rows, row_elems, threads, smem, vec, s);
+    case 2: return launch<__half>(x, out, B, F, d, rows, row_elems, threads, smem, vec, s);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -4,7 +4,9 @@
 ``csrc/dot_interaction.cu`` for a CUDA tensor; it replaces the Pallas
 kernel ``repro/kernels/dot_interaction.py::dot_interaction`` and writes
 the upper triangle (``np.triu_indices(F, k=1)``, row-major) directly
-instead of the full Gram matrix. Bound by the bytes of ``feats``. For a
+instead of the full Gram matrix. Bound by the bytes of ``feats``; each
+thread keeps a 4×4 tile of pairs in registers while ``cp.async`` streams
+the next chunk of rows (:func:`launch_shape` sizes the launch). For a
 CPU tensor it runs :func:`dot_interaction_plain`; any other device
 raises. Sums are f32, rounded once to ``feats``' dtype.
 """
@@ -20,17 +22,15 @@ from repro_torch.kernels import build
 launches = {"dot_interaction": 0}
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# a block stages as many batch rows as fit in 48 KB of shared memory, at
-# most this many; one row may take up to the 227 KB a block can have
-_MAX_ROWS = 8
-_SMEM_TARGET = 48 * 1024
-_SMEM_MAX = 227 * 1024
+THREADS = 256                    # the most threads a block runs (one tile each)
+STAGES = 2                       # the cp.async double buffer (kStages in the .cu)
+SMEM_MAX = 227 * 1024            # shared memory one block may have
+_SMEM_TARGET = 100 * 1024        # both stages; room for two blocks per SM
 
 
 def _bind(lib) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dot_interaction.argtypes = [ptr, i32, i32, i32, i32, i32, i32, ptr,
-                                    ptr]
+    lib.dot_interaction.argtypes = [ptr] + [i32] * 9 + [ptr, ptr]
     lib.dot_interaction.restype = i32
 
 
@@ -40,6 +40,43 @@ _lib = build.KernelLibrary("dot_interaction", ["dot_interaction.cu"], _bind)
 def triu_pairs(f: int, device=None):
     """``(i, j)`` of the pairs i < j in ``np.triu_indices(f, k=1)`` order."""
     return tuple(torch.triu_indices(f, f, offset=1, device=device))
+
+
+def pair_tiles(f: int):
+    """The kernel's tiles: ``(ib, jb)`` with ``ib <= jb`` over the
+    ``ceil(f/4)`` blocks of 4 features, row-major; tile t covers the pairs
+    ``(4·ib + ii, 4·jb + jj)`` with ``i < j < f``."""
+    nb = -(-f // 4)
+    return [(ib, jb) for ib in range(nb) for jb in range(ib, nb)]
+
+
+def launch_shape(f: int, elem_size: int) -> dict:
+    """Rows per block, threads, stage layout and shared bytes of the kernel
+    for ``x (B, f, d)`` with ``elem_size``-byte elements and f >= 2. d does
+    not enter: it streams through the stages 128 bytes at a time.
+
+    A stage holds ``rows`` batch rows × ``fp`` features (f padded to a
+    multiple of 4) × one 128-byte chunk of d, rows ``row_elems`` elements
+    apart (16 bytes past a multiple of 128); two of them form the double
+    buffer. A block runs one thread per (row, tile), at most 256. The grid,
+    the blocks the card holds at once, is the kernel's to compute."""
+    fp = -(-f // 4) * 4
+    tiles = len(pair_tiles(f))
+    if tiles > THREADS:
+        raise ValueError(f"F={f}: {tiles} tiles of 4×4 pairs exceed the "
+                         f"{THREADS} threads of a block")
+    chunk = 128 // elem_size
+    row_elems = fp * chunk + 16 // elem_size
+    row_bytes = row_elems * elem_size
+    rows = max(1, min(THREADS // tiles, _SMEM_TARGET // (STAGES * row_bytes)))
+    if rows >= 8:
+        rows -= rows % 8             # a quarter-warp reads 8 rows' banks
+    smem = STAGES * rows * row_bytes
+    if smem > SMEM_MAX:
+        raise ValueError(f"F={f}: {smem} bytes of shared memory exceed "
+                         f"{SMEM_MAX}")
+    return dict(rows=rows, threads=-(-rows * tiles // 32) * 32, tiles=tiles,
+                fp=fp, chunk=chunk, row_elems=row_elems, smem_bytes=smem)
 
 
 def dot_interaction_plain(feats: torch.Tensor) -> torch.Tensor:
@@ -61,20 +98,18 @@ def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
     if feats.dim() != 3 or not feats.is_contiguous():
         raise ValueError("feats must be a contiguous (B, F, d) tensor")
     b, f, d = feats.shape
-    row_bytes = f * (d + 1) * 4
-    if row_bytes > _SMEM_MAX:
-        raise ValueError(f"F={f}, d={d}: one row needs {row_bytes} bytes of "
-                         f"shared memory, more than {_SMEM_MAX}")
     out = torch.empty((b, f * (f - 1) // 2), dtype=feats.dtype,
                       device=feats.device)
     if out.numel() == 0:
         return out
-    rows = max(1, min(_MAX_ROWS, _SMEM_TARGET // row_bytes))
+    shape = launch_shape(f, feats.element_size())
     vec = int((d * feats.element_size()) % 16 == 0
               and feats.data_ptr() % 16 == 0)
     err = _lib().dot_interaction(
-        feats.data_ptr(), _DTYPE[feats.dtype], b, f, d, rows, vec,
-        out.data_ptr(), torch.cuda.current_stream(feats.device).cuda_stream)
+        feats.data_ptr(), _DTYPE[feats.dtype], b, f, d, shape["rows"],
+        shape["row_elems"], shape["threads"], shape["smem_bytes"], vec,
+        out.data_ptr(),
+        torch.cuda.current_stream(feats.device).cuda_stream)
     if err:
         raise RuntimeError(f"dot_interaction launch failed: cudaError {err}")
     launches["dot_interaction"] += 1

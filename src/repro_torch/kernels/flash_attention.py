@@ -7,8 +7,11 @@ kernel ``repro/kernels/flash_attention.py::flash_attention`` with the
 same contract: ``q (B, S, H, D)``, ``k``/``v (B, S, KV, D)``, head ``h``
 reads KV head ``h // (H // KV)``, f32 accumulation, output in q's dtype,
 masked scores at the finite ``NEG_INF`` and ``l`` floored at 1e-30. Bound
-by operations; the kernel runs them in f32 on the CUDA cores. For a CPU
-tensor it runs :func:`flash_attention_plain`; any other device raises.
+by operations: bf16/fp16 inputs run both products on the tensor cores
+(``mma.sync``, f32 accumulation, P split into two 16-bit parts so P·V
+keeps f32 precision); f32 inputs run f32 FMAs on the CUDA cores. For a
+CPU tensor it runs :func:`flash_attention_plain`; any other device
+raises.
 """
 from __future__ import annotations
 
@@ -94,6 +97,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if x.element_size() == 2 and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

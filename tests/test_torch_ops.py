@@ -10,7 +10,10 @@ holds its own kernels to (tests/test_kernels.py): gather scores 1e-5
 bf16, dot interaction 1e-5, embedding bag 1e-4.
 
 The CUDA kernels themselves are compared with the plain versions on the
-card (``@pytest.mark.cuda``, skipped without one).
+card (``@pytest.mark.cuda``, skipped without one); flash attention in 16
+bits is also held within one rounding of the plain version in f32. The
+dot-interaction kernel's tiling and launch shape are plain Python, tested
+here.
 """
 import inspect
 
@@ -247,6 +250,45 @@ def test_dot_interaction_bf16():
     assert (g == w).mean() > 0.95
 
 
+@pytest.mark.parametrize("f", [2, 3, 4, 5, 8, 26, 27, 28, 33, 48, 64])
+def test_dot_interaction_tiles_cover_each_pair_once(f):
+    """The kernel's 4×4 tiles (ib ≤ jb) hold every pair i < j < F exactly
+    once, in at most one block of threads."""
+    from repro_torch.kernels import dot_interaction as di
+    tiles = di.pair_tiles(f)
+    assert len(tiles) <= di.THREADS
+    seen = [(4 * ib + ii, 4 * jb + jj) for ib, jb in tiles
+            for ii in range(4) for jj in range(4)]
+    pairs = [(i, j) for i, j in seen if i < j < f]
+    assert len(pairs) == len(set(pairs)) == f * (f - 1) // 2
+    assert sorted(pairs) == list(zip(*np.triu_indices(f, k=1)))
+
+
+@pytest.mark.parametrize("elem_size", [4, 2])
+def test_dot_interaction_launch_shape(elem_size):
+    """For F up to 64 (and any d: it streams through the stages 128 bytes
+    at a time) the double buffer fits the 227 KB a block may have, the
+    rows' 16-byte pad keeps copies aligned and quarter-warps on distinct
+    banks, and every (row, tile) has a thread."""
+    from repro_torch.kernels import dot_interaction as di
+    for f in range(2, 65):
+        sh = di.launch_shape(f, elem_size)
+        row_bytes = sh["row_elems"] * elem_size
+        assert sh["smem_bytes"] == 2 * sh["rows"] * row_bytes
+        assert sh["smem_bytes"] <= di.SMEM_MAX == 227 * 1024
+        assert row_bytes % 128 == 16
+        assert sh["chunk"] * elem_size == 128
+        assert sh["fp"] % 4 == 0 and f <= sh["fp"] < f + 4
+        assert row_bytes >= sh["fp"] * 128
+        assert sh["tiles"] == len(di.pair_tiles(f))
+        assert sh["rows"] * sh["tiles"] <= sh["threads"] <= di.THREADS
+        assert sh["threads"] % 32 == 0
+        assert sh["rows"] < 8 or sh["rows"] % 8 == 0
+    assert di.launch_shape(27, 4)["rows"] == 8          # dlrm-mlperf
+    with pytest.raises(ValueError, match="tiles"):
+        di.launch_shape(96, elem_size)
+
+
 # ---------------------------------------------------------------------------
 # embedding_bag
 # ---------------------------------------------------------------------------
@@ -382,35 +424,63 @@ def test_cuda_gather_matches_plain(cuda_device, precision):
                       want[0].cpu(), atol=1e-4, rtol=1e-5)
 
 
+# half a unit in the last place: a 16-bit output rounded once from f32
+ONE_ROUNDING = {torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
+                                       (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
 def test_cuda_flash_matches_plain(cuda_device, dtype, tol):
+    """The kernel against the plain version on the same inputs (f32 2e-5,
+    16-bit 2e-2 absolute), and in 16 bits within one rounding of the plain
+    version on the inputs widened to f32: |o - plain_f32| ≤ rel·|plain_f32|
+    + 1e-4, rel half a unit in the last place. The shapes cut the 64-row,
+    64-key tiles at S not a multiple of 64, D 16 to 128, H/KV 1 and 7 and
+    windows down to 1."""
     from repro_torch.kernels import flash_attention as fa
-    for b, s, h, kv, d, causal, window in [(2, 200, 4, 2, 32, True, 0),
-                                           (1, 256, 8, 2, 64, True, 100),
-                                           (1, 130, 4, 4, 128, False, 0)]:
+    for b, s, h, kv, d, causal, window in [
+            (2, 200, 4, 2, 32, True, 0), (1, 256, 8, 2, 64, True, 100),
+            (1, 130, 4, 4, 128, False, 0), (2, 77, 7, 1, 16, True, 0),
+            (1, 191, 7, 7, 128, True, 1), (1, 321, 14, 2, 32, False, 40),
+            (1, 64, 2, 2, 64, True, 1), (2, 129, 7, 1, 128, True, 65)]:
         q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in
                    _qkv(np.random.default_rng(6), b, s, h, kv, d))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window)
         torch.cuda.synchronize()
+        assert got.dtype == dtype
         assert (got.float() - want.float()).abs().max().item() < tol
+        if dtype != torch.float32:
+            exact = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                             causal=causal, window=window)
+            bound = ONE_ROUNDING[dtype] * exact.abs() + 1e-4
+            assert ((got.float() - exact).abs() <= bound).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_cuda_dot_interaction_matches_plain(cuda_device, dtype):
+    """F 2 to 33 cut the 4×4 pair tiles at every remainder; d 130 and 6 are
+    not multiples of 8 (the path without 16-byte copies), d 130 also not
+    a multiple of the 128-byte chunk."""
     from repro_torch.kernels import dot_interaction as di
-    x = torch.from_numpy(np.random.default_rng(7).normal(size=(300, 27, 128))
-                         .astype(np.float32)).to(cuda_device, dtype)
-    got = ops.dot_interaction(x)
-    want = di.dot_interaction_plain(x)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=1e-5 if
-                               dtype == torch.float32 else 2 ** -7,
-                               atol=1e-5 if dtype == torch.float32 else 1e-3)
+    rng = np.random.default_rng(7)
+    for b, f, d in [(300, 27, 128), (70, 2, 128), (70, 3, 64), (70, 26, 32),
+                    (70, 28, 128), (70, 33, 130), (50, 27, 6)]:
+        x = torch.from_numpy(rng.normal(size=(b, f, d)).astype(np.float32)
+                             ).to(cuda_device, dtype)
+        got = ops.dot_interaction(x)
+        want = di.dot_interaction_plain(x)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(
+            got.float(), want.float(),
+            rtol=1e-5 if dtype == torch.float32 else ONE_ROUNDING[dtype] * 2,
+            atol=1e-5 if dtype == torch.float32 else 1e-3)
 
 
 @pytest.mark.cuda
