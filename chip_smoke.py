@@ -12,17 +12,28 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    (tensor-core) instructions in each bf16 and fp16 instantiation.
 1. Hold each kernel (routed, cluster-major) against its plain PyTorch
    version on the card: f32 / bf16 / int8 × unfiltered / filtered × cr 1, 2,
-   at a small shape and at d = 768, at k = 20 and k > 32.
+   at a small shape and at d = 768, at k = 20 and k > 32; then the chunked
+   designs' edge cases in every tier, filtered and not (``random_case``
+   with ``edge``): caps over several row chunks with exact integer scores
+   tied across tile and chunk boundaries (ids must equal the plain
+   version's), 32 pairs on one cluster (two slot groups), all-padding
+   chunks, k above a chunk's live rows, a filter passing fewer than k
+   rows; and d 16 and d 1024.
 2. Serve a small snapshot built in memory from a seed through
    ``repro_torch.api.Searcher`` on the ``cuda``, ``cuda-cm`` and ``auto``
    backends (one snapshot with a delta segment), against the ``dense``
    backend on a CPU copy.
 3. Full width: ``list-dual-encoder`` (12L / 768 / 12H / 3072, bf16 compute)
-   with seeded random weights, 2,849,754 objects in c = 300 buffers at f32
-   and int8, 4,096 queries through ``Searcher.query`` (batch 256, k 20,
-   cr 2). The kernels' launch counters are read around this run; the first
-   queries are checked against the plain versions; each kernel is timed
-   against its plain version and its bound.
+   with seeded random weights, 2,849,754 objects in c = 300 buffers at f32,
+   bf16 and int8, 4,096 queries through ``Searcher.query`` (batch 256,
+   k 20, cr 2) on ``cuda`` and ``auto``. The kernels' launch counters are
+   read around this run; the first queries are checked against the plain
+   versions. Then the route-skew axis on one 256-query chunk (``SKEWS``:
+   the random router's routes, uniform, Zipf 1.05): for each skew × tier,
+   U and the largest load, the bound, both kernels' ms and ×bound, the
+   ``cuda`` and ``cuda-cm`` path times (plan and fold included), and both
+   kernels against the plain routed scan on the full chunk; the plain
+   versions are timed on the router's routes.
 4. The kernel entry point ``repro_torch.kernels.ops``: the gather-path
    scan, flash attention, dot interaction and embedding bag are first held
    against their plain versions at small shapes over the edge cases of
@@ -123,15 +134,41 @@ def time_ms(fn, reps=5, warmup=1):
 # ---------------------------------------------------------------------------
 
 
-def random_case(g, dev, *, c, cap, d, b, cr, precision, t=1000, pad=0.3):
-    """Random buffers (with padding rows), queries and routes on ``dev``."""
+# rows on either side of the tiled scans' boundaries: tiles of 256, routed
+# chunks of 1024, cluster-major chunks of 2048 (fused_topk_score.launch_shape)
+BOUNDARY_ROWS = (255, 256, 1023, 1024, 2047, 2048)
+
+
+def random_case(g, dev, *, c, cap, d, b, cr, precision, t=1000, pad=0.3,
+                edge=False):
+    """Random buffers (with padding rows), queries and routes on ``dev``.
+
+    ``edge`` builds the chunked designs' edge cases: f32/bf16 data are small
+    integers and every location is one point, so scores are exact and tie
+    often; in clusters 2.. the rows at BOUNDARY_ROWS are all 2s against
+    non-negative queries, the top score, tied across every chunk and tile
+    boundary; cluster 0 is padding over rows [1024, 2048) (a whole routed
+    chunk, half a cluster-major one) and cluster 1 has 5 live rows (fewer
+    than k); the last filter passes a handful of rows."""
     import torch
     from repro_torch.core import index as index_lib
-    emb = torch.randn(c, cap, d, generator=g, device=dev)
-    emb = torch.nn.functional.normalize(emb, dim=-1)
-    ids = torch.randperm(c * cap, generator=g, device=dev).reshape(c, cap)
+    ints = edge and precision != "int8"
+    if ints:
+        emb = torch.randint(-2, 3, (c, cap, d), generator=g, device=dev).float()
+    else:
+        emb = torch.nn.functional.normalize(
+            torch.randn(c, cap, d, generator=g, device=dev), dim=-1)
+    perm = torch.randperm(c * cap, generator=g, device=dev).reshape(c, cap)
     ids = torch.where(torch.rand(c, cap, generator=g, device=dev) < pad,
-                      torch.full_like(ids, -1), ids).to(torch.int32)
+                      torch.full_like(perm, -1), perm).to(torch.int32)
+    loc = torch.rand(c, cap, 2, generator=g, device=dev)
+    if edge:
+        rows = [r for r in BOUNDARY_ROWS if r < cap]
+        emb[2:, rows] = 2.0
+        ids[2:, rows] = perm[2:, rows].to(torch.int32)
+        ids[0, 1024:2048] = -1
+        ids[1, 5:] = -1
+        loc[:] = 0.5
     emb = torch.where(ids[..., None] >= 0, emb, torch.zeros((), device=dev))
     st, scale = index_lib.quantize_rows(emb, precision)
     attrs = torch.stack([
@@ -139,25 +176,30 @@ def random_case(g, dev, *, c, cap, d, b, cr, precision, t=1000, pad=0.3):
         torch.randint(0, 16, (c, cap), generator=g, device=dev),
         torch.randint(0, 1000, (c, cap), generator=g, device=dev)],
         dim=-1).to(torch.int32)
-    q = torch.randn(b, d, generator=g, device=dev) * 0.5
-    q_loc = torch.rand(b, 2, generator=g, device=dev)
+    if ints:
+        q = torch.randint(0, 3, (b, d), generator=g, device=dev).float()
+    else:
+        q = torch.randn(b, d, generator=g, device=dev) * 0.5
+    q_loc = (torch.full((b, 2), 0.5, device=dev) if edge
+             else torch.rand(b, 2, generator=g, device=dev))
     w = torch.rand(b, 2, generator=g, device=dev) + 0.2
     top_c = torch.stack([torch.randperm(c, generator=g, device=dev)[:cr]
                          for _ in range(b)]).to(torch.int32)
     w_hat = torch.cumsum(torch.rand(t, generator=g, device=dev) * 0.2, 0)
     f = torch.tensor([[-1, 0, -2 ** 31, 2 ** 31 - 1], [1, 0, -2 ** 31, 2 ** 31 - 1],
                       [-1, 0b0101, -2 ** 31, 2 ** 31 - 1], [-1, 0, 200, 700],
-                      [0, 0b0011, 100, 2 ** 31 - 1]], dtype=torch.int32,
-                     device=dev)
+                      [0, 0b0011, 100, 2 ** 31 - 1], [1, 0b1000, 500, 505]],
+                     dtype=torch.int32, device=dev)
     q_filt = f[torch.arange(b, device=dev) % f.shape[0]].contiguous()
-    return dict(q=q, q_loc=q_loc, w=w, top_c=top_c, emb=st, loc=torch.rand(
-        c, cap, 2, generator=g, device=dev), ids=ids,
-        scale=scale if precision == "int8" else None, attrs=attrs,
-        q_filt=q_filt, w_hat=w_hat)
+    return dict(q=q, q_loc=q_loc, w=w, top_c=top_c, emb=st, loc=loc, ids=ids,
+                scale=scale if precision == "int8" else None, attrs=attrs,
+                q_filt=q_filt, w_hat=w_hat, exact=ints)
 
 
 def check_kernels(case, *, k, filtered, dist_max=1.4142):
-    """Both kernels vs their plain versions on one case → max errors."""
+    """Both kernels vs their plain versions on one case → max errors. On
+    exact (integer) cases the ids must be equal, ties included."""
+    import torch
     from repro_torch.core import engine as engine_lib
     from repro_torch.core import serving as serving_lib
     from repro_torch.kernels import fused_topk_score as fts
@@ -182,6 +224,13 @@ def check_kernels(case, *, k, filtered, dist_max=1.4142):
     got_m = engine_lib.merge_cluster_major(*got_p, b=b, cr=cr, k=k)
     e_m = topk_match(got_m[1].cpu(), got_m[0].cpu(), want[1].cpu(),
                      want[0].cpu())
+    if case.get("exact"):
+        for name, x, y in (("routed", got, want), ("cluster_major", got_p,
+                                                   want_p),
+                           ("cluster_major merged", got_m, want)):
+            if not (torch.equal(x[1], y[1]) and torch.equal(x[0], y[0])):
+                raise AssertionError(f"{name}: exact case differs from the "
+                                     f"plain version (tie order)")
     return e_r, max(e_p, e_m)
 
 
@@ -204,15 +253,31 @@ def phase1(dev):
                    d=768, b=16, k=84),
               dict(precision="bf16", filtered=True, cr=1, c=4, cap=64, d=32,
                    b=8, k=60)]
+    # the chunked designs' edge cases (random_case(edge=True)): caps over
+    # several chunks with ties at their boundaries, 32 pairs a cluster (two
+    # slot groups), all-padding chunks, k above a chunk's live rows, a
+    # filter passing fewer than k rows; and d 16 and d 1024
+    for precision in ("f32", "bf16", "int8"):
+        for filtered in (False, True):
+            cases += [dict(precision=precision, filtered=filtered, cr=2, c=4,
+                           cap=2600, d=64, b=64, k=40, edge=True),
+                      dict(precision=precision, filtered=filtered, cr=2, c=4,
+                           cap=2600, d=64, b=64, k=5, edge=True),
+                      dict(precision=precision, filtered=filtered, cr=2, c=6,
+                           cap=1500, d=16, b=24, k=20),
+                      dict(precision=precision, filtered=filtered, cr=2, c=4,
+                           cap=700, d=1024, b=20, k=24)]
     for cs in cases:
         case = random_case(g, dev, c=cs["c"], cap=cs["cap"], d=cs["d"],
-                           b=cs["b"], cr=cs["cr"], precision=cs["precision"])
+                           b=cs["b"], cr=cs["cr"], precision=cs["precision"],
+                           edge=cs.get("edge", False))
         e_r, e_c = check_kernels(case, k=cs["k"], filtered=cs["filtered"])
         torch.cuda.synchronize()
         err["routed"] = max(err["routed"], e_r)
         err["cluster_major"] = max(err["cluster_major"], e_c)
         log(f"phase 1 ok: {cs} max|err| routed {e_r:.3g} cm {e_c:.3g}")
-    log(f"phase 1 ok: max |kernel - plain| {err} (tol {ATOL} + {RTOL}·|s|)")
+    log(f"phase 1 ok: {len(cases)} cases, max |kernel - plain| {err} (tol "
+        f"{ATOL} + {RTOL}·|s|)")
     return err
 
 
@@ -354,6 +419,35 @@ def bound(ids_buf, top_c, u, *, d, elem_bytes, k, b, dequant):
                 pairs_scored=pairs)
 
 
+SKEWS = ("router", "uniform", "zipf1.05")
+TIERS = ("f32", "bf16", "int8")
+ZIPF_S = 1.05                    # the reference's benchmarks/bench_kernels.py:57
+
+
+def skew_routes(skew, top_router, *, c, seed):
+    """``(B, cr)`` int32 routes of one chunk under a route skew: the random
+    router's own (``router``), or per query ``cr`` distinct clusters drawn
+    uniformly (``uniform``) or with probability ∝ rank^-1.05 over a seeded
+    permutation of the clusters (``zipf1.05``), from numpy seeded by
+    ``seed``."""
+    import numpy as np
+    import torch
+    if skew == "router":
+        return top_router
+    b, cr = top_router.shape
+    rng = np.random.default_rng(seed)
+    p = None
+    if skew == "zipf1.05":
+        p = np.empty(c)
+        p[rng.permutation(c)] = np.arange(1, c + 1, dtype=np.float64) ** -ZIPF_S
+        p /= p.sum()
+    elif skew != "uniform":
+        raise ValueError(f"unknown skew {skew!r}")
+    routes = np.stack([rng.choice(c, cr, replace=False, p=p)
+                       for _ in range(b)]).astype(np.int32)
+    return torch.from_numpy(routes).to(top_router.device)
+
+
 def phase3(dev):
     import numpy as np
     import torch
@@ -406,17 +500,19 @@ def phase3(dev):
                                             n_clusters=c, spill=3)
     del emb, assign
     buf8 = int8_from_f32(buf32)
+    buf16 = dict(buf32, emb=buf32["emb"].to(torch.bfloat16), precision="bf16")
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     cap = buf32["capacity"]
+    bufs = {"f32": buf32, "bf16": buf16, "int8": buf8}
     gb = lambda x: x.numel() * x.element_size() / 1e9  # noqa: E731
     log(f"phase 3: {n} objects in ({c}, {cap}) buffers, f32 "
-        f"{gb(buf32['emb']):.2f} GB + int8 {gb(buf8['emb']):.2f} GB; routed "
-        f"on the card in {t_route:.1f} s, placed (spill 3, "
-        f"{buf32['n_spilled']} spilled) in {t_build:.1f} s")
+        f"{gb(buf32['emb']):.2f} GB + bf16 {gb(buf16['emb']):.2f} GB + int8 "
+        f"{gb(buf8['emb']):.2f} GB; routed on the card in {t_route:.1f} s, "
+        f"placed (spill 3, {buf32['n_spilled']} spilled) in {t_build:.1f} s")
     snaps = {p: IndexSnapshot.from_parts(cfg, rel, index, norm, b,
                                          dist_max=1.4142)
-             for p, b in (("f32", buf32), ("int8", buf8))}
+             for p, b in bufs.items()}
 
     rng = np.random.default_rng(SEED + 6)
     tok = rng.integers(1, cfg.vocab_size, (n_q, cfg.max_len)).astype(np.int32)
@@ -458,102 +554,121 @@ def phase3(dev):
         if main_launches[name] == 0:
             raise AssertionError(f"kernel {name} not launched on the main path")
 
-    # ---- per-kernel checks and timings on the first chunk ----------------
+    # ---- per-kernel checks and timings: the route-skew axis ---------------
     prefix = engine_lib.make_prefix_fn(cr=cr)
     chunk = [torch.from_numpy(a[:batch]).to(dev) for a in (tok, msk, q_loc)]
     t_prefix = time_ms(lambda: prefix(rel, index, norm, *chunk))
-    q_emb, w, top_c = prefix(rel, index, norm, *chunk)
+    q_emb, w, top_router = prefix(rel, index, norm, *chunk)
     ql = chunk[2]
-    u, roster, n_distinct = serving_lib.cluster_major_plan(top_c,
-                                                            n_clusters=c)
-    n_distinct = int(n_distinct)
-    loads = torch.bincount(top_c.reshape(-1).long(), minlength=c)
-    loads = sorted(loads[loads > 0].tolist(), reverse=True)
-    log(f"phase 3 routing (first chunk): {batch * cr} (query, route) pairs "
-        f"over U={n_distinct} distinct clusters; pairs per cluster {loads}")
-    report = {}
     n_check = 32
-    for p, buf in (("f32", buf32), ("int8", buf8)):
-        snap = snaps[p]
-        w_hat = snap.w_hat
+    want_first = {}
+    for p, buf in bufs.items():                # the searchers' first answers
         scale = buf["scale"] if p == "int8" else None
-        args = (q_emb, ql, w, top_c, buf["emb"], buf["loc"], buf["ids"], w_hat)
-        kw = dict(k=k, dist_max=1.4142, buf_scale=scale)
-        # the searchers' answers for the first queries vs the plain version
-        want = fts.routed_topk_plain(*(a[:n_check] if i < 4 else a
-                                       for i, a in enumerate(args)), **kw)
+        want = fts.routed_topk_plain(
+            q_emb[:n_check], ql[:n_check], w[:n_check], top_router[:n_check],
+            buf["emb"], buf["loc"], buf["ids"], snaps[p].w_hat, k=k,
+            dist_max=1.4142, buf_scale=scale)
         err = 0.0
         for b_name in ("cuda", "auto"):
             ids, sc = results[(p, b_name)]
             err = max(err, topk_match(ids[:n_check], sc[:n_check],
                                       want[1].cpu(), want[0].cpu()))
+        want_first[p] = err
         log(f"phase 3 {p}: first {n_check} queries match the plain "
             f"version (max |err| {err:.3g})")
-        r_ms = time_ms(lambda: fts.fused_topk_score_routed(*args, **kw))
-        cm_ms = time_ms(lambda: fts.fused_topk_score_cluster_major(
-            q_emb, ql, w, u, roster, buf["emb"], buf["loc"], buf["ids"],
-            w_hat, cr=cr, **kw))
-        cm_path_ms = time_ms(lambda: engine_lib._routed_topk(
-            q_emb, ql, w, top_c, buf, w_hat, k=k, backend="cuda-cm",
-            dist_max=1.4142, precision=p))
-        sub = 32
+    w_hat = snaps["f32"].w_hat
+    report = {}
+    for skew in SKEWS:
+        top_c = skew_routes(skew, top_router, c=c, seed=SEED + 10)
+        u, roster, n_distinct = serving_lib.cluster_major_plan(top_c,
+                                                                n_clusters=c)
+        n_distinct = int(n_distinct)
+        loads = torch.bincount(top_c.reshape(-1).long(), minlength=c)
+        loads = sorted(loads[loads > 0].tolist(), reverse=True)
+        log(f"phase 3 skew {skew}: {batch * cr} (query, route) pairs over "
+            f"U={n_distinct} distinct clusters; largest loads {loads[:8]}")
+        rep = dict(U=n_distinct, max_load=loads[0], loads=loads)
+        for p, buf in bufs.items():
+            scale = buf["scale"] if p == "int8" else None
+            args = (q_emb, ql, w, top_c, buf["emb"], buf["loc"], buf["ids"],
+                    w_hat)
+            cm_args = (q_emb, ql, w, u, roster, buf["emb"], buf["loc"],
+                       buf["ids"], w_hat)
+            kw = dict(k=k, dist_max=1.4142, buf_scale=scale)
+            r_ms = time_ms(lambda: fts.fused_topk_score_routed(*args, **kw))
+            cm_ms = time_ms(lambda: fts.fused_topk_score_cluster_major(
+                *cm_args, cr=cr, **kw))
+            path = {b_name: time_ms(lambda: engine_lib._routed_topk(
+                q_emb, ql, w, top_c, buf, w_hat, k=k, backend=b_name,
+                dist_max=1.4142, precision=p)) for b_name in ("cuda", "cuda-cm")}
+            sub = 32
+            # the full chunk: both kernels against the plain routed scan,
+            # timed once (chunks of 32 queries) on the random router's routes
+            got_r = fts.fused_topk_score_routed(*args, **kw)
+            ps, pi = fts.fused_topk_score_cluster_major(*cm_args, cr=cr, **kw)
+            got_c = engine_lib.merge_cluster_major(ps, pi, b=batch, cr=cr, k=k)
 
-        def plain_routed():
-            for s in range(0, batch, sub):
-                fts.routed_topk_plain(*(a[s:s + sub] if i < 4 else a
-                                        for i, a in enumerate(args)), **kw)
+            def plain_routed():
+                return [fts.routed_topk_plain(*(a[s:s + sub] if i < 4 else a
+                                                for i, a in enumerate(args)),
+                                              **kw)
+                        for s in range(0, batch, sub)]
 
-        def plain_cm():
-            for s in range(0, batch, sub):
-                u_s, r_s, _ = serving_lib.cluster_major_plan(
-                    top_c[s:s + sub], n_clusters=c)
-                fts.cluster_major_partials_plain(
-                    q_emb[s:s + sub], ql[s:s + sub], w[s:s + sub], u_s, r_s,
-                    buf["emb"], buf["loc"], buf["ids"], w_hat, cr=cr, **kw)
+            def plain_cm():
+                for s in range(0, batch, sub):
+                    u_s, r_s, _ = serving_lib.cluster_major_plan(
+                        top_c[s:s + sub], n_clusters=c)
+                    fts.cluster_major_partials_plain(
+                        q_emb[s:s + sub], ql[s:s + sub], w[s:s + sub], u_s,
+                        r_s, buf["emb"], buf["loc"], buf["ids"], w_hat,
+                        cr=cr, **kw)
 
-        r_plain = time_ms(plain_routed, reps=1, warmup=1)
-        cm_plain = time_ms(plain_cm, reps=1, warmup=1)
-        # full-chunk parity of both kernels against the plain routed scan
-        got_r = fts.fused_topk_score_routed(*args, **kw)
-        ps, pi = fts.fused_topk_score_cluster_major(
-            q_emb, ql, w, u, roster, buf["emb"], buf["loc"], buf["ids"],
-            w_hat, cr=cr, **kw)
-        got_c = engine_lib.merge_cluster_major(ps, pi, b=batch, cr=cr, k=k)
-        want_all = [], []
-        for s in range(0, batch, sub):
-            ws, wi = fts.routed_topk_plain(*(a[s:s + sub] if i < 4 else a
-                                             for i, a in enumerate(args)), **kw)
-            want_all[0].append(ws)
-            want_all[1].append(wi)
-        ws, wi = torch.cat(want_all[0]).cpu(), torch.cat(want_all[1]).cpu()
-        e_r = topk_match(got_r[1].cpu(), got_r[0].cpu(), wi, ws)
-        e_c = topk_match(got_c[1].cpu(), got_c[0].cpu(), wi, ws)
-        bd = bound(buf["ids"], top_c, u[:n_distinct], d=d,
-                   elem_bytes=buf["emb"].element_size(), k=k, b=batch,
-                   dequant=p == "int8")
-        streamed = int((buf["ids"][top_c.long()] >= 0).sum()) * (
-            d * buf["emb"].element_size())
-        log(f"phase 3 {p} routed: {r_ms:.3f} ms (B={batch}, cr={cr}, "
-            f"U={n_distinct}) vs plain {r_plain:.3f} ms (chunks of {sub}); "
-            f"bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}: "
-            f"{bd['bytes'] / 1e9:.3f} GB, {bd['flops'] / 1e9:.2f} GFLOP); "
-            f"rows streamed {streamed / 1e9:.2f} GB; prefix {t_prefix:.3f} ms")
-        log(f"phase 3 {p} cluster_major: {cm_ms:.3f} ms (+ plan and fold: "
-            f"{cm_path_ms:.3f} ms) vs plain {cm_plain:.3f} ms (chunks of "
-            f"{sub}); bound {bd['bound_ms']:.3f} ms; full-chunk max|err| "
-            f"routed {e_r:.3g} cm {e_c:.3g}")
-        report[p] = dict(routed=dict(ms=r_ms, plain_ms=r_plain, err=max(err, e_r)),
-                         cluster_major=dict(ms=cm_ms, plain_ms=cm_plain,
-                                            path_ms=cm_path_ms,
-                                            err=max(err, e_c)),
-                         bound=bd, prefix_ms=t_prefix, walls=walls)
+            want_all = plain_routed()
+            ws = torch.cat([x[0] for x in want_all]).cpu()
+            wi = torch.cat([x[1] for x in want_all]).cpu()
+            e_r = topk_match(got_r[1].cpu(), got_r[0].cpu(), wi, ws)
+            e_c = topk_match(got_c[1].cpu(), got_c[0].cpu(), wi, ws)
+            bd = bound(buf["ids"], top_c, u[:n_distinct], d=d,
+                       elem_bytes=buf["emb"].element_size(), k=k, b=batch,
+                       dequant=p == "int8")
+            rec = dict(routed=dict(ms=r_ms, x_bound=r_ms / bd["bound_ms"],
+                                   err=e_r),
+                       cluster_major=dict(ms=cm_ms,
+                                          x_bound=cm_ms / bd["bound_ms"],
+                                          err=e_c),
+                       path_ms=path, bound=bd)
+            if skew == "router":
+                rec["routed"]["plain_ms"] = time_ms(plain_routed, reps=1,
+                                                    warmup=0)
+                rec["cluster_major"]["plain_ms"] = time_ms(plain_cm, reps=1,
+                                                           warmup=1)
+                rec["routed"]["err"] = max(e_r, want_first[p])
+                rec["cluster_major"]["err"] = max(e_c, want_first[p])
+            rep[p] = rec
+            log(f"phase 3 skew {skew} {p}: U={n_distinct} max load "
+                f"{loads[0]}; bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}: "
+                f"{bd['bytes'] / 1e9:.3f} GB, {bd['flops'] / 1e9:.2f} GFLOP); "
+                f"routed {r_ms:.3f} ms ({r_ms / bd['bound_ms']:.2f}x bound), "
+                f"cluster_major {cm_ms:.3f} ms "
+                f"({cm_ms / bd['bound_ms']:.2f}x bound); paths cuda "
+                f"{path['cuda']:.3f} ms, cuda-cm {path['cuda-cm']:.3f} ms "
+                f"(plan and fold included); full-chunk max|err| routed "
+                f"{e_r:.3g} cm {e_c:.3g}"
+                + (f"; plain routed {rec['routed']['plain_ms']:.3f} ms, plain "
+                   f"cm {rec['cluster_major']['plain_ms']:.3f} ms (chunks of "
+                   f"{sub})" if skew == "router" else ""))
+        report[skew] = rep
+    log(f"phase 3: prefix {t_prefix:.3f} ms per {batch}-query chunk")
     return dict(report=report, launches=main_launches,
-                distinct_clusters=n_distinct, route_loads=loads,
-                picks=picks, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                queries=n_q, batch=batch, k=k, cr=cr,
+                distinct_clusters=report["router"]["U"],
+                route_loads=report["router"]["loads"], picks=picks,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                queries=n_q, batch=batch, k=k, cr=cr, prefix_ms=t_prefix,
+                walls_ms={f"{p}/{b}": wall * 1e3
+                          for (p, b), wall in walls.items()},
                 qps={f"{p}/{b}": n_q / wall for (p, b), wall in walls.items()},
-                ctx=dict(buf32=buf32, buf8=buf8, w_hat=snaps["f32"].w_hat,
-                         q_emb=q_emb, ql=ql, w=w, top_c=top_c))
+                ctx=dict(buf32=buf32, buf8=buf8, w_hat=w_hat, q_emb=q_emb,
+                         ql=ql, w=w, top_c=top_router))
 
 
 # ---------------------------------------------------------------------------
@@ -1091,23 +1206,29 @@ def main() -> int:
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
                 "cluster_major": "src/repro/kernels/fused_topk_score.py:509"}
     kernels = []
+    skews = p3["report"]
     for name in ("routed", "cluster_major"):
-        f32, i8 = p3["report"]["f32"], p3["report"]["int8"]
+        main_rec = skews["router"]["f32"]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": p3["launches"][name],
-            "max_abs_err": max(err1[name], f32[name]["err"], i8[name]["err"]),
-            "ms": f32[name]["ms"], "plain_ms": f32[name]["plain_ms"],
-            "bound_ms": f32["bound"]["bound_ms"],
-            "bound_by": f32["bound"]["bound_by"], "library_ms": None,
+            "max_abs_err": max([err1[name]] + [
+                skews[sk][p][name]["err"] for sk in skews for p in TIERS]),
+            "ms": main_rec[name]["ms"], "plain_ms": main_rec[name]["plain_ms"],
+            "bound_ms": main_rec["bound"]["bound_ms"],
+            "bound_by": main_rec["bound"]["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes a fused "
                             "score + top-k",
             "shape": {"queries": p3["batch"], "cr": p3["cr"], "k": p3["k"],
-                      "precision": "f32",
+                      "precision": "f32", "skew": "router",
                       "distinct_clusters": p3["distinct_clusters"]},
-            "int8": {"ms": i8[name]["ms"], "plain_ms": i8[name]["plain_ms"],
-                     "bound_ms": i8["bound"]["bound_ms"],
-                     "bound_by": i8["bound"]["bound_by"]},
+            "skews": {sk: {p: {"ms": rec[p][name]["ms"],
+                               "x_bound": rec[p][name]["x_bound"],
+                               "plain_ms": rec[p][name].get("plain_ms"),
+                               "bound_ms": rec[p]["bound"]["bound_ms"],
+                               "bound_by": rec[p]["bound"]["bound_by"]}
+                           for p in TIERS}
+                      for sk, rec in skews.items()},
         })
     csrc = "src/repro_torch/kernels/csrc/"
     new = {"gather": ("fused_topk_score.cu",
@@ -1140,13 +1261,14 @@ def main() -> int:
         if "library_note" in r:
             entry["library_note"] = r["library_note"]
         kernels.append(entry)
-    rep = p3["report"]
     log(json.dumps({
         "card": card, "route_loads": p3["route_loads"], "qps": p3["qps"],
-        "picks": p3["picks"], "prefix_ms": rep["f32"]["prefix_ms"],
-        "cm_with_plan_and_fold_ms": {p: rep[p]["cluster_major"]["path_ms"]
-                                     for p in ("f32", "int8")},
-        "bound_detail": {p: rep[p]["bound"] for p in ("f32", "int8")},
+        "walls_ms": p3["walls_ms"], "picks": p3["picks"],
+        "prefix_ms": p3["prefix_ms"],
+        "skews": {sk: {"U": rec["U"], "max_load": rec["max_load"],
+                       **{p: {"path_ms": rec[p]["path_ms"],
+                              "bound": rec[p]["bound"]} for p in TIERS}}
+                  for sk, rec in skews.items()},
         "peak_device_gb": p3["peak_gb"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,27 +5,36 @@ each with its plain PyTorch version beside it:
 
 * :func:`fused_topk_score_routed` replaces the Pallas kernel
   ``repro/kernels/fused_topk_score.py::fused_topk_score_routed`` (the
-  reference engine's ``pallas`` backend). Query-major: one block per
-  query scans the live rows of its ``cr`` routed clusters. Plain version:
-  :func:`routed_topk_plain` (gather + one stable top-k).
+  reference engine's ``pallas`` backend). Query-major and plan-free:
+  work items of (row chunk, group of ``16 / cr`` queries, distinct
+  cluster among the group's routes), built on the device from ``top_c``
+  alone (:func:`routed_items`) and walked chunk-major by persistent
+  blocks; an item reads its cluster chunk once for the group's pairs
+  routed to it, and the chunk partials are merged by key into ``(B, k)``.
+  Plain version: :func:`routed_topk_plain` (gather + one stable top-k).
 * :func:`fused_topk_score_cluster_major` replaces
-  ``fused_topk_score_cluster_major`` (the ``pallas-cm`` backend). One
-  block per (distinct routed cluster, 8 roster slots) streams the
-  cluster's live rows once for all 8 queries, reading each query row
-  through the roster; it writes one partial top-k list per (query, route)
-  pair, which ``engine.merge_cluster_major`` folds per query. Plain
-  version: :func:`cluster_major_partials_plain`.
+  ``fused_topk_score_cluster_major`` (the ``pallas-cm`` backend). Work
+  items of (distinct routed cluster, 16 roster slots, row chunk), built on
+  the device from the plan (:func:`cluster_major_items` is the same
+  arithmetic) and walked by persistent blocks: one chunk is read once for
+  all 16 slots, and a hot cluster spreads over many blocks. It writes one
+  partial top-k list per (query, route) pair, which
+  ``engine.merge_cluster_major`` folds per query. Plain version:
+  :func:`cluster_major_partials_plain`.
 * :func:`fused_topk_score` replaces the gather-path Pallas kernel
   ``fused_topk_score`` (``repro.kernels.ops.fused_topk_score``; no engine
   backend calls it). The caller materializes a per-query candidate copy
-  ``(B, N, d)``; the routed kernel's scan runs over it, one block per
-  query, and returns local positions in ``[0, N)``. Plain version:
-  :func:`gather_topk_plain`.
+  ``(B, N, d)``; one block per query scans it and returns local positions
+  in ``[0, N)``. Plain version: :func:`gather_topk_plain`.
 
 What bounds all three on an H100 is the bytes of the scanned embedding
-rows; the kernels read only live rows (padding is skipped by id before its
-row is loaded) and dequantize int8/bf16 in registers. See the CUDA source
-for the design and its numerics.
+rows. The routed and cluster-major kernels stage rows in their stored
+type through a cp.async ring (tiles that are all padding are skipped by
+id before a row is fetched), score a register tile of (query, row) pairs
+per thread, and keep each chunk's top k behind a threshold; their chunk
+partials are merged by key (:func:`merge_partials_plain` is the plain
+version of that merge). See the CUDA source for the design and its
+numerics; :func:`launch_shape` sizes both launches.
 
 Each wrapper sends a CPU tensor to the plain version and launches the
 kernel for a CUDA tensor (or raises); ``launches`` counts kernel launches.
@@ -49,10 +58,20 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-# the largest k a kernel keeps in its per-warp lists (shared memory)
+# the largest k a kernel keeps in its top-k lists (shared memory)
 K_MAX = 256
-# the cluster-major kernel holds a query row in registers: d ≤ 1024
+# the widest embedding the kernels are held against their plain versions at
 D_MAX = 1024
+
+# the tiled scans (routed, cluster-major): kTile ... in csrc/fused_topk_score.cu
+TILE_ROWS = 256                  # rows per tile: one row per thread
+CHUNK_BYTES = 128                # bytes of each row one ring stage holds
+STAGES = 2                       # the cp.async ring
+GROUP = 16                       # query slots per work item
+CAND_CAP = TILE_ROWS // 2        # candidates a slot takes per half tile
+CHUNK_ROWS = 1024                # rows per work item
+SMEM_MAX = 232_448               # shared memory one block may have (227 KB)
+SMEM_TWO_PER_SM = 115_712        # the most two blocks of an SM may each have
 
 # kernel launches since the last reset, by kernel
 launches = {"routed": 0, "cluster_major": 0, "gather": 0}
@@ -66,12 +85,14 @@ def reset_launch_counts() -> None:
 
 
 def _bind(lib) -> None:
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fts_routed.argtypes = ([ptr] * 5 + [i32] + [ptr] * 6
-                               + [i32] * 8 + [f32] + [ptr] * 3)
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    lib.fts_routed.argtypes = ([ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 8
+                               + [f32, i32, i64] + [ptr] * 6)
     lib.fts_routed.restype = i32
     lib.fts_cluster_major.argtypes = ([ptr] * 6 + [i32] + [ptr] * 6
-                                      + [i32] * 10 + [f32] + [ptr] * 3)
+                                      + [i32] * 10 + [f32, i32, i64]
+                                      + [ptr] * 6)
     lib.fts_cluster_major.restype = i32
     lib.fts_gather.argtypes = ([ptr] * 4 + [i32] + [ptr] * 4 + [i32] * 5
                                + [f32] + [ptr] * 3)
@@ -213,6 +234,193 @@ def cluster_major_partials_plain(q_emb, q_loc, w_st, u, roster, buf_emb,
 
 
 # ---------------------------------------------------------------------------
+# The tiled scans' launch shape, work items and chunk partials (host side)
+# ---------------------------------------------------------------------------
+
+
+def _tile_smem(chunk_rows: int, k: int, elem_size: int) -> int:
+    """Shared bytes of one block of the tiled scan: ``tile_smem`` in the
+    CUDA source, field by field."""
+    a16 = lambda x: -(-x // 16) * 16  # noqa: E731
+    kce = CHUNK_BYTES // elem_size
+    stage = a16(TILE_ROWS * CHUNK_BYTES + GROUP * kce * 4)
+    return (stage * STAGES + a16(chunk_rows * 4)
+            + a16((chunk_rows // TILE_ROWS + 1) * 4)
+            + GROUP * CAND_CAP * 8             # candidate buffers
+            + 2 * GROUP * k * 8                # double-buffered lists
+            + GROUP * (8 + 8 + 16 + 16 + 5 * 4))
+
+
+def launch_shape(*, cap: int, k: int, elem_size: int) -> dict:
+    """The launch of the routed and cluster-major scans over buffers of
+    capacity ``cap``: rows per chunk (a multiple of the 256-row tile, at
+    most the buffer's), chunks per cluster, shared bytes per block and
+    the blocks an SM holds (two at the main path's k of 20). d does not
+    enter: rows stream through the ring 128 bytes at a time."""
+    chunk = min(CHUNK_ROWS, -(-cap // TILE_ROWS) * TILE_ROWS)
+    smem = _tile_smem(chunk, k, elem_size)
+    if smem > SMEM_MAX:
+        raise ValueError(f"k={k} needs {smem} bytes of shared memory "
+                         f"(limit {SMEM_MAX})")
+    return dict(chunk_rows=chunk, n_chunks=-(-cap // chunk), smem_bytes=smem,
+                blocks_per_sm=2 if smem <= SMEM_TWO_PER_SM else 1)
+
+
+def routed_groups(b: int, cr: int) -> tuple:
+    """The routed kernel's query groups: ``(queries per group, groups)``;
+    a group's ``qg·cr ≤ 16`` (query, route) pairs fill at most one item's
+    slots."""
+    if not 1 <= cr <= GROUP:
+        raise ValueError(f"cr={cr} outside the routed kernel's [1, {GROUP}]")
+    qg = GROUP // cr
+    return qg, -(-b // qg)
+
+
+def routed_items(top_c):
+    """The routed kernel's work items, as ``routed_groups_kernel`` builds
+    them on the device from ``top_c (B, cr)`` alone: per query group, its
+    distinct routed clusters in order of first appearance, each with the
+    group's pairs (``q·cr + r``) routed to it. Returns ``(groups, offsets)``:
+    ``groups[g]`` a list of ``(cluster, [pairs])``, ``offsets`` the
+    exclusive prefix sum of the distinct counts (``offsets[-1]`` items per
+    chunk). Item ``ch·offsets[-1] + offsets[g] + dd`` is (chunk ``ch``,
+    group ``g``, distinct cluster ``dd``): chunk-major across the batch."""
+    b, cr = top_c.shape
+    qg, n_groups = routed_groups(b, cr)
+    flat = top_c.reshape(-1).tolist()
+    groups = []
+    for g in range(n_groups):
+        distinct = {}
+        for p in range(g * qg * cr, min(b * cr, (g + 1) * qg * cr)):
+            distinct.setdefault(flat[p], []).append(p)
+        groups.append(list(distinct.items()))
+    offsets = [0]
+    for items in groups:
+        offsets.append(offsets[-1] + len(items))
+    return groups, offsets
+
+
+def routed_item(item: int, groups, offsets):
+    """Item number → ``(chunk, cluster, pairs)``, by the kernel's arithmetic."""
+    per_chunk = offsets[-1]
+    ch, rem = divmod(item, per_chunk)
+    g = max(i for i in range(len(groups)) if offsets[i] <= rem)
+    cluster, pairs = groups[g][rem - offsets[g]]
+    return ch, cluster, pairs
+
+
+def cluster_major_items(roster, *, n_total: int, n_chunks: int):
+    """The cluster-major kernel's work items, as its two plan kernels
+    build them on the device: distinct cluster ``i`` has ``groups[i] =
+    ceil((last live slot + 1) / 16)`` slot groups and ``n_chunks``
+    row chunks, numbered from ``offsets[i]`` chunk-major (item
+    ``offsets[i] + ch·groups[i] + g``). Returns ``(groups (u_max,),
+    offsets (u_max + 1,))`` int64; ``offsets[-1]`` is the item count."""
+    live = (roster >= 0) & (roster < n_total)
+    slot = torch.arange(roster.shape[1], device=roster.device)
+    last = torch.where(live, slot, torch.full_like(slot, -1)).amax(dim=1) \
+        if roster.shape[1] else torch.full((roster.shape[0],), -1)
+    groups = (last.long() + GROUP) // GROUP
+    offsets = torch.zeros(roster.shape[0] + 1, dtype=torch.int64,
+                          device=roster.device)
+    offsets[1:] = torch.cumsum(groups * n_chunks, 0)
+    return groups, offsets
+
+
+def cluster_major_item(item: int, groups, offsets):
+    """Item number → ``(cluster slot i, slot group g, chunk ch)``, by the
+    kernel's binary search over ``offsets``."""
+    i = int(torch.searchsorted(offsets, torch.tensor(item), right=True)) - 1
+    local = item - int(offsets[i])
+    return i, local % int(groups[i]), local // int(groups[i])
+
+
+def chunk_partials_plain(st, ids, *, k: int, chunk_rows: int, pos0=None):
+    """Scores ``st (..., L, n)`` of ``L`` scanned rows lists with ids
+    ``(..., L, n)`` → the kernels' chunk partials: per list and chunk of
+    ``chunk_rows`` rows, the top k by (score desc, row asc), as ``(scores,
+    pos, ids)`` of shape ``(..., L·n_chunks, k)``; ``pos`` is the scan
+    position ``pos0[l] + row`` (``pos0`` defaults to 0). Masked rows (id <
+    0) never enter: their slots are ``(NEG_INF, -1, -1)``."""
+    *lead, n_lists, n = st.shape
+    n_chunks = -(-n // chunk_rows)
+    pad = n_chunks * chunk_rows - n
+    st = torch.where(ids >= 0, st, torch.full_like(st, NEG_INF))
+    st = torch.nn.functional.pad(st, (0, pad), value=NEG_INF)
+    ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+    st = st.reshape(*lead, n_lists, n_chunks, chunk_rows)
+    ids = ids.reshape(*lead, n_lists, n_chunks, chunk_rows)
+    kk = min(k, chunk_rows)
+    vals, local = topk_stable(st, kk)
+    row = local + torch.arange(n_chunks, device=st.device)[:, None] * chunk_rows
+    pos = row if pos0 is None else row + pos0.reshape(n_lists, 1, 1)
+    got_ids = torch.gather(ids, -1, local)
+    real = got_ids >= 0
+    vals = torch.where(real, vals, torch.full_like(vals, NEG_INF))
+    pos = torch.where(real, pos, torch.full_like(pos, -1))
+    got_ids = torch.where(real, got_ids, torch.full_like(got_ids, -1))
+    if kk < k:
+        vals = torch.nn.functional.pad(vals, (0, k - kk), value=NEG_INF)
+        pos = torch.nn.functional.pad(pos, (0, k - kk), value=-1)
+        got_ids = torch.nn.functional.pad(got_ids, (0, k - kk), value=-1)
+    shape = (*lead, n_lists * n_chunks, k)
+    return vals.reshape(shape), pos.reshape(shape), got_ids.reshape(shape)
+
+
+def merge_partials_plain(scores, pos, ids, *, k: int):
+    """The kernels' merge of chunk partials ``(..., L, k)`` into ``(...,
+    k)``: the top k of all real entries (id ≥ 0) by (score desc, scan
+    position asc); ``(NEG_INF, -1)`` past the last real one. Returns
+    ``(scores f32, ids int32)``."""
+    lead = scores.shape[:-2]
+    s = scores.reshape(*lead, -1)
+    p = pos.reshape(*lead, -1)
+    i = ids.reshape(*lead, -1)
+    real = i >= 0
+    big = torch.iinfo(torch.int64).max
+    order = torch.argsort(torch.where(real, p.long(), big), dim=-1,
+                          stable=True)
+    s, i = torch.gather(s, -1, order), torch.gather(i, -1, order)
+    s = torch.where(i >= 0, s, torch.full_like(s, -float("inf")))
+    vals, top = topk_stable(s, min(k, s.shape[-1]))
+    out_i = torch.gather(i, -1, top)
+    vals = torch.where(out_i >= 0, vals, torch.full_like(vals, NEG_INF))
+    if vals.shape[-1] < k:
+        vals = torch.nn.functional.pad(vals, (0, k - vals.shape[-1]),
+                                       value=NEG_INF)
+        out_i = torch.nn.functional.pad(out_i, (0, k - out_i.shape[-1]),
+                                        value=-1)
+    return vals.float(), out_i.to(torch.int32)
+
+
+def routed_partials_plain(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
+                          buf_ids, w_hat, *, k: int, dist_max: float,
+                          chunk_rows: int, buf_scale=None, buf_attrs=None,
+                          q_filt=None):
+    """The routed kernel's chunk partials ``(B, cr·n_chunks, k)`` (scores,
+    scan positions ``route·cap + row``, ids): fold them with
+    :func:`merge_partials_plain` to get :func:`routed_topk_plain`."""
+    b, cr = top_c.shape
+    cap = buf_emb.shape[1]
+    tc = top_c.long()
+    cand_ids = buf_ids[tc]                                  # (B, cr, cap)
+    if buf_attrs is not None:
+        ok = filters_lib.predicate_mask(buf_attrs[tc], q_filt[:, None, None, :])
+        cand_ids = torch.where(ok, cand_ids, torch.full_like(cand_ids, -1))
+    cand_scale = None if buf_scale is None else buf_scale[tc]
+    st = torch.stack([
+        score_candidates(q_emb[:, None], q_loc[:, None], w_st[:, None],
+                         buf_emb[tc[:, r]], buf_loc[tc[:, r]],
+                         cand_ids[:, r][:, None], w_hat, dist_max=dist_max,
+                         cand_scale=None if cand_scale is None
+                         else cand_scale[:, r])[:, 0]
+        for r in range(cr)], dim=1)                         # (B, cr, cap)
+    pos0 = torch.arange(cr, device=st.device) * cap
+    return chunk_partials_plain(st, cand_ids, k=k, chunk_rows=chunk_rows,
+                                pos0=pos0)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -263,6 +471,17 @@ def _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale, buf_attrs, w_hat,
     return c, cap, d
 
 
+def _check_grid(blocks: int, n_lists: int, positions: int):
+    """Limits of the tiled scans: blocks (or work items) and scan
+    positions fit 31 bits, and the merge's list heads its shared memory."""
+    if blocks >= 2 ** 31 or positions >= 2 ** 31:
+        raise ValueError(f"{blocks} blocks / {positions} scan positions "
+                         f"exceed the kernels' 31-bit indices")
+    if n_lists > 3072:
+        raise ValueError(f"{n_lists} partial lists per output row exceed "
+                         f"the merge's 3072")
+
+
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
@@ -274,8 +493,12 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
     int32)`` over each query's ``top_c (B, cr)`` clusters.
 
     Replaces ``repro/kernels/fused_topk_score.py::fused_topk_score_routed``.
-    Bound by the bytes of the routed rows: one block per query reads
-    only the live rows of its clusters, dequantizing in registers.
+    Bound by the bytes of the routed rows: a work item (row chunk, query
+    group, distinct cluster of the group's routes; :func:`routed_items`)
+    stages the cluster's chunk once, in its stored type, for the group's
+    pairs routed to it, and widens the rows in registers; a merge kernel
+    folds the chunk partials by key (:func:`launch_shape`,
+    :func:`routed_partials_plain`). ``cr`` ≤ 16.
 
     ``q_emb (B, d)`` f32; ``q_loc``/``w_st (B, 2)`` f32; ``buf_emb (c,
     cap, d)`` f32, bf16, or int8 with ``buf_scale (c, cap)``; ``buf_loc
@@ -304,13 +527,22 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_s, out_i
+    shape = launch_shape(cap=cap, k=k, elem_size=buf_emb.element_size())
+    n_lists = cr * shape["n_chunks"]
+    n_groups = routed_groups(b, cr)[1]
+    _check_grid(n_groups * GROUP * shape["n_chunks"], n_lists, cr * cap)
+    work = torch.empty(n_groups * (2 + GROUP + GROUP * GROUP) + 2,
+                       dtype=torch.int32, device=dev)
+    part_key = torch.empty((b * n_lists, k), dtype=torch.int64, device=dev)
+    part_id = torch.empty((b * n_lists, k), dtype=torch.int32, device=dev)
     err = _lib().fts_routed(
         _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(top_c), _ptr(buf_emb),
         _EMB_KIND[buf_emb.dtype], _ptr(buf_scale), _ptr(buf_loc),
         _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt), _ptr(w_hat),
         int(buf_attrs is not None), b, cr, c, cap, d, w_hat.shape[0], k,
-        float(dist_max), _ptr(out_s), _ptr(out_i),
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(dist_max), shape["chunk_rows"], shape["smem_bytes"],
+        _ptr(work), _ptr(part_key), _ptr(part_id),
+        _ptr(out_s), _ptr(out_i), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fts_routed launch failed: cudaError {err}")
     launches["routed"] += 1
@@ -325,8 +557,9 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
 
     Replaces ``repro/kernels/fused_topk_score.py::
     fused_topk_score_cluster_major``. Bound by the bytes of the distinct
-    routed clusters' rows: a block stages a tile of live rows once in
-    shared memory for 8 roster slots, one warp each.
+    routed clusters' rows: a work item (:func:`cluster_major_items`)
+    stages one chunk of a cluster's live rows once for 16 roster slots;
+    the chunk partials are merged by key.
 
     ``u (u_max,)`` / ``roster (u_max, qcap)`` int32 from
     ``serving.cluster_major_plan`` (``B·cr`` marks an empty slot), which
@@ -349,8 +582,6 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
                                buf_attrs, w_hat, k=k, device=dev)
     b = q_emb.shape[0]
     u_max, qcap = roster.shape
-    if u_max > 65535:
-        raise ValueError(f"u_max={u_max} exceeds the grid's y limit")
     _check("q_emb", q_emb, dtype=torch.float32, shape=(b, d), device=dev)
     _check("q_loc", q_loc, dtype=torch.float32, shape=(b, 2), device=dev)
     _check("w_st", w_st, dtype=torch.float32, shape=(b, 2), device=dev)
@@ -364,13 +595,23 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
     out_i = torch.empty((n_total, k), dtype=torch.int32, device=dev)
     if n_total == 0 or u_max == 0 or qcap == 0:
         return out_s, out_i
+    shape = launch_shape(cap=cap, k=k, elem_size=buf_emb.element_size())
+    n_chunks = shape["n_chunks"]
+    _check_grid(u_max * -(-qcap // GROUP) * n_chunks, n_chunks, cap)
+    work = torch.empty(2 * u_max + 2, dtype=torch.int32, device=dev)
+    part_key = torch.empty((n_total * n_chunks, k), dtype=torch.int64,
+                           device=dev)
+    part_id = torch.empty((n_total * n_chunks, k), dtype=torch.int32,
+                          device=dev)
     err = _lib().fts_cluster_major(
         _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(u), _ptr(roster),
         _ptr(buf_emb), _EMB_KIND[buf_emb.dtype], _ptr(buf_scale),
         _ptr(buf_loc), _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt),
         _ptr(w_hat), int(buf_attrs is not None), u_max, qcap, cr, n_total,
-        c, cap, d, w_hat.shape[0], k, float(dist_max), _ptr(out_s),
-        _ptr(out_i), torch.cuda.current_stream(dev).cuda_stream)
+        c, cap, d, w_hat.shape[0], k, float(dist_max), shape["chunk_rows"],
+        shape["smem_bytes"], _ptr(work), _ptr(part_key),
+        _ptr(part_id), _ptr(out_s), _ptr(out_i),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fts_cluster_major launch failed: cudaError {err}")
     launches["cluster_major"] += 1

@@ -20,6 +20,7 @@ import torch
 from repro.core import engine as ref_engine
 from repro.core import filters as ref_filters
 from repro_torch.core import engine as port_engine
+from repro_torch.core import index as port_index
 from repro_torch.core import serving as port_serving
 from repro_torch.kernels import fused_topk_score as fts
 
@@ -166,6 +167,187 @@ def test_wrappers_reject_half_a_filter():
 
 
 # ---------------------------------------------------------------------------
+# The tiled scans' launch shape, work items and chunk-partial merge
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("elem_size", [1, 2, 4], ids=["int8", "bf16", "f32"])
+def test_launch_shape_fits_shared_memory(elem_size):
+    for cap in (16, 64, 640, 2600, 19072, 100_000):
+        for k in (1, 20, 84, 255, fts.K_MAX):
+            shape = fts.launch_shape(cap=cap, k=k, elem_size=elem_size)
+            assert shape["smem_bytes"] <= fts.SMEM_MAX == 227 * 1024
+            assert shape["chunk_rows"] % fts.TILE_ROWS == 0
+            # the chunks tile the buffer: the last one starts inside it
+            assert (shape["n_chunks"] - 1) * shape["chunk_rows"] < cap
+            assert shape["n_chunks"] * shape["chunk_rows"] >= cap
+    # at the main path's k two blocks share an SM
+    shape = fts.launch_shape(cap=19072, k=20, elem_size=elem_size)
+    assert shape["blocks_per_sm"] == 2
+    assert shape["smem_bytes"] <= fts.SMEM_TWO_PER_SM
+
+
+def _rosters():
+    """Plans of skewed and uniform routes, and a roster with holes."""
+    rng = np.random.default_rng(13)
+    c, b, cr = 50, 64, 2
+    skewed = np.where(rng.uniform(size=(b, cr)) < 0.6, 7,
+                      rng.integers(0, c, (b, cr)))
+    skewed[:, 1] = np.where(skewed[:, 1] == skewed[:, 0],
+                            (skewed[:, 0] + 1) % c, skewed[:, 1])
+    uniform = np.stack([rng.permutation(c)[:cr] for _ in range(b)])
+    p = np.arange(1, c + 1, dtype=np.float64) ** -1.05
+    zipf = np.stack([rng.choice(c, cr, replace=False, p=p / p.sum())
+                     for _ in range(b)])
+    out = {}
+    for name, tc in (("skewed", skewed), ("uniform", uniform), ("zipf", zipf)):
+        top_c = torch.from_numpy(tc.astype(np.int32))
+        u, roster, _ = port_serving.cluster_major_plan(top_c, n_clusters=c)
+        out[name] = (roster, b * cr, top_c)
+    holes = out["skewed"][0].clone()
+    holes[0, 3:40:2] = b * cr                 # empty slots between live ones
+    out["holes"] = (holes, b * cr, None)
+    return out
+
+
+@pytest.mark.parametrize("roster_name", ["skewed", "uniform", "zipf",
+                                         "holes"])
+def test_cluster_major_items_cover_every_pair_row_once(roster_name):
+    roster, n_total, _ = _rosters()[roster_name]
+    cap, chunk = 700, 256
+    n_chunks = -(-cap // chunk)
+    groups, offsets = fts.cluster_major_items(roster, n_total=n_total,
+                                              n_chunks=n_chunks)
+    seen = np.zeros((n_total, cap), np.int64)
+    for item in range(int(offsets[-1])):
+        i, g, ch = fts.cluster_major_item(item, groups, offsets)
+        slots = roster[i, g * fts.GROUP:(g + 1) * fts.GROUP].numpy()
+        pairs = slots[(slots >= 0) & (slots < n_total)]
+        seen[pairs, ch * chunk:min(cap, (ch + 1) * chunk)] += 1
+    live = ((roster >= 0) & (roster < n_total)).numpy()
+    covered = np.unique(roster.numpy()[live])
+    # every pair the plan holds, every row, exactly once; nothing else
+    assert (seen[covered] == 1).all()
+    assert seen.sum() == covered.size * cap
+    if roster_name != "holes":
+        assert covered.size == n_total
+    # a hot cluster spreads over several items, a cold one takes one group
+    assert int(groups.max()) == -(-int(live.sum(axis=1).max()) // fts.GROUP)
+
+
+@pytest.mark.parametrize("cr", [1, 2, 3])
+@pytest.mark.parametrize("routes", ["skewed", "uniform", "zipf"])
+def test_routed_items_cover_every_pair_row_once(routes, cr):
+    base = _rosters()[routes][2]
+    top_c = {1: base[:, :1], 2: base,         # cr 3: distinct routes
+             3: torch.stack([base[:, 0], (base[:, 0] + 1) % 50,
+                             (base[:, 0] + 7) % 50], dim=1)}[cr]
+    b = top_c.shape[0]
+    cap, chunk = 700, 256
+    n_chunks = -(-cap // chunk)
+    groups, offsets = fts.routed_items(top_c)
+    qg, n_groups = fts.routed_groups(b, cr)
+    assert len(groups) == n_groups and qg * cr <= fts.GROUP
+    seen = np.zeros((b * cr, cap), np.int64)
+    for item in range(offsets[-1] * n_chunks):
+        ch, cluster, pairs = fts.routed_item(item, groups, offsets)
+        assert 1 <= len(pairs) <= fts.GROUP
+        # one cluster per item, one query group per item
+        assert all(int(top_c.reshape(-1)[p]) == cluster for p in pairs)
+        assert len({p // (qg * cr) for p in pairs}) == 1
+        seen[pairs, ch * chunk:min(cap, (ch + 1) * chunk)] += 1
+    assert (seen == 1).all()
+    # chunk-major: every item of chunk 0 comes before any of chunk 1
+    assert [fts.routed_item(i, groups, offsets)[0]
+            for i in range(offsets[-1] * n_chunks)] == sorted(
+        i // offsets[-1] for i in range(offsets[-1] * n_chunks))
+
+
+def _tie_case(precision, *, c=3, cap=40, d=16, b=6, cr=2, chunk=8):
+    """Integer data (exact scores) with the top score tied across every
+    chunk boundary (rows chunk·m - 1 and chunk·m are all 2s against
+    non-negative queries), one all-padding chunk, one location."""
+    bounds = tuple(r for m in range(1, cap // chunk + 1)
+                   for r in (chunk * m - 1, chunk * m) if r < cap)
+    rng = np.random.default_rng(21)
+    bufs, q, q_loc, w, top_c, w_hat, fvals, _ = edge_case_np(
+        rng, precision, c=c, cap=cap, d=d, b=b, cr=cr, edge=True,
+        boundary=bounds, dead=(chunk, 2 * chunk), t=10)
+    if precision == "int8":                   # identical rows still tie
+        emb = torch.from_numpy(rng.integers(-2, 3, (c, cap, d))
+                               .astype(np.float32))
+        emb[2:, list(bounds)] = 2.0
+        emb[bufs["ids"] < 0] = 0.0
+        q = torch.from_numpy(rng.integers(0, 3, (b, d)).astype(np.float32))
+        bufs["emb"], bufs["scale"] = port_index.quantize_rows(emb, "int8")
+    return bufs, q, q_loc, w, top_c, w_hat, fvals
+
+
+@pytest.mark.parametrize("k", [5, 12])
+@pytest.mark.parametrize("filtered", [False, True], ids=["plain", "filtered"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_chunk_partial_merge_matches_plain_and_reference(precision, filtered,
+                                                         k):
+    """The kernels' chunk partials, merged by key, give the plain routed
+    scan and the reference's dense backend exactly, ties across chunk
+    boundaries included; per (query, route) pair they give the plain
+    cluster-major partials."""
+    chunk = 8
+    bufs, q, q_loc, w, top_c, w_hat, fvals = _tie_case(precision,
+                                                       chunk=chunk)
+    kw = dict(k=k, dist_max=DIST_MAX,
+              buf_scale=bufs["scale"] if precision == "int8" else None,
+              buf_attrs=bufs["attrs"] if filtered else None,
+              q_filt=torch.from_numpy(fvals) if filtered else None)
+    args = (q, q_loc, w, top_c, bufs["emb"], bufs["loc"], bufs["ids"], w_hat)
+    want_s, want_i = fts.routed_topk_plain(*args, **kw)
+    part = fts.routed_partials_plain(*args, chunk_rows=chunk, **kw)
+    b, cr = top_c.shape
+    n_chunks = -(-bufs["emb"].shape[1] // chunk)
+    assert part[0].shape == (b, cr * n_chunks, k)
+    got_s, got_i = fts.merge_partials_plain(*part, k=k)
+    _same(got_i, got_s, want_i, want_s, exact=precision != "int8")
+    # the reference's own dense scan on the same buffers
+    emb = bufs["emb"]
+    ref_emb = (jnp.asarray(emb.float().numpy()).astype(jnp.bfloat16)
+               if precision == "bf16" else jnp.asarray(emb.numpy()))
+    ref_i, ref_s = ref_engine._routed_topk(
+        jnp.asarray(q.numpy()), jnp.asarray(q_loc.numpy()),
+        jnp.asarray(w.numpy()), jnp.asarray(top_c.numpy()), ref_emb,
+        jnp.asarray(bufs["loc"].numpy()), jnp.asarray(bufs["ids"].numpy()),
+        jnp.asarray(bufs["scale"].numpy()), jnp.asarray(w_hat.numpy()), k=k,
+        backend="dense", interpret=True, dist_max=DIST_MAX, block_n=32,
+        precision=precision,
+        buf_attrs=jnp.asarray(bufs["attrs"].numpy()) if filtered else None,
+        q_filt=jnp.asarray(fvals) if filtered else None)
+    if precision == "int8":       # dequantized values: sums in another order
+        assert_topk_match(got_i.numpy(), got_s.numpy(), np.asarray(ref_i),
+                          np.asarray(ref_s))
+    else:
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s))
+    # per pair: the cluster-major partials (chunk partials of one route)
+    pair_part = tuple(x.reshape(b * cr, n_chunks, k) for x in part)
+    pair_s, pair_i = fts.merge_partials_plain(*pair_part, k=k)
+    u, roster, _ = port_serving.cluster_major_plan(
+        top_c, n_clusters=bufs["emb"].shape[0])
+    cm_s, cm_i = fts.cluster_major_partials_plain(
+        q, q_loc, w, u, roster, bufs["emb"], bufs["loc"], bufs["ids"], w_hat,
+        cr=cr, **kw)
+    _same(pair_i, pair_s, cm_i, cm_s, exact=precision != "int8")
+
+
+def _same(ids, scores, want_ids, want_scores, *, exact):
+    """Equal (exact data), or equal up to ties (int8: dequantized values
+    sum in another order)."""
+    if exact:
+        assert torch.equal(ids, want_ids) and torch.equal(scores, want_scores)
+    else:
+        assert_topk_match(ids.numpy(), scores.numpy(), want_ids.numpy(),
+                          want_scores.numpy())
+
+
+# ---------------------------------------------------------------------------
 # On the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -177,50 +359,112 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the chunked designs' edge cases, as numpy buffers (see edge_case_np)
+CUDA_SHAPES = {
+    "small": dict(c=6, cap=96, d=64, b=12, k=40),
+    "chunks": dict(c=4, cap=2600, d=64, b=40, k=40, edge=True,
+                   boundary=(255, 256, 1023, 1024, 2047, 2048),
+                   dead=(1024, 2048)),
+    "d16": dict(c=5, cap=1500, d=16, b=24, k=20),
+    "d1024": dict(c=4, cap=700, d=1024, b=20, k=24),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(CUDA_SHAPES))
 @pytest.mark.parametrize("filtered", [False, True], ids=["plain", "filtered"])
 @pytest.mark.parametrize("precision", PRECISIONS)
-def test_cuda_kernels_match_plain(cuda_device, precision, filtered):
-    rng = np.random.default_rng(7)
-    c, cap, d, b, cr, k, t = 6, 96, 64, 12, 2, 40, 50
-    emb = rng.normal(size=(c, cap, d)).astype(np.float32)
-    ids = rng.permutation(c * cap).reshape(c, cap).astype(np.int32)
-    ids[rng.uniform(size=(c, cap)) < 0.3] = -1
-    buf = {"emb": torch.from_numpy(emb), "ids": torch.from_numpy(ids),
-           "loc": torch.from_numpy(rng.uniform(size=(c, cap, 2))
-                                   .astype(np.float32)),
-           "attrs": torch.from_numpy(make_attrs_np(rng, c * cap)
-                                     .reshape(c, cap, 3))}
-    from repro_torch.core import index as port_index
-    buf["emb"], buf["scale"] = port_index.quantize_rows(buf["emb"], precision)
-    q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
-    q_loc = torch.from_numpy(rng.uniform(size=(b, 2)).astype(np.float32))
-    w = torch.from_numpy(rng.uniform(0.2, 1.0, (b, 2)).astype(np.float32))
-    top_c = torch.from_numpy(rng.integers(0, c, (b, cr)).astype(np.int32))
-    w_hat = torch.cumsum(torch.rand(t, generator=torch.Generator()
-                                    .manual_seed(0)), 0)
-    fvals, _ = ref_filters.compile_filters(_specs(b), b)
+def test_cuda_kernels_match_plain(cuda_device, precision, filtered, shape):
+    """Both kernels against their plain versions on the card: several row
+    chunks with ties across their boundaries, 20 pairs on a cluster (two
+    slot groups), all-padding chunks, k above a chunk's live rows, a
+    filter that passes fewer than k rows, d 16 and d 1024. Exact
+    (integer) cases must give equal ids, ties included."""
+    cs = dict(CUDA_SHAPES[shape])
+    k = cs.pop("k")
+    case = edge_case_np(np.random.default_rng(7), precision, cr=2, **cs)
+    bufs, q, q_loc, w, top_c, w_hat, fvals, exact = case
     kw = dict(k=k, dist_max=DIST_MAX,
-              buf_scale=buf["scale"] if precision == "int8" else None,
-              buf_attrs=buf["attrs"] if filtered else None,
+              buf_scale=bufs["scale"] if precision == "int8" else None,
+              buf_attrs=bufs["attrs"] if filtered else None,
               q_filt=torch.from_numpy(fvals) if filtered else None)
     dev = {key: (v.to(cuda_device) if isinstance(v, torch.Tensor) else v)
            for key, v in kw.items()}
-    args = (q, q_loc, w, top_c, buf["emb"], buf["loc"], buf["ids"], w_hat)
+    args = (q, q_loc, w, top_c, bufs["emb"], bufs["loc"], bufs["ids"], w_hat)
     dargs = tuple(a.to(cuda_device) for a in args)
     want = fts.routed_topk_plain(*dargs, **dev)
     got = fts.fused_topk_score_routed(*dargs, **dev)
     torch.cuda.synchronize()
     assert_topk_match(got[1].cpu(), got[0].cpu(), want[1].cpu(),
                       want[0].cpu(), atol=1e-4, rtol=1e-5)
+    if exact:
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    c = bufs["emb"].shape[0]
     u, roster, _ = port_serving.cluster_major_plan(dargs[3], n_clusters=c)
     got = fts.fused_topk_score_cluster_major(
-        dargs[0], dargs[1], dargs[2], u, roster, *dargs[4:], cr=cr, **dev)
+        dargs[0], dargs[1], dargs[2], u, roster, *dargs[4:], cr=2, **dev)
     want = fts.cluster_major_partials_plain(
-        dargs[0], dargs[1], dargs[2], u, roster, *dargs[4:], cr=cr, **dev)
+        dargs[0], dargs[1], dargs[2], u, roster, *dargs[4:], cr=2, **dev)
     torch.cuda.synchronize()
     assert_topk_match(got[1].cpu(), got[0].cpu(), want[1].cpu(),
                       want[0].cpu(), atol=1e-4, rtol=1e-5)
+    if exact:
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def edge_case_np(rng, precision, *, c, cap, d, b, cr, edge=False,
+                 boundary=(), dead=None, t=50):
+    """Buffers and queries from numpy, as torch CPU tensors. ``edge``
+    makes f32/bf16 data small integers at one location (exact, often tied
+    scores); the rows at ``boundary`` of clusters 2.. are all 2s against
+    non-negative queries (the top score, tied across chunk boundaries);
+    cluster 0 is padding over rows ``dead`` and cluster 1 keeps 5 live
+    rows. Routes put b·cr/c pairs on each cluster. The filters include
+    one that passes a handful of rows. Returns ``(buffers, q, q_loc, w,
+    top_c, w_hat, q_filt, exact)``."""
+    exact = edge and precision != "int8"
+    if exact:
+        emb = rng.integers(-2, 3, (c, cap, d)).astype(np.float32)
+        q = rng.integers(0, 3, (b, d)).astype(np.float32)
+    else:
+        emb = rng.normal(size=(c, cap, d)).astype(np.float32)
+        q = rng.normal(size=(b, d)).astype(np.float32)
+    perm = rng.permutation(c * cap).reshape(c, cap).astype(np.int32)
+    ids = np.where(rng.uniform(size=(c, cap)) < 0.3, -1, perm).astype(np.int32)
+    loc = rng.uniform(size=(c, cap, 2)).astype(np.float32)
+    q_loc = rng.uniform(size=(b, 2)).astype(np.float32)
+    if edge:
+        rows = [r for r in boundary if r < cap]
+        emb[2:, rows] = 2.0
+        ids[2:, rows] = perm[2:, rows]
+        if dead is not None:
+            ids[0, dead[0]:dead[1]] = -1
+        ids[1, 5:] = -1
+        loc[:] = 0.5
+        q_loc[:] = 0.5
+    emb[ids < 0] = 0.0
+    stored, scale = port_index.quantize_rows(torch.from_numpy(emb), precision)
+    bufs = {"emb": stored, "scale": scale, "ids": torch.from_numpy(ids),
+            "loc": torch.from_numpy(loc),
+            "attrs": torch.from_numpy(make_attrs_np(rng, c * cap)
+                                      .reshape(c, cap, 3))}
+    w = rng.uniform(0.2, 1.0, (b, 2)).astype(np.float32)
+    top_c = np.stack([np.roll(np.arange(c), -(i % c))[:cr]
+                      for i in range(b)]).astype(np.int32)
+    w_hat = np.cumsum(rng.uniform(size=t)).astype(np.float32)
+    fvals, _ = ref_filters.compile_filters(_tight_specs(b), b)
+    return (bufs, torch.from_numpy(q), torch.from_numpy(q_loc),
+            torch.from_numpy(w), torch.from_numpy(top_c),
+            torch.from_numpy(w_hat), fvals, exact)
+
+
+def _tight_specs(b):
+    """:func:`_specs` with every sixth query's filter passing a handful of
+    rows (tenant 1, category bit 3, a 6-wide time window)."""
+    specs = _specs(b)
+    tight = ref_filters.FilterSpec(tenant=1, category_mask=0b1000, t_min=500,
+                                   t_max=505)
+    return [tight if i % 6 == 5 else sp for i, sp in enumerate(specs)]
 
 
 def make_attrs_np(rng, n):
