@@ -2,12 +2,14 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare     # timings only (see compare())
 
 Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
 
 0. Print the card's name and power limit; build the four kernel libraries
-   of ``src/repro_torch/kernels/csrc`` (one nvcc per source, sm_90a, side
-   by side) and print each build's time and ptxas register/spill lines;
+   of ``src/repro_torch/kernels/csrc`` and the memory probes of
+   ``probes/memory_rates.cu`` (one nvcc per source, sm_90a, side by side)
+   and print each build's time and ptxas register/spill lines;
    ``cuobjdump -sass`` of the flash library must show HMMA or HGMMA
    (tensor-core) instructions in each bf16 and fp16 instantiation.
 1. Hold each kernel (routed, cluster-major) against its plain PyTorch
@@ -18,11 +20,14 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    tied across tile and chunk boundaries (ids must equal the plain
    version's), 32 pairs on one cluster (two slot groups), all-padding
    chunks, k above a chunk's live rows, a filter passing fewer than k
-   rows; and d 16 and d 1024.
-2. Serve a small snapshot built in memory from a seed through
+   rows; d 16 and d 1024; k 300 and 1024 (fewer query slots per item);
+   the routed kernel at cr 17 and cr = c = 24.
+2. Serve small snapshots built in memory from a seed through
    ``repro_torch.api.Searcher`` on the ``cuda``, ``cuda-cm`` and ``auto``
-   backends (one snapshot with a delta segment), against the ``dense``
-   backend on a CPU copy.
+   backends against the ``dense`` backend on a CPU copy: every tier, a
+   delta of 25 tombstones, one of 300 (at k 20 and k 300: tombstones are
+   masked out of the scan, not over-fetched), and cr 17 and cr = c = 24
+   on ``cuda``.
 3. Full width: ``list-dual-encoder`` (12L / 768 / 12H / 3072, bf16 compute)
    with seeded random weights, 2,849,754 objects in c = 300 buffers at f32,
    bf16 and int8, 4,096 queries through ``Searcher.query`` (batch 256,
@@ -33,7 +38,10 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    U and the largest load, the bound, both kernels' ms and ×bound, the
    ``cuda`` and ``cuda-cm`` path times (plan and fold included), and both
    kernels against the plain routed scan on the full chunk; the plain
-   versions are timed on the router's routes.
+   versions are timed on the router's routes. Then 32 queries at full
+   fan-out (cr = c = 300) on the int8 tier, ``cuda`` against ``cuda-cm``
+   (ids equal up to ties, both timed), and the tombstone mask's build
+   over the 5.7M ids at 300 tombstones.
 4. The kernel entry point ``repro_torch.kernels.ops``: the gather-path
    scan, flash attention, dot interaction and embedding bag are first held
    against their plain versions at small shapes over the edge cases of
@@ -41,7 +49,8 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    the launch counters zeroed around the run: the gather scan over the
    first 32 queries of phase 3's chunk (candidates ``buf[top_c]``, 38,144
    rows of d 768, f32 / bf16 / int8), also held against ``fts_routed`` on
-   the same routes; flash attention at ``qwen2-7b`` (H 28, KV 4, D 128) in
+   the same routes, with its ×bound; flash attention at ``qwen2-7b`` (H
+   28, KV 4, D 128) in
    bf16 and f32 and a ``gemma3-27b`` local layer (H 32, KV 16, window
    1024) in bf16, S 2048; dot interaction and embedding bag at
    ``dlrm-mlperf`` widths (F 27, d 128; a 39,060-row table, bags of 16)
@@ -51,7 +60,12 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    the plain version on the inputs widened to f32 (``FLASH_ONE_ROUNDING``),
    at every small shape and both main shapes; SDPA's distance under the
    same rule is printed for the record. Dot interaction and bmm + triangle
-   are timed in turns over several rounds, and the medians kept.
+   are timed in turns over several rounds, and the medians kept. The
+   card's L2 and HBM read rates are measured (``memory_rates``, a
+   streaming probe), and embedding bag gets an L2 bound: its gathered row
+   bytes over the best L2 rate of the run -- the streaming probe's, a
+   probe reading the same rows in the kernel's order with more rows in
+   flight (``row_gather_rate``), or the kernel's own.
 
 Prints one JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
@@ -267,6 +281,17 @@ def phase1(dev):
                            cap=1500, d=16, b=24, k=20),
                       dict(precision=precision, filtered=filtered, cr=2, c=4,
                            cap=700, d=1024, b=20, k=24)]
+    # k above the old limit of 256 (fewer slots per item), exact data with
+    # boundary ties; the routed kernel past 16 routes and at cr = c
+    for precision in ("f32", "bf16", "int8"):
+        cases += [dict(precision=precision, filtered=True, cr=2, c=4,
+                       cap=2600, d=64, b=24, k=300, edge=True),
+                  dict(precision=precision, filtered=False, cr=2, c=4,
+                       cap=2600, d=64, b=12, k=1024, edge=True),
+                  dict(precision=precision, filtered=precision == "bf16",
+                       cr=17, c=24, cap=640, d=128, b=32, k=20),
+                  dict(precision=precision, filtered=precision == "int8",
+                       cr=24, c=24, cap=640, d=128, b=32, k=20)]
     for cs in cases:
         case = random_case(g, dev, c=cs["c"], cap=cs["cap"], d=cs["d"],
                            b=cs["b"], cr=cs["cr"], precision=cs["precision"],
@@ -286,7 +311,8 @@ def phase1(dev):
 # ---------------------------------------------------------------------------
 
 
-def small_snapshot(dev, precision, *, with_delta=False):
+def small_snapshot(dev, precision, *, with_delta=False, n_tomb=25,
+                   n_clusters=12):
     import torch
     from repro_torch import convert
     from repro_torch.configs import get_config
@@ -295,11 +321,12 @@ def small_snapshot(dev, precision, *, with_delta=False):
     from repro_torch.core.snapshot import IndexSnapshot
     cfg = dataclasses.replace(
         get_config("list-dual-encoder"), n_layers=2, d_model=128, n_heads=4,
-        d_ff=256, vocab_size=4096, max_len=16, spatial_t=100, n_clusters=12,
-        index_mlp_hidden=(64,), compute_dtype="float32")
+        d_ff=256, vocab_size=4096, max_len=16, spatial_t=100,
+        n_clusters=n_clusters, index_mlp_hidden=(64,),
+        compute_dtype="float32")
     g = torch.Generator().manual_seed(SEED + 2)
-    rel_p, idx_p = convert.random_params(cfg, n_clusters=12, generator=g,
-                                         with_o_enc=False)
+    rel_p, idx_p = convert.random_params(cfg, n_clusters=n_clusters,
+                                         generator=g, with_o_enc=False)
     rel, index = convert.params_from_numpy(rel_p, idx_p, cfg)
     n = 3000
     emb = torch.nn.functional.normalize(torch.randn(n, 128, generator=g), dim=-1)
@@ -310,7 +337,8 @@ def small_snapshot(dev, precision, *, with_delta=False):
     norm = index_lib.loc_normalizer(loc)
     top = index_lib.topk_stable(index(index_lib.build_features(emb, loc, norm)),
                                 3)[1]
-    buf = index_lib.build_cluster_buffers(top.numpy(), emb, loc, n_clusters=12,
+    buf = index_lib.build_cluster_buffers(top.numpy(), emb, loc,
+                                          n_clusters=n_clusters,
                                           precision=precision,
                                           attrs=attrs.to(torch.int32))
     delta = None
@@ -322,18 +350,22 @@ def small_snapshot(dev, precision, *, with_delta=False):
             "emb": stored, "scale": scale, "loc": torch.rand(m, 2, generator=g),
             "ids": torch.arange(n, n + m, dtype=torch.int32), "raw": raw,
             "attrs": torch.zeros(m, 3, dtype=torch.int32),
-            "tombstones": torch.arange(0, 3 * 25, 3)})
+            "tombstones": torch.arange(0, 3 * n_tomb, 3)})
     snap = IndexSnapshot.from_parts(cfg, rel, index, norm, buf,
                                     dist_max=1.4142, delta=delta)
     return snap
 
 
 def phase2(dev):
+    """Searcher on small snapshots: every tier on cuda / cuda-cm / auto
+    against the dense backend on a CPU copy, unfiltered and filtered; a
+    delta of 25 tombstones, and one of 300 (k 20 and k 300: the port masks
+    tombstones, so neither grows the scan's k); cr 17 and cr = c = 24 on
+    ``cuda``. Compared on the rows whose routes agree on both devices."""
     import numpy as np
     import torch
     from repro_torch import api
     from repro_torch.core import filters as filters_lib
-    from repro_torch.core import index as index_lib
     rng = np.random.default_rng(SEED + 3)
     n_q, k, cr = 200, 20, 2
     tok = rng.integers(1, 4096, (n_q, 16)).astype(np.int32)
@@ -345,35 +377,51 @@ def phase2(dev):
              filters_lib.FilterSpec(category_mask=0b0101)]
     filters = [specs[i % 3] for i in range(n_q)]
     picks = {}
-    for name, precision, with_delta in (("f32", "f32", False),
-                                        ("bf16", "bf16", False),
-                                        ("int8", "int8", False),
-                                        ("int8-delta", "int8", True)):
-        snap = small_snapshot(dev, precision, with_delta=with_delta)
+    all_b = ("cuda", "cuda-cm", "auto")
+    # name, tier, delta, tombstones, clusters, extra (k, cr, backends) runs
+    snaps = (("f32", "f32", False, 0, 12, ()),
+             ("bf16", "bf16", False, 0, 12, ()),
+             ("int8", "int8", False, 0, 12, ()),
+             ("int8-delta", "int8", True, 25, 12, ()),
+             ("f32-tomb300", "f32", True, 300, 12, ((300, cr, all_b),)),
+             ("bf16-c24", "bf16", False, 0, 24, ((k, 17, ("cuda",)),
+                                                 (k, 24, ("cuda",)))))
+    for name, precision, with_delta, n_tomb, n_c, extra in snaps:
+        snap = small_snapshot(dev, precision, with_delta=with_delta,
+                              n_tomb=n_tomb, n_clusters=n_c)
         cpu = api.Searcher(snap, backend="dense", device="cpu")
-        s_gpu = {b: api.Searcher(snap, backend=b, device=dev)
-                 for b in ("cuda", "cuda-cm", "auto")}
-        # rows whose routes agree on both devices (f32 compute: all but
-        # near-ties of the router's softmax)
-        r_cpu = cpu.engine.route(tok, msk, loc, cr=cr).numpy()
-        r_gpu = s_gpu["cuda"].engine.route(tok, msk, loc, cr=cr).cpu().numpy()
-        same = (r_cpu == r_gpu).all(axis=1)
-        if same.mean() < 0.95:
-            raise AssertionError(f"phase 2 {name}: routes agree on only "
-                                 f"{same.mean():.3f} of rows")
-        for filt in (None, filters):
-            want = cpu.query(tok, msk, loc, k=k, cr=cr, batch=64,
+        s_gpu = {b: api.Searcher(snap, backend=b, device=dev) for b in all_b}
+        runs = [(k, cr, all_b, filt) for filt in (None, filters)]
+        runs += [(kk, rr, bs, None) for kk, rr, bs in extra]
+        for kk, rr, backends, filt in runs:
+            # rows whose routes agree on both devices (f32 compute: all but
+            # near-ties of the router's softmax)
+            r_cpu = cpu.engine.route(tok, msk, loc, cr=rr).numpy()
+            r_gpu = s_gpu["cuda"].engine.route(tok, msk, loc,
+                                               cr=rr).cpu().numpy()
+            same = (r_cpu == r_gpu).all(axis=1)
+            if same.mean() < 0.95:
+                raise AssertionError(f"phase 2 {name}: routes at cr {rr} "
+                                     f"agree on only {same.mean():.3f} of "
+                                     f"rows")
+            want = cpu.query(tok, msk, loc, k=kk, cr=rr, batch=64,
                              filters=filt)
-            for b, s in s_gpu.items():
-                got = s.query(tok, msk, loc, k=k, cr=cr, batch=64,
+            for b in backends:
+                s = s_gpu[b]
+                got = s.query(tok, msk, loc, k=kk, cr=rr, batch=64,
                               filters=filt)
                 topk_match(got[0][same], got[1][same], want[0][same],
                            want[1][same])
-                pick = s.engine.pick_backend(tok, msk, loc, cr=cr,
+                if snap.delta is not None and np.isin(
+                        got[0], snap.delta.tombstone_array()).any():
+                    raise AssertionError(f"phase 2 {name} {b}: a tombstoned "
+                                         f"id came back")
+                pick = s.engine.pick_backend(tok, msk, loc, cr=rr,
                                              batch=64) if b == "auto" else b
-                picks[(name, b)] = pick
-                log(f"phase 2 ok: {name} {b} -> {pick} "
-                    f"filtered={filt is not None} rows={int(same.sum())}")
+                picks[(name, b, kk, rr)] = pick
+                log(f"phase 2 ok: {name} {b} -> {pick} k={kk} cr={rr} "
+                    f"filtered={filt is not None} rows={int(same.sum())}"
+                    + (f" tombstones={n_tomb}" if with_delta else ""))
         del snap, cpu, s_gpu
     torch.cuda.empty_cache()
     return picks
@@ -448,19 +496,18 @@ def skew_routes(skew, top_router, *, c, seed):
     return torch.from_numpy(routes).to(top_router.device)
 
 
-def phase3(dev):
+def full_width_index(dev):
+    """``list-dual-encoder`` at full width with seeded random weights,
+    2,849,754 seeded random unit objects placed by its router into c = 300
+    buffers at f32, bf16 and int8, and 4,096 seeded requests."""
     import numpy as np
     import torch
-    from repro_torch import api, convert
+    from repro_torch import convert
     from repro_torch.configs import SERVE_QUERIES, get_config
-    from repro_torch.core import engine as engine_lib
     from repro_torch.core import index as index_lib
-    from repro_torch.core import serving as serving_lib
-    from repro_torch.core.snapshot import IndexSnapshot
-    from repro_torch.kernels import fused_topk_score as fts
 
     n, c = SERVE_QUERIES["n_objects"], SERVE_QUERIES["n_clusters"]
-    n_q, k, cr, batch = SERVE_QUERIES["query_batch"], SERVE_QUERIES["topk"], 2, 256
+    n_q = SERVE_QUERIES["query_batch"]
     cfg = dataclasses.replace(get_config("list-dual-encoder"), n_clusters=c)
     d = cfg.d_model
     t0 = time.perf_counter()
@@ -510,10 +557,6 @@ def phase3(dev):
         f"{gb(buf32['emb']):.2f} GB + bf16 {gb(buf16['emb']):.2f} GB + int8 "
         f"{gb(buf8['emb']):.2f} GB; routed on the card in {t_route:.1f} s, "
         f"placed (spill 3, {buf32['n_spilled']} spilled) in {t_build:.1f} s")
-    snaps = {p: IndexSnapshot.from_parts(cfg, rel, index, norm, b,
-                                         dist_max=1.4142)
-             for p, b in bufs.items()}
-
     rng = np.random.default_rng(SEED + 6)
     tok = rng.integers(1, cfg.vocab_size, (n_q, cfg.max_len)).astype(np.int32)
     msk = np.ones((n_q, cfg.max_len), bool)
@@ -521,6 +564,35 @@ def phase3(dev):
     msk[np.arange(cfg.max_len)[None, :] >= lens[:, None]] = False
     tok[~msk] = 0
     q_loc = rng.uniform(size=(n_q, 2)).astype(np.float32)
+    return dict(cfg=cfg, rel=rel, index=index, norm=norm, bufs=bufs, tok=tok,
+                msk=msk, q_loc=q_loc)
+
+
+N_FAN = 32                       # queries of the full fan-out (cr = c) run
+N_TOMB = 300                     # tombstones of the mask build's timing
+
+
+def phase3(dev):
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import SERVE_QUERIES
+    from repro_torch.core import delta as delta_lib
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import serving as serving_lib
+    from repro_torch.core.snapshot import IndexSnapshot
+    from repro_torch.kernels import fused_topk_score as fts
+
+    fi = full_width_index(dev)
+    cfg, rel, index, norm, bufs = (fi[x] for x in ("cfg", "rel", "index",
+                                                    "norm", "bufs"))
+    tok, msk, q_loc = fi["tok"], fi["msk"], fi["q_loc"]
+    buf32, buf8 = bufs["f32"], bufs["int8"]
+    c, d = SERVE_QUERIES["n_clusters"], cfg.d_model
+    n_q, k, cr, batch = SERVE_QUERIES["query_batch"], SERVE_QUERIES["topk"], 2, 256
+    snaps = {p: IndexSnapshot.from_parts(cfg, rel, index, norm, b,
+                                         dist_max=1.4142)
+             for p, b in bufs.items()}
 
     # ---- the main path: Searcher.query, counters read around it ----------
     searchers = {(p, b): api.Searcher(s, backend=b, device=dev)
@@ -659,7 +731,53 @@ def phase3(dev):
                    f"{sub})" if skew == "router" else ""))
         report[skew] = rep
     log(f"phase 3: prefix {t_prefix:.3f} ms per {batch}-query chunk")
-    return dict(report=report, launches=main_launches,
+
+    # ---- full fan-out (cr = c) on the int8 tier: cuda against cuda-cm ------
+    fq = [x[:N_FAN] for x in chunk]
+    qe_f, w_f, top_all = engine_lib.make_prefix_fn(cr=c)(rel, index, norm,
+                                                         *fq)
+    fan = {}
+    for b_name in ("cuda", "cuda-cm"):
+        def run(b_name=b_name):
+            return engine_lib._routed_topk(
+                qe_f, fq[2], w_f, top_all, buf8, w_hat, k=k, backend=b_name,
+                dist_max=1.4142, precision="int8")
+        out = run()
+        fan[b_name] = dict(out=out, ms=time_ms(run, reps=2, warmup=0))
+    e_fan = topk_match(fan["cuda"]["out"][0].cpu(), fan["cuda"]["out"][1].cpu(),
+                       fan["cuda-cm"]["out"][0].cpu(),
+                       fan["cuda-cm"]["out"][1].cpu())
+    bd_fan = bound(buf8["ids"], top_all, torch.arange(c, device=dev), d=d,
+                   elem_bytes=1, k=k, b=N_FAN, dequant=True)
+    fan_rec = dict(queries=N_FAN, cr=c, err=e_fan, bound=bd_fan,
+                   **{f"{b_name}_ms": fan[b_name]["ms"] for b_name in fan})
+    log(f"phase 3 full fan-out int8: {N_FAN} queries at cr = c = {c} "
+        f"({c * fts.launch_shape(cap=buf8['capacity'], k=k, elem_size=1)['n_chunks']}"
+        f" partial lists a query); cuda {fan['cuda']['ms']:.3f} ms "
+        f"({fan['cuda']['ms'] / bd_fan['bound_ms']:.2f}x bound), cuda-cm "
+        f"{fan['cuda-cm']['ms']:.3f} ms "
+        f"({fan['cuda-cm']['ms'] / bd_fan['bound_ms']:.2f}x bound); bound "
+        f"{bd_fan['bound_ms']:.3f} ms ({bd_fan['bound_by']}); ids equal up "
+        f"to ties, max|Δ| {e_fan:.3g}")
+    del fan
+
+    # ---- the tombstone mask's build at full width --------------------------
+    held = buf32["ids"][buf32["ids"] >= 0]
+    gt = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tomb = held[torch.randperm(held.numel(), generator=gt, device=dev)[
+        :N_TOMB]].cpu().numpy()
+    masked = delta_lib.mask_tombstones(buf32["ids"], tomb)
+    n_masked = int((buf32["ids"] >= 0).sum() - (masked >= 0).sum())
+    if n_masked != N_TOMB:
+        raise AssertionError(f"mask_tombstones masked {n_masked} rows, "
+                             f"want {N_TOMB}")
+    mask_ms = time_ms(lambda: delta_lib.mask_tombstones(buf32["ids"], tomb))
+    log(f"phase 3 tombstone mask: {N_TOMB} tombstones over "
+        f"{buf32['ids'].numel()} ids in {mask_ms:.3f} ms (once per snapshot)")
+    del held, masked
+
+    return dict(report=report, launches=main_launches, fan_out=fan_rec,
+                mask_ms=mask_ms,
                 distinct_clusters=report["router"]["U"],
                 route_loads=report["router"]["loads"], picks=picks,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -714,8 +832,9 @@ def roof(nbytes, flops, peak):
 
 
 def gather_case(g, dev, *, b, n, d, precision, k, t=100, pad_from=None,
-                ties=False):
-    """Random candidates ``(b, n, d)`` on ``dev`` in a precision tier."""
+                ties=False, dead=None):
+    """Random candidates ``(b, n, d)`` on ``dev`` in a precision tier;
+    ``dead = (lo, hi)`` makes those rows padding for every query."""
     import torch
     from repro_torch.core import index as index_lib
     q = torch.randn(b, d, generator=g, device=dev)
@@ -729,6 +848,8 @@ def gather_case(g, dev, *, b, n, d, precision, k, t=100, pad_from=None,
         ci[:, :pad_from] = torch.arange(pad_from, device=dev,
                                         dtype=torch.int32)
         ci[:, pad_from:] = -1
+    if dead is not None:
+        ci[:, dead[0]:dead[1]] = -1
     if ties:                     # exact integer scores in one spatial bucket
         q = torch.randint(-2, 3, (b, d), generator=g, device=dev).float()
         ce = torch.randint(-2, 3, (b, n, d), generator=g, device=dev).float()
@@ -812,14 +933,21 @@ def phase4_checks(dev):
                    dict(b=6, n=300, d=64, k=84),
                    dict(b=4, n=256, d=32, k=12, pad_from=7),
                    dict(b=4, n=16, d=32, k=20),              # k > N
-                   dict(b=3, n=512, d=16, k=40, ties=precision != "int8")):
+                   dict(b=3, n=512, d=16, k=40, ties=precision != "int8"),
+                   # three chunks of 1024, ties across their boundaries,
+                   # the middle one all padding; k above the old 256
+                   dict(b=3, n=3000, d=64, k=40, ties=precision != "int8",
+                        dead=(1024, 2048)),
+                   dict(b=5, n=2500, d=768, k=300),
+                   dict(b=2, n=1100, d=16, k=1024,
+                        ties=precision != "int8")):
             args, kw = gather_case(g, dev, precision=precision, **cs)
             got = kops.fused_topk_score(*args, **kw)
             want = fts.gather_topk_plain(*args, **kw)
             torch.cuda.synchronize()
             e = topk_match(got[1].cpu(), got[0].cpu(), want[1].cpu(),
                            want[0].cpu())
-            if cs.get("ties") or cs.get("pad_from"):
+            if cs.get("ties") or cs.get("pad_from") or cs.get("dead"):
                 if not torch.equal(got[1], want[1]):
                     raise AssertionError(f"gather {precision} {cs}: "
                                          f"positions differ")
@@ -898,23 +1026,12 @@ def phase4_checks(dev):
     return err
 
 
-def phase4(dev, ctx):
-    """Drive ``repro_torch.kernels.ops`` once per full-width shape with the
-    launch counters zeroed around the run, then hold each output against
-    the plain version and time kernel, plain version and library call."""
+def gather_inputs(ctx):
+    """The gather scan's full-width inputs from phase 3's index: the first
+    ``N_GATHER`` queries of its chunk and their candidate copies
+    ``buf[top_c]`` (38,144 rows of d 768) in f32, bf16 and int8."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import dot_interaction as di
-    from repro_torch.kernels import embedding_bag as eb
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_topk_score as fts
-    from repro_torch.kernels import ops as kops
-
-    err = phase4_checks(dev)
-    g = torch.Generator(device=dev).manual_seed(SEED + 9)
-
-    # ---- full-width inputs ------------------------------------------------
-    buf32, buf8, w_hat = ctx["buf32"], ctx["buf8"], ctx["w_hat"]
+    buf32, buf8 = ctx["buf32"], ctx["buf8"]
     tc = ctx["top_c"][:N_GATHER].long()
     qa = tuple(x[:N_GATHER].contiguous()
                for x in (ctx["q_emb"], ctx["ql"], ctx["w"]))
@@ -935,6 +1052,128 @@ def phase4(dev, ctx):
             "int8": copy_of(buf8)[:2]}
     copy_src = {"f32": (buf32, None), "bf16": (buf32, torch.bfloat16),
                 "int8": (buf8, None)}
+    return qa, cand, cl, ci, copy_of, copy_src
+
+
+def gather_times(qa, ce, sc, cl, ci, w_hat):
+    """The gather kernel's and its plain version's ms on one tier, and the
+    bound: live rows' bytes (each read once) and their flops."""
+    from repro_torch.kernels import fused_topk_score as fts
+    from repro_torch.kernels import ops as kops
+    args = (*qa, ce, cl, ci, w_hat)
+    kw = dict(k=20, dist_max=1.4142, cand_scale=sc)
+    rec = dict(ms=time_ms(lambda: kops.fused_topk_score(*args, **kw)),
+               plain_ms=time_ms(lambda: fts.gather_topk_plain(*args, **kw),
+                                reps=3))
+    d = ce.shape[-1]
+    live = int((ci >= 0).sum())
+    nbytes = (live * d * ce.element_size()
+              + ci.numel() * (8 + 4 + (4 if sc is not None else 0))
+              + N_GATHER * (d * 4 + 16) + w_hat.numel() * 4
+              + N_GATHER * 20 * 8)
+    flops = live * 2 * d + (live * d if sc is not None else 0)
+    rec.update(roof(nbytes, flops, F32_FLOPS_PER_S), live_rows=live)
+    rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    return rec
+
+
+# the memory read-rate probes (probes/memory_rates.cu): a measurement aid
+# built beside the port's kernels, its own library, called only here
+def _bind_probes(lib):
+    import ctypes
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.stream_read.argtypes = [ptr, i32, i32, i32, ptr, i32, ptr,
+                                ctypes.POINTER(i32)]
+    lib.row_gather_read.argtypes = [ptr, ptr, i32, i32, i32, ptr, i32, ptr,
+                                    ctypes.POINTER(i32)]
+    lib.stream_read.restype = lib.row_gather_read.restype = i32
+
+
+def probe_library():
+    from repro_torch.kernels import build
+    return build.KernelLibrary("memory_rates", ["memory_rates.cu"],
+                               _bind_probes, csrc=ROOT / "probes")
+
+
+PROBES = None                   # the probe library, built in phase 0
+PROBE_OUT = 8 * 256 * 132       # floats of a probe's out: 8 blocks/SM
+_probe_out = {}                 # device -> its probe out buffer
+
+
+def _probe_call(fn, *args, dev):
+    """Run one probe launch; ``fn`` is the C function, ``args`` all of its
+    arguments before ``out``. A failed launch raises."""
+    import ctypes
+    import torch
+    if dev not in _probe_out:
+        _probe_out[dev] = torch.empty(PROBE_OUT, device=dev)
+    out = _probe_out[dev]
+    grid = ctypes.c_int(0)
+    err = fn(*args, out.data_ptr(), PROBE_OUT,
+             torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(grid))
+    if err:
+        raise RuntimeError(f"{fn.__name__} launch failed: {err}")
+
+# stream_read over a buffer that stays in the 50 MB L2, and one far past it
+# (the same probe then reads HBM): bytes, passes
+STREAM_PROBE = dict(l2=(16 << 20, 200), hbm=(2 << 30, 2))
+PROBE_ROUNDS = 3
+
+
+def memory_rates(dev):
+    """Bytes/s the card reads from L2 and from HBM: ``stream_read`` over a
+    16 MB buffer (200 passes) and a 2 GB one (2 passes), with 8 and 16
+    loads in flight per thread, as many blocks as fit the card; CUDA
+    events over 10 launches a round. The best variant and round."""
+    import torch
+    lib = PROBES()
+    rates = {}
+    for name, (nbytes, passes) in STREAM_PROBE.items():
+        buf = torch.ones(nbytes // 4, device=dev)
+        ms = min(time_ms(lambda: _probe_call(
+            lib.stream_read, buf.data_ptr(), buf.numel() // 4, passes, loads,
+            dev=dev), reps=10)
+            for loads in (8, 16) for _ in range(PROBE_ROUNDS))
+        rates[name] = passes * nbytes / (ms / 1e3)
+        del buf
+    log(f"phase 4 memory rates (probes/memory_rates.cu stream_read): L2 "
+        f"{rates['l2'] / 1e12:.3f} TB/s over a 16 MB buffer, HBM "
+        f"{rates['hbm'] / 1e12:.3f} TB/s over 2 GB")
+    return rates
+
+
+def row_gather_rate(table, rows, dev):
+    """Bytes/s at which the card reads ``table[rows]`` (f32, 16-byte rows
+    multiple) in embedding bag's own order and load: ``row_gather_read``
+    with 4, 8 and 16 rows in flight per warp, best variant and round."""
+    d4 = table.shape[1] // 4
+    ms = min(time_ms(lambda: _probe_call(
+        PROBES().row_gather_read, table.data_ptr(), rows.data_ptr(),
+        rows.numel(), d4, r, dev=dev), reps=10)
+        for r in (4, 8, 16) for _ in range(PROBE_ROUNDS))
+    return rows.numel() * table.shape[1] * 4 / (ms / 1e3)
+
+
+def phase4(dev, ctx):
+    """Drive ``repro_torch.kernels.ops`` once per full-width shape with the
+    launch counters zeroed around the run, then hold each output against
+    the plain version and time kernel, plain version and library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_topk_score as fts
+    from repro_torch.kernels import ops as kops
+
+    err = phase4_checks(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+
+    # ---- full-width inputs ------------------------------------------------
+    buf32, buf8, w_hat = ctx["buf32"], ctx["buf8"], ctx["w_hat"]
+    qa, cand, cl, ci, copy_of, copy_src = gather_inputs(ctx)
+    ce32 = cand["f32"][0]
+    n_cand, d = ce32.shape[1:]
     flash_in = {}
     for name, c in FLASH_CFGS.items():
         for dtype in ((torch.bfloat16, torch.float32) if name == "qwen2-7b"
@@ -1004,22 +1243,13 @@ def phase4(dev, ctx):
             e_r = topk_match(ids.cpu(), got[0].cpu(), ri.cpu(), rs.cpu())
             rec.update(routed_err=e_r, routed_bit_equal=bool(
                 torch.equal(ids, ri) and torch.equal(got[0], rs)))
-        rec["ms"] = time_ms(lambda: kops.fused_topk_score(*args, **kw))
-        rec["plain_ms"] = time_ms(lambda: fts.gather_topk_plain(*args, **kw),
-                                  reps=3)
+        rec.update(gather_times(qa, ce, sc, cl, ci, w_hat))
         rec["copy_ms"] = time_ms(lambda: copy_of(*copy_src[p]), reps=3)
-        live = int((ci >= 0).sum())
-        esz = ce.element_size()
-        nbytes = (live * d * esz + ci.numel() * (8 + 4 + (4 if sc is not None
-                                                          else 0))
-                  + N_GATHER * (d * 4 + 16) + w_hat.numel() * 4
-                  + N_GATHER * 20 * 8)
-        flops = live * 2 * d + (live * d if sc is not None else 0)
-        rec.update(roof(nbytes, flops, F32_FLOPS_PER_S), live_rows=live)
         gk[p] = rec
         log(f"phase 4 gather {p}: {rec['ms']:.3f} ms (copy {rec['copy_ms']:.3f} "
             f"ms) vs plain {rec['plain_ms']:.3f} ms; bound "
-            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}); max|err| "
+            f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+            f"{rec['x_bound']:.2f}x bound; max|err| "
             f"{e:.3g}; vs routed {rec.get('routed_err', 'n/a')} "
             f"bit-equal {rec.get('routed_bit_equal', 'n/a')}")
     err["gather"] = max(err["gather"], *(r["err"] for r in gk.values()),
@@ -1029,6 +1259,7 @@ def phase4(dev, ctx):
                                       "fused score + top-k")
     del cand, copy_src, ce32, cl, ci, ctx, buf32, buf8
     torch.cuda.empty_cache()
+    rates = memory_rates(dev)
 
     # ---- flash attention ------------------------------------------------------
     fk = {}
@@ -1138,20 +1369,93 @@ def phase4(dev, ctx):
                         + b * DLRM["d"] * 4, int(valid.numel()) * DLRM["d"],
                         F32_FLOPS_PER_S), batch=b, rows_touched=rows,
                    library_err=lib_err)
+        # every (bag, index) pair reads its row, from L2 (the table stays
+        # there): those bytes over the best L2 read rate this run shows --
+        # the streaming probe's, the row-gather probe's on these very rows,
+        # or the kernel's own -- so the share cannot pass 1
+        gathered = int(valid.numel()) * DLRM["d"] * 4
+        l2_rates = dict(stream=rates["l2"],
+                        row_gather=row_gather_rate(
+                            table, valid.to(torch.int32).contiguous(), dev),
+                        kernel=gathered / (rec["ms"] / 1e3))
+        l2_by = max(l2_rates, key=l2_rates.get)
+        rec.update(gathered_bytes=gathered, l2_rates=l2_rates,
+                   l2_rate=l2_rates[l2_by], l2_rate_by=l2_by,
+                   l2_bound_ms=gathered / l2_rates[l2_by] * 1e3)
+        rec["share_of_bound"] = (max(rec["bound_ms"], rec["l2_bound_ms"])
+                                 / rec["ms"])
         ek[shape] = rec
         log(f"phase 4 embedding_bag {shape} (B {b}): {rec['ms']:.3f} ms vs "
             f"plain {rec['plain_ms']:.3f} ms, F.embedding_bag "
             f"{rec['library_ms']:.3f} ms (|Δ| {lib_err:.3g}); bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {rows} rows); "
-            f"max|err| {e:.3g}")
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {rows} rows); L2 "
+            f"bound {rec['l2_bound_ms']:.4f} ms ({gathered / 1e9:.3f} GB of "
+            f"gathered rows at {rec['l2_rate'] / 1e12:.3f} TB/s, the "
+            f"{l2_by} rate; L2 rates TB/s stream "
+            f"{l2_rates['stream'] / 1e12:.3f}, row gather "
+            f"{l2_rates['row_gather'] / 1e12:.3f}, kernel "
+            f"{l2_rates['kernel'] / 1e12:.3f}); share of max(HBM, L2 bound) "
+            f"{rec['share_of_bound']:.3f}; max|err| {e:.3g}")
     err["dot_interaction"] = max(err["dot_interaction"],
                                  *(r["err"] for r in dk.values()))
     err["embedding_bag"] = max(err["embedding_bag"],
                                *(r["err"] for r in ek.values()))
     rep["dot_interaction"] = dict(main="serve_bulk", shapes=dk)
     rep["embedding_bag"] = dict(main="serve_bulk", shapes=ek)
-    return dict(report=rep, launches=counts, err=err,
+    return dict(report=rep, launches=counts, err=err, rates=rates,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def compare(dev):
+    """``--compare``: timings only, for two trees compared in turns on one
+    card (parent / change / change / parent). The gather scan on its
+    full-width copies, and the routed and cluster-major kernels on one
+    256-query chunk at the router and uniform skews, every tier. It calls
+    only wrappers whose signatures the older tree shares, so a checkout of
+    the parent with this script copied in runs it too."""
+    import torch
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import serving as serving_lib
+    from repro_torch.core.snapshot import IndexSnapshot
+    from repro_torch.kernels import fused_topk_score as fts
+    fi = full_width_index(dev)
+    bufs, c = fi["bufs"], fi["cfg"].n_clusters
+    w_hat = IndexSnapshot.from_parts(fi["cfg"], fi["rel"], fi["index"],
+                                     fi["norm"], bufs["f32"],
+                                     dist_max=1.4142).w_hat
+    chunk = [torch.from_numpy(a[:256]).to(dev)
+             for a in (fi["tok"], fi["msk"], fi["q_loc"])]
+    q_emb, w, top_router = engine_lib.make_prefix_fn(cr=2)(
+        fi["rel"], fi["index"], fi["norm"], *chunk)
+    ql = chunk[2]
+    ctx = dict(buf32=bufs["f32"], buf8=bufs["int8"], w_hat=w_hat,
+               q_emb=q_emb, ql=ql, w=w, top_c=top_router)
+    qa, cand, cl, ci, _, _ = gather_inputs(ctx)
+    out = {"gather": {}}
+    for p, (ce, sc) in cand.items():
+        rec = gather_times(qa, ce, sc, cl, ci, w_hat)
+        out["gather"][p] = rec
+        log(f"compare gather {p}: {rec['ms']:.3f} ms ({rec['x_bound']:.2f}x "
+            f"bound {rec['bound_ms']:.3f} ms), plain {rec['plain_ms']:.3f} ms")
+    del cand, cl, ci
+    torch.cuda.empty_cache()
+    for skew in ("router", "uniform"):
+        top_c = skew_routes(skew, top_router, c=c, seed=SEED + 10)
+        u, roster, _ = serving_lib.cluster_major_plan(top_c, n_clusters=c)
+        for p, buf in bufs.items():
+            kw = dict(k=20, dist_max=1.4142,
+                      buf_scale=buf["scale"] if p == "int8" else None)
+            bargs = (buf["emb"], buf["loc"], buf["ids"], w_hat)
+            rec = dict(
+                routed_ms=time_ms(lambda: fts.fused_topk_score_routed(
+                    q_emb, ql, w, top_c, *bargs, **kw)),
+                cluster_major_ms=time_ms(
+                    lambda: fts.fused_topk_score_cluster_major(
+                        q_emb, ql, w, u, roster, *bargs, cr=2, **kw)))
+            out[f"{skew}/{p}"] = rec
+            log(f"compare {skew} {p}: routed {rec['routed_ms']:.3f} ms, "
+                f"cluster_major {rec['cluster_major_ms']:.3f} ms")
+    return out
 
 
 def main() -> int:
@@ -1173,16 +1477,29 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import ops as kops
+    global PROBES
+    compare_only = "--compare" in sys.argv[1:]
     t0 = time.perf_counter()
-    infos = kops.build_all()
-    log(f"phase 0: {len(infos)} kernel libraries built side by side in "
-        f"{time.perf_counter() - t0:.1f} s with loading")
+    with ThreadPoolExecutor(1) as pool:
+        # --compare runs on older trees too, and needs no probe
+        if not compare_only:
+            PROBES = probe_library()
+            probe_build = pool.submit(PROBES.info)
+        infos = kops.build_all()
+        if not compare_only:
+            infos[PROBES.name] = probe_build.result()
+    log(f"phase 0: {len(infos)} libraries (kernels and memory probes) built "
+        f"side by side in {time.perf_counter() - t0:.1f} s with loading")
     for name, info in infos.items():
         log(f"phase 0: {name} nvcc {info['seconds']:.1f} s -> {info['path']}")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
+    if compare_only:
+        log(json.dumps({"card": card, "compare": compare(dev)}))
+        return 0
     sass = flash_sass_check(infos["flash_attention"]["path"])
     log(f"phase 0: flash_attention SASS, tensor-core instructions per "
         f"16-bit instantiation (D 16..128): {sass}")
@@ -1254,9 +1571,11 @@ def main() -> int:
             "shapes": {key: {f: v for f, v in rec.items()
                              if f in ("ms", "plain_ms", "library_ms",
                                       "bound_ms", "bound_by", "copy_ms",
-                                      "routed_bit_equal", "err",
+                                      "routed_bit_equal", "err", "x_bound",
                                       "one_rounding", "library_one_rounding",
-                                      "library_over_kernel")}
+                                      "library_over_kernel", "l2_bound_ms",
+                                      "l2_rates", "l2_rate_by",
+                                      "share_of_bound")}
                        for key, rec in r["shapes"].items()}}
         if "library_note" in r:
             entry["library_note"] = r["library_note"]
@@ -1269,6 +1588,8 @@ def main() -> int:
                        **{p: {"path_ms": rec[p]["path_ms"],
                               "bound": rec[p]["bound"]} for p in TIERS}}
                   for sk, rec in skews.items()},
+        "full_fan_out": p3["fan_out"], "tombstone_mask_ms": p3["mask_ms"],
+        "memory_rates": p4["rates"],
         "peak_device_gb": p3["peak_gb"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

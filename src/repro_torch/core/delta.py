@@ -58,3 +58,20 @@ class DeltaSegment:
         """Sorted int64 id array."""
         return np.sort(np.fromiter(self.tombstones, np.int64,
                                    len(self.tombstones)))
+
+
+def mask_tombstones(ids: torch.Tensor, tombstones) -> torch.Tensor:
+    """A copy of ``ids`` (the buffers' object ids) with every tombstoned id
+    set to -1, so the scans treat those rows as padding.
+
+    The reference over-fetches the base top-k by the tombstone count
+    ``n`` rounded up to 32 (capped at the routed rows) and drops
+    tombstoned entries afterwards. Each object sits in one buffer row, so
+    at most ``n`` of its entries are tombstoned and its first ``k`` live
+    ones are the first ``k`` live rows by (score desc, scan position asc):
+    what a scan over the masked ids gives, with no extra width."""
+    tomb = torch.as_tensor(np.asarray(tombstones, np.int64))
+    info = torch.iinfo(ids.dtype)
+    tomb = tomb[(tomb >= info.min) & (tomb <= info.max)]
+    return ids.masked_fill(torch.isin(ids, tomb.to(ids.device, ids.dtype)),
+                           -1)

@@ -61,10 +61,6 @@ DEFAULT_PLAN_CACHE_SIZE = 32
 # delta scans pad the row count up to a multiple of this
 DELTA_PAD_BUCKET = 128
 
-# with tombstones, the base top-k is over-fetched by the tombstone count
-# rounded up to this bucket: each tombstone can knock one entry out
-TOMBSTONE_K_BUCKET = 32
-
 
 def resolve_backend(backend: str, device) -> str:
     """``"auto"`` → ``"cuda"`` on a CUDA device, ``"dense"`` on the CPU;
@@ -448,8 +444,8 @@ class QueryEngine:
         engine's for this call; an auto request picks query- or
         cluster-major per call (:meth:`pick_backend`). ``filters``: None,
         one :class:`~repro_torch.core.filters.FilterSpec`, or one per row.
-        A delta segment is scanned and merged on the host, with the base
-        top-k over-fetched by the tombstone count."""
+        A delta segment is scanned and merged on the host; its tombstoned
+        ids are masked out of the base scan (``IndexSnapshot.scan_view``)."""
         snap = self._snapshot if snapshot is None else snapshot
         q_tokens, q_mask, q_loc = (np.asarray(a) for a in
                                    (q_tokens, q_mask, q_loc))
@@ -461,19 +457,13 @@ class QueryEngine:
                                         batch=batch, snapshot=snap, base=base)
         elif backend is not None:
             backend = resolve_backend(backend, snap.device)
-        buf = snap.buffers
         delta = snap.delta
         use_delta = delta is not None and not delta.is_empty
-        k_fetch = k
-        if use_delta and delta.n_tombstones:
-            extra = (-(-delta.n_tombstones // TOMBSTONE_K_BUCKET)
-                     * TOMBSTONE_K_BUCKET)
-            pool = cr * int(buf["capacity"])
-            k_fetch = max(k, min(k + extra, pool))
-        fn = self.query_fn(k=k_fetch, cr=cr, backend=backend, batch=batch,
+        scan_snap = snap.scan_view
+        fn = self.query_fn(k=k, cr=cr, backend=backend, batch=batch,
                            precision=snap.meta.precision, filtered=filtered)
         arrays = [q_tokens, q_mask, q_loc] + ([fvals] if filtered else [])
-        ids, scores = run_batched(lambda *a: fn(snap, *a), arrays,
+        ids, scores = run_batched(lambda *a: fn(scan_snap, *a), arrays,
                                   batch=batch, device=snap.device)
         if not use_delta:
             return ids, scores

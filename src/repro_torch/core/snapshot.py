@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import hashlib
 import json
 import time
@@ -127,6 +128,23 @@ class IndexSnapshot:
     @property
     def device(self) -> torch.device:
         return self.buffers["emb"].device
+
+    @property
+    def scan_view(self) -> "IndexSnapshot":
+        """What the base scan reads: ``self``, or, when the delta holds
+        tombstones, this snapshot with them set to -1 in ``buffers["ids"]``
+        (:func:`~repro_torch.core.delta.mask_tombstones`), so the scans
+        skip those rows as padding. The masked ids are built at first use
+        on the snapshot's device and live as long as the snapshot."""
+        if self.delta is None or not self.delta.n_tombstones:
+            return self
+        return dataclasses.replace(
+            self, buffers={**self.buffers, "ids": self._masked_ids})
+
+    @functools.cached_property
+    def _masked_ids(self) -> torch.Tensor:
+        return delta_lib.mask_tombstones(self.buffers["ids"],
+                                         self.delta.tombstone_array())
 
     def to(self, device) -> "IndexSnapshot":
         """The same snapshot with its modules and arrays on ``device``

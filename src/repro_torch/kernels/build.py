@@ -42,12 +42,14 @@ def _digest(sources: Sequence[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(name: str, sources: Sequence[str]) -> Tuple[ctypes.CDLL, dict]:
-    """Compile (if needed) and load ``lib<name>.so`` from ``csrc`` files.
+def load_library(name: str, sources: Sequence[str],
+                 csrc: Path = CSRC) -> Tuple[ctypes.CDLL, dict]:
+    """Compile (if needed) and load ``lib<name>.so`` from files of ``csrc``
+    (the port's ``kernels/csrc`` unless given).
 
     Returns ``(library, info)`` where ``info`` holds the build seconds
     (0 when the cached library was reused) and the compiler's output."""
-    paths = [CSRC / s for s in sources]
+    paths = [Path(csrc) / s for s in sources]
     out_dir = BUILD_ROOT / f"{name}-{_digest(paths)}"
     lib_path = out_dir / f"lib{name}.so"
     info = {"seconds": 0.0, "log": "", "path": str(lib_path)}
@@ -72,14 +74,15 @@ class KernelLibrary:
     Calling it returns the loaded ``ctypes.CDLL``."""
 
     def __init__(self, name: str, sources: Sequence[str],
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None], *, csrc: Path = CSRC):
         self.name, self.sources, self._bind = name, tuple(sources), bind
+        self.csrc = csrc
         self._lib = None
         self._info: dict = {}
 
     def __call__(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib, info = load_library(self.name, self.sources)
+            lib, info = load_library(self.name, self.sources, self.csrc)
             self._bind(lib)
             self._lib, self._info = lib, info
         return self._lib

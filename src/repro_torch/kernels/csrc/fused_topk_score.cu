@@ -13,24 +13,29 @@
 // output slot holds), and keep the top k by (score desc, scan position asc):
 // the order jax.lax.top_k gives over the reference's [running list, tile]
 // concatenation, so ids are deterministic. The scan position is route * cap +
-// row (routed) or the row (cluster-major: one list per (query, route) pair).
+// row (routed), the row (cluster-major: one list per (query, route) pair) or
+// the local position in the query's candidate copy (gather).
 //
-// What bounds the routed and cluster-major scans on an H100: the bytes of the
-// routed clusters' live rows (an f32 768-wide row is 3 KB; a (query, row) pair
-// is 2 flops per f32 byte read once, so even the random router's 181-pair hot
-// cluster needs ~0.2 ms of f32 FMAs at 67 TFLOP/s against a 0.575 ms byte
-// bound). Both run on the FP32 CUDA cores: TF32 tensor cores would round the
+// What bounds the three scans on an H100: the bytes of the scanned live rows
+// (an f32 768-wide row is 3 KB; a (query, row) pair is 2 flops per f32 byte
+// read once, so even the random router's 181-pair hot cluster needs ~0.2 ms of
+// f32 FMAs at 67 TFLOP/s against a 0.575 ms byte bound; a gather row serves one
+// query). All run on the FP32 CUDA cores: TF32 tensor cores would round the
 // operands to 10 mantissa bits and break the 1e-4 + 1e-5·|s| contract against
 // the plain version, and the work is not operation-bound.
 //
-// The design (the tiled scan below), shared by both:
+// The design (the tiled scan below), shared by all three:
 // - A work item scores one chunk of 1024 rows of one cluster against up to
-//   16 query slots: cluster-major, 16 roster slots of a distinct cluster of
-//   the batch plan; routed, the pairs of one group of 16 / cr queries that
-//   route to one cluster. A hot cluster spreads over many items instead of
-//   one serial walk, and an item reads its chunk once for all its slots.
-//   Items are built on the device (slot groups or the query groups' distinct
-//   clusters, then a prefix sum) and walked by persistent blocks, two per SM,
+//   G query slots (G = 16 at the main path's k; launch_shape halves it to 8,
+//   4, 2, 1 as k grows, so the slots' sorted lists still fit shared memory):
+//   cluster-major, G roster slots of a distinct cluster of the batch plan;
+//   routed, the pairs of one group of max(1, G / cr) queries that route to
+//   one cluster; gather, one query's own candidate copy (a "cluster" of
+//   capacity N that only query b reads), one slot. A hot cluster spreads over
+//   many items instead of one serial walk, and an item reads its chunk once
+//   for all its slots. Items are built on the device (slot groups or the
+//   query groups' distinct clusters, then a prefix sum; gather items are
+//   plain arithmetic, b * n_chunks + ch) and walked by persistent blocks
 //   through an atomic counter; no host sync. Routed items run chunk-major
 //   across the batch, so the groups reading one cluster chunk run together
 //   and share it through L2.
@@ -40,7 +45,7 @@
 //   of its rows is fetched, and so is each padding row. Rows are widened
 //   (int8: dequantized, float(o) * scale) in registers.
 // - Thread t owns row t of a tile and a register dot product per live slot
-//   (a 1 x 16 tile): one row load and widening serve every slot, the slots'
+//   (a 1 x G tile): one row load and widening serve every slot, the slots'
 //   query floats are warp-wide broadcasts, and no (query, row) pair pays a
 //   warp reduction. The thread computes each of its pairs' spatial term and
 //   filter test once.
@@ -48,11 +53,10 @@
 //   the slot's k-th key (a threshold in shared memory); twice per tile the
 //   buffers are merged into the sorted lists by rank.
 // - Each item writes one sorted partial list per slot and chunk; a merge
-//   kernel (a warp per output row) folds them by key into (B, k) (routed) or
-//   (B * cr, k) pairs (cluster-major), which engine.merge_cluster_major folds.
-//
-// The gather kernel keeps a simpler design (one block per query; a warp ballots
-// 32 ids and streams the live rows, one at a time, with a warp reduction).
+//   kernel (a warp per output row) folds them by key into (B, k) (routed,
+//   gather: the scan position, which is the local position, in place of an
+//   id) or (B * cr, k) pairs (cluster-major), which engine.merge_cluster_major
+//   folds.
 //
 // Numerics: the spatial bucket uses IEEE sqrt and division with explicit
 // _rn intrinsics (no contraction, no fast-math), so S_in, the bucket and
@@ -99,57 +103,6 @@ __device__ __forceinline__ uint32_t key_pos(uint64_t key) {
   return 0xffffffffu - uint32_t(key);
 }
 
-// ---- per-warp running top-k list (gather kernel) ------------------------------
-
-__device__ __forceinline__ void list_min(const uint64_t* slots, int k, int lane,
-                                         uint64_t& min_key, int& min_slot) {
-  uint64_t mk = ~0ull;
-  int ms = 0;
-  for (int s = lane; s < k; s += 32) {
-    const uint64_t v = slots[s];
-    if (v < mk) { mk = v; ms = s; }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const uint64_t ok = __shfl_xor_sync(kFull, mk, off);
-    const int os = __shfl_xor_sync(kFull, ms, off);
-    if (ok < mk || (ok == mk && os < ms)) { mk = ok; ms = os; }
-  }
-  min_key = mk;
-  min_slot = ms;
-}
-
-// every lane of the warp calls this with the same key
-__device__ __forceinline__ void list_push(uint64_t* slots, int k, int lane, uint64_t key,
-                                          uint64_t& min_key, int& min_slot) {
-  if (key > min_key) {
-    if (lane == 0) slots[min_slot] = key;
-    __syncwarp();
-    list_min(slots, k, lane, min_key, min_slot);
-    __syncwarp();
-  }
-}
-
-// sorted[0, n) = the list's real keys, descending; sorted[n, k) = 0. Returns n.
-__device__ int list_sort(const uint64_t* slots, uint64_t* sorted, int k, int lane) {
-  int n = 0;
-  for (int s = lane; s < k; s += 32) {
-    const uint64_t v = slots[s];
-    if (v) {
-      int rank = 0;
-      for (int j = 0; j < k; ++j) rank += slots[j] > v;   // keys are unique
-      sorted[rank] = v;
-      ++n;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(kFull, n, off);
-  __syncwarp();
-  for (int s = n + lane; s < k; s += 32) sorted[s] = 0;
-  __syncwarp();
-  return n;
-}
-
 // ---- row loads --------------------------------------------------------------
 
 template <typename T> struct Row;      // 16-byte vector = V elements
@@ -191,38 +144,6 @@ template <> struct Row<int8_t> {
 };
 
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
-// one lane's share of q . row, the query in shared memory as floats
-template <typename T, bool DEQUANT>
-__device__ __forceinline__ float dot_row(const T* __restrict__ row, const float* qs, int d,
-                                         int lane, float scale) {
-  constexpr int V = Row<T>::V;
-  const uint4* rv = reinterpret_cast<const uint4*>(row);
-  float acc = 0.f;
-  for (int c = lane; c < d / V; c += 32) {
-    float v[V];
-    Row<T>::unpack(__ldg(rv + c), v);
-    const float4* q4 = reinterpret_cast<const float4*>(qs + c * V);
-#pragma unroll
-    for (int j = 0; j < V / 4; ++j) {
-      const float4 qq = q4[j];
-      float e0 = v[4 * j], e1 = v[4 * j + 1], e2 = v[4 * j + 2], e3 = v[4 * j + 3];
-      if (DEQUANT) {
-        e0 = __fmul_rn(e0, scale); e1 = __fmul_rn(e1, scale);
-        e2 = __fmul_rn(e2, scale); e3 = __fmul_rn(e3, scale);
-      }
-      acc = fmaf(qq.x, e0, acc); acc = fmaf(qq.y, e1, acc);
-      acc = fmaf(qq.z, e2, acc); acc = fmaf(qq.w, e3, acc);
-    }
-  }
-  return acc;
-}
-
 // ---- score terms ------------------------------------------------------------
 
 // w1 * w_hat[bucket]: the spatial half of ST, bit-identical to the reference
@@ -238,165 +159,47 @@ __device__ __forceinline__ float spatial_term(float qx, float qy, float ox, floa
   return __fmul_rn(w1, __ldg(w_hat + idx));
 }
 
-__device__ __forceinline__ bool passes(const int* __restrict__ a, int4 f) {
-  const int tenant = a[0], cat = a[1], ts = a[2];
-  return (f.x < 0 || tenant == f.x) && (f.y == 0 || (cat & f.y) != 0) &&
-         ts >= f.z && ts <= f.w;
-}
-
-// ---- query-major scan of the gather kernel -------------------------------------
-
-// Warp `warp` of the block scans the 32-row chunks warp, warp+8, ... of the
-// `rows` rows at `base` (one query's candidate copy) and
-// pushes each live row's score into its list, keyed by scan position pos0+row.
-template <typename T, bool DEQUANT, bool FILTERED>
-__device__ __forceinline__ void scan_rows(
-    const T* __restrict__ emb, const float* __restrict__ scale,
-    const float* __restrict__ loc, const int* __restrict__ ids,
-    const int* __restrict__ attrs, int4 f, size_t base, int rows, uint32_t pos0,
-    const float* qs, float qx, float qy, float w0, float w1, int d, int t,
-    float dist_max, const float* __restrict__ w_hat, int warp, int lane,
-    uint64_t* mine, int k, uint64_t& min_key, int& min_slot) {
-  const int n_chunks = (rows + 31) / 32;
-  for (int ch = warp; ch < n_chunks; ch += kWarps) {
-    const int n = ch * 32 + lane;
-    bool live = false;
-    float sterm = 0.f;
-    if (n < rows) {
-      live = ids[base + n] >= 0;
-      if (FILTERED && live) live = passes(attrs + (base + n) * 3, f);
-      if (live)
-        sterm = spatial_term(qx, qy, loc[(base + n) * 2], loc[(base + n) * 2 + 1], w1,
-                             dist_max, t, w_hat);
-    }
-    unsigned todo = __ballot_sync(kFull, live);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int row = ch * 32 + j;
-      const float sc = DEQUANT ? scale[base + row] : 1.f;
-      const float trel = warp_sum(dot_row<T, DEQUANT>(emb + (base + row) * size_t(d), qs, d, lane, sc));
-      const float st = __fadd_rn(__fmul_rn(w0, trel), __shfl_sync(kFull, sterm, j));
-      list_push(mine, k, lane, make_key(st, pos0 + uint32_t(row)), min_key, min_slot);
-    }
-  }
-}
-
-// Merge the 8 warp lists into out_s/out_i[0, k) (this block's output row):
-// sort each, then rank every entry by binary search in the others. The slot
-// of a real entry gets id_of(scan position); slots past the last real entry
-// get (NEG_INF, -1).
-template <typename IdOf>
-__device__ __forceinline__ void merge_warp_lists(const uint64_t* mine, uint64_t* sorted,
-                                                 int* n_real, int k, int warp, int lane,
-                                                 int tid, float* __restrict__ out_s,
-                                                 int* __restrict__ out_i, IdOf id_of) {
-  const int n_mine = list_sort(mine, sorted + warp * k, k, lane);
-  if (lane == 0) n_real[warp] = n_mine;
-  __syncthreads();
-  int total = 0;
-  for (int o = 0; o < kWarps; ++o) total += n_real[o];
-  for (int e = tid; e < kWarps * k; e += kThreads) {
-    const int ow = e / k, j = e % k;
-    if (j >= n_real[ow]) continue;
-    const uint64_t key = sorted[e];
-    int rank = j;
-    for (int o = 0; o < kWarps; ++o) {
-      if (o == ow) continue;
-      const uint64_t* so = sorted + o * k;
-      int lo = 0, hi = n_real[o];
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (so[mid] > key) lo = mid + 1; else hi = mid;
-      }
-      rank += lo;
-    }
-    if (rank < k) {
-      out_s[rank] = key_score(key);
-      out_i[rank] = id_of(key_pos(key));
-    }
-  }
-  for (int s = total + tid; s < k; s += kThreads) {
-    out_s[s] = kNegInf;
-    out_i[s] = -1;
-  }
-}
-
-// ---- gather kernel ---------------------------------------------------------------
-// grid (B); block 256. One block scans one query's materialized candidate copy
-// (n rows at b * n), a warp per 32-row chunk, and merges its 8 warp lists.
-// Outputs local positions in [0, n), not ids.
-
-template <typename T, bool DEQUANT>
-__global__ void __launch_bounds__(kThreads)
-gather_kernel(const float* __restrict__ q, const float* __restrict__ q_loc,
-              const float* __restrict__ w, const T* __restrict__ emb,
-              const float* __restrict__ scale, const float* __restrict__ loc,
-              const int* __restrict__ ids, const float* __restrict__ w_hat, int n, int d,
-              int t, int k, float dist_max, float* __restrict__ out_s,
-              int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  uint64_t* lists = reinterpret_cast<uint64_t*>(smem + align16(size_t(d) * 4));
-  uint64_t* sorted = lists + kWarps * k;
-  int* n_real = reinterpret_cast<int*>(sorted + kWarps * k);
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < d; i += kThreads) qs[i] = q[size_t(b) * d + i];
-  uint64_t* mine = lists + warp * k;
-  for (int s = lane; s < k; s += 32) mine[s] = 0;
-  uint64_t min_key = 0;
-  int min_slot = 0;
-  __syncthreads();
-
-  scan_rows<T, DEQUANT, false>(emb, scale, loc, ids, nullptr, make_int4(0, 0, 0, 0),
-                               size_t(b) * n, n, 0u, qs, q_loc[2 * b], q_loc[2 * b + 1],
-                               w[2 * b], w[2 * b + 1], d, t, dist_max, w_hat, warp, lane,
-                               mine, k, min_key, min_slot);
-  merge_warp_lists(mine, sorted, n_real, k, warp, lane, tid, out_s + size_t(b) * k,
-                   out_i + size_t(b) * k, [](uint32_t pos) { return int(pos); });
-}
-
-
-// ---- tiled scan: the routed and the cluster-major kernels ----------------------
+// ---- tiled scan: the routed, cluster-major and gather kernels -------------------
 //
 // A work item scores rows [r0, r0 + nrows) of one cluster buffer (one chunk)
-// against up to kGroup query slots, prepared in shared memory by the caller
-// (query row, output row, scan-position offset, q_loc and weights, filter),
-// and writes each live slot's sorted partial list of k keys and ids to
-// part_key/part_id row `out`. Thread t owns row t of every 256-row tile and
-// a register dot product for each live slot: a 1 x 16 register tile.
+// against up to G query slots (ScanArgs::slots), prepared in shared memory by
+// the caller (query row, output row, scan-position offset, q_loc and weights,
+// filter), and writes each live slot's sorted partial list of k keys (and ids,
+// where part_id is given) to part_key/part_id row `out`. Thread t owns row t
+// of every 256-row tile and a register dot product for each live slot: a
+// 1 x G register tile.
 
 constexpr int kTile = 256;                   // rows per tile: one row per thread
 constexpr int kChunkBytes = 128;             // bytes of each row one stage holds
 constexpr int kStages = 2;                   // the cp.async ring
 constexpr int kCandCap = kTile / 2;          // candidates a slot takes per half tile
-constexpr int kGroup = 16;                   // query slots per work item
+constexpr int kGroup = 16;                   // the most query slots of a work item
 static_assert(kThreads == kTile, "one thread per row of a tile");
 
-// Shared-memory layout of an item, in bytes (mirrored by launch_shape in
-// kernels/fused_topk_score.py, which passes the total; the launcher checks it).
-// A stage holds 256 rows x 128 bytes, 16-byte piece s of row r at piece
-// s ^ (r & 7) (8 neighbouring rows read one piece each from 8 bank groups),
-// then the slots' query floats for the same 128 bytes of the row.
+// Shared-memory layout of an item with G slots, in bytes (mirrored by
+// launch_shape in kernels/fused_topk_score.py, which passes the total; the
+// launcher checks it). A stage holds 256 rows x 128 bytes, 16-byte piece s of
+// row r at piece s ^ (r & 7) (8 neighbouring rows read one piece each from 8
+// bank groups), then the slots' query floats for the same 128 bytes of the row.
+// Stages, candidate buffers and lists scale with G; the small per-slot fields
+// keep kGroup entries, so their views sit at fixed offsets from one another.
 struct TileSmem {
   size_t stage, ids, tiles, cand, lists, thresh, out, par, filt, ints, total;
 };
 
-__host__ __device__ inline TileSmem tile_smem(int chunk_rows, int k, int kce) {
+__host__ __device__ inline TileSmem tile_smem(int chunk_rows, int k, int kce, int G) {
   TileSmem s;
-  s.stage = align16(size_t(kTile) * kChunkBytes + size_t(kGroup) * kce * 4);
+  s.stage = align16(size_t(kTile) * kChunkBytes + size_t(G) * kce * 4);
   size_t off = s.stage * kStages;
   s.ids = off;    off += align16(size_t(chunk_rows) * 4);
   s.tiles = off;  off += align16(size_t(chunk_rows / kTile + 1) * 4);
-  s.cand = off;   off += size_t(kGroup) * kCandCap * 8;
-  s.lists = off;  off += 2 * size_t(kGroup) * k * 8;
+  s.cand = off;   off += size_t(G) * kCandCap * 8;
+  s.lists = off;  off += 2 * size_t(G) * k * 8;
   s.thresh = off; off += size_t(kGroup) * 8;
   s.out = off;    off += size_t(kGroup) * 8;
   s.par = off;    off += size_t(kGroup) * 16;
   s.filt = off;   off += size_t(kGroup) * 16;
-  s.ints = off;   off += size_t(kGroup) * 5 * 4;      // q, nreal, sel, cand_n, pos
+  s.ints = off;   off += size_t(kGroup) * 5 * 4;     // q, nreal, sel, cand_n, pos
   s.total = off;
   return s;
 }
@@ -405,7 +208,7 @@ struct ScanArgs {
   const float* q; const float* q_loc; const float* w; const void* emb;
   const float* scale; const float* loc; const int* ids; const int* attrs;
   const int* q_filt; const float* w_hat;
-  int cap, d, t, k, chunk_rows;
+  int cap, d, t, k, chunk_rows, slots;
   float dist_max;
   uint64_t* part_key; int* part_id;
 };
@@ -469,9 +272,9 @@ __device__ __forceinline__ bool passes3(int tenant, int cat, int ts, int4 f) {
 // acc[j] += q_slot(j) . row(tid) over one stage (nsteps 16-byte pieces of the
 // row) for the first NQL slots: one row load and its widening serve NQL slots,
 // whose query floats are the same address for the whole warp (a broadcast).
-template <typename T, bool DQ, int NQL>
+template <typename T, bool DQ, int NQL, int MAXQ>
 __device__ __forceinline__ void tile_dots(const unsigned char* rs, const float* qs, int nsteps,
-                                          int tid, float sc, float (&acc)[kGroup]) {
+                                          int tid, float sc, float (&acc)[MAXQ]) {
   constexpr int V = Row<T>::V;
   constexpr int kce = kChunkBytes / sizeof(T);
   const unsigned char* row = rs + tid * kChunkBytes;
@@ -498,29 +301,33 @@ __device__ __forceinline__ void tile_dots(const unsigned char* rs, const float* 
 }
 
 // nql (1 + the last live slot) rounded up to 1, 2, 4, 8 or 16 slots
-template <typename T, bool DQ>
+template <typename T, bool DQ, int MAXQ>
 __device__ __forceinline__ void tile_dots_n(int nql, const unsigned char* rs, const float* qs,
                                             int nsteps, int tid, float sc,
-                                            float (&acc)[kGroup]) {
-  if (nql > 8) tile_dots<T, DQ, 16>(rs, qs, nsteps, tid, sc, acc);
-  else if (nql > 4) tile_dots<T, DQ, 8>(rs, qs, nsteps, tid, sc, acc);
-  else if (nql > 2) tile_dots<T, DQ, 4>(rs, qs, nsteps, tid, sc, acc);
-  else if (nql > 1) tile_dots<T, DQ, 2>(rs, qs, nsteps, tid, sc, acc);
+                                            float (&acc)[MAXQ]) {
+  if (MAXQ == 1) {
+    tile_dots<T, DQ, 1>(rs, qs, nsteps, tid, sc, acc);
+    return;
+  }
+  if (nql > 8) tile_dots<T, DQ, (MAXQ < 16 ? MAXQ : 16)>(rs, qs, nsteps, tid, sc, acc);
+  else if (nql > 4) tile_dots<T, DQ, (MAXQ < 8 ? MAXQ : 8)>(rs, qs, nsteps, tid, sc, acc);
+  else if (nql > 2) tile_dots<T, DQ, (MAXQ < 4 ? MAXQ : 4)>(rs, qs, nsteps, tid, sc, acc);
+  else if (nql > 1) tile_dots<T, DQ, (MAXQ < 2 ? MAXQ : 2)>(rs, qs, nsteps, tid, sc, acc);
   else if (nql > 0) tile_dots<T, DQ, 1>(rs, qs, nsteps, tid, sc, acc);
 }
 
 // Merge each slot's candidates into its sorted list by rank (keys are unique):
 // an entry's new rank is its rank among the list plus its rank among the
 // candidates. Lists are double-buffered (sel); thresh becomes the k-th key.
-__device__ void flush_candidates(const Slots& S, int k) {
+__device__ void flush_candidates(const Slots& S, int k, int G) {
   const int tid = threadIdx.x;
   __syncthreads();                            // every push has landed
-  for (int j = 0; j < kGroup; ++j) {
+  for (int j = 0; j < G; ++j) {
     const int nc = S.cand_n[j];
     if (nc == 0) continue;
     const int nr = S.nreal[j];
-    const uint64_t* cur = S.lists + (size_t(S.sel[j]) * kGroup + j) * k;
-    uint64_t* nxt = S.lists + (size_t(S.sel[j] ^ 1) * kGroup + j) * k;
+    const uint64_t* cur = S.lists + (size_t(S.sel[j]) * G + j) * k;
+    uint64_t* nxt = S.lists + (size_t(S.sel[j] ^ 1) * G + j) * k;
     const uint64_t* cj = S.cand + size_t(j) * kCandCap;
     for (int e = tid; e < nr + nc; e += kThreads) {
       const uint64_t x = e < nr ? cur[e] : cj[e - nr];
@@ -540,28 +347,33 @@ __device__ void flush_candidates(const Slots& S, int k) {
     }
   }
   __syncthreads();
-  if (tid < kGroup && S.cand_n[tid] > 0) {
+  if (tid < G && S.cand_n[tid] > 0) {
     const int j = tid;
     const int nn = min(k, S.nreal[j] + S.cand_n[j]);
     S.nreal[j] = nn;
     S.sel[j] ^= 1;
-    S.thresh[j] = nn == k ? S.lists[(size_t(S.sel[j]) * kGroup + j) * k + k - 1] : 0;
+    S.thresh[j] = nn == k ? S.lists[(size_t(S.sel[j]) * G + j) * k + k - 1] : 0;
     S.cand_n[j] = 0;
   }
   __syncthreads();
 }
 
-template <typename T, bool DQ, bool F>
+// MAXQ: the most slots the caller's items have (16 for the engine scans, 1
+// for the gather scan, whose register tile is then one accumulator). GS: the
+// slot count G when it is known at compile time (the engine scans at 16, the
+// main path's k), else 0 and G = a.slots: a runtime G costs registers and
+// made the routed scan 1-5% slower at k 20.
+template <typename T, bool DQ, bool F, int MAXQ = kGroup, int GS = 0>
 __device__ void scan_item(const ScanArgs& a, unsigned char* smem, const TileSmem& L,
                           const Slots& S, size_t base, int r0, int nrows) {
   constexpr int kce = kChunkBytes / sizeof(T);
   constexpr int kQSegs = kce / 4;            // 16-byte pieces of a slot's stage floats
   const int tid = threadIdx.x;
-  const int k = a.k;
+  const int k = a.k, G = GS ? GS : a.slots;
 
   // 1. the chunk's ids, its live tiles, empty lists
   for (int n = tid; n < nrows; n += kThreads) S.ids[n] = a.ids[base + r0 + n];
-  if (tid < kGroup) {
+  if (tid < G) {
     S.nreal[tid] = 0;
     S.sel[tid] = 0;
     S.cand_n[tid] = 0;
@@ -578,7 +390,7 @@ __device__ void scan_item(const ScanArgs& a, unsigned char* smem, const TileSmem
     }
   }
   int nql = 0;                               // 1 + the last live slot
-  for (int j = 0; j < kGroup; ++j)
+  for (int j = 0; j < G; ++j)
     if (S.q[j] >= 0) nql = j + 1;
   __syncthreads();
 
@@ -601,7 +413,7 @@ __device__ void scan_item(const ScanArgs& a, unsigned char* smem, const TileSmem
       }
       float* qs = reinterpret_cast<float*>(rs + kTile * kChunkBytes);
       const int qfloats = bytes / int(sizeof(T));
-      for (int e = tid; e < kGroup * kQSegs; e += kThreads) {
+      for (int e = tid; e < G * kQSegs; e += kThreads) {
         const int j = e / kQSegs, sg = e % kQSegs, qr = S.q[j];
         if (sg * 4 < qfloats && qr >= 0)
           cp_async16(qs + j * kce + sg * 4, a.q + size_t(qr) * a.d + kc * kce + sg * 4);
@@ -610,9 +422,9 @@ __device__ void scan_item(const ScanArgs& a, unsigned char* smem, const TileSmem
     cp_commit();
   };
 
-  float acc[kGroup];
+  float acc[MAXQ];
 #pragma unroll
-  for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+  for (int j = 0; j < MAXQ; ++j) acc[j] = 0.f;
   float sc = 1.f;
 
   for (int s = 0; s < kStages - 1; ++s) issue(s);
@@ -625,8 +437,8 @@ __device__ void scan_item(const ScanArgs& a, unsigned char* smem, const TileSmem
     if (DQ && kc == 0) sc = n < nrows ? a.scale[base + r0 + n] : 1.f;
     const unsigned char* rs = smem + size_t(st) * L.stage;
     const int bytes = min(kChunkBytes, rowbytes - kc * kChunkBytes);
-    tile_dots_n<T, DQ>(nql, rs, reinterpret_cast<const float*>(rs + kTile * kChunkBytes),
-                       bytes / 16, tid, sc, acc);
+    tile_dots_n<T, DQ, MAXQ>(nql, rs, reinterpret_cast<const float*>(rs + kTile * kChunkBytes),
+                             bytes / 16, tid, sc, acc);
     if (kc != nk - 1) continue;
 
     // 3. the tile is scored: each thread scores its row's pairs once; the
@@ -647,7 +459,7 @@ __device__ void scan_item(const ScanArgs& a, unsigned char* smem, const TileSmem
     for (int half = 0; half < 2; ++half) {
       if (live && (tid / kCandCap) == half) {
 #pragma unroll
-        for (int j = 0; j < kGroup; ++j) {
+        for (int j = 0; j < MAXQ; ++j) {
           if (j < nql && S.q[j] >= 0 && (!F || passes3(a0, a1, a2, S.filt[j]))) {
             const float4 p = S.par[j];
             const float sterm = spatial_term(p.x, p.y, ox, oy, p.w, a.dist_max, a.t, a.w_hat);
@@ -660,72 +472,92 @@ __device__ void scan_item(const ScanArgs& a, unsigned char* smem, const TileSmem
           }
         }
       }
-      flush_candidates(S, k);
+      flush_candidates(S, k, G);
     }
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) acc[j] = 0.f;
+    for (int j = 0; j < MAXQ; ++j) acc[j] = 0.f;
   }
   cp_wait<0>();
   __syncthreads();
 
   // 4. one sorted partial list per live slot
-  for (int j = 0; j < kGroup; ++j) {
+  for (int j = 0; j < G; ++j) {
     if (S.q[j] < 0) continue;
     const long long o = S.out[j];
     const int nr = S.nreal[j];
-    const uint64_t* cur = S.lists + (size_t(S.sel[j]) * kGroup + j) * k;
+    const uint64_t* cur = S.lists + (size_t(S.sel[j]) * G + j) * k;
     for (int e = tid; e < k; e += kThreads) {
       const uint64_t x = e < nr ? cur[e] : 0;
       a.part_key[o * k + e] = x;
-      a.part_id[o * k + e] = x ? S.ids[int(key_pos(x)) - S.pos[j] - r0] : -1;
+      if (a.part_id) a.part_id[o * k + e] = x ? S.ids[int(key_pos(x)) - S.pos[j] - r0] : -1;
     }
   }
   __syncthreads();                           // the smem is the next item's
 }
 
 // ---- routed (query-major) kernels ---------------------------------------------
-// Queries are taken in groups of qg = 16 / cr, so a group's pairs fill at
-// most one item's slots. Group grp's pairs p0 = grp * qg * cr, ... route to
-// gcount[grp] distinct clusters (in order of first appearance); an item is
-// (chunk ch, group grp, distinct cluster dd) with slots = the group's pairs
-// routed to it, numbered chunk-major across the batch: item = ch * total +
-// offsets[grp] + dd. Built on the device from top_c alone (no plan);
-// kernels/fused_topk_score.py (routed_items) is the same arithmetic. Pair p's
-// partial is row p * n_chunks + ch, scan positions (p % cr) * cap + row.
+// Queries are taken in groups of qg = max(1, G / cr), so a group holds at most
+// ent = max(G, cr) (query, route) pairs. Group grp's pairs p0 = grp * qg * cr,
+// ... are split into entries: in order, each pair joins the first entry of its
+// cluster that has a free slot, or opens a new one, so an entry is one cluster
+// with at most G of the group's pairs (cr > G: one query, one entry per
+// distinct cluster of its routes). gcount[grp] entries; an item is (chunk ch,
+// group grp, entry dd) with slots = the entry's pairs, numbered chunk-major
+// across the batch: item = ch * total + offsets[grp] + dd. Built on the device
+// from top_c alone (no plan); kernels/fused_topk_score.py (routed_items) is
+// the same arithmetic. Pair p's partial is row p * n_chunks + ch, scan
+// positions (p % cr) * cap + row.
 
 __global__ void routed_groups_kernel(const int* __restrict__ top_c, int n_pairs, int cr,
-                                     int qg, int* __restrict__ gcount, int* __restrict__ gcl,
-                                     int* __restrict__ gslots) {
+                                     int qg, int G, int ent, int* __restrict__ gcount,
+                                     int* __restrict__ gcl, int* __restrict__ gslots) {
   const int grp = blockIdx.x * blockDim.x + threadIdx.x;
-  if (grp * qg * cr >= n_pairs) return;
+  if (size_t(grp) * qg * cr >= size_t(n_pairs)) return;
   const int p0 = grp * qg * cr, np = min(n_pairs - p0, qg * cr);
-  int cls[kGroup];
+  int* cls = gcl + size_t(grp) * ent;
+  int* slots = gslots + size_t(grp) * ent * G;
   int m = 0;
-  for (int p = 0; p < np; ++p) {
-    const int cl = top_c[p0 + p];
-    int dd = 0;
-    while (dd < m && cls[dd] != cl) ++dd;
-    int* slots = gslots + (size_t(grp) * kGroup + dd) * kGroup;
-    if (dd == m) {
-      cls[m++] = cl;
-      gcl[size_t(grp) * kGroup + dd] = cl;
-      for (int j = 0; j < kGroup; ++j) slots[j] = -1;
+  if (ent <= kGroup) {            // the entries' clusters and fill in registers
+    int mine[kGroup], fill[kGroup];
+    for (int p = 0; p < np; ++p) {
+      const int cl = top_c[p0 + p];
+      int dd = 0;
+      while (dd < m && !(mine[dd] == cl && fill[dd] < G)) ++dd;
+      if (dd == m) {
+        mine[m] = cl;
+        fill[m] = 0;
+        cls[m++] = cl;
+        for (int j = 0; j < G; ++j) slots[size_t(dd) * G + j] = -1;
+      }
+      slots[size_t(dd) * G + fill[dd]++] = p0 + p;
     }
-    int j = 0;
-    while (slots[j] >= 0) ++j;
-    slots[j] = p0 + p;
+  } else {                        // one query's cr > G routes: entries in global memory
+    for (int p = 0; p < np; ++p) {
+      const int cl = top_c[p0 + p];
+      int dd = 0;
+      while (dd < m && !(cls[dd] == cl && slots[size_t(dd) * G + G - 1] < 0)) ++dd;
+      int* row = slots + size_t(dd) * G;
+      if (dd == m) {
+        cls[m++] = cl;
+        for (int j = 0; j < G; ++j) row[j] = -1;
+      }
+      int j = 0;
+      while (row[j] >= 0) ++j;
+      row[j] = p0 + p;
+    }
   }
   gcount[grp] = m;
 }
 
-template <typename T, bool DQ, bool F>
+template <typename T, bool DQ, bool F, int GS>
 __global__ void __launch_bounds__(kThreads, 2)
 routed_kernel(ScanArgs a, const int* __restrict__ gcount, const int* __restrict__ gcl,
               const int* __restrict__ gslots, const int* __restrict__ offsets,
-              int* __restrict__ counter, int n_groups, int cr, int c, int n_chunks) {
+              int* __restrict__ counter, int n_groups, int ent, int cr, int c, int n_chunks) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int item_s;
-  const TileSmem L = tile_smem(a.chunk_rows, a.k, kChunkBytes / sizeof(T));
+  const int G = GS ? GS : a.slots;
+  const TileSmem L = tile_smem(a.chunk_rows, a.k, kChunkBytes / sizeof(T), G);
   const Slots S(smem, L);
   const int tid = threadIdx.x;
   const int per_chunk = offsets[n_groups];
@@ -741,33 +573,34 @@ routed_kernel(ScanArgs a, const int* __restrict__ gcount, const int* __restrict_
       const int mid = (lo + hi) >> 1;
       if (offsets[mid] <= rem) lo = mid; else hi = mid;
     }
-    const size_t dd = size_t(lo) * kGroup + (rem - offsets[lo]);
+    const size_t dd = size_t(lo) * ent + (rem - offsets[lo]);
     const int cl = gcl[dd];
-    if (tid < kGroup) {
-      const int p = gslots[dd * kGroup + tid];
+    if (tid < G) {
+      const int p = gslots[dd * G + tid];
       set_slot<F>(S, a, tid, p >= 0 ? p / cr : -1, p >= 0 ? (long long)p * n_chunks + ch : -1,
                   p >= 0 ? (p % cr) * a.cap : 0);
     }
     __syncthreads();
     if (cl < 0 || cl >= c) {                 // routes the kernel skips
-      for (int j = 0; j < kGroup; ++j)
+      for (int j = 0; j < G; ++j)
         if (S.q[j] >= 0) write_empty(a, S.out[j]);
       __syncthreads();
       continue;
     }
     const int r0 = ch * a.chunk_rows;
-    scan_item<T, DQ, F>(a, smem, L, S, size_t(cl) * a.cap, r0, min(a.chunk_rows, a.cap - r0));
+    scan_item<T, DQ, F, kGroup, GS>(a, smem, L, S, size_t(cl) * a.cap, r0,
+                                    min(a.chunk_rows, a.cap - r0));
   }
 }
 
 // ---- cluster-major kernels -----------------------------------------------------
 // The items: distinct cluster i (u[i], roster row i) has groups[i] =
-// ceil((last live slot + 1) / 16) slot groups and n_chunks chunks, so
+// ceil((last live slot + 1) / G) slot groups and n_chunks chunks, so
 // groups[i] * n_chunks items, numbered from offsets[i], chunk-major:
 // item offsets[i] + ch * groups[i] + g. kernels/fused_topk_score.py
 // (cluster_major_items) is the same arithmetic on the host.
 
-__global__ void cm_groups_kernel(const int* __restrict__ roster, int qcap, int n_total,
+__global__ void cm_groups_kernel(const int* __restrict__ roster, int qcap, int n_total, int G,
                                  int* __restrict__ groups) {
   __shared__ int wmax[kWarps];
   const int i = blockIdx.x;
@@ -783,7 +616,7 @@ __global__ void cm_groups_kernel(const int* __restrict__ roster, int qcap, int n
   if (threadIdx.x == 0) {
     int m = wmax[0];
     for (int w = 1; w < int(blockDim.x >> 5); ++w) m = max(m, wmax[w]);
-    groups[i] = (m + kGroup) / kGroup;       // 0 for a row with no live slot
+    groups[i] = (m + G) / G;                 // 0 for a row with no live slot
   }
 }
 
@@ -818,7 +651,7 @@ offsets_kernel(const int* __restrict__ groups, int u_max, int n_chunks,
 }
 
 // persistent: each block takes the next item from the counter until none is left
-template <typename T, bool DQ, bool F>
+template <typename T, bool DQ, bool F, int GS>
 __global__ void __launch_bounds__(kThreads, 2)
 cluster_major_kernel(ScanArgs a, const int* __restrict__ u, const int* __restrict__ roster,
                      const int* __restrict__ groups, const int* __restrict__ offsets,
@@ -826,7 +659,8 @@ cluster_major_kernel(ScanArgs a, const int* __restrict__ u, const int* __restric
                      int c, int n_chunks) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int item_s;
-  const TileSmem L = tile_smem(a.chunk_rows, a.k, kChunkBytes / sizeof(T));
+  const int G = GS ? GS : a.slots;
+  const TileSmem L = tile_smem(a.chunk_rows, a.k, kChunkBytes / sizeof(T), G);
   const Slots S(smem, L);
   const int tid = threadIdx.x;
   const int total = offsets[u_max];
@@ -843,32 +677,64 @@ cluster_major_kernel(ScanArgs a, const int* __restrict__ u, const int* __restric
     const int gi = groups[lo], local = item - offsets[lo];
     const int ch = local / gi, g = local % gi;
     const int cl = u[lo];
-    if (tid < kGroup) {
-      const int s = g * kGroup + tid;
+    if (tid < G) {
+      const int s = g * G + tid;
       const int o = s < qcap ? roster[size_t(lo) * qcap + s] : -1;
       const bool live = o >= 0 && o < n_total;
       set_slot<F>(S, a, tid, live ? o / cr : -1, live ? (long long)o * n_chunks + ch : -1, 0);
     }
     __syncthreads();
     if (cl < 0 || cl >= c) {                 // block-uniform: empty partials
-      for (int j = 0; j < kGroup; ++j)
+      for (int j = 0; j < G; ++j)
         if (S.q[j] >= 0) write_empty(a, S.out[j]);
       __syncthreads();
       continue;
     }
     const int r0 = ch * a.chunk_rows;
-    scan_item<T, DQ, F>(a, smem, L, S, size_t(cl) * a.cap, r0, min(a.chunk_rows, a.cap - r0));
+    scan_item<T, DQ, F, kGroup, GS>(a, smem, L, S, size_t(cl) * a.cap, r0,
+                                    min(a.chunk_rows, a.cap - r0));
+  }
+}
+
+// ---- gather kernel -----------------------------------------------------------------
+// The candidate copy (B, n, d) is B clusters of capacity n, query b routed to
+// cluster b alone: item = b * n_chunks + ch scores chunk ch of query b's copy
+// in one slot, scan positions = local positions in [0, n). No plan kernel.
+// One slot needs one accumulator, so three blocks share an SM.
+
+template <typename T, bool DQ>
+__global__ void __launch_bounds__(kThreads, 3)
+gather_kernel(ScanArgs a, int* __restrict__ counter, int B, int n_chunks) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int item_s;
+  const TileSmem L = tile_smem(a.chunk_rows, a.k, kChunkBytes / sizeof(T), 1);
+  const Slots S(smem, L);
+  const int tid = threadIdx.x;
+  const int total = B * n_chunks;
+  for (;;) {
+    if (tid == 0) item_s = atomicAdd(counter, 1);
+    __syncthreads();
+    const int item = item_s;
+    if (item >= total) return;
+    const int b = item / n_chunks, ch = item % n_chunks;
+    if (tid == 0) set_slot<false>(S, a, 0, b, item, 0);
+    __syncthreads();
+    const int r0 = ch * a.chunk_rows;
+    scan_item<T, DQ, false, 1>(a, smem, L, S, size_t(b) * a.cap, r0,
+                               min(a.chunk_rows, a.cap - r0));
   }
 }
 
 // ---- merge of the partial lists ------------------------------------------------------
 // One warp per output row: the top k of its n_lists sorted partial lists (k
-// keys each, 0 past the last real one) by key, as (score, id); (NEG_INF, -1)
-// past the last real key. Each lane keeps the best head of its lists l = lane,
-// lane + 32, ...; only the winner's lane looks again.
+// keys each, 0 past the last real one) by key, as (score, id) or, with POS,
+// (score, scan position); (NEG_INF, -1) past the last real key. Each lane
+// keeps the best head of its lists l = lane, lane + 32, ...; only the
+// winner's lane looks again.
 
 constexpr int kMergeWarps = 4;
 
+template <bool POS>
 __global__ void __launch_bounds__(kMergeWarps * 32)
 merge_kernel(const uint64_t* __restrict__ part_key, const int* __restrict__ part_id, int rows,
              int n_lists, int k, float* __restrict__ out_s, int* __restrict__ out_i) {
@@ -878,7 +744,7 @@ merge_kernel(const uint64_t* __restrict__ part_key, const int* __restrict__ part
   if (row >= rows) return;                   // no block-wide barrier below
   int* pos = heads + warp * n_lists;
   const uint64_t* pk = part_key + size_t(row) * n_lists * k;
-  const int* pi = part_id + size_t(row) * n_lists * k;
+  const int* pi = POS ? nullptr : part_id + size_t(row) * n_lists * k;
   for (int l = lane; l < n_lists; l += 32) pos[l] = 0;
   __syncwarp();
   auto lane_best = [&](uint64_t& best, int& bl) {
@@ -912,7 +778,7 @@ merge_kernel(const uint64_t* __restrict__ part_key, const int* __restrict__ part
     if ((bl & 31) == lane) {                 // keys are unique: one owner
       const int p = pos[bl];
       out_s[size_t(row) * k + s] = key_score(best);
-      out_i[size_t(row) * k + s] = pi[size_t(bl) * k + p];
+      out_i[size_t(row) * k + s] = POS ? int(key_pos(best)) : pi[size_t(bl) * k + p];
       pos[bl] = p + 1;
       lane_best(mine, mine_l);
     }
@@ -928,12 +794,15 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
 }
 
+// the list heads take kMergeWarps * n_lists ints of shared memory: the
+// wrapper caps n_lists there (launch_shape's merge_lists_max)
+template <bool POS>
 cudaError_t merge(const ScanArgs& a, int rows, int n_lists, float* out_s, int* out_i,
                   cudaStream_t stream) {
   const size_t smem = size_t(kMergeWarps) * n_lists * 4;
-  cudaError_t e = set_smem(merge_kernel, smem);
+  cudaError_t e = set_smem(merge_kernel<POS>, smem);
   if (e != cudaSuccess) return e;
-  merge_kernel<<<(rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, smem, stream>>>(
+  merge_kernel<POS><<<(rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, smem, stream>>>(
       a.part_key, a.part_id, rows, n_lists, a.k, out_s, out_i);
   return cudaGetLastError();
 }
@@ -941,8 +810,9 @@ cudaError_t merge(const ScanArgs& a, int rows, int n_lists, float* out_s, int* o
 // the launch shape the wrapper computed must be the kernel's own
 template <typename T>
 bool shape_ok(const ScanArgs& a, size_t smem) {
-  return a.chunk_rows > 0 && a.chunk_rows % kTile == 0 &&
-         tile_smem(a.chunk_rows, a.k, kChunkBytes / sizeof(T)).total == smem;
+  return a.chunk_rows > 0 && a.chunk_rows % kTile == 0 && a.slots >= 1 &&
+         a.slots <= kGroup &&
+         tile_smem(a.chunk_rows, a.k, kChunkBytes / sizeof(T), a.slots).total == smem;
 }
 
 // persistent blocks: as many as the card holds at once
@@ -963,28 +833,30 @@ cudaError_t persistent_grid(K kernel, size_t smem, int& grid) {
 template <typename T, bool DQ, bool F>
 cudaError_t routed(const ScanArgs& a, const int* top_c, int B, int cr, int c, int* work,
                    size_t smem, float* out_s, int* out_i, cudaStream_t stream) {
-  if (!shape_ok<T>(a, smem) || cr < 1 || cr > kGroup) return cudaErrorInvalidValue;
+  if (!shape_ok<T>(a, smem) || cr < 1) return cudaErrorInvalidValue;
+  const int G = a.slots;
   const int n_chunks = (a.cap + a.chunk_rows - 1) / a.chunk_rows;
-  const int qg = kGroup / cr, n_groups = (B + qg - 1) / qg;
+  const int qg = max(1, G / cr), ent = max(G, cr), n_groups = (B + qg - 1) / qg;
   int* gcount = work;
   int* offsets = gcount + n_groups;
   int* counter = offsets + n_groups + 1;
   int* gcl = counter + 1;
-  int* gslots = gcl + size_t(n_groups) * kGroup;
-  routed_groups_kernel<<<(n_groups + 127) / 128, 128, 0, stream>>>(top_c, B * cr, cr, qg,
-                                                                    gcount, gcl, gslots);
+  int* gslots = gcl + size_t(n_groups) * ent;
+  routed_groups_kernel<<<(n_groups + 127) / 128, 128, 0, stream>>>(top_c, B * cr, cr, qg, G,
+                                                                    ent, gcount, gcl, gslots);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   offsets_kernel<<<1, 1024, 0, stream>>>(gcount, n_groups, 1, offsets, counter);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  auto kernel = routed_kernel<T, DQ, F>;
+  auto kernel =
+      a.slots == kGroup ? routed_kernel<T, DQ, F, kGroup> : routed_kernel<T, DQ, F, 0>;
   if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
   int grid = 0;
   if ((e = persistent_grid(kernel, smem, grid)) != cudaSuccess) return e;
   kernel<<<grid, kThreads, smem, stream>>>(a, gcount, gcl, gslots, offsets, counter, n_groups,
-                                           cr, c, n_chunks);
+                                           ent, cr, c, n_chunks);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  return merge(a, B, cr * n_chunks, out_s, out_i, stream);
+  return merge<false>(a, B, cr * n_chunks, out_s, out_i, stream);
 }
 
 template <typename T, bool DQ, bool F>
@@ -996,13 +868,14 @@ cudaError_t cluster_major(const ScanArgs& a, const int* u, const int* roster, in
   int* groups = work;
   int* offsets = work + u_max;
   int* counter = work + 2 * u_max + 1;
-  cm_groups_kernel<<<u_max, kThreads, 0, stream>>>(roster, qcap, n_total, groups);
+  cm_groups_kernel<<<u_max, kThreads, 0, stream>>>(roster, qcap, n_total, a.slots, groups);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   offsets_kernel<<<1, 1024, 0, stream>>>(groups, u_max, n_chunks, offsets, counter);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto kernel = cluster_major_kernel<T, DQ, F>;
+  auto kernel = a.slots == kGroup ? cluster_major_kernel<T, DQ, F, kGroup>
+                                   : cluster_major_kernel<T, DQ, F, 0>;
   if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
   int grid = 0;
   if ((e = persistent_grid(kernel, smem, grid)) != cudaSuccess) return e;
@@ -1010,27 +883,29 @@ cudaError_t cluster_major(const ScanArgs& a, const int* u, const int* roster, in
                                            cr, n_total, c, n_chunks);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return merge(a, n_total, n_chunks, out_s, out_i, stream);
+  return merge<false>(a, n_total, n_chunks, out_s, out_i, stream);
 }
 
 template <typename T, bool DQ>
-cudaError_t gather(const float* q, const float* q_loc, const float* w, const void* emb,
-                   const float* scale, const float* loc, const int* ids, const float* w_hat,
-                   int B, int n, int d, int t, int k, float dist_max, float* out_s,
+cudaError_t gather(const ScanArgs& a, int B, int* counter, size_t smem, float* out_s,
                    int* out_i, cudaStream_t stream) {
-  const size_t smem = align16(size_t(d) * 4) + 2 * size_t(kWarps) * k * 8 + kWarps * 4;
-  cudaError_t e = set_smem(gather_kernel<T, DQ>, smem);
+  if (!shape_ok<T>(a, smem) || a.slots != 1) return cudaErrorInvalidValue;
+  const int n_chunks = (a.cap + a.chunk_rows - 1) / a.chunk_rows;
+  cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (e != cudaSuccess) return e;
-  gather_kernel<T, DQ><<<B, kThreads, smem, stream>>>(
-      q, q_loc, w, static_cast<const T*>(emb), scale, loc, ids, w_hat, n, d, t, k, dist_max,
-      out_s, out_i);
-  return cudaGetLastError();
+  auto kernel = gather_kernel<T, DQ>;
+  if ((e = set_smem(kernel, smem)) != cudaSuccess) return e;
+  int grid = 0;
+  if ((e = persistent_grid(kernel, smem, grid)) != cudaSuccess) return e;
+  kernel<<<grid, kThreads, smem, stream>>>(a, counter, B, n_chunks);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  return merge<true>(a, B, n_chunks, out_s, out_i, stream);
 }
 
 ScanArgs scan_args(const void* q, const void* q_loc, const void* w, const void* emb,
                    const void* scale, const void* loc, const void* ids, const void* attrs,
                    const void* q_filt, const void* w_hat, int cap, int d, int t, int k,
-                   int chunk_rows, float dist_max, void* part_key, void* part_id) {
+                   int chunk_rows, int slots, float dist_max, void* part_key, void* part_id) {
   ScanArgs a;
   a.q = static_cast<const float*>(q);
   a.q_loc = static_cast<const float*>(q_loc);
@@ -1042,7 +917,7 @@ ScanArgs scan_args(const void* q, const void* q_loc, const void* w, const void* 
   a.attrs = static_cast<const int*>(attrs);
   a.q_filt = static_cast<const int*>(q_filt);
   a.w_hat = static_cast<const float*>(w_hat);
-  a.cap = cap; a.d = d; a.t = t; a.k = k; a.chunk_rows = chunk_rows;
+  a.cap = cap; a.d = d; a.t = t; a.k = k; a.chunk_rows = chunk_rows; a.slots = slots;
   a.dist_max = dist_max;
   a.part_key = static_cast<uint64_t*>(part_key);
   a.part_id = static_cast<int*>(part_id);
@@ -1052,19 +927,20 @@ ScanArgs scan_args(const void* q, const void* q_loc, const void* w, const void* 
 }  // namespace
 
 // emb_kind: 0 = float32, 1 = bfloat16, 2 = int8 (requires scale: the dequant body).
-// chunk_rows and smem_bytes come from launch_shape in
+// chunk_rows, slots (G) and smem_bytes come from launch_shape in
 // kernels/fused_topk_score.py; part_key (int64) / part_id (int32) hold
 // (B * cr * n_chunks, k) partial lists, n_chunks = ceil(cap / chunk_rows).
-// work: int32 scratch of n_groups * 274 + 2 (routed_groups in the wrapper).
+// work: int32 scratch of n_groups * (2 + ent + ent * G) + 2, ent = max(G, cr)
+// (routed_groups in the wrapper).
 extern "C" int fts_routed(const void* q, const void* q_loc, const void* w, const void* top_c,
                           const void* emb, int emb_kind, const void* scale, const void* loc,
                           const void* ids, const void* attrs, const void* q_filt,
                           const void* w_hat, int filtered, int B, int cr, int c, int cap, int d,
-                          int t, int k, float dist_max, int chunk_rows,
+                          int t, int k, float dist_max, int chunk_rows, int slots,
                           long long smem_bytes, void* work, void* part_key, void* part_id,
                           void* out_s, void* out_i, void* stream) {
   const ScanArgs a = scan_args(q, q_loc, w, emb, scale, loc, ids, attrs, q_filt, w_hat, cap, d,
-                               t, k, chunk_rows, dist_max, part_key, part_id);
+                               t, k, chunk_rows, slots, dist_max, part_key, part_id);
 #define FTS_ROUTED(T, DQ, F)                                                                  \
   routed<T, DQ, F>(a, (const int*)top_c, B, cr, c, (int*)work, size_t(smem_bytes),          \
                    (float*)out_s, (int*)out_i, (cudaStream_t)stream)
@@ -1088,11 +964,11 @@ extern "C" int fts_cluster_major(const void* q, const void* q_loc, const void* w
                                  const void* ids, const void* attrs, const void* q_filt,
                                  const void* w_hat, int filtered, int u_max, int qcap, int cr,
                                  int n_total, int c, int cap, int d, int t, int k,
-                                 float dist_max, int chunk_rows,
+                                 float dist_max, int chunk_rows, int slots,
                                  long long smem_bytes, void* work, void* part_key,
                                  void* part_id, void* out_s, void* out_i, void* stream) {
   const ScanArgs a = scan_args(q, q_loc, w, emb, scale, loc, ids, attrs, q_filt, w_hat, cap, d,
-                               t, k, chunk_rows, dist_max, part_key, part_id);
+                               t, k, chunk_rows, slots, dist_max, part_key, part_id);
 #define FTS_CM(T, DQ, F)                                                                      \
   cluster_major<T, DQ, F>(a, (const int*)u, (const int*)roster, u_max, qcap, cr, n_total, c,   \
                           (int*)work, size_t(smem_bytes), (float*)out_s, (int*)out_i,          \
@@ -1111,14 +987,18 @@ extern "C" int fts_cluster_major(const void* q, const void* q_loc, const void* w
 
 // Gather path: cand (B, n, d) of emb_kind (int8 requires scale (B, n)),
 // cand_loc (B, n, 2), cand_ids (B, n); outputs local positions (B, k).
+// chunk_rows and smem_bytes from launch_shape(slots=1); work: one int32 (the
+// work counter); part_key (B * n_chunks, k) int64.
 extern "C" int fts_gather(const void* q, const void* q_loc, const void* w, const void* emb,
                           int emb_kind, const void* scale, const void* loc, const void* ids,
                           const void* w_hat, int B, int n, int d, int t, int k,
-                          float dist_max, void* out_s, void* out_i, void* stream) {
+                          float dist_max, int chunk_rows, long long smem_bytes, void* work,
+                          void* part_key, void* out_s, void* out_i, void* stream) {
+  const ScanArgs a = scan_args(q, q_loc, w, emb, scale, loc, ids, nullptr, nullptr, w_hat, n,
+                               d, t, k, chunk_rows, 1, dist_max, part_key, nullptr);
 #define FTS_GATHER(T, DQ)                                                                     \
-  gather<T, DQ>((const float*)q, (const float*)q_loc, (const float*)w, emb,                  \
-                (const float*)scale, (const float*)loc, (const int*)ids, (const float*)w_hat, \
-                B, n, d, t, k, dist_max, (float*)out_s, (int*)out_i, (cudaStream_t)stream)
+  gather<T, DQ>(a, B, (int*)work, size_t(smem_bytes), (float*)out_s, (int*)out_i,            \
+                (cudaStream_t)stream)
   switch (emb_kind) {
     case 0: return FTS_GATHER(float, false);
     case 1: return FTS_GATHER(__nv_bfloat16, false);

@@ -24,17 +24,21 @@ each with its plain PyTorch version beside it:
 * :func:`fused_topk_score` replaces the gather-path Pallas kernel
   ``fused_topk_score`` (``repro.kernels.ops.fused_topk_score``; no engine
   backend calls it). The caller materializes a per-query candidate copy
-  ``(B, N, d)``; one block per query scans it and returns local positions
-  in ``[0, N)``. Plain version: :func:`gather_topk_plain`.
+  ``(B, N, d)``: B "clusters" of capacity N, query b routed to cluster b
+  alone. Work items of (query, row chunk) with one slot, walked by the
+  same persistent blocks; the chunk partials are merged by key into local
+  positions in ``[0, N)``. Plain version: :func:`gather_topk_plain`
+  (:func:`gather_partials_plain` is the chunk arithmetic).
 
 What bounds all three on an H100 is the bytes of the scanned embedding
-rows. The routed and cluster-major kernels stage rows in their stored
-type through a cp.async ring (tiles that are all padding are skipped by
-id before a row is fetched), score a register tile of (query, row) pairs
-per thread, and keep each chunk's top k behind a threshold; their chunk
-partials are merged by key (:func:`merge_partials_plain` is the plain
+rows. All three are one tiled scan: rows staged in their stored type
+through a cp.async ring (tiles that are all padding are skipped by id
+before a row is fetched), a register tile of (query, row) pairs per
+thread, each chunk's top k kept behind a threshold, and the chunk
+partials merged by key (:func:`merge_partials_plain` is the plain
 version of that merge). See the CUDA source for the design and its
-numerics; :func:`launch_shape` sizes both launches.
+numerics; :func:`launch_shape` sizes the launches, its query slots per
+item shrinking as ``k`` grows (``K_MAX`` is the largest ``k``).
 
 Each wrapper sends a CPU tensor to the plain version and launches the
 kernel for a CUDA tensor (or raises); ``launches`` counts kernel launches.
@@ -58,20 +62,23 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-# the largest k a kernel keeps in its top-k lists (shared memory)
-K_MAX = 256
 # the widest embedding the kernels are held against their plain versions at
 D_MAX = 1024
 
-# the tiled scans (routed, cluster-major): kTile ... in csrc/fused_topk_score.cu
+# the tiled scans: kTile ... in csrc/fused_topk_score.cu
 TILE_ROWS = 256                  # rows per tile: one row per thread
 CHUNK_BYTES = 128                # bytes of each row one ring stage holds
 STAGES = 2                       # the cp.async ring
-GROUP = 16                       # query slots per work item
+GROUP = 16                       # the most query slots of a work item
+SLOT_COUNTS = (16, 8, 4, 2, 1)   # the register tile's instantiations
 CAND_CAP = TILE_ROWS // 2        # candidates a slot takes per half tile
 CHUNK_ROWS = 1024                # rows per work item
 SMEM_MAX = 232_448               # shared memory one block may have (227 KB)
 SMEM_TWO_PER_SM = 115_712        # the most two blocks of an SM may each have
+MERGE_WARPS = 4                  # kMergeWarps: output rows per merge block
+# partial lists per output row the merge takes: its list heads (one int
+# each, per warp) fill at most SMEM_MAX
+MERGE_LISTS_MAX = SMEM_MAX // (MERGE_WARPS * 4)
 
 # kernel launches since the last reset, by kernel
 launches = {"routed": 0, "cluster_major": 0, "gather": 0}
@@ -88,14 +95,14 @@ def _bind(lib) -> None:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.fts_routed.argtypes = ([ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 8
-                               + [f32, i32, i64] + [ptr] * 6)
+                               + [f32, i32, i32, i64] + [ptr] * 6)
     lib.fts_routed.restype = i32
     lib.fts_cluster_major.argtypes = ([ptr] * 6 + [i32] + [ptr] * 6
-                                      + [i32] * 10 + [f32, i32, i64]
+                                      + [i32] * 10 + [f32, i32, i32, i64]
                                       + [ptr] * 6)
     lib.fts_cluster_major.restype = i32
     lib.fts_gather.argtypes = ([ptr] * 4 + [i32] + [ptr] * 4 + [i32] * 5
-                               + [f32] + [ptr] * 3)
+                               + [f32, i32, i64] + [ptr] * 5)
     lib.fts_gather.restype = i32
 
 
@@ -238,62 +245,91 @@ def cluster_major_partials_plain(q_emb, q_loc, w_st, u, roster, buf_emb,
 # ---------------------------------------------------------------------------
 
 
-def _tile_smem(chunk_rows: int, k: int, elem_size: int) -> int:
-    """Shared bytes of one block of the tiled scan: ``tile_smem`` in the
-    CUDA source, field by field."""
+def _tile_smem(chunk_rows: int, k: int, elem_size: int, slots: int) -> int:
+    """Shared bytes of one block of the tiled scan with ``slots`` query
+    slots per item: ``tile_smem`` in the CUDA source, field by field."""
     a16 = lambda x: -(-x // 16) * 16  # noqa: E731
     kce = CHUNK_BYTES // elem_size
-    stage = a16(TILE_ROWS * CHUNK_BYTES + GROUP * kce * 4)
+    stage = a16(TILE_ROWS * CHUNK_BYTES + slots * kce * 4)
     return (stage * STAGES + a16(chunk_rows * 4)
             + a16((chunk_rows // TILE_ROWS + 1) * 4)
-            + GROUP * CAND_CAP * 8             # candidate buffers
-            + 2 * GROUP * k * 8                # double-buffered lists
-            + GROUP * (8 + 8 + 16 + 16 + 5 * 4))
+            + slots * CAND_CAP * 8             # candidate buffers
+            + 2 * slots * k * 8                # double-buffered lists
+            + GROUP * (8 + 8 + 16 + 16 + 5 * 4))  # per-slot fields
 
 
-def launch_shape(*, cap: int, k: int, elem_size: int) -> dict:
-    """The launch of the routed and cluster-major scans over buffers of
-    capacity ``cap``: rows per chunk (a multiple of the 256-row tile, at
-    most the buffer's), chunks per cluster, shared bytes per block and
-    the blocks an SM holds (two at the main path's k of 20). d does not
-    enter: rows stream through the ring 128 bytes at a time."""
+# the largest k of the tiled scans: one slot's lists at a full chunk of
+# int8 rows (the widest stage of query floats) fill SMEM_MAX
+K_MAX = (SMEM_MAX - _tile_smem(CHUNK_ROWS, 0, 1, 1)) // (2 * 8)
+
+
+def slots_for_k(k: int, elem_size: int) -> int:
+    """Query slots per work item at ``k``: 16 while a block with a full
+    chunk fits two to an SM, then the largest of 8, 4, 2 that does, else
+    1 (one block per SM, up to :data:`K_MAX`)."""
+    for g in SLOT_COUNTS[:-1]:
+        if _tile_smem(CHUNK_ROWS, k, elem_size, g) <= SMEM_TWO_PER_SM:
+            return g
+    return 1
+
+
+def launch_shape(*, cap: int, k: int, elem_size: int,
+                 slots: Optional[int] = None) -> dict:
+    """The launch of a tiled scan over buffers of capacity ``cap``: rows
+    per chunk (a multiple of the 256-row tile, at most the buffer's),
+    chunks per cluster, query slots per item (:func:`slots_for_k` unless
+    given; the gather scan takes 1), shared bytes per block, the blocks an
+    SM holds (two at the main path's k of 20) and the most partial lists
+    per output row the merge takes. d does not enter: rows stream through
+    the ring 128 bytes at a time. Raises for k outside [1, K_MAX]."""
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k={k} outside the tiled scans' range [1, {K_MAX}]: "
+                         f"one slot's sorted lists must fit shared memory")
+    slots = slots_for_k(k, elem_size) if slots is None else slots
     chunk = min(CHUNK_ROWS, -(-cap // TILE_ROWS) * TILE_ROWS)
-    smem = _tile_smem(chunk, k, elem_size)
-    if smem > SMEM_MAX:
-        raise ValueError(f"k={k} needs {smem} bytes of shared memory "
-                         f"(limit {SMEM_MAX})")
-    return dict(chunk_rows=chunk, n_chunks=-(-cap // chunk), smem_bytes=smem,
-                blocks_per_sm=2 if smem <= SMEM_TWO_PER_SM else 1)
+    smem = _tile_smem(chunk, k, elem_size, slots)
+    return dict(chunk_rows=chunk, n_chunks=-(-cap // chunk), slots=slots,
+                smem_bytes=smem,
+                blocks_per_sm=2 if smem <= SMEM_TWO_PER_SM else 1,
+                merge_lists_max=MERGE_LISTS_MAX)
 
 
-def routed_groups(b: int, cr: int) -> tuple:
-    """The routed kernel's query groups: ``(queries per group, groups)``;
-    a group's ``qg·cr ≤ 16`` (query, route) pairs fill at most one item's
-    slots."""
-    if not 1 <= cr <= GROUP:
-        raise ValueError(f"cr={cr} outside the routed kernel's [1, {GROUP}]")
-    qg = GROUP // cr
+def routed_groups(b: int, cr: int, slots: int = GROUP) -> tuple:
+    """The routed kernel's query groups: ``(queries per group, groups)``.
+    A group of ``qg = max(1, slots // cr)`` queries holds at most
+    ``max(slots, cr)`` (query, route) pairs; its items hold at most
+    ``slots`` of them."""
+    if cr < 1:
+        raise ValueError(f"cr={cr} must be at least 1")
+    qg = max(1, slots // cr)
     return qg, -(-b // qg)
 
 
-def routed_items(top_c):
+def routed_items(top_c, slots: int = GROUP):
     """The routed kernel's work items, as ``routed_groups_kernel`` builds
     them on the device from ``top_c (B, cr)`` alone: per query group, its
-    distinct routed clusters in order of first appearance, each with the
-    group's pairs (``q·cr + r``) routed to it. Returns ``(groups, offsets)``:
-    ``groups[g]`` a list of ``(cluster, [pairs])``, ``offsets`` the
-    exclusive prefix sum of the distinct counts (``offsets[-1]`` items per
-    chunk). Item ``ch·offsets[-1] + offsets[g] + dd`` is (chunk ``ch``,
-    group ``g``, distinct cluster ``dd``): chunk-major across the batch."""
+    entries in order of opening, each a routed cluster with at most
+    ``slots`` of the group's pairs (``q·cr + r``) routed to it: a pair
+    joins the first entry of its cluster with a free slot, or opens one.
+    Returns ``(groups, offsets)``: ``groups[g]`` a list of ``(cluster,
+    [pairs])``, ``offsets`` the exclusive prefix sum of the entry counts
+    (``offsets[-1]`` items per chunk). Item ``ch·offsets[-1] + offsets[g]
+    + dd`` is (chunk ``ch``, group ``g``, entry ``dd``): chunk-major
+    across the batch."""
     b, cr = top_c.shape
-    qg, n_groups = routed_groups(b, cr)
+    qg, n_groups = routed_groups(b, cr, slots)
     flat = top_c.reshape(-1).tolist()
     groups = []
     for g in range(n_groups):
-        distinct = {}
+        entries = []
         for p in range(g * qg * cr, min(b * cr, (g + 1) * qg * cr)):
-            distinct.setdefault(flat[p], []).append(p)
-        groups.append(list(distinct.items()))
+            for cl, pairs in entries:
+                if cl == flat[p] and len(pairs) < slots:
+                    pairs.append(p)
+                    break
+            else:
+                entries.append((flat[p], [p]))
+        groups.append(entries)
     offsets = [0]
     for items in groups:
         offsets.append(offsets[-1] + len(items))
@@ -309,10 +345,11 @@ def routed_item(item: int, groups, offsets):
     return ch, cluster, pairs
 
 
-def cluster_major_items(roster, *, n_total: int, n_chunks: int):
+def cluster_major_items(roster, *, n_total: int, n_chunks: int,
+                        slots: int = GROUP):
     """The cluster-major kernel's work items, as its two plan kernels
     build them on the device: distinct cluster ``i`` has ``groups[i] =
-    ceil((last live slot + 1) / 16)`` slot groups and ``n_chunks``
+    ceil((last live slot + 1) / slots)`` slot groups and ``n_chunks``
     row chunks, numbered from ``offsets[i]`` chunk-major (item
     ``offsets[i] + ch·groups[i] + g``). Returns ``(groups (u_max,),
     offsets (u_max + 1,))`` int64; ``offsets[-1]`` is the item count."""
@@ -320,7 +357,7 @@ def cluster_major_items(roster, *, n_total: int, n_chunks: int):
     slot = torch.arange(roster.shape[1], device=roster.device)
     last = torch.where(live, slot, torch.full_like(slot, -1)).amax(dim=1) \
         if roster.shape[1] else torch.full((roster.shape[0],), -1)
-    groups = (last.long() + GROUP) // GROUP
+    groups = (last.long() + slots) // slots
     offsets = torch.zeros(roster.shape[0] + 1, dtype=torch.int64,
                           device=roster.device)
     offsets[1:] = torch.cumsum(groups * n_chunks, 0)
@@ -420,6 +457,21 @@ def routed_partials_plain(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
                                 pos0=pos0)
 
 
+def gather_partials_plain(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids,
+                          w_hat, *, k: int, dist_max: float, chunk_rows: int,
+                          cand_scale=None):
+    """The gather kernel's chunk partials ``(B, n_chunks, k)``: (scores,
+    local positions, local positions), the positions standing in for ids
+    (-1 where no real entry). Fold them with :func:`merge_partials_plain`
+    to get :func:`gather_topk_plain`."""
+    st = score_candidates(q_emb[:, None], q_loc[:, None], w_st[:, None],
+                          cand_emb, cand_loc, cand_ids[:, None], w_hat,
+                          dist_max=dist_max, cand_scale=cand_scale)  # (B,1,N)
+    vals, pos, _ = chunk_partials_plain(st, cand_ids[:, None], k=k,
+                                        chunk_rows=chunk_rows)
+    return vals, pos, pos
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -448,9 +500,6 @@ def _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale, buf_attrs, w_hat,
     if d % 16 or d > D_MAX:
         raise ValueError(f"embedding width {d} must be a multiple of 16 "
                          f"and at most {D_MAX}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k={k} outside the kernels' range [1, {K_MAX}]; "
-                         f"the per-warp top-k lists hold at most {K_MAX}")
     if (buf_emb.dtype == torch.int8) != (buf_scale is not None):
         raise ValueError("int8 buffers need buf_scale (the dequant body); "
                          "f32/bf16 buffers take none")
@@ -471,15 +520,15 @@ def _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale, buf_attrs, w_hat,
     return c, cap, d
 
 
-def _check_grid(blocks: int, n_lists: int, positions: int):
-    """Limits of the tiled scans: blocks (or work items) and scan
-    positions fit 31 bits, and the merge's list heads its shared memory."""
-    if blocks >= 2 ** 31 or positions >= 2 ** 31:
-        raise ValueError(f"{blocks} blocks / {positions} scan positions "
+def _check_grid(items: int, n_lists: int, positions: int):
+    """Limits of the tiled scans: work items and scan positions fit 31
+    bits, and the merge's list heads its shared memory."""
+    if items >= 2 ** 31 or positions >= 2 ** 31:
+        raise ValueError(f"{items} work items / {positions} scan positions "
                          f"exceed the kernels' 31-bit indices")
-    if n_lists > 3072:
+    if n_lists > MERGE_LISTS_MAX:
         raise ValueError(f"{n_lists} partial lists per output row exceed "
-                         f"the merge's 3072")
+                         f"the merge's {MERGE_LISTS_MAX}")
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -498,7 +547,8 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
     stages the cluster's chunk once, in its stored type, for the group's
     pairs routed to it, and widens the rows in registers; a merge kernel
     folds the chunk partials by key (:func:`launch_shape`,
-    :func:`routed_partials_plain`). ``cr`` ≤ 16.
+    :func:`routed_partials_plain`). Any ``cr``: above the item's slots a
+    query group is one query, one item per cluster of its routes.
 
     ``q_emb (B, d)`` f32; ``q_loc``/``w_st (B, 2)`` f32; ``buf_emb (c,
     cap, d)`` f32, bf16, or int8 with ``buf_scale (c, cap)``; ``buf_loc
@@ -528,10 +578,12 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
     if b == 0:
         return out_s, out_i
     shape = launch_shape(cap=cap, k=k, elem_size=buf_emb.element_size())
+    slots = shape["slots"]
     n_lists = cr * shape["n_chunks"]
-    n_groups = routed_groups(b, cr)[1]
-    _check_grid(n_groups * GROUP * shape["n_chunks"], n_lists, cr * cap)
-    work = torch.empty(n_groups * (2 + GROUP + GROUP * GROUP) + 2,
+    n_groups = routed_groups(b, cr, slots)[1]
+    ent = max(slots, cr)                 # entries a query group may open
+    _check_grid(n_groups * ent * shape["n_chunks"], n_lists, cr * cap)
+    work = torch.empty(n_groups * (2 + ent + ent * slots) + 2,
                        dtype=torch.int32, device=dev)
     part_key = torch.empty((b * n_lists, k), dtype=torch.int64, device=dev)
     part_id = torch.empty((b * n_lists, k), dtype=torch.int32, device=dev)
@@ -540,7 +592,7 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
         _EMB_KIND[buf_emb.dtype], _ptr(buf_scale), _ptr(buf_loc),
         _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt), _ptr(w_hat),
         int(buf_attrs is not None), b, cr, c, cap, d, w_hat.shape[0], k,
-        float(dist_max), shape["chunk_rows"], shape["smem_bytes"],
+        float(dist_max), shape["chunk_rows"], slots, shape["smem_bytes"],
         _ptr(work), _ptr(part_key), _ptr(part_id),
         _ptr(out_s), _ptr(out_i), torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -558,8 +610,8 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
     Replaces ``repro/kernels/fused_topk_score.py::
     fused_topk_score_cluster_major``. Bound by the bytes of the distinct
     routed clusters' rows: a work item (:func:`cluster_major_items`)
-    stages one chunk of a cluster's live rows once for 16 roster slots;
-    the chunk partials are merged by key.
+    stages one chunk of a cluster's live rows once for up to 16 roster
+    slots; the chunk partials are merged by key.
 
     ``u (u_max,)`` / ``roster (u_max, qcap)`` int32 from
     ``serving.cluster_major_plan`` (``B·cr`` marks an empty slot), which
@@ -596,8 +648,8 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
     if n_total == 0 or u_max == 0 or qcap == 0:
         return out_s, out_i
     shape = launch_shape(cap=cap, k=k, elem_size=buf_emb.element_size())
-    n_chunks = shape["n_chunks"]
-    _check_grid(u_max * -(-qcap // GROUP) * n_chunks, n_chunks, cap)
+    n_chunks, slots = shape["n_chunks"], shape["slots"]
+    _check_grid(u_max * -(-qcap // slots) * n_chunks, n_chunks, cap)
     work = torch.empty(2 * u_max + 2, dtype=torch.int32, device=dev)
     part_key = torch.empty((n_total * n_chunks, k), dtype=torch.int64,
                            device=dev)
@@ -609,7 +661,7 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
         _ptr(buf_loc), _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt),
         _ptr(w_hat), int(buf_attrs is not None), u_max, qcap, cr, n_total,
         c, cap, d, w_hat.shape[0], k, float(dist_max), shape["chunk_rows"],
-        shape["smem_bytes"], _ptr(work), _ptr(part_key),
+        slots, shape["smem_bytes"], _ptr(work), _ptr(part_key),
         _ptr(part_id), _ptr(out_s), _ptr(out_i),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -624,10 +676,12 @@ def fused_topk_score(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids, w_hat,
     (B, k) int32)`` over each query's materialized candidates.
 
     Replaces ``repro/kernels/fused_topk_score.py::fused_topk_score``.
-    Bound by the bytes of the live candidate rows: one block per query
-    scans its ``N`` rows with the routed kernel's scan (padding skipped
-    by id before its row is read) and returns local positions, -1 past
-    the last valid candidate.
+    Bound by the bytes of the live candidate rows: work items of (query,
+    1,024-row chunk of its ``N`` candidates), one slot each, walked by
+    the tiled scan's persistent blocks (padding skipped by id before its
+    row is read); the chunk partials are merged by key into local
+    positions, -1 past the last valid candidate; equal scores rank by
+    position (:func:`gather_partials_plain`).
 
     ``q_emb (B, d)`` f32; ``q_loc``/``w_st (B, 2)`` f32; ``cand_emb (B,
     N, d)`` f32, bf16, or int8 with ``cand_scale (B, N)`` f32;
@@ -647,8 +701,6 @@ def fused_topk_score(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids, w_hat,
     if d % 16 or d > D_MAX:
         raise ValueError(f"embedding width {d} must be a multiple of 16 "
                          f"and at most {D_MAX}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k={k} outside the kernel's range [1, {K_MAX}]")
     if (cand_emb.dtype == torch.int8) != (cand_scale is not None):
         raise ValueError("int8 candidates need cand_scale (the dequant "
                          "body); f32/bf16 candidates take none")
@@ -664,15 +716,25 @@ def fused_topk_score(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids, w_hat,
     _check("q_loc", q_loc, dtype=torch.float32, shape=(b, 2), device=dev)
     _check("w_st", w_st, dtype=torch.float32, shape=(b, 2), device=dev)
     _check("w_hat", w_hat, dtype=torch.float32, shape=w_hat.shape, device=dev)
+    if n == 0:                          # no candidates: every slot empty
+        return (torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev),
+                torch.full((b, k), -1, dtype=torch.int32, device=dev))
+    shape = launch_shape(cap=n, k=k, elem_size=cand_emb.element_size(),
+                         slots=1)
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_s, out_i
+    n_chunks = shape["n_chunks"]
+    _check_grid(b * n_chunks, n_chunks, n)
+    work = torch.empty(1, dtype=torch.int32, device=dev)
+    part_key = torch.empty((b * n_chunks, k), dtype=torch.int64, device=dev)
     err = _lib().fts_gather(
         _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(cand_emb),
         _EMB_KIND[cand_emb.dtype], _ptr(cand_scale), _ptr(cand_loc),
         _ptr(cand_ids), _ptr(w_hat), b, n, d, w_hat.shape[0], k,
-        float(dist_max), _ptr(out_s), _ptr(out_i),
+        float(dist_max), shape["chunk_rows"], shape["smem_bytes"],
+        _ptr(work), _ptr(part_key), _ptr(out_s), _ptr(out_i),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fts_gather launch failed: cudaError {err}")

@@ -41,13 +41,14 @@ def make_attrs(n, seed=3):
         timestamp=rng.integers(0, 1000, n))
 
 
-def make_ref_snapshot(cfg, *, seed=17):
-    """A reference f32 snapshot with random (seeded) params, objects and
-    filter attributes, placed by the reference's own router."""
+def make_ref_snapshot(cfg, *, seed=17, n_obj=N_OBJ, capacity=CAP):
+    """A reference f32 snapshot with random (seeded) params, ``n_obj``
+    objects and filter attributes, placed by the reference's own router
+    into buffers of ``capacity`` rows."""
     rng = np.random.default_rng(seed)
     rel = ref_relevance.relevance_init(jax.random.PRNGKey(0), cfg)
-    obj_emb = rng.normal(size=(N_OBJ, cfg.d_model)).astype(np.float32)
-    obj_loc = rng.uniform(size=(N_OBJ, 2)).astype(np.float32)
+    obj_emb = rng.normal(size=(n_obj, cfg.d_model)).astype(np.float32)
+    obj_loc = rng.uniform(size=(n_obj, 2)).astype(np.float32)
     norm = ref_index.loc_normalizer(jnp.asarray(obj_loc))
     iparams = ref_index.index_init(jax.random.PRNGKey(5), cfg.d_model,
                                    cfg.n_clusters,
@@ -57,8 +58,8 @@ def make_ref_snapshot(cfg, *, seed=17):
     top = np.asarray(ref_index.assign_clusters(iparams, feats, top=2))
     buf = ref_index.build_cluster_buffers(top, obj_emb, obj_loc,
                                           n_clusters=cfg.n_clusters,
-                                          capacity=CAP,
-                                          attrs=make_attrs(N_OBJ))
+                                          capacity=capacity,
+                                          attrs=make_attrs(n_obj))
     return RefSnapshot.from_parts(cfg, rel, iparams, norm, buf,
                                   dist_max=DIST_MAX)
 
@@ -73,6 +74,16 @@ def with_delta(snap, seed=23):
                      np.arange(9000, 9005), new_attrs=make_attrs(5, seed=4))
     seg = seg.delete([0, 1, 2])
     return snap.with_delta(seg)
+
+
+def with_tombstones(snap, n, *, seed=29):
+    """``snap`` plus a delta segment of ``n`` tombstones and no rows: ids
+    drawn (seeded) from those its buffers hold."""
+    held = np.asarray(snap.buffers["ids"]).reshape(-1)
+    held = held[held >= 0]
+    dead = np.random.default_rng(seed).choice(held, n, replace=False)
+    seg = ref_delta.DeltaSegment.empty(snap.cfg.d_model, snap.meta.precision)
+    return snap.with_delta(seg.delete(dead))
 
 
 def make_requests(rng, n, cfg):

@@ -216,38 +216,47 @@ def test_cluster_major_items_cover_every_pair_row_once(roster_name):
     roster, n_total, _ = _rosters()[roster_name]
     cap, chunk = 700, 256
     n_chunks = -(-cap // chunk)
-    groups, offsets = fts.cluster_major_items(roster, n_total=n_total,
-                                              n_chunks=n_chunks)
-    seen = np.zeros((n_total, cap), np.int64)
-    for item in range(int(offsets[-1])):
-        i, g, ch = fts.cluster_major_item(item, groups, offsets)
-        slots = roster[i, g * fts.GROUP:(g + 1) * fts.GROUP].numpy()
-        pairs = slots[(slots >= 0) & (slots < n_total)]
-        seen[pairs, ch * chunk:min(cap, (ch + 1) * chunk)] += 1
     live = ((roster >= 0) & (roster < n_total)).numpy()
     covered = np.unique(roster.numpy()[live])
-    # every pair the plan holds, every row, exactly once; nothing else
-    assert (seen[covered] == 1).all()
-    assert seen.sum() == covered.size * cap
+    for g_slots in (fts.GROUP, 4):            # 4: the slots of a larger k
+        groups, offsets = fts.cluster_major_items(
+            roster, n_total=n_total, n_chunks=n_chunks, slots=g_slots)
+        seen = np.zeros((n_total, cap), np.int64)
+        for item in range(int(offsets[-1])):
+            i, g, ch = fts.cluster_major_item(item, groups, offsets)
+            slots = roster[i, g * g_slots:(g + 1) * g_slots].numpy()
+            pairs = slots[(slots >= 0) & (slots < n_total)]
+            seen[pairs, ch * chunk:min(cap, (ch + 1) * chunk)] += 1
+        # every pair the plan holds, every row, exactly once; nothing else
+        assert (seen[covered] == 1).all()
+        assert seen.sum() == covered.size * cap
+        # a hot cluster spreads over several items, a cold one takes one
+        assert int(groups.max()) == -(-int(live.sum(axis=1).max())
+                                      // g_slots)
     if roster_name != "holes":
         assert covered.size == n_total
-    # a hot cluster spreads over several items, a cold one takes one group
-    assert int(groups.max()) == -(-int(live.sum(axis=1).max()) // fts.GROUP)
 
 
-@pytest.mark.parametrize("cr", [1, 2, 3])
+@pytest.mark.parametrize("cr", [1, 2, 3, 16, 17, 20])
 @pytest.mark.parametrize("routes", ["skewed", "uniform", "zipf"])
 def test_routed_items_cover_every_pair_row_once(routes, cr):
+    """cr 1–16 fill an item with a group of 16 // cr queries; past 16 a
+    group is one query and an item one cluster of its routes."""
     base = _rosters()[routes][2]
-    top_c = {1: base[:, :1], 2: base,         # cr 3: distinct routes
-             3: torch.stack([base[:, 0], (base[:, 0] + 1) % 50,
-                             (base[:, 0] + 7) % 50], dim=1)}[cr]
+    if cr <= 2:
+        top_c = base[:, :cr]
+    elif cr == 3:                             # distinct routes
+        top_c = torch.stack([base[:, 0], (base[:, 0] + 1) % 50,
+                             (base[:, 0] + 7) % 50], dim=1)
+    else:                                     # 7·j mod 50: distinct for j < 50
+        top_c = ((base[:, :1] + 7 * torch.arange(cr)) % 50).to(torch.int32)
     b = top_c.shape[0]
     cap, chunk = 700, 256
     n_chunks = -(-cap // chunk)
     groups, offsets = fts.routed_items(top_c)
     qg, n_groups = fts.routed_groups(b, cr)
-    assert len(groups) == n_groups and qg * cr <= fts.GROUP
+    assert len(groups) == n_groups and qg * cr <= max(fts.GROUP, cr)
+    assert max(len(g) for g in groups) <= max(fts.GROUP, cr)
     seen = np.zeros((b * cr, cap), np.int64)
     for item in range(offsets[-1] * n_chunks):
         ch, cluster, pairs = fts.routed_item(item, groups, offsets)
@@ -261,6 +270,114 @@ def test_routed_items_cover_every_pair_row_once(routes, cr):
     assert [fts.routed_item(i, groups, offsets)[0]
             for i in range(offsets[-1] * n_chunks)] == sorted(
         i // offsets[-1] for i in range(offsets[-1] * n_chunks))
+
+
+def test_routed_items_split_a_cluster_past_the_slots():
+    """Pairs of one group on one cluster beyond the item's slots open a
+    second entry of that cluster (routes of a query need not be distinct
+    for the kernel)."""
+    top_c = torch.full((2, 20), 3, dtype=torch.int32)
+    top_c[1, ::2] = 5
+    groups, offsets = fts.routed_items(top_c)
+    assert [[(cl, len(p)) for cl, p in g] for g in groups] == [
+        [(3, 16), (3, 4)], [(5, 10), (3, 10)]]
+    assert offsets == [0, 2, 4]
+    groups, _ = fts.routed_items(top_c, slots=4)
+    assert [len(p) for _, p in groups[0]] == [4] * 5
+
+
+@pytest.mark.parametrize("elem_size", [1, 2, 4], ids=["int8", "bf16", "f32"])
+def test_launch_shape_slots_follow_k(elem_size):
+    """Slots per item by k: 16 while a full chunk's block fits two to an
+    SM, then 8, 4, 2, and 1 (one block an SM) up to K_MAX, the largest k
+    whose one-slot lists fit a block's shared memory."""
+    prev = fts.GROUP
+    for k in list(range(1, fts.K_MAX, 13)) + [fts.K_MAX]:
+        shape = fts.launch_shape(cap=19072, k=k, elem_size=elem_size)
+        g = shape["slots"]
+        assert g in fts.SLOT_COUNTS and g <= prev
+        prev = g
+        full = fts._tile_smem(fts.CHUNK_ROWS, k, elem_size, g)
+        assert shape["smem_bytes"] == full <= fts.SMEM_MAX
+        if g > 1:
+            assert full <= fts.SMEM_TWO_PER_SM
+        if g < fts.GROUP:
+            assert fts._tile_smem(fts.CHUNK_ROWS, k, elem_size,
+                                  2 * g) > fts.SMEM_TWO_PER_SM
+    assert fts.launch_shape(cap=19072, k=20, elem_size=elem_size)[
+        "slots"] == fts.GROUP
+    assert fts.launch_shape(cap=100, k=7, elem_size=elem_size,
+                            slots=1)["slots"] == 1
+    assert (fts._tile_smem(fts.CHUNK_ROWS, fts.K_MAX, 1, 1) <= fts.SMEM_MAX
+            < fts._tile_smem(fts.CHUNK_ROWS, fts.K_MAX + 1, 1, 1))
+    assert fts.K_MAX >= 1024
+    for bad in (0, fts.K_MAX + 1):
+        with pytest.raises(ValueError, match=str(fts.K_MAX)):
+            fts.launch_shape(cap=19072, k=bad, elem_size=elem_size)
+
+
+def test_merge_list_cap_admits_full_fan_out():
+    """The merge takes as many partial lists per output row as its list
+    heads fit in shared memory: at least cr = c = 300 routes × 19 chunks
+    of phase 3's full-width index."""
+    shape = fts.launch_shape(cap=19072, k=20, elem_size=1)
+    cap_lists = shape["merge_lists_max"]
+    assert cap_lists == fts.SMEM_MAX // (fts.MERGE_WARPS * 4)
+    assert 300 * shape["n_chunks"] == 5700 <= cap_lists
+    fts._check_grid(1, 300 * shape["n_chunks"], 300 * 19072)
+    with pytest.raises(ValueError, match="merge"):
+        fts._check_grid(1, cap_lists + 1, 1)
+
+
+def gather_case_np(rng, precision, *, b, n, d, ties=(), dead=None):
+    """Candidates ``(b, n, d)`` from numpy as torch CPU tensors: small
+    integers at one location (exact scores), the rows at ``ties`` all 2s
+    against non-negative queries (the top score, tied), rows ``dead`` of
+    the first half of the queries padding; 30% padding elsewhere. Returns
+    ``(args, kw)`` of the gather wrappers (k left to the caller)."""
+    emb = rng.integers(-2, 3, (b, n, d)).astype(np.float32)
+    q = rng.integers(0, 3, (b, d)).astype(np.float32)
+    ids = np.where(rng.uniform(size=(b, n)) < 0.3, -1,
+                   rng.permutation(b * n).reshape(b, n)).astype(np.int32)
+    rows = [r for r in ties if r < n]
+    emb[:, rows] = 2.0
+    ids[:, rows] = np.arange(len(rows), dtype=np.int32)
+    if dead is not None:
+        ids[: (b + 1) // 2, dead[0]:dead[1]] = -1
+    emb[ids < 0] = 0.0
+    stored, scale = port_index.quantize_rows(torch.from_numpy(emb), precision)
+    loc = np.full((b, n, 2), 0.25, np.float32)
+    q_loc = np.full((b, 2), 0.25, np.float32)
+    w = rng.uniform(0.2, 1.0, (b, 2)).astype(np.float32)
+    w_hat = np.cumsum(rng.uniform(size=20)).astype(np.float32)
+    args = tuple(torch.from_numpy(x) for x in (q, q_loc, w))
+    args = args[:3] + (stored, torch.from_numpy(loc), torch.from_numpy(ids),
+                       torch.from_numpy(w_hat))
+    return args, dict(dist_max=DIST_MAX,
+                      cand_scale=scale if precision == "int8" else None)
+
+
+@pytest.mark.parametrize("k", [5, 30])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_gather_partial_merge_matches_plain(precision, k):
+    """The gather kernel's chunk partials, merged by key, give the plain
+    gather scan exactly: N = 20 over three chunks of 8, the top score
+    tied across both chunk boundaries (rows 7, 8, 15, 16), the middle
+    chunk all padding for half the queries, and k 30 > N."""
+    chunk = 8
+    args, kw = gather_case_np(np.random.default_rng(31), precision, b=4,
+                              n=20, d=16, ties=(7, 8, 15, 16), dead=(8, 16))
+    want_s, want_p = fts.gather_topk_plain(*args, k=k, **kw)
+    part = fts.gather_partials_plain(*args, k=k, chunk_rows=chunk, **kw)
+    assert part[0].shape == (4, 3, k)
+    got_s, got_p = fts.merge_partials_plain(*part, k=k)
+    assert torch.equal(got_p, want_p) and torch.equal(got_s, want_s)
+    # the tie ranks by position, across the dead chunk too
+    assert got_p[0, :2].tolist() == [7, 16] and got_p[3, :4].tolist() == [
+        7, 8, 15, 16]
+    if k > 20:
+        assert (got_p[:, 20:] == -1).all()
+        assert (got_s[:, 20:] == fts.NEG_INF).all()
 
 
 def _tie_case(precision, *, c=3, cap=40, d=16, b=6, cr=2, chunk=8):
@@ -410,6 +527,94 @@ def test_cuda_kernels_match_plain(cuda_device, precision, filtered, shape):
                       want[0].cpu(), atol=1e-4, rtol=1e-5)
     if exact:
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr", [17, "c"])
+@pytest.mark.parametrize("filtered", [False, True], ids=["plain", "filtered"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_cuda_routed_any_cr(cuda_device, precision, filtered, cr):
+    """The routed kernel past 16 routes (one query a group, one item per
+    cluster of its routes) and at full fan-out, cr = c = 24."""
+    c = 24
+    cr = c if cr == "c" else cr
+    bufs, q, q_loc, w, top_c, w_hat, fvals, _ = edge_case_np(
+        np.random.default_rng(9), precision, c=c, cap=300, d=64, b=20, cr=cr)
+    kw = dict(k=20, dist_max=DIST_MAX,
+              buf_scale=bufs["scale"] if precision == "int8" else None,
+              buf_attrs=bufs["attrs"] if filtered else None,
+              q_filt=torch.from_numpy(fvals) if filtered else None)
+    kw = {key: (v.to(cuda_device) if isinstance(v, torch.Tensor) else v)
+          for key, v in kw.items()}
+    args = tuple(a.to(cuda_device) for a in (q, q_loc, w, top_c, bufs["emb"],
+                                             bufs["loc"], bufs["ids"], w_hat))
+    want = fts.routed_topk_plain(*args, **kw)
+    got = fts.fused_topk_score_routed(*args, **kw)
+    torch.cuda.synchronize()
+    assert_topk_match(got[1].cpu(), got[0].cpu(), want[1].cpu(),
+                      want[0].cpu(), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [300, 1024])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_cuda_large_k(cuda_device, precision, k):
+    """Both scans at k above 256 (fewer slots per item): random data, and
+    exact integer data with ties across tile and chunk boundaries, where
+    the ids must equal the plain version's."""
+    for edge in (False, True):
+        bufs, q, q_loc, w, top_c, w_hat, _, exact = edge_case_np(
+            np.random.default_rng(10), precision, c=4, cap=2600, d=64, b=12,
+            cr=2, edge=edge, boundary=(255, 256, 1023, 1024, 2047, 2048),
+            dead=(1024, 1400))
+        kw = dict(k=k, dist_max=DIST_MAX,
+                  buf_scale=(bufs["scale"].to(cuda_device)
+                             if precision == "int8" else None))
+        args = tuple(a.to(cuda_device) for a in (
+            q, q_loc, w, top_c, bufs["emb"], bufs["loc"], bufs["ids"], w_hat))
+        want = fts.routed_topk_plain(*args, **kw)
+        got = fts.fused_topk_score_routed(*args, **kw)
+        u, roster, _ = port_serving.cluster_major_plan(args[3], n_clusters=4)
+        ps, pi = fts.fused_topk_score_cluster_major(
+            *args[:3], u, roster, *args[4:], cr=2, **kw)
+        got_c = port_engine.merge_cluster_major(ps, pi, b=12, cr=2, k=k)
+        torch.cuda.synchronize()
+        for g in (got, got_c):
+            assert_topk_match(g[1].cpu(), g[0].cpu(), want[1].cpu(),
+                              want[0].cpu(), atol=1e-4, rtol=1e-5)
+            if exact:
+                assert torch.equal(g[1], want[1]) and torch.equal(g[0],
+                                                                  want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_cuda_gather_edge_shapes(cuda_device, precision):
+    """The gather kernel against its plain version: exact ties across
+    chunk boundaries with an all-padding chunk (positions equal), k > N,
+    k 300 at d 768, k 1024 at d 16, and no candidates (no launch)."""
+    rng = np.random.default_rng(12)
+    for b, n, d, k, ties, dead in (
+            (3, 3000, 64, 40, (1023, 1024, 2047, 2048, 2900), (1024, 2048)),
+            (4, 16, 32, 20, (3, 4), None),
+            (5, 2500, 768, 300, (255, 256, 1023), None),
+            (2, 1100, 16, 1024, (), (0, 256)),
+            (2, 0, 16, 5, (), None)):             # no candidates
+        args, kw = gather_case_np(rng, precision, b=b, n=n, d=d, ties=ties,
+                                  dead=dead)
+        args = tuple(a.to(cuda_device) for a in args)
+        kw = {key: (v.to(cuda_device) if isinstance(v, torch.Tensor) else v)
+              for key, v in kw.items()}
+        before = fts.launches["gather"]
+        got = fts.fused_topk_score(*args, k=k, **kw)
+        want = fts.gather_topk_plain(*args, k=k, **kw)
+        torch.cuda.synchronize()
+        assert fts.launches["gather"] == before + (n > 0)
+        assert_topk_match(got[1].cpu(), got[0].cpu(), want[1].cpu(),
+                          want[0].cpu(), atol=1e-4, rtol=1e-5)
+        if precision != "int8":               # integer data: exact
+            assert torch.equal(got[1], want[1]) and torch.equal(got[0],
+                                                                want[0])
 
 
 def edge_case_np(rng, precision, *, c, cap, d, b, cr, edge=False,
