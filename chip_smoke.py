@@ -67,8 +67,36 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    probe reading the same rows in the kernel's order with more rows in
    flight (``row_gather_rate``), or the kernel's own.
 
-Prints one JSON line of per-kernel numbers, then as its last line
+5. The write path at full width, on phase 3's index (the launch counters
+   zeroed before (a) and read after (d)): (a) for every tier, 300 victims
+   from the live top-k of 32 queries at cr = c, a delta of 1,024 fresh
+   rows (32 of them the queries' own normalised embeddings at their
+   locations) and the victims' tombstones, ``compact`` on the card (timed
+   whole, its host placement timed alone on the same inputs and checked to
+   be where ``compact`` put the rows; the rest is the device writes); the
+   delta
+   snapshot and its compaction must agree on ``cuda-cm`` at cr = c (ids up
+   to ties), no victim may come back and every query must find its own
+   row. (b) 4,096 queries (batch 256, k 20, cr 2) on ``cuda`` and ``auto``
+   against the int8 snapshot with that delta, beside phase 3's delta-free
+   walls; one routed delta scan per chunk. (c) ``api.save`` of the int8
+   snapshot into a temporary directory, ``api.load`` onto the card, 256
+   queries bit-equal, save and load rates. (d) ``scale_corpus`` at 131,072
+   objects embedded by the full-width object tower (seeded random
+   weights) with ``embed_objects``, placed by the random router into c =
+   300 f32 buffers; ``cuda-cm`` at cr = c against ``brute_force`` (ids up
+   to ties), and ``auto``'s recall@10 at cr 2 and 20. After the counts
+   are read, the delta scan's routed launch is held against its plain
+   version on one 256-query chunk of (b) (``delta_scan_check``).
+
+Prints a JSON line of phase 3's numbers, one of the write path's
+(``write_path``), one of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
+
+``--compare`` times, on trees that share its wrappers: the gather scan on
+its full-width copies, the two engine scans on one chunk at two route
+skews, and the query wall of 4,096 queries against the int8 snapshot with
+and without a delta of 1,024 rows and 300 tombstones.
 """
 from __future__ import annotations
 
@@ -786,7 +814,9 @@ def phase3(dev):
                           for (p, b), wall in walls.items()},
                 qps={f"{p}/{b}": n_q / wall for (p, b), wall in walls.items()},
                 ctx=dict(buf32=buf32, buf8=buf8, w_hat=w_hat, q_emb=q_emb,
-                         ql=ql, w=w, top_c=top_router))
+                         ql=ql, w=w, top_c=top_router),
+                write_ctx=dict(snaps=snaps, tok=tok, msk=msk, q_loc=q_loc,
+                               q_emb=q_emb[:N_FAN]))
 
 
 # ---------------------------------------------------------------------------
@@ -1406,11 +1436,391 @@ def phase4(dev, ctx):
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the write path at full width
+# ---------------------------------------------------------------------------
+
+N_INSERT = 1024                  # fresh rows of the delta
+N_VICTIM = 300                   # tombstones, from the live top-k
+N_OWN = 32                       # queries whose own row is inserted
+N_SAVE_QUERIES = 256
+N_CORPUS = 131_072               # objects of the brute-force corpus
+N_BF_QUERIES = 256
+BF_BATCH = 256                   # one batch for the towers and brute_force
+
+
+def write_delta(snap, precision, victims, q_emb, q_loc, *, n_objects):
+    """The phase's delta at ``precision``: ``N_INSERT`` fresh rows (ids
+    ``n_objects`` up; seeded unit rows at seeded locations, the first
+    ``N_OWN`` replaced by the queries' own normalised ``q_emb`` at their
+    locations) and ``victims`` tombstoned."""
+    import torch
+    from repro_torch.core import delta as delta_lib
+    d = q_emb.shape[1]
+    g = torch.Generator().manual_seed(SEED + 12)
+    rows = torch.nn.functional.normalize(torch.randn(N_INSERT, d, generator=g),
+                                         dim=-1)
+    locs = torch.rand(N_INSERT, 2, generator=g)
+    rows[:N_OWN] = torch.nn.functional.normalize(q_emb[:N_OWN].cpu(), dim=-1)
+    locs[:N_OWN] = torch.from_numpy(q_loc[:N_OWN])
+    ids = torch.arange(n_objects, n_objects + N_INSERT)
+    return (delta_lib.DeltaSegment.empty(d, precision)
+            .insert(rows, locs, ids).delete(victims))
+
+
+def host_placement(snap):
+    """``compact``'s host steps alone, timed on its own inputs: the new
+    rows' spill hops (``route_inserts``: routed on the card, the hops
+    copied back) and the walk (``place_inserts``) over ``ids`` and
+    ``counts`` copied to the host, the tombstones already padding
+    (``scan_view``'s ids: those ``compact``'s delete leaves). →
+    ``(cluster, slot, s)``."""
+    import torch
+    from repro_torch.core import index as index_lib
+    ids_d = snap.scan_view.buffers["ids"]
+    counts_d = (ids_d >= 0).sum(dim=-1)
+    arrs = snap.delta.arrays()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hops = index_lib.route_inserts(snap.index, snap.norm, arrs["raw"],
+                                   arrs["loc"], n_clusters=ids_d.shape[0])
+    t1 = time.perf_counter()
+    counts = counts_d.cpu().numpy().astype("int64")
+    cluster, slot = index_lib.place_inserts(ids_d.cpu().numpy(), counts, hops,
+                                            capacity=snap.buffers["capacity"])
+    t2 = time.perf_counter()
+    return cluster, slot, dict(route=t1 - t0, place=t2 - t1)
+
+
+def write_parity(dev, wctx):
+    """(a) every tier: victims from the live top-k of ``N_OWN`` queries at
+    cr = c, the delta of ``write_delta``, ``compact`` on the card; the
+    delta snapshot and its compaction on ``cuda-cm`` at cr = c must agree
+    (ids up to ties), no victim may come back and each query finds its own
+    row. Returns per-tier records and the int8 delta snapshot."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    tok, msk, q_loc = wctx["tok"], wctx["msk"], wctx["q_loc"]
+    q = [a[:N_OWN] for a in (tok, msk, q_loc)]
+    own_ids = None
+    out, keep = {}, None
+    for p, snap in wctx["snaps"].items():
+        c = snap.buffers["emb"].shape[0]
+        n_obj = snap.meta.n_objects
+        s = api.Searcher(snap, backend="cuda-cm", device=dev)
+        ids0, _ = s.query(*q, k=20, cr=c, batch=N_OWN)
+        victims = np.unique(ids0[ids0 >= 0])[:N_VICTIM]
+        seg = write_delta(snap, p, victims, wctx["q_emb"], q_loc,
+                          n_objects=n_obj)
+        snap_d = snap.with_delta(seg)
+        own_ids = np.arange(n_obj, n_obj + N_OWN)
+        cluster, slot, steps = host_placement(snap_d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap_c = snap_d.compact()
+        torch.cuda.synchronize()
+        t_compact = time.perf_counter() - t0
+        placed = snap_c.buffers["ids"][torch.from_numpy(cluster).to(dev),
+                                       torch.from_numpy(slot).to(dev)]
+        if not np.array_equal(placed.cpu().numpy(),
+                              seg.arrays()["ids"].numpy()):
+            raise AssertionError(f"phase 5 {p}: compact() placed the rows "
+                                 f"elsewhere than its host steps timed alone")
+        if snap.buffers["ids"].data_ptr() == snap_c.buffers["ids"].data_ptr():
+            raise AssertionError("phase 5: compact wrote its predecessor")
+        ids_d, sc_d = s.engine.query(*q, k=20, cr=c, batch=N_OWN,
+                                     snapshot=snap_d)
+        ids_c, sc_c = s.engine.query(*q, k=20, cr=c, batch=N_OWN,
+                                     snapshot=snap_c)
+        err = topk_match(ids_c, sc_c, ids_d, sc_d)
+        for name, ids in (("delta", ids_d), ("compacted", ids_c)):
+            if np.isin(ids, victims).any():
+                raise AssertionError(f"phase 5 {p} {name}: a victim came back")
+            if not (ids == own_ids[:, None]).any(axis=1).all():
+                raise AssertionError(f"phase 5 {p} {name}: a query lost its "
+                                     f"own inserted row")
+        n_live = int(snap_c.buffers["counts"].sum())
+        if n_live != n_obj - len(victims) + N_INSERT:
+            raise AssertionError(f"phase 5 {p}: {n_live} live rows after "
+                                 f"compaction")
+        host = steps["route"] + steps["place"]
+        rest = t_compact - host
+        out[p] = dict(compact_ms=t_compact * 1e3, host_placement_ms=host * 1e3,
+                      device_writes_ms=rest * 1e3,
+                      steps_ms={k: v * 1e3 for k, v in steps.items()},
+                      victims=int(len(victims)), max_abs_err=err,
+                      own_row_rank0=float((ids_d[:, 0] == own_ids).mean()))
+        log(f"phase 5 (a) {p}: {N_INSERT} inserts + {len(victims)} tombstones;"
+            f" compact {t_compact * 1e3:.1f} ms: host placement "
+            f"{host * 1e3:.1f} ms (timed alone on its inputs: route "
+            f"{steps['route'] * 1e3:.1f} + walk {steps['place'] * 1e3:.1f}), "
+            f"the rest {rest * 1e3:.1f} ms (clone, delete and row writes on "
+            f"the card); cuda-cm at cr = c = {c}: delta == compacted up to "
+            f"ties (max|Δ| {err:.3g}), no victim back, every query finds its "
+            f"own row ({out[p]['own_row_rank0']:.2f} at rank 0)")
+        if p == "int8":
+            keep = snap_d
+        del s, snap_d, snap_c, placed
+        torch.cuda.empty_cache()
+    return out, keep
+
+
+def write_walls(dev, wctx, snap_d, base_walls):
+    """(b) 4,096 queries at batch 256, k 20, cr 2 against the int8 snapshot
+    with the delta, on ``cuda`` and ``auto``; each run's launches counted:
+    one base scan (routed or cluster-major) and one routed delta scan per
+    chunk."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import fused_topk_score as fts
+    tok, msk, q_loc = wctx["tok"], wctx["msk"], wctx["q_loc"]
+    walls, launches = {}, {}
+    for b in ("cuda", "auto"):
+        s = api.Searcher(snap_d, backend=b, device=dev)
+        s.query(tok[:256], msk[:256], q_loc[:256], k=20, cr=2, batch=256)
+        torch.cuda.synchronize()
+        before = dict(fts.launches)
+        t0 = time.perf_counter()
+        ids, sc = s.query(tok, msk, q_loc, k=20, cr=2, batch=256)
+        walls[b] = (time.perf_counter() - t0) * 1e3
+        launches[b] = {k: fts.launches[k] - before[k] for k in before}
+        if ids.shape != (len(tok), 20) or not np.isfinite(sc).all() or \
+                not (ids >= 0).all():
+            raise AssertionError(f"phase 5 (b) {b}: bad output")
+        if np.isin(ids, snap_d.delta.tombstone_array()).any():
+            raise AssertionError(f"phase 5 (b) {b}: a tombstone came back")
+        chunks = -(-len(tok) // 256)
+        delta_scans = (launches[b]["routed"] + launches[b]["cluster_major"]
+                       - chunks)
+        if delta_scans != chunks:
+            raise AssertionError(f"phase 5 (b) {b}: {delta_scans} routed "
+                                 f"launches for the delta, want {chunks}")
+        log(f"phase 5 (b) int8 + delta ({snap_d.delta.n_rows} rows, "
+            f"{snap_d.delta.n_tombstones} tombstones) {b}: {len(tok)} queries "
+            f"in {walls[b]:.1f} ms (delta-free, phase 3: "
+            f"{base_walls['int8/' + b]:.1f} ms); launches {launches[b]}")
+    return dict(walls_ms=walls, launches=launches,
+                delta_free_walls_ms={b: base_walls["int8/" + b]
+                                     for b in walls})
+
+
+def delta_scan_check(dev, wctx, snap_d):
+    """The delta scan's routed launch against its plain version
+    (``engine.delta_scan_plain``) on the same card tensors, at the shape
+    (b) gives it: one 256-query chunk of the int8 snapshot with the delta,
+    every query routed to one cluster of the padded delta rows (cr 1),
+    the prefix run once for both. Ids equal up to ties, scores within
+    ATOL + RTOL·|s|; both timed."""
+    import torch
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.kernels import fused_topk_score as fts
+    chunk = [torch.from_numpy(a[:256]).to(dev)
+             for a in (wctx["tok"], wctx["msk"], wctx["q_loc"])]
+    q_emb, w, _ = engine_lib.make_prefix_fn(
+        cr=2, weight_mode=snap_d.meta.weight_mode)(
+        snap_d.rel, snap_d.index, snap_d.norm, *chunk)
+    rows, w_hat = snap_d.delta_rows, snap_d.w_hat
+    kw = dict(k=20, dist_max=snap_d.dist_max, precision="int8")
+    scan = engine_lib.make_delta_scan_fn(**kw)
+    args = (q_emb, chunk[2], w, w_hat, rows)
+    before = fts.launches["routed"]
+    ids, sc = scan(*args)
+    if fts.launches["routed"] != before + 1:
+        raise AssertionError("phase 5: the delta scan did not launch the "
+                             "routed kernel")
+    want_ids, want_sc = engine_lib.delta_scan_plain(*args, **kw)
+    err = topk_match(ids.cpu().numpy(), sc.cpu().numpy(),
+                     want_ids.cpu().numpy(), want_sc.cpu().numpy())
+    rec = dict(queries=int(q_emb.shape[0]), rows=int(rows["ids"].shape[1]),
+               max_abs_err=err, ms=time_ms(lambda: scan(*args)),
+               plain_ms=time_ms(lambda: engine_lib.delta_scan_plain(
+                   *args, **kw)))
+    log(f"phase 5 delta scan: {rec['queries']} queries x {rec['rows']} "
+        f"padded delta rows (int8, cr 1): routed kernel {rec['ms']:.3f} ms, "
+        f"plain {rec['plain_ms']:.3f} ms, ids equal up to ties (max|Δ| "
+        f"{err:.3g})")
+    return rec
+
+
+def save_load(dev, wctx):
+    """(c) ``api.save`` of the int8 snapshot into a temporary directory,
+    ``api.load`` onto the card, 256 queries bit-equal."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.checkpoint import ckpt
+    snap = wctx["snaps"]["int8"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_save_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        t0 = time.perf_counter()
+        path = api.save(snap, tmp)
+        t_save = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path)}
+        nbytes = sum(sizes.values())
+        # the checksum pass alone, over the largest leaf (the rows)
+        largest = max(sizes, key=sizes.get)
+        t0 = time.perf_counter()
+        ckpt._crc_file(os.path.join(path, largest))
+        crc_gb_s = sizes[largest] / (time.perf_counter() - t0) / 1e9
+        t0 = time.perf_counter()
+        loaded = api.load(tmp, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        q = [a[:N_SAVE_QUERIES] for a in (wctx["tok"], wctx["msk"],
+                                          wctx["q_loc"])]
+        want = api.Searcher(snap, backend="cuda", device=dev).query(
+            *q, k=20, cr=2, batch=256)
+        got = api.Searcher(loaded, backend="cuda", device=dev).query(
+            *q, k=20, cr=2, batch=256)
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError("phase 5 (c): the loaded snapshot's answers "
+                                 "differ from the saved one's")
+        del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec = dict(bytes=nbytes, free_bytes_before=free, save_s=t_save,
+               load_s=t_load, save_gb_s=nbytes / t_save / 1e9,
+               load_gb_s=nbytes / t_load / 1e9, crc_gb_s=crc_gb_s)
+    log(f"phase 5 (c) int8 save -> load: {nbytes / 1e9:.3f} GB on disk "
+        f"({free / 1e9:.0f} GB free); save {t_save:.2f} s "
+        f"({rec['save_gb_s']:.2f} GB/s), load onto the card {t_load:.2f} s "
+        f"({rec['load_gb_s']:.2f} GB/s); the crc32 pass alone "
+        f"{crc_gb_s:.2f} GB/s; {N_SAVE_QUERIES} queries on cuda "
+        f"bit-equal (ids and scores)")
+    return rec
+
+
+def recall_at(ids, want, k):
+    import numpy as np
+    return float(np.mean([len(set(a[:k]) & set(b[:k])) / k
+                          for a, b in zip(ids, want)]))
+
+
+def brute_force_recall(dev):
+    """(d) ``scale_corpus`` at ``N_CORPUS`` objects (16 tokens), the
+    full-width towers with seeded random weights; objects embedded with
+    ``embed_objects`` on the card and placed by the random router into
+    c = 300 f32 buffers (spill 3); ``cuda-cm`` at cr = c against
+    ``brute_force``, and ``auto``'s recall@10 at cr 2 and 20."""
+    import numpy as np
+    import torch
+    from repro_torch import api, convert
+    from repro_torch.configs import SERVE_QUERIES, get_config
+    from repro_torch.core import index as index_lib
+    from repro_torch.core import pipeline as pipeline_lib
+    from repro_torch.core import relevance
+    from repro_torch.core.snapshot import IndexSnapshot
+    from repro_torch.data import geotextual as geo
+    c = SERVE_QUERIES["n_clusters"]
+    cfg = dataclasses.replace(get_config("list-dual-encoder"), n_clusters=c)
+    t0 = time.perf_counter()
+    corpus = geo.GeoCorpus(geo.scale_corpus(geo.GeoCorpusConfig(seed=SEED),
+                                            N_CORPUS))
+    t_corpus = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(SEED + 13)
+    rel_p, idx_p = convert.random_params(cfg, n_clusters=c, generator=g,
+                                         with_o_enc=True)
+    rel, index = convert.params_from_numpy(rel_p, idx_p, cfg)
+    rel, index = rel.to(dev), index.to(dev)
+    del rel_p, idx_p
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = pipeline_lib.embed_objects(rel, corpus, batch=BF_BATCH)
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t0
+    tokens = int(corpus.object_tokens()[1].sum())
+    emb_d = torch.from_numpy(emb).to(dev)
+    loc_d = torch.from_numpy(corpus.obj_loc.astype(np.float32)).to(dev)
+    norm = index_lib.loc_normalizer(loc_d)
+    with torch.no_grad():
+        assign = index_lib.assign_clusters(
+            index, index_lib.build_features(emb_d, loc_d, norm), top=3)
+    buf = index_lib.build_cluster_buffers(assign.cpu().numpy(), emb_d, loc_d,
+                                          n_clusters=c, spill=3)
+    snap = IndexSnapshot.from_parts(cfg, rel, index, norm, buf,
+                                    dist_max=corpus.dist_max)
+    qids = np.arange(N_BF_QUERIES)
+    t0 = time.perf_counter()
+    bf_ids, bf_sc = api.brute_force(snap, corpus, qids, k=20, batch=BF_BATCH)
+    t_bf = time.perf_counter() - t0
+    # the scoring alone: one 256-query chunk over the embedded corpus
+    qe = torch.from_numpy(pipeline_lib.embed_queries(
+        rel, corpus, qids, batch=BF_BATCH)).to(dev)
+    ql = torch.from_numpy(corpus.q_loc[qids].astype(np.float32)).to(dev)
+    score_ms = time_ms(lambda: index_lib.topk_stable(relevance.score_corpus(
+        rel, qe, ql, emb_d, loc_d, dist_max=corpus.dist_max), 20), reps=3)
+    tok, msk = corpus.query_tokens(qids)
+    qloc = corpus.q_loc[qids].astype(np.float32)
+    s = api.Searcher(snap, backend="auto", device=dev)
+    full = s.query(tok, msk, qloc, k=20, cr=c, batch=BF_BATCH,
+                   backend="cuda-cm")
+    err = topk_match(full[0], full[1], bf_ids, bf_sc)
+    rec = dict(n_objects=N_CORPUS, embed_s=t_embed, tokens=tokens,
+               tokens_per_s=tokens / t_embed, corpus_s=t_corpus,
+               capacity=buf["capacity"], n_spilled=buf["n_spilled"],
+               brute_force_s=t_bf, brute_force_score_ms=score_ms,
+               cr_c_max_abs_err=err, recall_at_10={})
+    for cr in (2, 20):
+        ids, _ = s.query(tok, msk, qloc, k=20, cr=cr, batch=BF_BATCH)
+        rec["recall_at_10"][f"cr{cr}"] = recall_at(ids, bf_ids, 10)
+        rec.setdefault("auto_picks", {})[f"cr{cr}"] = s.engine.pick_backend(
+            tok, msk, qloc, cr=cr, batch=BF_BATCH)
+    log(f"phase 5 (d) corpus: {N_CORPUS} objects (scale_corpus, "
+        f"{corpus.cfg.max_len} tokens, made in {t_corpus:.1f} s) embedded by "
+        f"the object tower on the card in {t_embed:.1f} s ({tokens} tokens, "
+        f"{tokens / t_embed:.0f} tokens/s); c = {c}, cap {buf['capacity']}, "
+        f"{buf['n_spilled']} spilled; brute_force {t_bf:.1f} s in all "
+        f"(re-embedding included), its scoring {score_ms:.3f} ms per "
+        f"{N_BF_QUERIES} queries; cuda-cm at cr = c == brute_force up to ties"
+        f" (max|Δ| {err:.3g}); recall@10 of auto (random weights): cr 2 "
+        f"{rec['recall_at_10']['cr2']:.3f} ({rec['auto_picks']['cr2']}), "
+        f"cr 20 {rec['recall_at_10']['cr20']:.3f} "
+        f"({rec['auto_picks']['cr20']})")
+    del snap, s, emb_d, loc_d, buf
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase5(dev, wctx, base_walls):
+    """The write path at full width on phase 3's index, the kernels'
+    launch counters zeroed just before (a) and read just after (d); then
+    the delta scan held against its plain version."""
+    import torch
+    from repro_torch.kernels import fused_topk_score as fts
+    torch.cuda.reset_peak_memory_stats()
+    fts.reset_launch_counts()
+    rec = {}
+    rec["compaction"], snap_d = write_parity(dev, wctx)
+    rec["delta_query"] = write_walls(dev, wctx, snap_d, base_walls)
+    torch.cuda.empty_cache()
+    rec["save_load"] = save_load(dev, wctx)
+    rec["brute_force"] = brute_force_recall(dev)
+    rec["launches"] = dict(fts.launches)
+    for name in ("routed", "cluster_major"):
+        if not rec["launches"][name]:
+            raise AssertionError(f"phase 5: kernel {name} not launched")
+    # after the counts are read: its launches are a comparison's
+    rec["delta_scan"] = delta_scan_check(dev, wctx, snap_d)
+    del snap_d
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
     card (parent / change / change / parent). The gather scan on its
-    full-width copies, and the routed and cluster-major kernels on one
-    256-query chunk at the router and uniform skews, every tier. It calls
+    full-width copies, the routed and cluster-major kernels on one
+    256-query chunk at the router and uniform skews, every tier, and the
+    query walls with and without a delta (``delta_walls``). It calls
     only wrappers whose signatures the older tree shares, so a checkout of
     the parent with this script copied in runs it too."""
     import torch
@@ -1455,6 +1865,56 @@ def compare(dev):
             out[f"{skew}/{p}"] = rec
             log(f"compare {skew} {p}: routed {rec['routed_ms']:.3f} ms, "
                 f"cluster_major {rec['cluster_major_ms']:.3f} ms")
+    out["delta_walls_ms"] = delta_walls(dev, fi)
+    return out
+
+
+def delta_walls(dev, fi, reps=2):
+    """The query wall of the write path, for ``--compare``: 4,096 queries
+    (batch 256, k 20, cr 2) on ``cuda`` and ``auto`` against the int8
+    snapshot with a delta of ``N_INSERT`` seeded rows and ``N_VICTIM``
+    seeded tombstones, and against the same snapshot without it. Built
+    through ``DeltaSegment.from_leaves``, which older trees share."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import delta as delta_lib
+    from repro_torch.core import index as index_lib
+    from repro_torch.core.snapshot import IndexSnapshot
+    buf8, cfg = fi["bufs"]["int8"], fi["cfg"]
+    d, n = cfg.d_model, int(buf8["counts"].sum())
+    g = torch.Generator().manual_seed(SEED + 12)
+    raw = torch.nn.functional.normalize(torch.randn(N_INSERT, d, generator=g),
+                                        dim=-1)
+    stored, scale = index_lib.quantize_rows(raw, "int8")
+    held = buf8["ids"][buf8["ids"] >= 0]
+    gt = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tomb = held[torch.randperm(held.numel(), generator=gt, device=dev)[
+        :N_VICTIM]].cpu().long()
+    delta = delta_lib.DeltaSegment.from_leaves(d, "int8", {
+        "emb": stored, "scale": scale,
+        "loc": torch.rand(N_INSERT, 2, generator=g),
+        "ids": torch.arange(n, n + N_INSERT, dtype=torch.int32), "raw": raw,
+        "attrs": torch.zeros(N_INSERT, 3, dtype=torch.int32),
+        "tombstones": tomb})
+    parts = (cfg, fi["rel"], fi["index"], fi["norm"], buf8)
+    snaps = {"delta": IndexSnapshot.from_parts(*parts, dist_max=1.4142,
+                                               delta=delta),
+             "delta_free": IndexSnapshot.from_parts(*parts, dist_max=1.4142)}
+    tok, msk, q_loc = fi["tok"], fi["msk"], fi["q_loc"]
+    out = {}
+    for b in ("cuda", "auto"):
+        for name, snap in snaps.items():
+            s = api.Searcher(snap, backend=b, device=dev)
+            s.query(tok[:256], msk[:256], q_loc[:256], k=20, cr=2, batch=256)
+            walls = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.query(tok, msk, q_loc, k=20, cr=2, batch=256)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out[f"{name}/{b}"] = walls
+            log(f"compare wall int8 {name} {b}: {len(tok)} queries in "
+                f"{', '.join(f'{w:.1f}' for w in walls)} ms")
     return out
 
 
@@ -1518,6 +1978,10 @@ def main() -> int:
     p4 = phase4(dev, p3.pop("ctx"))
     log(f"phase 4 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p4['peak_gb']:.1f} GB")
+    t0 = time.perf_counter()
+    p5 = phase5(dev, p3.pop("write_ctx"), p3["walls_ms"])
+    log(f"phase 5 took {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{p5['peak_gb']:.1f} GB; launches {p5['launches']}")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -1530,12 +1994,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": p3["launches"][name],
             "max_abs_err": max([err1[name]] + [
-                skews[sk][p][name]["err"] for sk in skews for p in TIERS]),
+                skews[sk][p][name]["err"] for sk in skews for p in TIERS] + (
+                [p5["delta_scan"]["max_abs_err"]] if name == "routed" else [])),
             "ms": main_rec[name]["ms"], "plain_ms": main_rec[name]["plain_ms"],
             "bound_ms": main_rec["bound"]["bound_ms"],
             "bound_by": main_rec["bound"]["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes a fused "
                             "score + top-k",
+            "write_path_launches": p5["launches"][name],
             "shape": {"queries": p3["batch"], "cr": p3["cr"], "k": p3["k"],
                       "precision": "f32", "skew": "router",
                       "distinct_clusters": p3["distinct_clusters"]},
@@ -1591,6 +2057,29 @@ def main() -> int:
         "full_fan_out": p3["fan_out"], "tombstone_mask_ms": p3["mask_ms"],
         "memory_rates": p4["rates"],
         "peak_device_gb": p3["peak_gb"]}))
+    bf = p5["brute_force"]
+    log(json.dumps({"write_path": {
+        "card": card,
+        "compaction_ms": {p: r["compact_ms"] for p, r in
+                          p5["compaction"].items()},
+        "compaction": p5["compaction"],
+        "delta_walls_ms": p5["delta_query"]["walls_ms"],
+        "delta_free_walls_ms": p5["delta_query"]["delta_free_walls_ms"],
+        "delta_launches": p5["delta_query"]["launches"],
+        "delta_scan": p5["delta_scan"],
+        "save_s": p5["save_load"]["save_s"],
+        "save_gb_s": p5["save_load"]["save_gb_s"],
+        "load_s": p5["save_load"]["load_s"],
+        "load_gb_s": p5["save_load"]["load_gb_s"],
+        "crc_gb_s": p5["save_load"]["crc_gb_s"],
+        "artifact_bytes": p5["save_load"]["bytes"],
+        "brute_force_s": bf["brute_force_s"],
+        "brute_force_score_ms": bf["brute_force_score_ms"],
+        "recall_at_10": bf["recall_at_10"], "corpus": {
+            k: bf[k] for k in ("n_objects", "embed_s", "tokens",
+                               "tokens_per_s", "capacity", "n_spilled",
+                               "auto_picks", "cr_c_max_abs_err")},
+        "launches": p5["launches"], "peak_device_gb": p5["peak_gb"]}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,47 @@
-"""repro_torch.api — load a LIST index snapshot and query it.
+"""repro_torch.api — save, load and query a LIST index snapshot, and score
+it exhaustively.
 
     from repro_torch import api
 
-    snap = api.load("artifacts/index")          # written by repro.api.save
+    api.save(snap, "artifacts/index")           # the reference loads it too
+    snap = api.load("artifacts/index")          # written by either package
     searcher = api.Searcher(snap)               # on the CUDA device
     ids, scores = searcher.query(tokens, mask, loc, k=20, cr=2)
+    searcher.publish(snap.with_delta(delta).compact())   # a successor
 
-Both entry points take ``device=`` (default ``"cuda"``) and raise when no
-CUDA device is present unless the caller passes ``device="cpu"``.
+    ids, scores = api.brute_force(snap, corpus, query_ids, k=20)  # oracle
+
+Writes go through the snapshot's derivations: ``with_delta`` for the
+O(batch) delta segment, ``compact`` to fold it into the cluster buffers
+on the snapshot's device. The entry points take ``device=`` (default
+``"cuda"``) or follow the snapshot's device, and raise when no CUDA
+device is present unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+
 from repro_torch.checkpoint.ckpt import SnapshotCorrupt
 from repro_torch.core import engine as engine_lib
+from repro_torch.core import pipeline as pipeline_lib
+from repro_torch.core import relevance
 from repro_torch.core import snapshot as snapshot_lib
+from repro_torch.core.index import topk_stable
 from repro_torch.core.snapshot import IndexSnapshot
+from repro_torch.device import full_f32_products
 
-__all__ = ["load", "Searcher", "IndexSnapshot", "SnapshotCorrupt"]
+__all__ = ["save", "load", "Searcher", "brute_force", "IndexSnapshot",
+           "SnapshotCorrupt"]
+
+
+def save(snapshot: IndexSnapshot, directory: str, *, keep: int = 3) -> str:
+    """Persist ``snapshot`` under ``directory`` (atomic commit; one
+    checkpoint step per snapshot version) in the reference's layout.
+    Returns the committed path."""
+    return snapshot.save(directory, keep=keep)
 
 
 def load(directory: str, *, step: Optional[int] = None,
@@ -40,6 +63,12 @@ class Searcher:
     def snapshot(self) -> IndexSnapshot:
         return self.engine.snapshot
 
+    def publish(self, snapshot: IndexSnapshot) -> IndexSnapshot:
+        """Swap the served snapshot (``cfg_digest`` checked; moved to the
+        searcher's device). Returns ``snapshot``."""
+        self.engine.publish(snapshot)
+        return snapshot
+
     def query(self, tokens, mask, loc, *, k: int = 10, cr: int = 1,
               batch: int = 256, backend: Optional[str] = None,
               filters=None):
@@ -48,3 +77,31 @@ class Searcher:
         2)`` float32; ids are global object ids, -1 past the end."""
         return self.engine.query(tokens, mask, loc, k=k, cr=cr, batch=batch,
                                  backend=backend, filters=filters)
+
+
+def brute_force(snapshot: IndexSnapshot, corpus, query_ids, *, k: int = 20,
+                batch: int = 256):
+    """Exhaustive LIST-R scoring of the whole corpus: the recall oracle of
+    a snapshot. Objects are re-embedded with the snapshot's own object
+    tower, so the answer is what the artifact would serve at cr = c.
+    Runs on the snapshot's device with TF32 off (the towers' and the
+    score's f32 products in full f32); ids are corpus positions, ties ranked
+    lowest index first (``jax.lax.top_k``'s rule). Returns ``(ids (n,
+    k) int32, scores (n, k) f32)`` numpy."""
+    rel, meta, dev = snapshot.rel, snapshot.meta, snapshot.device
+    full_f32_products(dev)
+    obj_emb = torch.from_numpy(
+        pipeline_lib.embed_objects(rel, corpus, batch=batch)).to(dev)
+    obj_loc = torch.from_numpy(corpus.obj_loc.astype(np.float32)).to(dev)
+    q_emb = pipeline_lib.embed_queries(rel, corpus, query_ids, batch=batch)
+    q_loc = corpus.q_loc[query_ids].astype(np.float32)
+
+    def score_top(qe, ql):
+        st = relevance.score_corpus(
+            rel, qe, ql, obj_emb, obj_loc, dist_max=meta.dist_max,
+            spatial_mode=meta.spatial_mode, weight_mode=meta.weight_mode)
+        sc, ids = topk_stable(st, k)
+        return ids.to(torch.int32), sc
+
+    return engine_lib.run_batched(score_top, [q_emb, q_loc], batch=batch,
+                                  device=dev)

@@ -1,24 +1,28 @@
-"""Read side of the checkpoint layout (reference: ``repro.checkpoint.ckpt``).
+"""The checkpoint layout (reference: ``repro.checkpoint.ckpt``).
 
 Layout of one committed step::
 
-    <dir>/step_000000007/
+    <dir>/step_000000007.tmp/  # written first, fsync'd file by file
+    <dir>/step_000000007/      # the atomic rename is the commit
         manifest.json      # n_leaves, meta, per-leaf {file, shape, dtype, crc32}
         arr_00000.npy ...  # one file per leaf, in jax ``tree_flatten`` order
 
-Leaves come back as CPU ``torch`` tensors. bfloat16 leaves are stored as
-same-width unsigned views (numpy has no bf16 dtype); the manifest records
-the true dtype and the port reinterprets the 16 bits as
-``torch.bfloat16``, bit for bit. Every leaf's crc32 is checked before the
-file is parsed: a damaged artifact raises :class:`SnapshotCorrupt`.
+:func:`save` writes leaves given as ``torch`` tensors (on any device,
+copied to the host one at a time) or numpy arrays; :func:`restore` gives
+them back as CPU tensors. bfloat16 leaves are stored as same-width
+unsigned views (numpy has no bf16 dtype); the manifest records the true
+dtype and the port reinterprets the 16 bits as ``torch.bfloat16``, bit
+for bit. Every leaf's crc32 is checked before the file is parsed: a
+damaged artifact raises :class:`SnapshotCorrupt`.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import shutil
 import zlib
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +40,9 @@ class SnapshotCorrupt(ValueError):
     checkpoint at all) so recovery can walk back to an older step."""
 
 
-def _step_dir(directory: str, step: int) -> str:
-    return os.path.join(directory, f"step_{step:09d}")
+def _step_dir(directory: str, step: int, tmp: bool = False) -> str:
+    return os.path.join(directory,
+                        f"step_{step:09d}" + (".tmp" if tmp else ""))
 
 
 def _crc_file(path: str) -> int:
@@ -48,6 +53,85 @@ def _crc_file(path: str) -> int:
             if not chunk:
                 return crc
             crc = zlib.crc32(chunk, crc)
+
+
+def _fsync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _host_array(leaf) -> Tuple[np.ndarray, str]:
+    """``(stored array, true dtype name)`` of one leaf on the host: a
+    contiguous copy, bf16 as its uint16 view."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    # np.require keeps a 0-d leaf 0-d (ascontiguousarray would not)
+    return np.require(arr, requirements="C"), str(arr.dtype)
+
+
+def save(directory: str, step: int, leaves: Sequence, *, treedef: str,
+         meta: Optional[dict] = None, keep: int = 3) -> str:
+    """Commit ``leaves`` (in ``tree_flatten`` order) as step ``step``;
+    returns the committed path. The reference's commit sequence: leaves
+    and manifest into ``<step>.tmp`` with an fsync per file, then on the
+    directory; a committed step of the same number renamed aside to
+    ``<step>.old``; ``.tmp`` renamed into place; the parent directory
+    fsync'd; ``.old`` removed; keep-``keep`` garbage collection, orphaned
+    ``.tmp`` and ``.old`` directories included. ``treedef`` is recorded
+    in the manifest and never read back."""
+    os.makedirs(directory, exist_ok=True)
+    tmp = _step_dir(directory, step, tmp=True)
+    final = _step_dir(directory, step)
+    old = final + ".old"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"step": step, "treedef": treedef, "n_leaves": len(leaves),
+                "meta": meta or {}, "leaves": []}
+    for i, leaf in enumerate(leaves):
+        stored, dtype = _host_array(leaf)
+        fn = f"arr_{i:05d}.npy"
+        leaf_path = os.path.join(tmp, fn)
+        with open(leaf_path, "wb") as f:
+            np.save(f, stored)
+            f.flush()
+            os.fsync(f.fileno())
+        manifest["leaves"].append(
+            {"file": fn, "shape": list(stored.shape), "dtype": dtype,
+             "crc32": _crc_file(leaf_path)})
+        del stored
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(tmp)
+    if os.path.exists(final):
+        if os.path.exists(old):
+            shutil.rmtree(old)
+        os.rename(final, old)
+    os.rename(tmp, final)          # atomic commit
+    _fsync_dir(directory)
+    shutil.rmtree(old, ignore_errors=True)
+    _gc(directory, keep)
+    return final
+
+
+def _gc(directory: str, keep: int) -> None:
+    steps = all_steps(directory)
+    for s in steps[:-keep] if keep > 0 else []:
+        shutil.rmtree(_step_dir(directory, s), ignore_errors=True)
+    # orphaned tmp/old dirs of interrupted writers
+    for name in os.listdir(directory):
+        if name.endswith(".tmp") or name.endswith(".old"):
+            shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
 
 
 def all_steps(directory: str) -> List[int]:

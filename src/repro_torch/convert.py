@@ -1,11 +1,13 @@
-"""Carry the reference's parameter pytrees over into the port's modules.
+"""Carry the reference's parameter pytrees into the port's modules and back.
 
 ``rel_params`` / ``index_params`` are the nested dicts and lists the JAX
 package trains and saves (``relevance.relevance_init``,
 ``index.index_init``), with numpy arrays (or CPU tensors) as leaves. The
 encoder's layer stack is stored stacked along a leading ``n_layers`` axis;
-it is unstacked into one :class:`EncoderBlock` per layer. Dense kernels
-keep their ``(in, out)`` layout. No array changes its values or dtype.
+it is unstacked into one :class:`EncoderBlock` per layer
+(:func:`params_from_numpy`) and restacked on the way back
+(:func:`params_to_numpy`). Dense kernels keep their ``(in, out)`` layout.
+No array changes its values or dtype.
 """
 from __future__ import annotations
 
@@ -65,7 +67,67 @@ def params_from_numpy(rel_params, index_params, cfg
         weight_mlp=_mlp(rel_params["weight_mlp"]),
         fixed_w=_t(rel_params["fixed_w"]),
         spatial={k: _t(v) for k, v in rel_params.get("spatial", {}).items()})
-    return rel, ClusterIndex(_mlp(index_params["mlp"]))
+    return rel, index_from_numpy(index_params)
+
+
+def index_from_numpy(index_params) -> ClusterIndex:
+    """The cluster classifier of the reference's ``index_params``."""
+    return ClusterIndex(_mlp(index_params["mlp"]))
+
+
+def _dense_tree(m: Dense) -> dict:
+    return {"w": m.w.data} if m.b is None else {"w": m.w.data,
+                                                  "b": m.b.data}
+
+
+def _norm_tree(m: LayerNorm) -> dict:
+    return {"scale": m.scale.data, "bias": m.bias.data}
+
+
+def encoder_to_tree(enc: Encoder) -> dict:
+    """The reference's encoder pytree of ``enc``, blocks stacked."""
+    blocks = [{"ln1": _norm_tree(b.ln1), "ln2": _norm_tree(b.ln2),
+               "attn": {n: _dense_tree(getattr(b, n))
+                        for n in ("wq", "wk", "wv", "wo")},
+               "mlp": {"w1": _dense_tree(b.w1), "w2": _dense_tree(b.w2)}}
+              for b in enc.blocks]
+    return {"embed": enc.embed.data, "pos_embed": enc.pos_embed.data,
+            "blocks": _stack(blocks),
+            "final_ln": _norm_tree(enc.final_ln),
+            "cls": _dense_tree(enc.cls)}
+
+
+def params_to_tree(rel: RelevanceModel, index: ClusterIndex):
+    """``(rel_params, index_params)`` in the reference's layout with the
+    modules' own tensors as leaves, on their device (the per-layer blocks
+    restacked: those leaves are new tensors)."""
+    rp = {"q_enc": encoder_to_tree(rel.q_enc),
+          "weight_mlp": [_dense_tree(m) for m in rel.weight_mlp.layers],
+          "fixed_w": rel.fixed_w.data,
+          "spatial": {k: v.data for k, v in rel.spatial.items()}}
+    if rel.o_enc is not None:
+        rp["o_enc"] = encoder_to_tree(rel.o_enc)
+    return rp, {"mlp": [_dense_tree(m) for m in index.mlp.layers]}
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+
+def params_to_numpy(rel: RelevanceModel, index: ClusterIndex):
+    """The inverse of :func:`params_from_numpy`: ``(rel_params,
+    index_params)`` as the reference's pytrees on the host — per-layer
+    blocks restacked along a leading ``n_layers`` axis, ``o_enc`` only
+    when the model has one, ``spatial`` a dict — with numpy leaves at
+    their own dtypes (a bfloat16 leaf, which numpy cannot hold, stays a
+    CPU tensor)."""
+    rp, ip = params_to_tree(rel, index)
+    return _to_numpy(rp), _to_numpy(ip)
 
 
 def random_params(cfg, *, n_clusters: int, generator: torch.Generator,

@@ -39,7 +39,7 @@ from repro_torch.core import index as index_lib
 from repro_torch.core import relevance
 from repro_torch.core import serving as serving_lib
 from repro_torch.core.index import topk_stable
-from repro_torch.device import require_device
+from repro_torch.device import full_f32_products, require_device
 from repro_torch.kernels import fused_topk_score as fts
 
 NEG_INF = fts.NEG_INF
@@ -57,9 +57,6 @@ _BACKEND_DEVICE = {"cuda": "cuda", "cuda-cm": "cuda", "dense": "cpu",
 CLUSTER_MAJOR_DEDUP_THRESHOLD = 2.0
 
 DEFAULT_PLAN_CACHE_SIZE = 32
-
-# delta scans pad the row count up to a multiple of this
-DELTA_PAD_BUCKET = 128
 
 
 def resolve_backend(backend: str, device) -> str:
@@ -176,61 +173,97 @@ def make_prefix_fn(*, cr: int = 1, weight_mode: str = "mlp") -> Callable:
     return prefix_fn
 
 
-def make_query_fn(*, cr: int = 1, k: int = 20, backend: str,
-                  dist_max: float = 1.4142, weight_mode: str = "mlp",
-                  precision: str = "f32") -> Callable:
-    """The query phase for one plan: ``fn(snapshot, q_tokens, q_mask,
-    q_loc, q_filt=None) -> (ids (B, k), scores (B, k))`` as device
-    tensors. ``backend`` must be resolved (not ``"auto"``)."""
-    if precision not in index_lib.PRECISIONS:
-        raise ValueError(f"precision must be one of {index_lib.PRECISIONS}, "
-                         f"got {precision!r}")
-    prefix = make_prefix_fn(cr=cr, weight_mode=weight_mode)
-
-    @torch.no_grad()
-    def query_fn(snap, q_tokens, q_mask, q_loc, q_filt=None):
-        q_emb, w, top_c = prefix(snap.rel, snap.index, snap.norm, q_tokens,
-                                 q_mask, q_loc)
-        return _routed_topk(q_emb, q_loc, w, top_c, snap.buffers,
-                            snap.w_hat, k=k, backend=backend,
-                            dist_max=dist_max, precision=precision,
-                            q_filt=q_filt)
-
-    return query_fn
+def delta_scan_plain(q_emb, q_loc, w, w_hat, rows, q_filt=None, *, k: int,
+                     dist_max: float = 1.4142, precision: str = "f32"):
+    """The plain version of the delta scan: ``score_candidates`` over
+    every delta row for every query, then a stable top-k (lowest scan
+    position first on a tie). Arguments as the function of
+    :func:`make_delta_scan_fn`; ``k`` at most the padded row count.
+    → ``(ids (B, k) int32, scores (B, k))``."""
+    b = q_emb.shape[0]
+    ids_eff = rows["ids"][0][None].expand(b, -1)
+    if q_filt is not None:
+        ok = filters_lib.predicate_mask(rows["attrs"], q_filt[:, None, :])
+        ids_eff = torch.where(ok, ids_eff, torch.full_like(ids_eff, -1))
+    st = score_candidates(q_emb, q_loc, w, rows["emb"][0], rows["loc"][0],
+                          ids_eff, w_hat, dist_max=dist_max,
+                          cand_scale=rows["scale"][0] if precision == "int8"
+                          else None)                          # (B, m)
+    vals, pos = topk_stable(st, k)
+    return torch.gather(ids_eff, 1, pos).to(torch.int32), vals
 
 
 def make_delta_scan_fn(*, k: int = 20, dist_max: float = 1.4142,
-                       weight_mode: str = "mlp", precision: str = "f32"
-                       ) -> Callable:
-    """Brute-force scan of a delta segment's rows, no routing: every
-    query sees every delta row. ``fn(rel, w_hat, d_emb (m, d), d_scale
-    (m,), d_loc (m, 2), d_ids (m,), d_attrs (m, 3) | None, q_tokens,
-    q_mask, q_loc, q_filt | None) -> (ids (B, k), scores (B, k))``."""
+                       precision: str = "f32") -> Callable:
+    """Scan of a delta segment's rows with no routing: every query sees
+    every delta row. It takes the prefix's ``q_emb`` and ``w`` (the
+    reference encodes the same tokens a second time with the same
+    function, so reusing them keeps its ids). ``fn(q_emb (B, d), q_loc,
+    w, w_hat, rows, q_filt | None) -> (ids (B, k), scores (B, k))`` with
+    ``rows`` the snapshot's :attr:`~IndexSnapshot.delta_rows`.
+
+    On a CUDA device the rows are one cluster of the routed kernel (every
+    query routed to it, ``cr`` 1), whose scan order is the reference's
+    tie order; on the CPU, :func:`delta_scan_plain`."""
     if precision not in index_lib.PRECISIONS:
         raise ValueError(f"precision must be one of {index_lib.PRECISIONS}, "
                          f"got {precision!r}")
 
     @torch.no_grad()
-    def scan_fn(rel, w_hat, d_emb, d_scale, d_loc, d_ids, d_attrs,
-                q_tokens, q_mask, q_loc, q_filt):
-        q_emb = relevance.encode_queries(rel, q_tokens, q_mask)
-        w = relevance.st_weights(rel, q_emb, weight_mode=weight_mode)
-        scale = d_scale if precision == "int8" else None
-        ids_eff = d_ids[None].expand(q_emb.shape[0], -1)
-        if d_attrs is not None:
-            ok = filters_lib.predicate_mask(d_attrs[None], q_filt[:, None, :])
-            ids_eff = torch.where(ok, ids_eff, torch.full_like(ids_eff, -1))
-        st = score_candidates(q_emb, q_loc, w, d_emb, d_loc, ids_eff, w_hat,
-                              dist_max=dist_max, cand_scale=scale)  # (B, m)
-        kk = min(k, d_emb.shape[0])
-        vals, pos = topk_stable(st, kk)
-        ids = torch.gather(ids_eff, 1, pos).to(torch.int32)
+    def scan_fn(q_emb, q_loc, w, w_hat, rows, q_filt=None):
+        kk = min(k, rows["ids"].shape[1])
+        if q_emb.device.type == "cuda":
+            top_c = torch.zeros((q_emb.shape[0], 1), dtype=torch.int32,
+                                device=q_emb.device)
+            vals, ids = fts.fused_topk_score_routed(
+                q_emb, q_loc, w, top_c, rows["emb"], rows["loc"],
+                rows["ids"], w_hat, k=kk, dist_max=dist_max,
+                buf_scale=rows["scale"] if precision == "int8" else None,
+                buf_attrs=None if q_filt is None else rows["attrs"],
+                q_filt=q_filt)
+        else:
+            ids, vals = delta_scan_plain(q_emb, q_loc, w, w_hat, rows, q_filt,
+                                         k=kk, dist_max=dist_max,
+                                         precision=precision)
         if kk < k:
             vals = torch.nn.functional.pad(vals, (0, k - kk), value=NEG_INF)
             ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
         return ids, vals
 
     return scan_fn
+
+
+def make_query_fn(*, cr: int = 1, k: int = 20, backend: str,
+                  dist_max: float = 1.4142, weight_mode: str = "mlp",
+                  precision: str = "f32") -> Callable:
+    """The query phase for one plan: ``fn(snapshot, q_tokens, q_mask,
+    q_loc, q_filt=None, *, delta_rows=None) -> (ids (B, k), scores (B,
+    k), delta ids, delta scores)`` as device tensors. The prefix runs
+    once and feeds both scans; the delta pair is None when
+    ``delta_rows`` is. ``backend`` must be resolved (not ``"auto"``)."""
+    if precision not in index_lib.PRECISIONS:
+        raise ValueError(f"precision must be one of {index_lib.PRECISIONS}, "
+                         f"got {precision!r}")
+    prefix = make_prefix_fn(cr=cr, weight_mode=weight_mode)
+    delta_scan = make_delta_scan_fn(k=k, dist_max=dist_max,
+                                    precision=precision)
+
+    @torch.no_grad()
+    def query_fn(snap, q_tokens, q_mask, q_loc, q_filt=None, *,
+                 delta_rows=None):
+        q_emb, w, top_c = prefix(snap.rel, snap.index, snap.norm, q_tokens,
+                                 q_mask, q_loc)
+        w_hat = snap.w_hat
+        ids, scores = _routed_topk(q_emb, q_loc, w, top_c, snap.buffers,
+                                   w_hat, k=k, backend=backend,
+                                   dist_max=dist_max, precision=precision,
+                                   q_filt=q_filt)
+        if delta_rows is None:
+            return ids, scores, None, None
+        return (ids, scores) + delta_scan(q_emb, q_loc, w, w_hat, delta_rows,
+                                          q_filt)
+
+    return query_fn
 
 
 def merge_delta(base_ids, base_scores, delta_ids=None, delta_scores=None, *,
@@ -283,10 +316,13 @@ def run_batched(fn: Callable, arrays: Sequence[np.ndarray], *, batch: int,
     the padded output rows are trimmed. Chunk ``i``'s results are copied
     to the host only after chunk ``i+1`` is dispatched, so the copy
     overlaps the next chunk's device work. Returns numpy arrays (a tuple
-    when ``fn`` returns one)."""
+    when ``fn`` returns one; an output that is None stays None)."""
     n = arrays[0].shape[0]
     if any(a.shape[0] != n for a in arrays):
         raise ValueError(f"leading dims differ: {[a.shape for a in arrays]}")
+    def host(r, rows):
+        return None if r is None else r.cpu().numpy()[:rows]
+
     outs, pending = None, None
     for s in range(0, n, batch):
         e = min(s + batch, n)
@@ -298,12 +334,13 @@ def run_batched(fn: Callable, arrays: Sequence[np.ndarray], *, batch: int,
             outs = [[] for _ in res]
         if pending is not None:
             for o, r in zip(outs, pending[0]):
-                o.append(r.cpu().numpy()[:pending[1]])
+                o.append(host(r, pending[1]))
         pending = (res, e - s)
     if pending is not None:
         for o, r in zip(outs, pending[0]):
-            o.append(r.cpu().numpy()[:pending[1]])
-    cat = tuple(np.concatenate(o, axis=0) for o in outs)
+            o.append(host(r, pending[1]))
+    cat = tuple(None if o[0] is None else np.concatenate(o, axis=0)
+                for o in outs)
     return cat if len(cat) > 1 else cat[0]
 
 
@@ -323,17 +360,13 @@ class QueryEngine:
 
     def __init__(self, snapshot, *, backend: str = "auto", device="cuda"):
         dev = require_device(device)
-        if dev.type == "cuda":
-            # f32 products in full precision: the reference has no TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        full_f32_products(dev)
         self.device = dev
         self._snapshot = snapshot.to(dev)
         self.backend = resolve_backend(backend, dev)
         self._auto_cm = backend == "auto"
         self.last_dedup_factor: Optional[float] = None
         self._plans: "collections.OrderedDict" = collections.OrderedDict()
-        self._delta_plans = {}
 
     @property
     def snapshot(self):
@@ -391,49 +424,19 @@ class QueryEngine:
         self.last_dedup_factor = float(dedup)
         return cluster_major_variant(base, dedup)
 
-    def delta_scan_fn(self, *, k: int, precision: str):
-        key = (k, precision)
-        if key not in self._delta_plans:
-            self._delta_plans[key] = make_delta_scan_fn(
-                k=k, dist_max=self._snapshot.dist_max,
-                weight_mode=self._snapshot.meta.weight_mode,
-                precision=precision)
-        return self._delta_plans[key]
-
-    def _scan_delta(self, snap, q_tokens, q_mask, q_loc, *, k: int,
-                    batch: int, fvals=None, filtered: bool = False):
-        """Every query × every delta row, padded to the bucketed shape."""
-        arrs = snap.delta.arrays()
-        m = arrs["ids"].shape[0]
-        m_pad = -(-m // DELTA_PAD_BUCKET) * DELTA_PAD_BUCKET
-        dev = snap.device
-        emb = torch.zeros((m_pad,) + tuple(arrs["emb"].shape[1:]),
-                          dtype=arrs["emb"].dtype)
-        emb[:m] = arrs["emb"]
-        scale = torch.ones(m_pad, dtype=torch.float32)
-        scale[:m] = arrs["scale"]
-        loc = torch.full((m_pad, 2), index_lib.PAD_LOC, dtype=torch.float32)
-        loc[:m] = arrs["loc"]
-        ids = torch.full((m_pad,), -1, dtype=torch.int32)
-        ids[:m] = arrs["ids"]
-        attrs = None
-        if filtered:
-            attrs = torch.zeros((m_pad, filters_lib.N_ATTRS),
-                                dtype=torch.int32)
-            attrs[:m] = arrs["attrs"]
-            attrs = attrs.to(dev)
-        de, ds, dl, di = (t.to(dev) for t in (emb, scale, loc, ids))
-        fn = self.delta_scan_fn(k=k, precision=snap.meta.precision)
-        w_hat = snap.w_hat
-        if filtered:
-            return run_batched(
-                lambda t, mk, l, f: fn(snap.rel, w_hat, de, ds, dl, di,
-                                       attrs, t, mk, l, f),
-                [q_tokens, q_mask, q_loc, fvals], batch=batch, device=dev)
-        return run_batched(
-            lambda t, mk, l: fn(snap.rel, w_hat, de, ds, dl, di, None,
-                                t, mk, l, None),
-            [q_tokens, q_mask, q_loc], batch=batch, device=dev)
+    def publish(self, snapshot):
+        """Swap the served snapshot in one assignment; returns the old
+        one. A snapshot of another model config (``cfg_digest``) is
+        refused; one on another device is moved to the engine's. The
+        plan cache survives."""
+        old = self._snapshot
+        if snapshot.meta.cfg_digest != old.meta.cfg_digest:
+            raise ValueError(
+                f"publish: snapshot cfg_digest {snapshot.meta.cfg_digest} "
+                f"!= engine's {old.meta.cfg_digest}; build a new engine "
+                f"for a different model config")
+        self._snapshot = snapshot.to(self.device)
+        return old
 
     def query(self, q_tokens, q_mask, q_loc, *, k: int = 20, cr: int = 1,
               batch: int = 256, backend: Optional[str] = None,
@@ -444,8 +447,10 @@ class QueryEngine:
         engine's for this call; an auto request picks query- or
         cluster-major per call (:meth:`pick_backend`). ``filters``: None,
         one :class:`~repro_torch.core.filters.FilterSpec`, or one per row.
-        A delta segment is scanned and merged on the host; its tombstoned
-        ids are masked out of the base scan (``IndexSnapshot.scan_view``)."""
+        A delta segment's rows (held on the device,
+        ``IndexSnapshot.delta_rows``) are scanned from the same prefix as
+        the base and merged on the host; its tombstoned ids are masked out
+        of the base scan (``IndexSnapshot.scan_view``)."""
         snap = self._snapshot if snapshot is None else snapshot
         q_tokens, q_mask, q_loc = (np.asarray(a) for a in
                                    (q_tokens, q_mask, q_loc))
@@ -459,18 +464,15 @@ class QueryEngine:
             backend = resolve_backend(backend, snap.device)
         delta = snap.delta
         use_delta = delta is not None and not delta.is_empty
+        rows = snap.delta_rows if use_delta else None
         scan_snap = snap.scan_view
         fn = self.query_fn(k=k, cr=cr, backend=backend, batch=batch,
                            precision=snap.meta.precision, filtered=filtered)
         arrays = [q_tokens, q_mask, q_loc] + ([fvals] if filtered else [])
-        ids, scores = run_batched(lambda *a: fn(scan_snap, *a), arrays,
-                                  batch=batch, device=snap.device)
+        ids, scores, d_ids, d_scores = run_batched(
+            lambda *a: fn(scan_snap, *a, delta_rows=rows), arrays,
+            batch=batch, device=snap.device)
         if not use_delta:
             return ids, scores
-        d_ids = d_scores = None
-        if delta.n_rows:
-            d_ids, d_scores = self._scan_delta(snap, q_tokens, q_mask, q_loc,
-                                               k=k, batch=batch, fvals=fvals,
-                                               filtered=filtered)
         return merge_delta(ids, scores, d_ids, d_scores,
                            tombstones=delta.tombstone_array(), k=k)

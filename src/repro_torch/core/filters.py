@@ -53,6 +53,21 @@ NOOP_FILTER = FilterSpec()
 Filters = Union[None, FilterSpec, Sequence[Optional[FilterSpec]]]
 
 
+def validate_attrs(attrs, n: int) -> torch.Tensor:
+    """A per-object attribute table as an ``(n, 3)`` int32 CPU tensor;
+    ``None`` gives all zeros (tenant 0, no categories, t 0)."""
+    if attrs is None:
+        return torch.zeros((n, N_ATTRS), dtype=torch.int32)
+    if isinstance(attrs, torch.Tensor):
+        attrs = attrs.cpu().numpy()
+    out = np.asarray(attrs)
+    if out.shape != (n, N_ATTRS):
+        raise ValueError(f"attrs must be ({n}, {N_ATTRS}), got {out.shape}")
+    if not np.issubdtype(out.dtype, np.integer):
+        raise ValueError(f"attrs must be integer, got dtype {out.dtype}")
+    return torch.from_numpy(out.astype(np.int32))
+
+
 def compile_filters(filters: Filters, batch: int) -> Tuple[np.ndarray, bool]:
     """→ ``(fvals (batch, 4) int32, filtered)``. ``filtered`` is False when
     every row is a no-op, and callers then take the unfiltered plan."""

@@ -1,6 +1,7 @@
-"""LIST-I serve side (reference: ``repro.core.index``): router features,
-the cluster classifier, routing, the precision tiers of the resident
-buffers, and the placement of objects into padded cluster buffers.
+"""LIST-I (reference: ``repro.core.index``): router features, the
+cluster classifier, routing, the precision tiers of the resident buffers,
+the placement of objects into padded cluster buffers, and the write half
+(``insert_objects`` / ``delete_objects``, paper §4.3).
 
 Buffers: ``emb (c, cap, d)`` in the tier's storage dtype (f32, bf16 or
 int8), ``loc (c, cap, 2)`` f32, ``ids (c, cap)`` int32 with ``-1`` on
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import filters as filters_lib
 from repro_torch.models.layers import MLP
 
 PRECISIONS = ("f32", "bf16", "int8")
@@ -91,9 +93,57 @@ def quantize_rows(emb: torch.Tensor, precision: str):
     if precision == "bf16":
         return emb.to(torch.bfloat16), scale
     amax = emb.abs().amax(dim=-1)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    # a divisor on the device: CUDA divides by a host scalar through its
+    # reciprocal, which can miss the true quotient by an ulp
+    div = torch.tensor(127.0, dtype=torch.float32, device=amax.device)
+    scale = torch.where(amax > 0, amax / div, torch.ones_like(amax))
     q = torch.clamp(torch.round(emb / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
+
+
+def dequantize_rows(emb: torch.Tensor, scale: torch.Tensor,
+                    precision: str) -> torch.Tensor:
+    """The inverse of :func:`quantize_rows` (lossy for int8)."""
+    emb = emb.float()
+    if precision == "int8":
+        emb = emb * scale.float()[..., None]
+    return emb
+
+
+def quantize_buffers(buffers: dict, precision: str) -> dict:
+    """A copy of f32 cluster buffers at another tier (loc, ids, counts and
+    attrs shared), quantized on the buffers' device 16 clusters at a time
+    (no full-size f32 temporary). Only the f32 tier requantizes: any other
+    source raises. The input is unchanged."""
+    src = buffers.get("precision", "f32")
+    if src == precision:
+        return dict(buffers)
+    if src != "f32":
+        raise ValueError(
+            f"quantize_buffers: can only requantize from 'f32' buffers, "
+            f"these are {src!r}; rebuild the index at f32 first")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, "
+                         f"got {precision!r}")
+    emb = buffers["emb"]
+    q = torch.empty(emb.shape, dtype=STORE_DTYPES[precision],
+                    device=emb.device)
+    scale = torch.empty(emb.shape[:-1], dtype=torch.float32,
+                        device=emb.device)
+    for s in range(0, emb.shape[0], 16):
+        q[s:s + 16], scale[s:s + 16] = quantize_rows(emb[s:s + 16], precision)
+    return dict(buffers, emb=q, scale=scale, precision=precision)
+
+
+def assign_clusters(index: ClusterIndex, feats: torch.Tensor, *,
+                    top: int = 1) -> torch.Tensor:
+    """The best cluster per object (``top`` = 1, an argmax: the lowest
+    index wins a tie) or the best ``top``, best first. ``feats (N,
+    d+2)``."""
+    logits = cluster_logits(index, feats)
+    if top == 1:
+        return torch.argmax(logits, dim=-1)
+    return topk_stable(logits, top)[1]
 
 
 def place_objects(assign_top: np.ndarray, *, n_clusters: int,
@@ -194,3 +244,147 @@ def build_cluster_buffers(assign_top, emb: torch.Tensor, loc: torch.Tensor,
         "scale": buf_scale, "attrs": buf_attrs,
         "n_spilled": n_spilled, "capacity": capacity, "precision": precision,
     }
+
+
+# ---------------------------------------------------------------------------
+# Insertion and deletion (paper §4.3)
+# ---------------------------------------------------------------------------
+
+_ROW_KEYS = ("emb", "loc", "ids", "scale", "attrs")
+
+
+def clone_rows(buffers: dict) -> dict:
+    """``buffers`` with its row arrays cloned on their device, for a
+    derivation to write in place; the input is never written."""
+    return dict(buffers, **{k: buffers[k].clone() for k in _ROW_KEYS})
+
+
+def ids_mask(ids: torch.Tensor, del_ids) -> torch.Tensor:
+    """True where ``ids`` holds one of ``del_ids`` (ids outside the dtype's
+    range match nothing)."""
+    if isinstance(del_ids, torch.Tensor):
+        del_ids = del_ids.cpu().numpy()
+    tomb = torch.as_tensor(np.asarray(del_ids, np.int64).reshape(-1))
+    info = torch.iinfo(ids.dtype)
+    tomb = tomb[(tomb >= info.min) & (tomb <= info.max)]
+    return torch.isin(ids, tomb.to(ids.device, ids.dtype))
+
+
+def delete_rows_(buffers: dict, del_ids) -> dict:
+    """:func:`delete_objects` writing into ``buffers``' own row arrays:
+    only the deleted rows are written."""
+    ids = buffers["ids"]
+    at = ids_mask(ids, del_ids).nonzero(as_tuple=True)
+    ids[at] = -1
+    buffers["emb"][at] = 0
+    buffers["loc"][at] = PAD_LOC
+    buffers["scale"][at] = 1.0
+    buffers["attrs"][at] = 0
+    buffers["counts"] = (ids >= 0).sum(dim=-1).to(buffers["counts"].dtype)
+    return buffers
+
+
+def delete_objects(buffers: dict, del_ids) -> dict:
+    """Mark deleted ids as padding: a new buffer dict whose deleted slots
+    hold exactly the padding of :func:`build_cluster_buffers` (emb 0,
+    scale 1, loc :data:`PAD_LOC`, attrs 0, id -1), ``counts`` recounted.
+    Written on the buffers' device; the input is unchanged."""
+    return delete_rows_(clone_rows(buffers), del_ids)
+
+
+def route_inserts(index: ClusterIndex, norm: dict, new_emb, new_loc, *,
+                  n_clusters: int, spill: int = 3) -> np.ndarray:
+    """The spill hops of new objects, best first: ``(n, hops)`` int64 on
+    the host, routed on ``norm``'s device."""
+    dev = norm["lo"].device
+    emb = torch.as_tensor(new_emb).to(dev, torch.float32)
+    loc = torch.as_tensor(new_loc).to(dev, torch.float32)
+    hops = max(1, min(int(spill), n_clusters))
+    with torch.no_grad():
+        cl = assign_clusters(index, build_features(emb, loc, norm), top=hops)
+    cl = cl.cpu().numpy().astype(np.int64)
+    return cl[:, None] if cl.ndim == 1 else cl
+
+
+def place_inserts(ids: np.ndarray, counts: np.ndarray, hops: np.ndarray,
+                  *, capacity: int):
+    """The §4.3 placement of new objects, on the host: each walks its
+    spill hops best first and takes the first cluster below capacity,
+    else the least-loaded cluster (lowest index on a tie); within the
+    cluster, the first free slot (``id == -1`` in ``ids``: deletes leave
+    holes). ``counts`` is updated in place. Returns ``(cluster, slot)``
+    int64 arrays; raises when every cluster is full."""
+    n = hops.shape[0]
+    ci_out = np.empty(n, np.int64)
+    slot_out = np.empty(n, np.int64)
+    free = {}                     # cluster -> its free slots, ascending
+    for j in range(n):
+        ci = -1
+        for cand in hops[j]:
+            if counts[cand] < capacity:
+                ci = int(cand)
+                break
+        if ci < 0:
+            ci = int(np.argmin(counts))
+        if counts[ci] >= capacity:
+            raise ValueError(
+                f"insert_objects: all clusters at capacity {capacity} "
+                f"(inserted {j}/{n}); rebuild with higher capacity")
+        if ci not in free:        # lazily: a cluster may hold ~cap holes
+            free[ci] = iter(np.flatnonzero(ids[ci] < 0))
+        slot = next(free[ci], None)
+        if slot is None:
+            raise ValueError(
+                f"insert_objects: cluster {ci} reports {counts[ci]} < "
+                f"cap={capacity} but has no free slot; counts/ids "
+                f"inconsistent")
+        counts[ci] += 1
+        ci_out[j], slot_out[j] = ci, slot
+    return ci_out, slot_out
+
+
+def insert_rows_(buffers: dict, index: ClusterIndex, norm: dict, new_emb,
+                 new_loc, new_ids, *, spill: int = 3,
+                 new_attrs=None) -> dict:
+    """:func:`insert_objects` writing into ``buffers``' own row arrays: the
+    placement on the host (:func:`route_inserts`, :func:`place_inserts`),
+    then the placed rows, quantized to the buffers' tier, and ``counts``
+    written on the buffers' device."""
+    n = int(np.asarray(new_ids).reshape(-1).shape[0])
+    attrs = filters_lib.validate_attrs(new_attrs, n)
+    if n == 0:
+        return buffers
+    counts = buffers["counts"].cpu().numpy().astype(np.int64)
+    hops = route_inserts(index, norm, new_emb, new_loc,
+                         n_clusters=counts.shape[0], spill=spill)
+    cluster, slot = place_inserts(buffers["ids"].cpu().numpy(), counts, hops,
+                                  capacity=buffers["capacity"])
+    dev = buffers["emb"].device
+    at = (torch.from_numpy(cluster).to(dev), torch.from_numpy(slot).to(dev))
+    stored, scale = quantize_rows(
+        torch.as_tensor(new_emb).to(dev, torch.float32),
+        buffers.get("precision", "f32"))
+    buffers["emb"].index_put_(at, stored)
+    buffers["scale"].index_put_(at, scale)
+    buffers["loc"].index_put_(at, torch.as_tensor(new_loc).to(
+        dev, torch.float32))
+    buffers["ids"].index_put_(at, torch.as_tensor(
+        np.asarray(new_ids).reshape(-1).astype(np.int32)).to(dev))
+    buffers["attrs"].index_put_(at, attrs.to(dev))
+    buffers["counts"] = torch.from_numpy(counts).to(
+        dev, buffers["counts"].dtype)
+    return buffers
+
+
+def insert_objects(buffers: dict, index: ClusterIndex, norm: dict, new_emb,
+                   new_loc, new_ids, *, spill: int = 3,
+                   new_attrs=None) -> dict:
+    """Route new objects through the cluster classifier into their
+    buffers (paper §4.3), as the reference places them: the decision on
+    the host (:func:`route_inserts`, :func:`place_inserts`; only ``ids``
+    and ``counts`` come over), the rows written on the buffers' device
+    into a clone (:func:`insert_rows_`). ``new_emb`` is float32 and is
+    quantized to the buffers' tier on the way in. The input is
+    unchanged."""
+    return insert_rows_(clone_rows(buffers), index, norm, new_emb, new_loc,
+                        new_ids, spill=spill, new_attrs=new_attrs)

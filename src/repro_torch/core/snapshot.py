@@ -1,16 +1,23 @@
-"""Load side of the index artifact (reference: ``repro.core.snapshot``).
+"""The index artifact (reference: ``repro.core.snapshot``): derivations,
+save and load.
 
 An :class:`IndexSnapshot` is everything the query phase needs: the model
 config, the relevance model and cluster classifier (as modules), the
 location normalizer, the packed cluster buffers, an optional delta
 segment, and the identity block :class:`SnapshotMeta`. It lives on one
-device; :meth:`IndexSnapshot.to` moves it.
+device; :meth:`IndexSnapshot.to` moves it. It is never written in place:
+:meth:`~IndexSnapshot.with_buffers`, :meth:`~IndexSnapshot.with_delta`,
+:meth:`~IndexSnapshot.compact` and :meth:`~IndexSnapshot.with_precision`
+derive a successor (``meta.version + 1``), and an engine may go on
+serving the predecessor.
 
-On disk a snapshot is one checkpoint step written by the reference. The
-manifest's ``meta.tree_spec`` records the container structure of the
-saved tree, whose leaves are stored in ``jax.tree_util.tree_flatten``
-order — dict keys sorted. The loader rebuilds that order from the spec;
-the schema and precision gates run before any leaf file is read.
+On disk a snapshot is one checkpoint step, written by either package
+and read by both. The manifest's ``meta.tree_spec`` records the
+container structure of the saved tree, whose leaves are stored in
+``jax.tree_util.tree_flatten`` order — dict keys sorted, lists in order —
+at the dtypes the reference writes. The loader rebuilds that order from
+the spec; the schema and precision gates run before any leaf file is
+read.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import DualEncoderConfig
-from repro_torch.convert import params_from_numpy
+from repro_torch.convert import params_from_numpy, params_to_tree
 from repro_torch.core import delta as delta_lib
 from repro_torch.core import index as index_lib
 from repro_torch.core import spatial as sp
@@ -51,6 +58,26 @@ def cfg_digest(cfg) -> str:
 def _cfg_from_dict(d: dict) -> DualEncoderConfig:
     kw = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
     return DualEncoderConfig(**kw)
+
+
+def _tree_spec(tree) -> Any:
+    """The container structure of ``tree``, leaves as ``None``; dict
+    children in sorted-key order (``jax.tree_util``'s flatten order)."""
+    if isinstance(tree, dict):
+        return {"d": {k: _tree_spec(tree[k]) for k in sorted(tree)}}
+    if isinstance(tree, (list, tuple)):
+        kind = "t" if isinstance(tree, tuple) else "l"
+        return {kind: [_tree_spec(v) for v in tree]}
+    return None
+
+
+def _flatten(tree) -> List[Any]:
+    """The leaves of ``tree`` in ``tree_flatten`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _flatten(v)]
+    return [tree]
 
 
 def _spec_leaf_count(spec) -> int:
@@ -125,6 +152,74 @@ class IndexSnapshot:
         return cls(cfg=cfg, rel=rel, index=index, norm=norm, buffers=buffers,
                    meta=meta, delta=delta)
 
+    def with_buffers(self, buffers: dict) -> "IndexSnapshot":
+        """The successor with new buffers (``index.insert_objects`` /
+        ``delete_objects``), ``meta.version + 1``. The precision tier is
+        part of the identity: change it through :meth:`with_precision`."""
+        if buffers.get("precision", "f32") != self.meta.precision:
+            raise ValueError(
+                f"with_buffers: buffers are "
+                f"{buffers.get('precision', 'f32')!r} but this snapshot is "
+                f"{self.meta.precision!r}; use with_precision to change "
+                f"tiers")
+        meta = dataclasses.replace(
+            self.meta, version=self.meta.version + 1, built_at=time.time(),
+            n_objects=int(buffers["counts"].sum()))
+        return dataclasses.replace(self, buffers=buffers, meta=meta)
+
+    def with_delta(self, delta: delta_lib.DeltaSegment) -> "IndexSnapshot":
+        """The successor with a new delta segment (the O(batch) write
+        path), same base buffers, ``meta.version + 1``."""
+        if delta.precision != self.meta.precision:
+            raise ValueError(
+                f"with_delta: delta is {delta.precision!r} but this "
+                f"snapshot is {self.meta.precision!r}; quantization tiers "
+                f"must match for pre/post-compaction score parity")
+        meta = dataclasses.replace(
+            self.meta, version=self.meta.version + 1, built_at=time.time(),
+            delta_rows=delta.n_rows, n_tombstones=delta.n_tombstones)
+        return dataclasses.replace(self, delta=delta, meta=meta)
+
+    def compact(self, *, spill: int = 3) -> "IndexSnapshot":
+        """Fold the delta into the base buffers on the snapshot's device:
+        tombstoned rows become padding, pending rows are placed by the
+        §4.3 policy and re-quantized from the raw f32 rows the delta kept.
+        The row arrays are cloned once and written in place; ``self`` is
+        never written. One version bump; ``self`` when there is nothing
+        to fold."""
+        if self.delta is None or self.delta.is_empty:
+            return self
+        buf = index_lib.clone_rows(self.buffers)
+        if self.delta.tombstones:
+            index_lib.delete_rows_(buf, self.delta.tombstone_array())
+        arrs = self.delta.arrays()
+        if arrs["ids"].shape[0]:
+            index_lib.insert_rows_(buf, self.index, self.norm, arrs["raw"],
+                                   arrs["loc"], arrs["ids"], spill=spill,
+                                   new_attrs=arrs["attrs"])
+        meta = dataclasses.replace(
+            self.meta, version=self.meta.version + 1, built_at=time.time(),
+            n_objects=int(buf["counts"].sum()), delta_rows=0,
+            n_tombstones=0)
+        return dataclasses.replace(self, buffers=buf, delta=None, meta=meta)
+
+    def with_precision(self, precision: str) -> "IndexSnapshot":
+        """The same index at another tier (``index.quantize_buffers``:
+        only from f32), ``meta.version + 1``; ``self`` when already
+        there. A non-empty delta must be compacted first."""
+        if precision == self.meta.precision:
+            return self
+        if self.delta is not None and not self.delta.is_empty:
+            raise ValueError(
+                "with_precision: snapshot has a non-empty delta segment; "
+                "compact() first so pending mutations requantize with the "
+                "base instead of being carried at the old tier")
+        buffers = index_lib.quantize_buffers(self.buffers, precision)
+        meta = dataclasses.replace(
+            self.meta, precision=precision, version=self.meta.version + 1,
+            built_at=time.time())
+        return dataclasses.replace(self, buffers=buffers, meta=meta)
+
     @property
     def device(self) -> torch.device:
         return self.buffers["emb"].device
@@ -145,6 +240,16 @@ class IndexSnapshot:
     def _masked_ids(self) -> torch.Tensor:
         return delta_lib.mask_tombstones(self.buffers["ids"],
                                          self.delta.tombstone_array())
+
+    @functools.cached_property
+    def delta_rows(self) -> Optional[dict]:
+        """The delta's rows padded to a multiple of
+        :data:`~repro_torch.core.delta.PAD_BUCKET` as one cluster on the
+        snapshot's device (``delta.padded_rows``), built at first use and
+        held by this snapshot alone; None without delta rows."""
+        if self.delta is None or not self.delta.n_rows:
+            return None
+        return delta_lib.padded_rows(self.delta.arrays(), self.device)
 
     def to(self, device) -> "IndexSnapshot":
         """The same snapshot with its modules and arrays on ``device``
@@ -176,6 +281,39 @@ class IndexSnapshot:
     @property
     def dist_max(self) -> float:
         return self.meta.dist_max
+
+    def _tree(self) -> dict:
+        rel_params, index_params = params_to_tree(self.rel, self.index)
+        tree = {"rel_params": rel_params, "index_params": index_params,
+                "norm": dict(self.norm),
+                "buffers": {k: self.buffers[k] for k in _BUFFER_ARRAYS}}
+        if self.delta is not None and not self.delta.is_empty:
+            tree["delta"] = self.delta.to_leaves()
+        return tree
+
+    def save(self, directory: str, *, keep: int = 3) -> str:
+        """Persist as checkpoint step ``meta.version`` (atomic commit,
+        keep-``keep`` GC) in the reference's layout, so either package
+        loads it. Leaves on the card are copied to the host one at a
+        time. A directory holds one lineage: saving a version older than
+        its latest step is refused. Returns the committed path."""
+        latest = ckpt.latest_step(directory)
+        if latest is not None and latest > self.meta.version:
+            raise ValueError(
+                f"snapshot.save: {directory} already holds version "
+                f"{latest} > this snapshot's {self.meta.version}; load() "
+                f"would keep serving the old artifact. Save a successor "
+                f"of that lineage, or use a fresh directory")
+        tree = self._tree()
+        meta = dataclasses.asdict(self.meta)
+        meta.update({
+            "cfg": dataclasses.asdict(self.cfg),
+            "tree_spec": _tree_spec(tree),
+            **{k: int(self.buffers[k]) for k in _BUFFER_SCALARS},
+        })
+        return ckpt.save(directory, self.meta.version, _flatten(tree),
+                         treedef="repro_torch: the structure is "
+                                 "meta.tree_spec", meta=meta, keep=keep)
 
     @classmethod
     def load(cls, directory: str, step: Optional[int] = None, *,

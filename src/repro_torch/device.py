@@ -19,3 +19,12 @@ def require_device(device="cuda") -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def full_f32_products(device) -> None:
+    """Compute f32 products in full f32 on a CUDA ``device``: TF32 off for
+    matmuls and convolutions, process-wide, as the reference computes
+    them. A no-op on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
