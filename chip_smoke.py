@@ -89,9 +89,33 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    are read, the delta scan's routed launch is held against its plain
    version on one 256-query chunk of (b) (``delta_scan_check``).
 
+6. Training and build at full width: ``api.build`` of
+   ``list-dual-encoder`` (n_clusters 300) with the reference's defaults
+   (relevance 200 steps, batch 64, 4 TkQ negatives, lr 1.5e-3; index
+   400 steps, 8 pseudo-negatives from the window 50,000:55,000, lr 3e-3;
+   spill 3, f32) on ``scale_corpus`` at 131,072 objects, then the trained
+   snapshot served on every tier × ``cuda`` / ``cuda-cm`` / ``auto`` ×
+   cr 2, 20 (the launch counters zeroed before the build, read after the
+   serving). Records each stage's time (TkQ mining, relevance steps and
+   tokens/s, the object tower's pass, Eq. 13 mining, index steps,
+   packing), the first and last losses, cluster balance and peak memory.
+   Checks: (a) the contrastive and MCL losses and every gradient leaf on
+   the card equal the CPU's at a small config (f32 compute, TF32 off);
+   (b) the trained snapshot's float32-compute twin on every tier and GPU
+   backend equals ``dense`` on a CPU copy at cr 2 and 20 (ids up to ties);
+   (c) ``brute_force`` equals ``cuda-cm`` at cr = c; (d) ``api.save`` →
+   ``api.load`` answers bit-equal on 256 queries; (e) no loss, gradient
+   norm or parameter is not finite. Records recall@10 against
+   ``brute_force`` and the ground truth. Then the trained router's top-2
+   routes of 256 held-out queries become the skew ``trained`` on phase
+   3's full-width buffers (a row of the route-skew table), and are timed
+   on the trained snapshot's own buffers; last, the relevance step split
+   into forward / backward / optimizer by CUDA events.
+
 Prints a JSON line of phase 3's numbers, one of the write path's
-(``write_path``), one of per-kernel numbers, then as its last line
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
+(``write_path``), one of the build's (``build``), one of per-kernel
+numbers, then as its last line ``{"ok": true, "device": {...}}``. Any
+failed check exits non-zero.
 
 ``--compare`` times, on trees that share its wrappers: the gather scan on
 its full-width copies, the two engine scans on one chunk at two route
@@ -122,6 +146,12 @@ ATOL, RTOL = 1e-4, 1e-5
 
 def log(*a):
     print(*a, flush=True)
+
+
+def record(*a):
+    """``log`` with the card's name and power limit (``CARD``) appended:
+    phase 6's records."""
+    log(*a, f"[{CARD}]")
 
 
 def card_line() -> str:
@@ -524,6 +554,98 @@ def skew_routes(skew, top_router, *, c, seed):
     return torch.from_numpy(routes).to(top_router.device)
 
 
+def skew_row(skew, top_c, sc, *, plain=False):
+    """One row of the route-skew table: routes ``top_c (B, cr)`` on the
+    buffers ``sc["bufs"]`` (tier → buffers) with the chunk's ``q_emb``,
+    ``ql`` and ``w``. Per tier: U and the loads, the bound, both kernels'
+    ms and ×bound, the ``cuda`` and ``cuda-cm`` path times (plan and fold
+    included), and both kernels against the plain routed scan on the full
+    chunk; with ``plain``, the plain versions timed too (chunks of 32)."""
+    import torch
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import serving as serving_lib
+    from repro_torch.kernels import fused_topk_score as fts
+    q_emb, ql, w, w_hat = sc["q_emb"], sc["ql"], sc["w"], sc["w_hat"]
+    c, d, k, cr, batch = (sc[x] for x in ("c", "d", "k", "cr", "batch"))
+    dist_max = sc.get("dist_max", 1.4142)
+    u, roster, n_distinct = serving_lib.cluster_major_plan(top_c,
+                                                            n_clusters=c)
+    n_distinct = int(n_distinct)
+    loads = torch.bincount(top_c.reshape(-1).long(), minlength=c)
+    loads = sorted(loads[loads > 0].tolist(), reverse=True)
+    log(f"skew {skew}: {batch * cr} (query, route) pairs over "
+        f"U={n_distinct} distinct clusters; largest loads {loads[:8]}")
+    rep = dict(U=n_distinct, max_load=loads[0], loads=loads)
+    for p, buf in sc["bufs"].items():
+        scale = buf["scale"] if p == "int8" else None
+        args = (q_emb, ql, w, top_c, buf["emb"], buf["loc"], buf["ids"],
+                w_hat)
+        cm_args = (q_emb, ql, w, u, roster, buf["emb"], buf["loc"],
+                   buf["ids"], w_hat)
+        kw = dict(k=k, dist_max=dist_max, buf_scale=scale)
+        r_ms = time_ms(lambda: fts.fused_topk_score_routed(*args, **kw))
+        cm_ms = time_ms(lambda: fts.fused_topk_score_cluster_major(
+            *cm_args, cr=cr, **kw))
+        path = {b_name: time_ms(lambda: engine_lib._routed_topk(
+            q_emb, ql, w, top_c, buf, w_hat, k=k, backend=b_name,
+            dist_max=dist_max, precision=p))
+            for b_name in ("cuda", "cuda-cm")}
+        sub = 32
+        # the full chunk: both kernels against the plain routed scan
+        got_r = fts.fused_topk_score_routed(*args, **kw)
+        ps, pi = fts.fused_topk_score_cluster_major(*cm_args, cr=cr, **kw)
+        got_c = engine_lib.merge_cluster_major(ps, pi, b=batch, cr=cr, k=k)
+
+        def plain_routed():
+            return [fts.routed_topk_plain(*(a[s:s + sub] if i < 4 else a
+                                            for i, a in enumerate(args)),
+                                          **kw)
+                    for s in range(0, batch, sub)]
+
+        def plain_cm():
+            for s in range(0, batch, sub):
+                u_s, r_s, _ = serving_lib.cluster_major_plan(
+                    top_c[s:s + sub], n_clusters=c)
+                fts.cluster_major_partials_plain(
+                    q_emb[s:s + sub], ql[s:s + sub], w[s:s + sub], u_s,
+                    r_s, buf["emb"], buf["loc"], buf["ids"], w_hat,
+                    cr=cr, **kw)
+
+        want_all = plain_routed()
+        ws = torch.cat([x[0] for x in want_all]).cpu()
+        wi = torch.cat([x[1] for x in want_all]).cpu()
+        e_r = topk_match(got_r[1].cpu(), got_r[0].cpu(), wi, ws)
+        e_c = topk_match(got_c[1].cpu(), got_c[0].cpu(), wi, ws)
+        bd = bound(buf["ids"], top_c, u[:n_distinct], d=d,
+                   elem_bytes=buf["emb"].element_size(), k=k, b=batch,
+                   dequant=p == "int8")
+        rec = dict(routed=dict(ms=r_ms, x_bound=r_ms / bd["bound_ms"],
+                               err=e_r),
+                   cluster_major=dict(ms=cm_ms,
+                                      x_bound=cm_ms / bd["bound_ms"],
+                                      err=e_c),
+                   path_ms=path, bound=bd)
+        if plain:
+            rec["routed"]["plain_ms"] = time_ms(plain_routed, reps=1,
+                                                warmup=0)
+            rec["cluster_major"]["plain_ms"] = time_ms(plain_cm, reps=1,
+                                                       warmup=1)
+        rep[p] = rec
+        log(f"skew {skew} {p}: U={n_distinct} max load "
+            f"{loads[0]}; bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}: "
+            f"{bd['bytes'] / 1e9:.3f} GB, {bd['flops'] / 1e9:.2f} GFLOP); "
+            f"routed {r_ms:.3f} ms ({r_ms / bd['bound_ms']:.2f}x bound), "
+            f"cluster_major {cm_ms:.3f} ms "
+            f"({cm_ms / bd['bound_ms']:.2f}x bound); paths cuda "
+            f"{path['cuda']:.3f} ms, cuda-cm {path['cuda-cm']:.3f} ms "
+            f"(plan and fold included); full-chunk max|err| routed "
+            f"{e_r:.3g} cm {e_c:.3g}"
+            + (f"; plain routed {rec['routed']['plain_ms']:.3f} ms, plain "
+               f"cm {rec['cluster_major']['plain_ms']:.3f} ms (chunks of "
+               f"{sub})" if plain else ""))
+    return rep
+
+
 def full_width_index(dev):
     """``list-dual-encoder`` at full width with seeded random weights,
     2,849,754 seeded random unit objects placed by its router into c = 300
@@ -607,7 +729,6 @@ def phase3(dev):
     from repro_torch.configs import SERVE_QUERIES
     from repro_torch.core import delta as delta_lib
     from repro_torch.core import engine as engine_lib
-    from repro_torch.core import serving as serving_lib
     from repro_torch.core.snapshot import IndexSnapshot
     from repro_torch.kernels import fused_topk_score as fts
 
@@ -677,86 +798,17 @@ def phase3(dev):
         log(f"phase 3 {p}: first {n_check} queries match the plain "
             f"version (max |err| {err:.3g})")
     w_hat = snaps["f32"].w_hat
+    skew_ctx = dict(bufs=bufs, q_emb=q_emb, ql=ql, w=w, w_hat=w_hat, c=c,
+                    d=d, k=k, cr=cr, batch=batch)
     report = {}
     for skew in SKEWS:
         top_c = skew_routes(skew, top_router, c=c, seed=SEED + 10)
-        u, roster, n_distinct = serving_lib.cluster_major_plan(top_c,
-                                                                n_clusters=c)
-        n_distinct = int(n_distinct)
-        loads = torch.bincount(top_c.reshape(-1).long(), minlength=c)
-        loads = sorted(loads[loads > 0].tolist(), reverse=True)
-        log(f"phase 3 skew {skew}: {batch * cr} (query, route) pairs over "
-            f"U={n_distinct} distinct clusters; largest loads {loads[:8]}")
-        rep = dict(U=n_distinct, max_load=loads[0], loads=loads)
-        for p, buf in bufs.items():
-            scale = buf["scale"] if p == "int8" else None
-            args = (q_emb, ql, w, top_c, buf["emb"], buf["loc"], buf["ids"],
-                    w_hat)
-            cm_args = (q_emb, ql, w, u, roster, buf["emb"], buf["loc"],
-                       buf["ids"], w_hat)
-            kw = dict(k=k, dist_max=1.4142, buf_scale=scale)
-            r_ms = time_ms(lambda: fts.fused_topk_score_routed(*args, **kw))
-            cm_ms = time_ms(lambda: fts.fused_topk_score_cluster_major(
-                *cm_args, cr=cr, **kw))
-            path = {b_name: time_ms(lambda: engine_lib._routed_topk(
-                q_emb, ql, w, top_c, buf, w_hat, k=k, backend=b_name,
-                dist_max=1.4142, precision=p)) for b_name in ("cuda", "cuda-cm")}
-            sub = 32
-            # the full chunk: both kernels against the plain routed scan,
-            # timed once (chunks of 32 queries) on the random router's routes
-            got_r = fts.fused_topk_score_routed(*args, **kw)
-            ps, pi = fts.fused_topk_score_cluster_major(*cm_args, cr=cr, **kw)
-            got_c = engine_lib.merge_cluster_major(ps, pi, b=batch, cr=cr, k=k)
-
-            def plain_routed():
-                return [fts.routed_topk_plain(*(a[s:s + sub] if i < 4 else a
-                                                for i, a in enumerate(args)),
-                                              **kw)
-                        for s in range(0, batch, sub)]
-
-            def plain_cm():
-                for s in range(0, batch, sub):
-                    u_s, r_s, _ = serving_lib.cluster_major_plan(
-                        top_c[s:s + sub], n_clusters=c)
-                    fts.cluster_major_partials_plain(
-                        q_emb[s:s + sub], ql[s:s + sub], w[s:s + sub], u_s,
-                        r_s, buf["emb"], buf["loc"], buf["ids"], w_hat,
-                        cr=cr, **kw)
-
-            want_all = plain_routed()
-            ws = torch.cat([x[0] for x in want_all]).cpu()
-            wi = torch.cat([x[1] for x in want_all]).cpu()
-            e_r = topk_match(got_r[1].cpu(), got_r[0].cpu(), wi, ws)
-            e_c = topk_match(got_c[1].cpu(), got_c[0].cpu(), wi, ws)
-            bd = bound(buf["ids"], top_c, u[:n_distinct], d=d,
-                       elem_bytes=buf["emb"].element_size(), k=k, b=batch,
-                       dequant=p == "int8")
-            rec = dict(routed=dict(ms=r_ms, x_bound=r_ms / bd["bound_ms"],
-                                   err=e_r),
-                       cluster_major=dict(ms=cm_ms,
-                                          x_bound=cm_ms / bd["bound_ms"],
-                                          err=e_c),
-                       path_ms=path, bound=bd)
-            if skew == "router":
-                rec["routed"]["plain_ms"] = time_ms(plain_routed, reps=1,
-                                                    warmup=0)
-                rec["cluster_major"]["plain_ms"] = time_ms(plain_cm, reps=1,
-                                                           warmup=1)
-                rec["routed"]["err"] = max(e_r, want_first[p])
-                rec["cluster_major"]["err"] = max(e_c, want_first[p])
-            rep[p] = rec
-            log(f"phase 3 skew {skew} {p}: U={n_distinct} max load "
-                f"{loads[0]}; bound {bd['bound_ms']:.3f} ms ({bd['bound_by']}: "
-                f"{bd['bytes'] / 1e9:.3f} GB, {bd['flops'] / 1e9:.2f} GFLOP); "
-                f"routed {r_ms:.3f} ms ({r_ms / bd['bound_ms']:.2f}x bound), "
-                f"cluster_major {cm_ms:.3f} ms "
-                f"({cm_ms / bd['bound_ms']:.2f}x bound); paths cuda "
-                f"{path['cuda']:.3f} ms, cuda-cm {path['cuda-cm']:.3f} ms "
-                f"(plan and fold included); full-chunk max|err| routed "
-                f"{e_r:.3g} cm {e_c:.3g}"
-                + (f"; plain routed {rec['routed']['plain_ms']:.3f} ms, plain "
-                   f"cm {rec['cluster_major']['plain_ms']:.3f} ms (chunks of "
-                   f"{sub})" if skew == "router" else ""))
+        rep = skew_row(skew, top_c, skew_ctx, plain=skew == "router")
+        if skew == "router":
+            for p in TIERS:
+                for name in ("routed", "cluster_major"):
+                    rep[p][name]["err"] = max(rep[p][name]["err"],
+                                              want_first[p])
         report[skew] = rep
     log(f"phase 3: prefix {t_prefix:.3f} ms per {batch}-query chunk")
 
@@ -815,6 +867,7 @@ def phase3(dev):
                 qps={f"{p}/{b}": n_q / wall for (p, b), wall in walls.items()},
                 ctx=dict(buf32=buf32, buf8=buf8, w_hat=w_hat, q_emb=q_emb,
                          ql=ql, w=w, top_c=top_router),
+                skew_ctx=skew_ctx,
                 write_ctx=dict(snaps=snaps, tok=tok, msk=msk, q_loc=q_loc,
                                q_emb=q_emb[:N_FAN]))
 
@@ -1126,6 +1179,7 @@ def probe_library():
 
 
 PROBES = None                   # the probe library, built in phase 0
+CARD = None                     # nvidia-smi's name and power limit
 PROBE_OUT = 8 * 256 * 132       # floats of a probe's out: 8 blocks/SM
 _probe_out = {}                 # device -> its probe out buffer
 
@@ -1815,6 +1869,465 @@ def phase5(dev, wctx, base_walls):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: training and build at full width
+# ---------------------------------------------------------------------------
+
+N_HELD = 256                     # held-out queries: the test split, then val
+N_CPU_CHECK = 32                 # of them served on the CPU copy in (b)
+SPLIT_STEPS = 5                  # relevance steps timed part by part
+BUILD_LOG_EVERY = 20             # api.build's history records
+GRAD_TOL = (1e-5, 1e-4, 1e-7)    # loss rtol; leaf rtol of max|g|, atol
+RECALL_RATIO = 0.7               # tests/test_pipeline_e2e.py:33
+
+
+class StageTimes:
+    """Host timers around module functions for the build's records: each
+    wrapped call runs between two device syncs; ``tokens`` (optional)
+    counts a call's tokens before its timer starts. ``restore`` puts the
+    functions back."""
+
+    def __init__(self):
+        import collections
+        self.s = collections.defaultdict(list)
+        self._undo = []
+
+    def wrap(self, owner, name, key, tokens=None):
+        import torch
+        fn = getattr(owner, name)
+
+        def timed(*a, **k):
+            if tokens is not None:
+                self.s[key + "_tokens"].append(tokens(*a, **k))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.s[key].append(time.perf_counter() - t0)
+            return out
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, fn))
+
+    def restore(self):
+        for owner, name, fn in reversed(self._undo):
+            setattr(owner, name, fn)
+        self._undo = []
+
+
+def step_tokens(rel, params, opt_state, opt_update, batch, lr, **kw):
+    return int(batch["q_mask"].sum() + batch["pos_mask"].sum()
+               + batch["neg_mask"].sum())
+
+
+def grads_close(got, want):
+    """``got``, ``want``: ``{name: gradient}``. → max over leaves of |Δ| /
+    (rtol·max|g_want| + atol); raises above 1. A key projection's bias
+    (``wk.b``) has a zero gradient in exact arithmetic (the softmax
+    cancels it): both sides must stay below rtol of the largest gradient."""
+    import numpy as np
+    _, rtol, atol = GRAD_TOL
+    if got.keys() != want.keys():
+        raise AssertionError("gradient leaves differ")
+    g_max = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name]
+        if name.endswith("wk.b"):
+            if max(float(g.abs().max()), float(w.abs().max())) > rtol * g_max:
+                raise AssertionError(f"gradient {name}: not zero")
+            continue
+        tol = rtol * float(w.abs().max()) + atol
+        ratio = float((g.cpu() - w).abs().max()) / tol
+        if not np.isfinite(ratio) or ratio > 1:
+            raise AssertionError(f"gradient {name}: |Δ| {ratio * tol:.3g} "
+                                 f"> {tol:.3g}")
+        worst = max(worst, ratio)
+    return worst
+
+
+def grad_check(dev):
+    """(a) The contrastive (Eq. 8) and MCL (Eq. 14) losses and every
+    gradient leaf on the card against the same port code on a CPU copy, at
+    fixed params of a small config (2 layers, d 128, f32 compute), TF32
+    off; the CPU tests' tolerances (``GRAD_TOL``)."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import index as index_lib
+    from repro_torch.core import pipeline as pipeline_lib
+    from repro_torch.core import relevance
+    from repro_torch.data import geotextual as geo
+    cfg = dataclasses.replace(
+        get_config("list-dual-encoder"), n_layers=2, d_model=128, n_heads=4,
+        d_ff=256, vocab_size=4096, max_len=16, spatial_t=100, n_clusters=12,
+        index_mlp_hidden=(64,), compute_dtype="float32")
+    corpus = geo.GeoCorpus(geo.GeoCorpusConfig(
+        n_objects=2000, n_queries=200, n_topics=8, vocab_size=4096,
+        seed=SEED))
+    pool = np.random.default_rng(SEED + 20).integers(0, 2000, (200, 16))
+    batch = corpus.train_batch(0, 16, corpus.split()[0], hard_negs=pool)
+    g = torch.Generator().manual_seed(SEED + 21)
+    rel = relevance.relevance_init(cfg, g)
+    index = index_lib.index_init(cfg.d_model, cfg.n_clusters, g,
+                                 hidden=cfg.index_mlp_hidden)
+    fb = {k: torch.randn(*shape, generator=g) for k, shape in (
+        ("q_feat", (16, 130)), ("pos_feat", (16, 130)),
+        ("neg_feat", (16, 8, 130)))}
+    out = {}
+    for where in ("cpu", dev):
+        r, ix = copy.deepcopy(rel).to(where), copy.deepcopy(index).to(where)
+        loss, m = relevance.contrastive_loss(
+            r, pipeline_lib.batch_to(batch, where))
+        loss.backward()
+        mloss, _ = index_lib.mcl_loss(ix, {k: v.to(where)
+                                          for k, v in fb.items()})
+        mloss.backward()
+        out[str(where)] = (float(loss), float(mloss),
+                           {n: p.grad for n, p in r.named_parameters()
+                            if p.grad is not None},
+                           {n: p.grad for n, p in ix.named_parameters()})
+    (cl, cm, cg, cig), (gl, gm, gg, gig) = out["cpu"], out[str(dev)]
+    rtol = GRAD_TOL[0]
+    for name, a, b in (("contrastive", gl, cl), ("mcl", gm, cm)):
+        if not abs(a - b) <= rtol * max(1.0, abs(b)):
+            raise AssertionError(f"phase 6 (a): {name} loss {a} on the card, "
+                                 f"{b} on the CPU")
+    rec = dict(contrastive_loss=gl, contrastive_loss_cpu=cl, mcl_loss=gm,
+               mcl_loss_cpu=cm, leaves=len(gg) + len(gig),
+               worst_leaf_over_tol=max(grads_close(gg, cg),
+                                       grads_close(gig, cig)))
+    record(f"phase 6 (a) gradients on the card == CPU copy: contrastive "
+           f"{gl:.6f} / {cl:.6f}, MCL {gm:.6f} / {cm:.6f}, {rec['leaves']} "
+           f"leaves, worst |Δ| at {rec['worst_leaf_over_tol']:.3f} of its "
+           f"tolerance")
+    return rec
+
+
+def f32_compute_twin(snap):
+    """``snap`` with copies of its towers computing in float32: the same
+    weights, buffers and router, for holding the card's serve path against
+    the CPU's without bf16's device-dependent rounding in the encoder."""
+    import copy
+    import torch
+    rel = copy.deepcopy(snap.rel)
+    for enc in (rel.q_enc, rel.o_enc):
+        enc.compute_dtype = torch.float32
+    return dataclasses.replace(snap, rel=rel)
+
+
+def serve_parity(dev, snap, q):
+    """(b) The trained snapshot's f32-compute twin at every tier on cuda /
+    cuda-cm / auto against the dense backend on a CPU copy, cr 2 and 20,
+    on the rows whose routes agree on both devices."""
+    import torch
+    from repro_torch import api
+    twin = f32_compute_twin(snap)
+    rec = {}
+    for p in TIERS:
+        s = twin.with_precision(p)
+        cpu = api.Searcher(s, backend="dense", device="cpu")
+        gpu = {b: api.Searcher(s, backend=b, device=dev)
+               for b in ("cuda", "cuda-cm", "auto")}
+        for cr in (2, 20):
+            same = (cpu.engine.route(*q, cr=cr).numpy()
+                    == gpu["cuda"].engine.route(*q, cr=cr).cpu().numpy()
+                    ).all(axis=1)
+            if same.mean() < 0.9:
+                raise AssertionError(f"phase 6 (b) {p}: routes at cr {cr} "
+                                     f"agree on {same.mean():.3f} of rows")
+            want = cpu.query(*q, k=20, cr=cr, batch=len(q[0]))
+            for b, s_gpu in gpu.items():
+                got = s_gpu.query(*q, k=20, cr=cr, batch=len(q[0]))
+                rec[f"{p}/{b}/cr{cr}"] = dict(
+                    rows=int(same.sum()),
+                    max_abs_err=topk_match(got[0][same], got[1][same],
+                                           want[0][same], want[1][same]))
+        del cpu, gpu, s
+    torch.cuda.empty_cache()
+    record(f"phase 6 (b) the trained snapshot (f32-compute twin) on cuda / "
+           f"cuda-cm / auto == dense on a CPU copy, every tier, cr 2 and 20, "
+           f"{len(q[0])} queries: max|Δ| "
+           f"{max(r['max_abs_err'] for r in rec.values()):.3g}, rows "
+           f"{min(r['rows'] for r in rec.values())}+")
+    return rec
+
+
+def round_trip(dev, snap, q):
+    """(d) ``api.save`` → ``api.load`` of the trained snapshot: 256
+    queries bit-equal on ``cuda``."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import api
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_build_")
+    try:
+        t0 = time.perf_counter()
+        path = api.save(snap, tmp)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        t0 = time.perf_counter()
+        loaded = api.load(tmp, device=dev)
+        t_load = time.perf_counter() - t0
+        want = api.Searcher(snap, backend="cuda", device=dev).query(
+            *q, k=20, cr=2, batch=256)
+        got = api.Searcher(loaded, backend="cuda", device=dev).query(
+            *q, k=20, cr=2, batch=256)
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError("phase 6 (d): the loaded trained snapshot "
+                                 "answers differently")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    record(f"phase 6 (d) save -> load of the trained snapshot: "
+           f"{nbytes / 1e9:.3f} GB, save {t_save:.2f} s, load {t_load:.2f} "
+           f"s; {len(q[0])} queries bit-equal")
+    return dict(bytes=nbytes, save_s=t_save, load_s=t_load)
+
+
+def step_split(dev, snap, corpus):
+    """Forward / backward / optimizer of one relevance step by CUDA events,
+    ``SPLIT_STEPS`` steps (after one warm-up) of a trainable copy of the
+    trained model with a fresh AdamW state, on the trainer's batches
+    (random negatives in place of the TkQ pool: the same shapes)."""
+    import copy
+    import torch
+    from repro_torch.convert import grad_or_zeros
+    from repro_torch.core import pipeline as pipeline_lib
+    from repro_torch.core import relevance
+    from repro_torch.optim import clip_by_global_norm, make_optimizer
+    rel = copy.deepcopy(snap.rel).requires_grad_(True)
+    params = list(rel.parameters())
+    init, update = make_optimizer("adamw")
+    state = init(params)
+    train_q = corpus.split()[0]
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for i in range(SPLIT_STEPS + 1):
+        b = pipeline_lib.batch_to(corpus.train_batch(i, 64, train_q), dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss, _ = relevance.contrastive_loss(rel, b)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        grads, _ = clip_by_global_norm([grad_or_zeros(p) for p in params],
+                                       1.0)
+        update(grads, state, params, 1e-4)
+        ev[3].record()
+        for p in params:
+            p.grad = None
+        torch.cuda.synchronize()
+        if i:
+            for j, name in enumerate(parts):
+                parts[name].append(ev[j].elapsed_time(ev[j + 1]))
+    del rel, params, state
+    torch.cuda.empty_cache()
+    return {name: median(v) for name, v in parts.items()}
+
+
+def gt_recall(ids, positives, k=10):
+    """Mean over queries of |top-k ∩ positives| / |positives| (the
+    reference's ``cluster_metrics.recall_at_k``)."""
+    import numpy as np
+    vals = [len(set(int(x) for x in p) & set(int(x) for x in r[:k])) / len(p)
+            for r, p in zip(ids, positives) if len(p)]
+    return float(np.mean(vals)) if vals else 0.0
+
+
+def finite_history(hist):
+    import numpy as np
+    return all(np.isfinite(v) for rec in hist for v in rec.values())
+
+
+def phase6(dev, skew_ctx):
+    """Training and build at full width: ``api.build`` of
+    ``list-dual-encoder`` (n_clusters 300) on ``N_CORPUS`` generated
+    objects with the reference's defaults, then the trained snapshot
+    served through ``Searcher`` on every tier × cuda / cuda-cm / auto ×
+    cr 2, 20 (the launch counters zeroed before the build and read after
+    the serving); checks (a)–(e); the trained router's routes on phase 3's
+    full-width buffers (the skew ``trained``) and on its own."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import SERVE_QUERIES, get_config
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import pipeline as pipeline_lib
+    from repro_torch.core import pseudo_labels
+    from repro_torch.data import geotextual as geo
+    from repro_torch.kernels import fused_topk_score as fts
+    rec = {"gradients": grad_check(dev)}
+    c = SERVE_QUERIES["n_clusters"]
+    cfg = dataclasses.replace(get_config("list-dual-encoder"), n_clusters=c)
+    corpus = geo.GeoCorpus(geo.scale_corpus(geo.GeoCorpusConfig(seed=SEED),
+                                            N_CORPUS))
+    _, va, te = corpus.split()
+    held = np.concatenate([te, va])[:N_HELD]
+    tok, msk = corpus.query_tokens(held)
+    qloc = corpus.q_loc[held].astype(np.float32)
+    q = (tok, msk, qloc)
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: api.build, then the trained snapshot served -------
+    st = StageTimes()
+    st.wrap(pipeline_lib, "mine_tkq_negatives", "tkq_mining")
+    st.wrap(pipeline_lib, "relevance_step", "relevance_step", step_tokens)
+    st.wrap(pipeline_lib, "embed_objects", "object_pass")
+    st.wrap(pipeline_lib, "embed_queries", "query_pass")
+    st.wrap(pseudo_labels, "mine_negatives", "eq13_mining")
+    st.wrap(pipeline_lib, "index_step", "index_step")
+    st.wrap(pipeline_lib.ListRetriever, "build", "build")
+    fts.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        snap, r = api.build(cfg, corpus, seed=SEED, log_every=BUILD_LOG_EVERY,
+                            return_retriever=True, device=dev)
+    finally:
+        st.restore()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    tiers = {p: snap.with_precision(p) for p in TIERS}
+    served, picks = {}, {}
+    for p, s in tiers.items():
+        for b in ("cuda", "cuda-cm", "auto"):
+            searcher = api.Searcher(s, backend=b, device=dev)
+            for cr in (2, 20):
+                ids, sc = searcher.query(*q, k=20, cr=cr, batch=256)
+                if ids.shape != (N_HELD, 20) or not np.isfinite(sc).all() \
+                        or not (ids >= 0).all():
+                    raise AssertionError(f"phase 6 {p} {b} cr {cr}: bad "
+                                         f"output")
+                served[(p, b, cr)] = ids
+                if b == "auto":
+                    picks[f"{p}/cr{cr}"] = searcher.engine.pick_backend(
+                        *q, cr=cr, batch=256)
+    torch.cuda.synchronize()
+    launches = dict(fts.launches)
+    for name in ("routed", "cluster_major"):
+        if not launches[name]:
+            raise AssertionError(f"phase 6: kernel {name} not launched")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    tm = st.s
+    rh, ih = r.history["relevance"], r.history["index"]
+    steps_s = tm["relevance_step"]
+    rec.update(
+        build_s=t_build, launches=launches, auto_picks=picks,
+        peak_gb=peak_gb, resident_before_gb=resident_gb,
+        tkq_mining_s=sum(tm["tkq_mining"]),
+        relevance_step_ms=median(steps_s) * 1e3,
+        relevance_steps=len(steps_s),
+        relevance_tokens_per_s=sum(tm["relevance_step_tokens"])
+        / sum(steps_s),
+        relevance_first=rh[0], relevance_last=rh[-1],
+        object_pass_s=sum(tm["object_pass"]),
+        object_tokens=int(corpus.object_tokens()[1].sum()),
+        query_pass_s=sum(tm["query_pass"]),
+        eq13_mining_s=sum(tm["eq13_mining"]),
+        index_step_ms=median(tm["index_step"]) * 1e3,
+        index_steps=len(tm["index_step"]),
+        index_first=ih[0], index_last=ih[-1],
+        pack_s=sum(tm["build"]))
+    counts = snap.buffers["counts"].cpu().numpy()
+    assign = np.bincount(r.obj_assign, minlength=c)
+    rec["balance"] = dict(
+        capacity=snap.buffers["capacity"],
+        n_spilled=snap.buffers["n_spilled"],
+        largest_over_mean=float(counts.max() / counts.mean()),
+        empty=int((counts == 0).sum()),
+        top1_largest_over_mean=float(assign.max() / assign.mean()),
+        top1_empty=int((assign == 0).sum()))
+    record(f"phase 6 build: {N_CORPUS} objects, list-dual-encoder full width "
+           f"(c = {c}), api.build defaults; {t_build:.1f} s in all (peak "
+           f"{peak_gb:.1f} GB, {resident_gb:.1f} GB of phase 3 resident)")
+    record(f"phase 6 relevance: TkQ mining {rec['tkq_mining_s']:.2f} s; "
+           f"{len(steps_s)} steps, median {rec['relevance_step_ms']:.1f} ms "
+           f"({rec['relevance_tokens_per_s']:.0f} tokens/s); loss "
+           f"{rh[0]['loss']:.4f} -> {rh[-1]['loss']:.4f}, acc "
+           f"{rh[0]['acc']:.3f} -> {rh[-1]['acc']:.3f} (steps "
+           f"{rh[0]['step']}, {rh[-1]['step']})")
+    record(f"phase 6 index: object tower's pass {rec['object_pass_s']:.2f} s "
+           f"({rec['object_tokens']} tokens, "
+           f"{rec['object_tokens'] / rec['object_pass_s']:.0f} tokens/s); "
+           f"Eq. 13 mining {rec['eq13_mining_s']:.2f} s; {rec['index_steps']} "
+           f"steps, median {rec['index_step_ms']:.2f} ms; loss "
+           f"{ih[0]['loss']:.4f} -> {ih[-1]['loss']:.4f}, s_pos "
+           f"{ih[0]['s_pos']:.3f} -> {ih[-1]['s_pos']:.3f}, s_neg "
+           f"{ih[0]['s_neg']:.4f} -> {ih[-1]['s_neg']:.4f}")
+    record(f"phase 6 pack: {rec['pack_s']:.2f} s; balance {rec['balance']}; "
+           f"served every tier x cuda/cuda-cm/auto x cr 2, 20 on {N_HELD} "
+           f"held-out queries; launches {launches}; auto picks {picks}")
+
+    # ---- (e) nothing is not finite ----------------------------------------
+    if not (finite_history(rh) and finite_history(ih)):
+        raise AssertionError("phase 6 (e): a loss or gradient norm is not "
+                             "finite")
+    for m in (snap.rel, snap.index):
+        for name, p in m.named_parameters():
+            if not torch.isfinite(p).all():
+                raise AssertionError(f"phase 6 (e): parameter {name} is not "
+                                     f"finite")
+
+    # ---- checks (b)-(d) ---------------------------------------------------
+    rec["serve_parity"] = serve_parity(dev, snap,
+                                       tuple(a[:N_CPU_CHECK] for a in q))
+    t0 = time.perf_counter()
+    bf_ids, bf_sc = api.brute_force(snap, corpus, held, k=20, batch=512)
+    rec["brute_force_s"] = time.perf_counter() - t0
+    full = api.Searcher(snap, device=dev).query(*q, k=20, cr=c, batch=512,
+                                                backend="cuda-cm")
+    rec["cr_c_max_abs_err"] = topk_match(full[0], full[1], bf_ids, bf_sc)
+    record(f"phase 6 (c) brute_force on the trained snapshot "
+           f"({rec['brute_force_s']:.1f} s) == cuda-cm at cr = c up to ties "
+           f"(max|Δ| {rec['cr_c_max_abs_err']:.3g})")
+    rec["round_trip"] = round_trip(dev, snap, q)
+
+    # ---- recall, recorded -------------------------------------------------
+    n_te = len(te)
+    pos = [corpus.positives[i] for i in held[:n_te]]
+    rec["recall_vs_brute_force"] = {
+        f"cr{cr}": recall_at(served[("f32", "auto", cr)], bf_ids, 10)
+        for cr in (2, 20)}
+    rec["gt_recall_at_10"] = dict(
+        brute_force=gt_recall(bf_ids[:n_te], pos),
+        **{f"auto_cr{cr}": gt_recall(served[("f32", "auto", cr)][:n_te], pos)
+           for cr in (2, 20)})
+    gt = rec["gt_recall_at_10"]
+    rec["reference_criterion_holds"] = bool(
+        gt["auto_cr2"] >= RECALL_RATIO * gt["brute_force"])
+    record(f"phase 6 recall@10 of auto against brute_force (trained): cr 2 "
+           f"{rec['recall_vs_brute_force']['cr2']:.3f}, cr 20 "
+           f"{rec['recall_vs_brute_force']['cr20']:.3f}; ground truth "
+           f"({n_te} test queries): brute_force {gt['brute_force']:.4f}, "
+           f"auto cr 2 {gt['auto_cr2']:.4f}, cr 20 {gt['auto_cr20']:.4f}; "
+           f"LIST >= {RECALL_RATIO} x brute force: "
+           f"{rec['reference_criterion_holds']}")
+
+    # ---- the trained router's routes: phase 3's buffers, then its own -----
+    top_tr = api.Searcher(snap, device=dev).engine.route(*q, cr=2)
+    rec["trained_row"] = skew_row("trained", top_tr, skew_ctx)
+    chunk = [torch.from_numpy(a).to(dev) for a in q]
+    q_emb, w, top_own = engine_lib.make_prefix_fn(cr=2)(
+        snap.rel, snap.index, snap.norm, *chunk)
+    own_ctx = dict(bufs={p: s.buffers for p, s in tiers.items()},
+                   q_emb=q_emb, ql=chunk[2], w=w, w_hat=snap.w_hat, c=c,
+                   d=cfg.d_model, k=20, cr=2, batch=N_HELD,
+                   dist_max=snap.dist_max)
+    rec["trained_own_row"] = skew_row("trained (own buffers)", top_own,
+                                      own_ctx)
+    rec["step_split_ms"] = step_split(dev, snap, corpus)
+    record(f"phase 6 relevance step split (CUDA events, median of "
+           f"{SPLIT_STEPS}): {rec['step_split_ms']}")
+    del snap, r, tiers, own_ctx, q_emb, w
+    torch.cuda.empty_cache()
+    return rec
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
     card (parent / change / change / parent). The gather scan on its
@@ -1932,7 +2445,8 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -1982,6 +2496,11 @@ def main() -> int:
     p5 = phase5(dev, p3.pop("write_ctx"), p3["walls_ms"])
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p5['peak_gb']:.1f} GB; launches {p5['launches']}")
+    t0 = time.perf_counter()
+    p6 = phase6(dev, p3.pop("skew_ctx"))
+    log(f"phase 6 took {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{p6['peak_gb']:.1f} GB; launches {p6['launches']}")
+    p3["report"]["trained"] = p6.pop("trained_row")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -1995,13 +2514,15 @@ def main() -> int:
             "replaces": replaces[name], "launches": p3["launches"][name],
             "max_abs_err": max([err1[name]] + [
                 skews[sk][p][name]["err"] for sk in skews for p in TIERS] + (
-                [p5["delta_scan"]["max_abs_err"]] if name == "routed" else [])),
+                [p5["delta_scan"]["max_abs_err"]] if name == "routed" else [])
+                + [p6["trained_own_row"][p][name]["err"] for p in TIERS]),
             "ms": main_rec[name]["ms"], "plain_ms": main_rec[name]["plain_ms"],
             "bound_ms": main_rec["bound"]["bound_ms"],
             "bound_by": main_rec["bound"]["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes a fused "
                             "score + top-k",
             "write_path_launches": p5["launches"][name],
+            "build_launches": p6["launches"][name],
             "shape": {"queries": p3["batch"], "cr": p3["cr"], "k": p3["k"],
                       "precision": "f32", "skew": "router",
                       "distinct_clusters": p3["distinct_clusters"]},
@@ -2080,6 +2601,16 @@ def main() -> int:
                                "tokens_per_s", "capacity", "n_spilled",
                                "auto_picks", "cr_c_max_abs_err")},
         "launches": p5["launches"], "peak_device_gb": p5["peak_gb"]}}))
+    own = p6.pop("trained_own_row")
+    log(json.dumps({"build": dict(
+        card=card, **p6,
+        trained_own_buffers={
+            "U": own["U"], "max_load": own["max_load"],
+            **{p: {name: {f: own[p][name][f] for f in ("ms", "x_bound")}
+                   for name in ("routed", "cluster_major")}
+               | {"path_ms": own[p]["path_ms"],
+                  "bound_ms": own[p]["bound"]["bound_ms"]}
+               for p in TIERS}})}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

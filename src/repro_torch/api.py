@@ -1,8 +1,9 @@
-"""repro_torch.api — save, load and query a LIST index snapshot, and score
-it exhaustively.
+"""repro_torch.api — build, save, load and query a LIST index snapshot, and
+score it exhaustively.
 
     from repro_torch import api
 
+    snap = api.build(cfg, corpus, rel_steps=200, idx_steps=400)   # train
     api.save(snap, "artifacts/index")           # the reference loads it too
     snap = api.load("artifacts/index")          # written by either package
     searcher = api.Searcher(snap)               # on the CUDA device
@@ -33,8 +34,35 @@ from repro_torch.core.index import topk_stable
 from repro_torch.core.snapshot import IndexSnapshot
 from repro_torch.device import full_f32_products
 
-__all__ = ["save", "load", "Searcher", "brute_force", "IndexSnapshot",
-           "SnapshotCorrupt"]
+__all__ = ["build", "save", "load", "Searcher", "brute_force",
+           "IndexSnapshot", "SnapshotCorrupt"]
+
+
+def build(cfg, corpus, *, rel_steps: int = 200, idx_steps: int = 400,
+          batch: int = 64, rel_lr: float = 1.5e-3, idx_lr: float = 3e-3,
+          capacity: Optional[int] = None, spill: int = 3,
+          spatial_mode: str = "step", weight_mode: str = "mlp",
+          precision: str = "f32", attrs=None, seed: int = 0,
+          verbose: bool = False, log_every: Optional[int] = None,
+          return_retriever: bool = False, device="cuda"):
+    """Train LIST end to end on ``device`` and return the built
+    :class:`IndexSnapshot` (the reference's ``repro.api.build`` and its
+    defaults): relevance training (Eq. 8), index training (Eq. 13
+    pseudo-labels + Eq. 14 MCL), buffer packing at ``precision``, through
+    :class:`~repro_torch.core.pipeline.ListRetriever`. The snapshot's
+    modules are frozen; ``return_retriever=True`` also returns the
+    retriever (training histories, object↦cluster assignments). The
+    mesh (``mesh=``) waits in ROADMAP Queue A 11."""
+    log = log_every if log_every is not None else max(rel_steps, 1)
+    r = pipeline_lib.ListRetriever(cfg, corpus, spatial_mode=spatial_mode,
+                                   weight_mode=weight_mode, device=device)
+    r.train_relevance(steps=rel_steps, batch=batch, lr=rel_lr, seed=seed,
+                      verbose=verbose, log_every=log)
+    r.train_index(steps=idx_steps, batch=batch, lr=idx_lr, seed=seed,
+                  verbose=verbose, log_every=log)
+    r.build(capacity=capacity, spill=spill, precision=precision, attrs=attrs)
+    snap = r.snapshot()
+    return (snap, r) if return_retriever else snap
 
 
 def save(snapshot: IndexSnapshot, directory: str, *, keep: int = 3) -> str:
@@ -103,5 +131,6 @@ def brute_force(snapshot: IndexSnapshot, corpus, query_ids, *, k: int = 20,
         sc, ids = topk_stable(st, k)
         return ids.to(torch.int32), sc
 
-    return engine_lib.run_batched(score_top, [q_emb, q_loc], batch=batch,
-                                  device=dev)
+    with torch.no_grad():
+        return engine_lib.run_batched(score_top, [q_emb, q_loc], batch=batch,
+                                      device=dev)

@@ -16,8 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.index import ClusterIndex
-from repro_torch.core.relevance import RelevanceModel
+from repro_torch.core.index import ClusterIndex, index_init
+from repro_torch.core.relevance import RelevanceModel, relevance_init
 from repro_torch.models.layers import MLP, Dense, LayerNorm
 from repro_torch.models.transformer import Encoder, EncoderBlock
 
@@ -56,18 +56,24 @@ def encoder_from_numpy(p, cfg) -> Encoder:
                    compute_dtype=cfg.compute_dtype)
 
 
-def params_from_numpy(rel_params, index_params, cfg
-                      ) -> Tuple[RelevanceModel, ClusterIndex]:
-    """→ ``(RelevanceModel, ClusterIndex)`` on the CPU, holding the same
-    arrays as the reference's ``rel_params`` / ``index_params``."""
+def relevance_from_numpy(rel_params, cfg) -> RelevanceModel:
+    """The relevance model of the reference's ``rel_params``, on the CPU,
+    holding the same arrays (trainable)."""
     o_enc = (encoder_from_numpy(rel_params["o_enc"], cfg)
              if "o_enc" in rel_params else None)
-    rel = RelevanceModel(
+    return RelevanceModel(
         q_enc=encoder_from_numpy(rel_params["q_enc"], cfg), o_enc=o_enc,
         weight_mlp=_mlp(rel_params["weight_mlp"]),
         fixed_w=_t(rel_params["fixed_w"]),
         spatial={k: _t(v) for k, v in rel_params.get("spatial", {}).items()})
-    return rel, index_from_numpy(index_params)
+
+
+def params_from_numpy(rel_params, index_params, cfg
+                      ) -> Tuple[RelevanceModel, ClusterIndex]:
+    """→ ``(RelevanceModel, ClusterIndex)`` on the CPU, holding the same
+    arrays as the reference's ``rel_params`` / ``index_params``."""
+    return (relevance_from_numpy(rel_params, cfg),
+            index_from_numpy(index_params))
 
 
 def index_from_numpy(index_params) -> ClusterIndex:
@@ -75,46 +81,71 @@ def index_from_numpy(index_params) -> ClusterIndex:
     return ClusterIndex(_mlp(index_params["mlp"]))
 
 
-def _dense_tree(m: Dense) -> dict:
-    return {"w": m.w.data} if m.b is None else {"w": m.w.data,
-                                                  "b": m.b.data}
+def _data(p: torch.Tensor) -> torch.Tensor:
+    return p.data
 
 
-def _norm_tree(m: LayerNorm) -> dict:
-    return {"scale": m.scale.data, "bias": m.bias.data}
+def grad_or_zeros(p: torch.Tensor) -> torch.Tensor:
+    """``p.grad``, or zeros like ``p`` for a parameter the loss never
+    reached (the reference's gradient of an unused leaf)."""
+    return torch.zeros_like(p) if p.grad is None else p.grad
 
 
-def encoder_to_tree(enc: Encoder) -> dict:
-    """The reference's encoder pytree of ``enc``, blocks stacked."""
-    blocks = [{"ln1": _norm_tree(b.ln1), "ln2": _norm_tree(b.ln2),
-               "attn": {n: _dense_tree(getattr(b, n))
+def _dense_tree(m: Dense, leaf) -> dict:
+    return ({"w": leaf(m.w)} if m.b is None
+            else {"w": leaf(m.w), "b": leaf(m.b)})
+
+
+def _norm_tree(m: LayerNorm, leaf) -> dict:
+    return {"scale": leaf(m.scale), "bias": leaf(m.bias)}
+
+
+def encoder_to_tree(enc: Encoder, leaf=_data) -> dict:
+    """The reference's encoder pytree of ``enc``, blocks stacked; each
+    leaf is ``leaf(parameter)`` (the tensor itself by default)."""
+    blocks = [{"ln1": _norm_tree(b.ln1, leaf), "ln2": _norm_tree(b.ln2, leaf),
+               "attn": {n: _dense_tree(getattr(b, n), leaf)
                         for n in ("wq", "wk", "wv", "wo")},
-               "mlp": {"w1": _dense_tree(b.w1), "w2": _dense_tree(b.w2)}}
+               "mlp": {"w1": _dense_tree(b.w1, leaf),
+                       "w2": _dense_tree(b.w2, leaf)}}
               for b in enc.blocks]
-    return {"embed": enc.embed.data, "pos_embed": enc.pos_embed.data,
+    return {"embed": leaf(enc.embed), "pos_embed": leaf(enc.pos_embed),
             "blocks": _stack(blocks),
-            "final_ln": _norm_tree(enc.final_ln),
-            "cls": _dense_tree(enc.cls)}
+            "final_ln": _norm_tree(enc.final_ln, leaf),
+            "cls": _dense_tree(enc.cls, leaf)}
+
+
+def relevance_to_tree(rel: RelevanceModel, leaf=_data) -> dict:
+    """``rel_params`` in the reference's layout, leaves ``leaf(p)``
+    (``grad_or_zeros`` gives the gradient pytree)."""
+    rp = {"q_enc": encoder_to_tree(rel.q_enc, leaf),
+          "weight_mlp": [_dense_tree(m, leaf) for m in rel.weight_mlp.layers],
+          "fixed_w": leaf(rel.fixed_w),
+          "spatial": {k: leaf(v) for k, v in rel.spatial.items()}}
+    if rel.o_enc is not None:
+        rp["o_enc"] = encoder_to_tree(rel.o_enc, leaf)
+    return rp
+
+
+def index_to_tree(index: ClusterIndex, leaf=_data) -> dict:
+    """``index_params`` in the reference's layout, leaves ``leaf(p)``."""
+    return {"mlp": [_dense_tree(m, leaf) for m in index.mlp.layers]}
 
 
 def params_to_tree(rel: RelevanceModel, index: ClusterIndex):
     """``(rel_params, index_params)`` in the reference's layout with the
     modules' own tensors as leaves, on their device (the per-layer blocks
     restacked: those leaves are new tensors)."""
-    rp = {"q_enc": encoder_to_tree(rel.q_enc),
-          "weight_mlp": [_dense_tree(m) for m in rel.weight_mlp.layers],
-          "fixed_w": rel.fixed_w.data,
-          "spatial": {k: v.data for k, v in rel.spatial.items()}}
-    if rel.o_enc is not None:
-        rp["o_enc"] = encoder_to_tree(rel.o_enc)
-    return rp, {"mlp": [_dense_tree(m) for m in index.mlp.layers]}
+    return relevance_to_tree(rel), index_to_tree(index)
 
 
-def _to_numpy(tree):
+def to_numpy(tree):
+    """A pytree of tensors as numpy leaves on the host at their own dtypes
+    (a bfloat16 leaf, which numpy cannot hold, stays a CPU tensor)."""
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
+        return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_numpy(v) for v in tree]
+        return [to_numpy(v) for v in tree]
     t = tree.detach().cpu()
     return t if t.dtype == torch.bfloat16 else t.numpy().copy()
 
@@ -127,50 +158,19 @@ def params_to_numpy(rel: RelevanceModel, index: ClusterIndex):
     their own dtypes (a bfloat16 leaf, which numpy cannot hold, stays a
     CPU tensor)."""
     rp, ip = params_to_tree(rel, index)
-    return _to_numpy(rp), _to_numpy(ip)
+    return to_numpy(rp), to_numpy(ip)
 
 
 def random_params(cfg, *, n_clusters: int, generator: torch.Generator,
                   with_o_enc: bool = True):
     """Random ``(rel_params, index_params)`` pytrees in the reference's
-    layout and init scales (normal(0, 1/√fan_in) kernels, zero biases,
-    unit norms), drawn from ``generator`` on the CPU."""
-    def normal(*shape, scale):
-        return torch.randn(*shape, generator=generator) * scale
-
-    def dense(i, o):
-        return {"w": normal(i, o, scale=i ** -0.5), "b": torch.zeros(o)}
-
-    def mlp(dims):
-        return [dense(dims[j], dims[j + 1]) for j in range(len(dims) - 1)]
-
-    d = cfg.d_model
-
-    def ln():
-        return {"scale": torch.ones(d), "bias": torch.zeros(d)}
-
-    def block():
-        return {"ln1": ln(), "ln2": ln(),
-                "attn": {n: dense(d, d) for n in ("wq", "wk", "wv", "wo")},
-                "mlp": {"w1": dense(d, cfg.d_ff), "w2": dense(cfg.d_ff, d)}}
-
-    def encoder():
-        return {"embed": normal(cfg.vocab_size, d, scale=d ** -0.5),
-                "pos_embed": normal(cfg.max_len, d, scale=0.02),
-                "blocks": _stack([block() for _ in range(cfg.n_layers)]),
-                "final_ln": ln(),
-                "cls": dense(d, d)}
-
-    rel = {"q_enc": encoder(), "weight_mlp": mlp((d, 64, 2)),
-           "fixed_w": torch.ones(2),
-           "spatial": {"w_s": torch.full((cfg.spatial_t,), -2.0)
-                       + 0.01 * torch.randn(cfg.spatial_t,
-                                            generator=generator)}}
-    if with_o_enc:
-        rel["o_enc"] = encoder()
-    index = {"mlp": mlp((d + 2,) + tuple(cfg.index_mlp_hidden)
-                        + (n_clusters,))}
-    return rel, index
+    layout, drawn from ``generator`` on the CPU by the modules' own
+    initializers (``relevance.relevance_init``, ``index.index_init``)."""
+    rel = relevance_init(cfg, generator, with_o_enc=with_o_enc)
+    index = index_init(cfg.d_model, n_clusters, generator,
+                       hidden=cfg.index_mlp_hidden)
+    detach = lambda p: p.detach()  # noqa: E731
+    return relevance_to_tree(rel, detach), index_to_tree(index, detach)
 
 
 def _stack(trees):

@@ -1,7 +1,8 @@
 """LIST-I (reference: ``repro.core.index``): router features, the
-cluster classifier, routing, the precision tiers of the resident buffers,
-the placement of objects into padded cluster buffers, and the write half
-(``insert_objects`` / ``delete_objects``, paper §4.3).
+cluster classifier and its MCL loss (Eq. 14), routing, the precision
+tiers of the resident buffers, the placement of objects into padded
+cluster buffers, and the write half (``insert_objects`` /
+``delete_objects``, paper §4.3).
 
 Buffers: ``emb (c, cap, d)`` in the tier's storage dtype (f32, bf16 or
 int8), ``loc (c, cap, 2)`` f32, ``ids (c, cap)`` int32 with ``-1`` on
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import filters as filters_lib
+from repro_torch.models import layers
 from repro_torch.models.layers import MLP
 
 PRECISIONS = ("f32", "bf16", "int8")
@@ -37,9 +39,16 @@ class ClusterIndex(nn.Module):
         super().__init__()
         self.mlp = mlp
 
-    @torch.no_grad()
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         return self.mlp(feats)
+
+
+def index_init(d_emb: int, n_clusters: int, generator: torch.Generator, *,
+               hidden=(512, 512)) -> ClusterIndex:
+    """A fresh classifier ``(d_emb + 2, *hidden, n_clusters)`` at the
+    reference's scales (``repro.core.index.index_init``)."""
+    dims = (d_emb + 2,) + tuple(hidden) + (n_clusters,)
+    return ClusterIndex(layers.mlp_init(generator, dims))
 
 
 def loc_normalizer(locs: torch.Tensor) -> dict:
@@ -60,6 +69,39 @@ def build_features(emb: torch.Tensor, loc: torch.Tensor, norm: dict
 
 def cluster_logits(index: ClusterIndex, x: torch.Tensor) -> torch.Tensor:
     return index(x)
+
+
+def cluster_probs(index: ClusterIndex, x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the clusters, in float32."""
+    return torch.softmax(cluster_logits(index, x).float(), dim=-1)
+
+
+def mcl_loss(index: ClusterIndex, batch: dict, *,
+             balance_weight: float = 0.5):
+    """Eq. 14, meta-classification likelihood over pairwise pseudo-labels
+    (reference ``mcl_loss``): ŝ(q, o) = Prob_q · Prob_o, maximise log ŝ of
+    the positive and Σ log(1 − ŝ) of the ``m`` pseudo-negatives (eps
+    1e-6). ``balance_weight`` adds that weight times KL(mean assignment ‖
+    uniform) over the concatenated query, positive and negative
+    assignments (the reference's stabiliser, DESIGN.md §6). ``batch``:
+    ``q_feat (B, d+2)``, ``pos_feat (B, d+2)``, ``neg_feat (B, m, d+2)``.
+    Returns ``(loss, {"loss", "s_pos", "s_neg"})``, the metrics
+    detached."""
+    pq = cluster_probs(index, batch["q_feat"])
+    pp = cluster_probs(index, batch["pos_feat"])
+    pn = cluster_probs(index, batch["neg_feat"])
+    s_pos = torch.sum(pq * pp, dim=-1)
+    s_neg = torch.einsum("bc,bmc->bm", pq, pn)
+    eps = 1e-6
+    loss = -(torch.log(s_pos + eps).mean()
+             + torch.log(1.0 - s_neg + eps).sum(-1).mean())
+    if balance_weight:
+        c = pq.shape[-1]
+        mean_p = torch.cat([pq, pp, pn.reshape(-1, c)], dim=0).mean(0)
+        kl_unif = math.log(c) + torch.sum(mean_p * torch.log(mean_p + eps))
+        loss = loss + balance_weight * kl_unif
+    return loss, {"loss": loss.detach(), "s_pos": s_pos.mean().detach(),
+                  "s_neg": s_neg.mean().detach()}
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -139,8 +181,9 @@ def assign_clusters(index: ClusterIndex, feats: torch.Tensor, *,
                     top: int = 1) -> torch.Tensor:
     """The best cluster per object (``top`` = 1, an argmax: the lowest
     index wins a tie) or the best ``top``, best first. ``feats (N,
-    d+2)``."""
-    logits = cluster_logits(index, feats)
+    d+2)``. Builds no autograd graph."""
+    with torch.no_grad():
+        logits = cluster_logits(index, feats)
     if top == 1:
         return torch.argmax(logits, dim=-1)
     return topk_stable(logits, top)[1]

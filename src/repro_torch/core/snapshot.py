@@ -133,7 +133,9 @@ class IndexSnapshot:
                    spatial_mode: str = "step", weight_mode: str = "mlp",
                    version: int = 0, delta=None) -> "IndexSnapshot":
         """A fresh snapshot over in-memory parts (``buffers`` as returned
-        by ``index.build_cluster_buffers``)."""
+        by ``index.build_cluster_buffers``). ``rel`` and ``index`` are
+        frozen in place (``requires_grad_(False)``): a snapshot never
+        builds an autograd graph, whoever trained its parts."""
         missing = [k for k in _BUFFER_ARRAYS + _BUFFER_SCALARS
                    if k not in buffers]
         if missing:
@@ -149,8 +151,9 @@ class IndexSnapshot:
             precision=precision,
             delta_rows=0 if delta is None else delta.n_rows,
             n_tombstones=0 if delta is None else delta.n_tombstones)
-        return cls(cfg=cfg, rel=rel, index=index, norm=norm, buffers=buffers,
-                   meta=meta, delta=delta)
+        return cls(cfg=cfg, rel=rel.requires_grad_(False),
+                   index=index.requires_grad_(False), norm=norm,
+                   buffers=buffers, meta=meta, delta=delta)
 
     def with_buffers(self, buffers: dict) -> "IndexSnapshot":
         """The successor with new buffers (``index.insert_objects`` /
@@ -366,7 +369,8 @@ class IndexSnapshot:
             weight_mode=meta["weight_mode"], precision=precision,
             delta_rows=meta.get("delta_rows", 0),
             n_tombstones=meta.get("n_tombstones", 0), n_shards=1)
-        snap = cls(cfg=cfg, rel=rel, index=index, norm=dict(tree["norm"]),
+        snap = cls(cfg=cfg, rel=rel.requires_grad_(False),
+                   index=index.requires_grad_(False), norm=dict(tree["norm"]),
                    buffers=buffers, meta=sm, delta=delta)
         # the modules are this load's own: move them without a copy
         return snap._moved(device, copy_modules=False)

@@ -1,6 +1,6 @@
 """Synthetic geo-textual corpus + query-log generator with latent ground truth
 (the port's copy of ``repro.data.geotextual``: numpy only, the same arrays
-for the same seed; the training batches are not ported here).
+for the same seed, the training batches included).
 
 The paper's datasets (Beijing/Shanghai/Geo-Glue click logs) are proprietary;
 we generate a corpus with a *planted* relevance structure so every paper
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -162,6 +162,40 @@ class GeoCorpus:
         n_val = int(m * val_frac)
         return (perm[n_test + n_val:], perm[n_test:n_test + n_val],
                 perm[:n_test])
+
+    # --- contrastive training batches (Eq. 8) ------------------------------
+
+    def train_batch(self, step: int, batch: int, query_ids: np.ndarray,
+                    hard_negs: Optional[np.ndarray] = None, b_neg: int = 4):
+        """Stateless batch: seeded by step. hard_negs: (n_queries, H) pool of
+        TkQ-mined negatives per query (see core/pipeline.mine_tkq_negatives);
+        falls back to random negatives when absent."""
+        rng = np.random.default_rng(self.cfg.seed * 1_000_003 + step)
+        qi = query_ids[rng.integers(0, len(query_ids), size=batch)]
+        pos = np.array([self.positives[i][rng.integers(0, len(self.positives[i]))]
+                        for i in qi])
+        if hard_negs is not None:
+            hsel = hard_negs[qi]
+            neg = hsel[np.arange(batch)[:, None],
+                       rng.integers(0, hsel.shape[1], size=(batch, b_neg))]
+        else:
+            neg = rng.integers(0, self.cfg.n_objects, size=(batch, b_neg))
+        qt, qm = self.query_tokens(qi)
+        pt, pm = self.object_tokens(pos)
+        nt, nm = self.object_tokens(neg.reshape(-1))
+        L = self.cfg.max_len
+        return {
+            "q_tokens": qt, "q_mask": qm,
+            "q_loc": self.q_loc[qi].astype(np.float32),
+            "pos_tokens": pt, "pos_mask": pm,
+            "pos_loc": self.obj_loc[pos].astype(np.float32),
+            "neg_tokens": nt.reshape(batch, b_neg, L),
+            "neg_mask": nm.reshape(batch, b_neg, L),
+            "neg_loc": self.obj_loc[neg.reshape(-1)].reshape(
+                batch, b_neg, 2).astype(np.float32),
+            "dist_max": self.dist_max,
+            "query_ids": qi,
+        }
 
     def positives_mask(self, query_ids) -> np.ndarray:
         """(B, N) bool mask of ground-truth positives (Eq. 13 filter)."""

@@ -18,10 +18,34 @@ from repro.core import filters as ref_filters
 from repro.core import index as ref_index
 from repro.core import relevance as ref_relevance
 from repro.core.snapshot import IndexSnapshot as RefSnapshot
+from repro.data import geotextual as ref_geo
+from repro_torch.data import geotextual as port_geo
 
 DIST_MAX = 1.414
 N_OBJ = 160
 CAP = 64
+# the training tests' corpus (``tests/conftest.py``'s ``small_corpus``)
+TRAIN_CORPUS = dict(n_objects=600, n_queries=120, n_topics=8,
+                    vocab_size=2048, seed=0)
+
+
+def ref_on_cpu():
+    """Run the reference's jax on the CPU (on a machine where jax also
+    sees a GPU, its f32 products there default to TF32)."""
+    return jax.default_device(jax.devices("cpu")[0])
+
+
+def corpora(**kw):
+    """The same corpus from both packages' generators: ``(reference's,
+    port's)``, ``TRAIN_CORPUS`` updated by ``kw``."""
+    c = dict(TRAIN_CORPUS, **kw)
+    return (ref_geo.GeoCorpus(ref_geo.GeoCorpusConfig(**c)),
+            port_geo.GeoCorpus(port_geo.GeoCorpusConfig(**c)))
+
+
+def np_tree(tree):
+    """A pytree of jax arrays as numpy."""
+    return jax.tree_util.tree_map(np.asarray, tree)
 
 
 def tiny_cfg(**kw):
