@@ -112,10 +112,36 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    on the trained snapshot's own buffers; last, the relevance step split
    into forward / backward / optimizer by CUDA events.
 
+7. The serving stack at full width: phase 3's int8 index behind
+   ``Searcher.serve`` at the reference CLI's defaults (``SERVE_CFG``:
+   batch 64, 2 ms, k 10, cr 1, cache 8,192, delta threshold 1,024), the
+   launch counters zeroed before (a) and read after (f). (a) Warm-up on
+   ``cuda``, ``cuda-cm`` and ``auto``; ``serve_all`` of 4,096 queries
+   bit-equal to ``Searcher.query`` at batch 64. (b) ``closed_loop`` of
+   16,384 Zipf(1.05) requests over the 4,096 at concurrency 64 on each
+   backend, answers equal to (a)'s up to ties. (c) ``open_loop`` at 50%
+   and 90% of (b)'s ``cuda`` rate (nothing shed), and of the 4,096
+   distinct requests at 200% with max_queue 256 and a 50 ms deadline
+   (answered + shed == arrivals). (d) 32 rounds of churn with the WAL on
+   (fsync, a temporary directory): an insert of 64 rows (queries' own
+   normalised embeddings at their locations), a delete of 16 ids, 128
+   queries; two compactions on a loop tick; every acknowledged insert
+   found at cr = c on ``cuda-cm``, no deleted id back. (e) Phase 6's
+   trained snapshot saved once; two inserts and a delete acknowledged,
+   then a crash at ``write.pre_publish``, ``write.post_publish``,
+   ``wal.torn_tail`` and ``ckpt.mid_save`` (inside ``checkpoint``);
+   ``api.recover(..., device="cuda")`` answers at cr = c on ``cuda-cm``
+   bit-equal to a server that never crashed and applied the surviving
+   records. (f) 1,024 standing queries; 8 insert batches of 64 notify
+   the pairs a plain oracle on a CPU copy finds, scores within 1e-4.
+   Every flush must launch one base scan plus one routed delta scan
+   while the delta holds rows (``FlushProbe``); no breaker trips, no
+   poisoned request.
+
 Prints a JSON line of phase 3's numbers, one of the write path's
-(``write_path``), one of the build's (``build``), one of per-kernel
-numbers, then as its last line ``{"ok": true, "device": {...}}``. Any
-failed check exits non-zero.
+(``write_path``), one of the build's (``build``), one of the serving
+stack's (``serving``), one of per-kernel numbers, then as its last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
 
 ``--compare`` times, on trees that share its wrappers: the gather scan on
 its full-width copies, the two engine scans on one chunk at two route
@@ -2323,8 +2349,775 @@ def phase6(dev, skew_ctx):
     rec["step_split_ms"] = step_split(dev, snap, corpus)
     record(f"phase 6 relevance step split (CUDA events, median of "
            f"{SPLIT_STEPS}): {rec['step_split_ms']}")
-    del snap, r, tiers, own_ctx, q_emb, w
+    # the trained snapshot and its held-out queries: phase 7 (e)
+    rec["trained_snap"], rec["trained_q"] = snap, q
+    del r, tiers, own_ctx, q_emb, w
     torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the serving stack at full width
+# ---------------------------------------------------------------------------
+
+# ServerConfig at the reference CLI's defaults (src/repro/launch/
+# serve.py:115-163): batch 64, 2 ms, k 10, cr 1, cache 8,192, no near
+# tier, delta_threshold 1,024, spill 3; Zipf 1.05 traffic, concurrency 64
+SERVE_CFG = dict(batch_size=64, max_delay_ms=2.0, k=10, cr=1,
+                 cache_size=8192, near_cells=0, delta_threshold=1024,
+                 spill=3)
+SERVE_BACKENDS = ("cuda", "cuda-cm", "auto")
+N_PARITY = 4096                  # serve_all against Searcher.query
+N_ZIPF = 16_384                  # requests of the closed and open loops
+ZIPF_A = 1.05
+CONCURRENCY = 64
+OPEN_RATES = (0.5, 0.9)          # of (b)'s cuda rate: nothing may be shed
+OVERLOAD = dict(rate=2.0, max_queue=256, request_timeout_ms=50.0)
+CHURN_ROUNDS = 32                # each: insert 64 rows, delete 16, 128 queries
+CHURN_INSERT, CHURN_DELETE, CHURN_QUERIES = 64, 16, 128
+CHURN_ID0 = 10_000_000           # ids of the inserted rows
+CRASH_POINTS = ("write.pre_publish", "write.post_publish", "wal.torn_tail",
+                "ckpt.mid_save")
+N_SUBS = 1024                    # standing queries on the int8 server
+SUB_BATCHES = 8                  # insert batches of 64 dispatched to them
+SUB_ID0 = 20_000_000
+SUB_TOL = 1e-4                   # card against the CPU oracle
+
+
+class FlushProbe:
+    """Wraps a server's ``engine.query`` (its flushes) for the phase's
+    records and launch rule: per flush, the wall time (the call ends in
+    the host copy of its results), whether it is the first flush on a new
+    snapshot version (right after a write), and the scan launches it
+    made — one base scan of the backend's kernel, plus one routed delta
+    scan while the delta holds rows. A flush breaking the rule is kept in
+    ``bad`` (raising inside the engine call would reach the server's
+    retry path instead)."""
+
+    def __init__(self, server, backend):
+        from repro_torch.kernels import fused_topk_score as fts
+        self.counts = fts.launches
+        self.eng, self.backend = server.engine, backend
+        self.orig = self.eng.query
+        self.steady_ms, self.after_write_ms, self.bad = [], [], []
+        self.launches = {"routed": 0, "cluster_major": 0}
+        self.flushes = self.delta_flushes = self.cm_picks = 0
+        self.dedup = []
+        self._version = None
+        self.eng.query = self._query
+
+    def _query(self, *a, snapshot=None, **kw):
+        snap = self.eng.snapshot if snapshot is None else snapshot
+        live = int(snap.delta is not None and snap.delta.n_rows > 0)
+        before = dict(self.counts)
+        t0 = time.perf_counter()
+        out = self.orig(*a, snapshot=snapshot, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        d = {k: self.counts[k] - before[k] for k in self.launches}
+        want_cm = {"cuda": (0,), "cuda-cm": (1,)}.get(self.backend, (0, 1))
+        if d["cluster_major"] not in want_cm or \
+                d["routed"] + d["cluster_major"] != 1 + live:
+            self.bad.append(dict(launches=d, delta_live=live))
+        for k in d:
+            self.launches[k] += d[k]
+        self.flushes += 1
+        self.delta_flushes += live
+        self.cm_picks += d["cluster_major"]
+        if self.eng.last_dedup_factor is not None:
+            self.dedup.append(self.eng.last_dedup_factor)
+        fresh = self._version is not None and \
+            snap.meta.version != self._version
+        (self.after_write_ms if fresh else self.steady_ms).append(ms)
+        self._version = snap.meta.version
+        return out
+
+    def restore(self):
+        self.eng.query = self.orig
+
+    def report(self):
+        if self.bad:
+            raise AssertionError(f"phase 7 {self.backend}: flushes that went "
+                                 f"around a scan kernel: {self.bad[:4]}")
+        return dict(engine_calls=self.flushes,
+                    delta_flushes=self.delta_flushes,
+                    launches=dict(self.launches), cm_picks=self.cm_picks,
+                    flush_ms_median=median(self.steady_ms or [0.0]),
+                    flush_ms_p99=pct(self.steady_ms, 99),
+                    after_write_flush_ms_median=(
+                        median(self.after_write_ms)
+                        if self.after_write_ms else None),
+                    dedup_mean=(sum(self.dedup) / len(self.dedup)
+                                if self.dedup else None))
+
+
+def pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
+
+
+def p7_server(snap, backend, dev, **over):
+    """A streaming server at ``SERVE_CFG`` on ``backend`` over ``snap``,
+    through ``Searcher.serve``."""
+    from repro_torch import api
+    from repro_torch.core.server import ServerConfig
+    cfg = ServerConfig(**dict(SERVE_CFG, backend=backend, **over))
+    return api.Searcher(snap, backend=backend, device=dev).serve(cfg)
+
+
+def p7_check_server(srv, where):
+    """The breaker never opens on the card: no fallback exists, no trip,
+    no fallback flush, no poisoned request."""
+    s = srv.stats
+    if srv._fallback_backend() is not None or s.breaker_trips or \
+            s.breaker_fallback_flushes or s.poisoned_requests:
+        raise AssertionError(
+            f"phase 7 {where}: fallback {srv._fallback_backend()}, breaker "
+            f"trips {s.breaker_trips}, fallback flushes "
+            f"{s.breaker_fallback_flushes}, poisoned {s.poisoned_requests}")
+
+
+def p7_flush_split(dev, snap, q):
+    """Where a 64-row flush goes, on the first 64 requests: the prefix
+    (encode, weights, route) and each backend's scan path (plan and fold
+    included) by CUDA events, the extra encoder pass of ``auto``'s pick
+    (``QueryEngine.route`` from host arrays), and the whole
+    ``engine.query`` wall (host copies in and out included), median of
+    5 after a warm-up."""
+    import torch
+    from repro_torch.core import engine as engine_lib
+    bs, k, cr = SERVE_CFG["batch_size"], SERVE_CFG["k"], SERVE_CFG["cr"]
+    host = [a[:bs] for a in q]
+    chunk = [torch.from_numpy(a).to(dev) for a in host]
+    prefix = engine_lib.make_prefix_fn(cr=cr,
+                                       weight_mode=snap.meta.weight_mode)
+    rec = dict(prefix_ms=time_ms(lambda: prefix(snap.rel, snap.index,
+                                                snap.norm, *chunk)))
+    q_emb, w, top_c = prefix(snap.rel, snap.index, snap.norm, *chunk)
+    for b in ("cuda", "cuda-cm"):
+        rec[f"scan_{b}_ms"] = time_ms(lambda b=b: engine_lib._routed_topk(
+            q_emb, chunk[2], w, top_c, snap.buffers, snap.w_hat, k=k,
+            backend=b, dist_max=snap.dist_max,
+            precision=snap.meta.precision))
+    eng = engine_lib.QueryEngine(snap, backend="auto", device=dev)
+    rec["auto_route_ms"] = time_ms(lambda: eng.route(*host, cr=cr))
+    for b in SERVE_BACKENDS:
+        walls = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            eng.query(*host, k=k, cr=cr, batch=bs, backend=b)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        rec[f"query_{b}_ms"] = median(walls[1:])
+    return rec
+
+
+def device_busy(fn):
+    """``fn`` run twice: alone for its wall, then under
+    ``torch.profiler`` for the time the card spends in its kernels and
+    copies (the union of the device events' intervals: no event is
+    counted twice). → busy share = device time / unprofiled wall, and
+    the device events taking the most time. A profiler that records no
+    device event gives ``None`` (not measured)."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    busy_us, end = 0.0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            busy_us += hi - lo
+            end = hi
+        elif hi > end:
+            busy_us += hi - end
+            end = hi
+    device_ms = busy_us / 1e3 if spans else None
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms if device_ms else None,
+                device_events=len(spans),
+                top_device_ms=dict(by_name.most_common(6)))
+
+
+def p7_parity(dev, snap, q, servers):
+    """(a) Warm-up on each backend, then ``serve_all`` of ``N_PARITY``
+    queries bit-equal to ``Searcher.query`` at batch 64 (on ``auto``, one
+    call per 64-row chunk: ``auto`` picks per call as the server picks per
+    flush). Returns the records and the offline answers."""
+    import numpy as np
+    from repro_torch import api
+    tok, msk, loc = (a[:N_PARITY] for a in q)
+    bs, k, cr = SERVE_CFG["batch_size"], SERVE_CFG["k"], SERVE_CFG["cr"]
+    rec, offline = {}, {}
+    for b in SERVE_BACKENDS:
+        srv = p7_server(snap, b, dev)
+        servers.append(srv)
+        compile_s = srv.warmup()
+        probe = FlushProbe(srv, b)
+        t0 = time.perf_counter()
+        got = srv.serve_all(tok, msk, loc)
+        t_serve = time.perf_counter() - t0
+        probe.restore()
+        searcher = api.Searcher(snap, backend=b, device=dev)
+        t0 = time.perf_counter()
+        if b == "auto":
+            parts = [searcher.query(tok[s:s + bs], msk[s:s + bs],
+                                    loc[s:s + bs], k=k, cr=cr, batch=bs)
+                     for s in range(0, len(tok), bs)]
+            want = tuple(np.concatenate([p[i] for p in parts])
+                         for i in (0, 1))
+        else:
+            want = searcher.query(tok, msk, loc, k=k, cr=cr, batch=bs)
+        t_off = time.perf_counter() - t0
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"phase 7 (a) {b}: serve_all differs from "
+                                 f"Searcher.query at batch {bs}")
+        if got[0].shape != (len(tok), k) or not np.isfinite(got[1]).all():
+            raise AssertionError(f"phase 7 (a) {b}: bad output")
+        offline[b] = want
+        rec[b] = dict(compile_seconds=compile_s, serve_all_s=t_serve,
+                      serve_all_qps=len(tok) / t_serve, offline_s=t_off,
+                      offline_qps=len(tok) / t_off,
+                      flushes=dict(srv.stats.flushes), **probe.report())
+        p7_check_server(srv, f"(a) {b}")
+        record(f"phase 7 (a) {b}: warm-up {compile_s}; serve_all of {len(tok)} "
+            f"queries in {t_serve:.2f} s ({len(tok) / t_serve:.0f} q/s) == "
+            f"Searcher.query at batch {bs} bit for bit ({t_off:.2f} s); "
+            f"flush median {rec[b]['flush_ms_median']:.2f} ms, launches "
+            f"{rec[b]['launches']}")
+    return rec, offline
+
+
+def p7_closed(dev, snap, q, zipf, offline, servers):
+    """(b) ``closed_loop`` of the Zipf stream at concurrency 64 on each
+    backend, a fresh server each; every answer against the offline answer
+    of its row (ids up to ties, scores within ATOL + RTOL·|s|)."""
+    import asyncio
+    import numpy as np
+    from repro_torch.core import server as server_lib
+    reqs = [(q[0][i], q[1][i], q[2][i]) for i in zipf]
+    rec = {}
+    for b in SERVE_BACKENDS:
+        srv = p7_server(snap, b, dev)
+        servers.append(srv)
+        srv.warmup()
+        probe = FlushProbe(srv, b)
+        t0 = time.perf_counter()
+        res = asyncio.run(server_lib.closed_loop(srv, reqs,
+                                                 concurrency=CONCURRENCY))
+        wall = time.perf_counter() - t0
+        probe.restore()
+        ids = np.stack([r[0] for r in res])
+        sc = np.stack([r[1] for r in res])
+        err = topk_match(ids, sc, offline[b][0][zipf], offline[b][1][zipf])
+        m = srv.metrics(wall)
+        rec[b] = dict(qps=m["qps"], latency_ms=m["latency_ms"],
+                      exact_hit_rate=m["exact_hit_rate"],
+                      coalesced=m["coalesced"], batch_fill=m["batch_fill"],
+                      flushes=m["flushes"],
+                      engine_batches=m["engine_batches"],
+                      engine_queries=m["engine_queries"],
+                      dedup_factor=m["dedup_factor"], max_abs_err=err,
+                      wall_s=wall, **probe.report())
+        p7_check_server(srv, f"(b) {b}")
+        record(f"phase 7 (b) {b}: {len(reqs)} Zipf requests at concurrency "
+            f"{CONCURRENCY} in {wall:.2f} s ({m['qps']:.0f} q/s); latency "
+            f"{m['latency_ms']}; exact hits {m['exact_hit_rate']:.3f}, "
+            f"coalesced {m['coalesced']}, fill {m['batch_fill']:.3f}, "
+            f"flushes {m['flushes']}, dedup mean {rec[b]['dedup_mean']}; "
+            f"answers == offline up to ties (max|Δ| {err:.3g})")
+    return rec
+
+
+def p7_open(dev, snap, q, zipf, rate, servers):
+    """(c) ``open_loop`` of the Zipf stream on ``cuda`` at ``OPEN_RATES``
+    of (b)'s rate (nothing shed), then of the ``N_PARITY`` distinct
+    requests at twice it with a bounded queue and a deadline
+    (``shed_ok``): answered + shed == arrivals. The overload stream has
+    no repeats: a request coalesced onto one that is then shed fails with
+    it but is not counted in ``stats.shed`` (the reference's accounting),
+    so only distinct requests make the server's counters add up."""
+    import asyncio
+    from repro_torch.core import server as server_lib
+    zipf_reqs = [(q[0][i], q[1][i], q[2][i]) for i in zipf]
+    uniq_reqs = [(q[0][i], q[1][i], q[2][i]) for i in range(N_PARITY)]
+    rec = {}
+    runs = [(f, zipf_reqs, {}) for f in OPEN_RATES] + [
+        (OVERLOAD["rate"], uniq_reqs,
+         dict(max_queue=OVERLOAD["max_queue"],
+              request_timeout_ms=OVERLOAD["request_timeout_ms"]))]
+    for frac, reqs, over in runs:
+        srv = p7_server(snap, "cuda", dev, **over)
+        servers.append(srv)
+        srv.warmup()
+        probe = FlushProbe(srv, "cuda")
+        t0 = time.perf_counter()
+        res = asyncio.run(server_lib.open_loop(srv, reqs, qps=frac * rate,
+                                               shed_ok=bool(over)))
+        wall = time.perf_counter() - t0
+        probe.restore()
+        answered = sum(r is not None for r in res)
+        shed = dict(srv.stats.shed)
+        if not over and (sum(shed.values()) or answered != len(reqs)):
+            raise AssertionError(f"phase 7 (c) at {frac} x: shed {shed}")
+        if answered + sum(shed.values()) != len(reqs):
+            raise AssertionError(f"phase 7 (c) at {frac} x: answered "
+                                 f"{answered} + shed {shed} != {len(reqs)}")
+        m = srv.metrics(wall)
+        key = f"{frac:g}x"
+        rec[key] = dict(offered_qps=frac * rate, arrivals=len(reqs),
+                        stream="distinct" if over else "zipf",
+                        achieved_qps=answered / wall, answered=answered,
+                        shed=shed, latency_ms=m["latency_ms"],
+                        batch_fill=m["batch_fill"], flushes=m["flushes"],
+                        exact_hit_rate=m["exact_hit_rate"],
+                        coalesced=m["coalesced"], **over, **probe.report())
+        p7_check_server(srv, f"(c) {key}")
+        record(f"phase 7 (c) open loop at {key} of (b)'s cuda rate "
+               f"({frac * rate:.0f} q/s offered, {len(reqs)} "
+               f"{rec[key]['stream']} requests"
+               f"{', ' + str(over) if over else ''}): answered {answered}, "
+               f"shed {shed}, latency {m['latency_ms']}, fill "
+               f"{m['batch_fill']:.3f}, flushes {m['flushes']}")
+    return rec
+
+
+def q_embeddings(snap, q, n, dev):
+    """The prefix's ``q_emb`` of the first ``n`` requests (chunks of 256)
+    as host f32, normalised: phase 5's rows."""
+    import torch
+    from repro_torch.core import engine as engine_lib
+    prefix = engine_lib.make_prefix_fn(cr=1, weight_mode=snap.meta.weight_mode)
+    out = []
+    for s in range(0, n, 256):
+        chunk = [torch.from_numpy(a[s:min(s + 256, n)]).to(dev) for a in q]
+        out.append(prefix(snap.rel, snap.index, snap.norm, *chunk)[0])
+    return torch.nn.functional.normalize(torch.cat(out).float(),
+                                         dim=-1).cpu().numpy()
+
+
+def own_rows_found(snap, q, rows, ids, dev):
+    """Each query of ``rows`` finds its inserted row ``ids`` at cr = c on
+    ``cuda-cm``. Returns the answers."""
+    import numpy as np
+    got = api_query(snap, q, rows, dev)
+    found = (got[0] == np.asarray(ids)[:, None]).any(axis=1)
+    if not found.all():
+        raise AssertionError(f"{int((~found).sum())} acknowledged inserts "
+                             f"not found at cr = c")
+    return got
+
+
+def p7_churn(dev, snap, q, offline, servers):
+    """(d) Churn with the WAL on (fsync, a temporary directory): rounds
+    of an insert of 64 rows (queries' own normalised embeddings at their
+    locations), a delete of 16 ids (12 base ids from offline answers, 4
+    rows inserted the round before) and 128 queries, in one event loop,
+    so compaction runs on a loop tick."""
+    import asyncio
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import delta as delta_lib
+    n_rows = CHURN_ROUNDS * CHURN_INSERT
+    emb = q_embeddings(snap, q, n_rows, dev)
+    ids = np.arange(CHURN_ID0, CHURN_ID0 + n_rows)
+    # base victims: answers of queries past the inserted rows' ones
+    pool = offline["cuda"][0][n_rows:].reshape(-1)
+    pool = pool[pool >= 0]
+    _, first = np.unique(pool, return_index=True)
+    base_victims = pool[np.sort(first)][:CHURN_ROUNDS * 12]
+    rng = np.random.default_rng(SEED + 21)
+    wal_dir = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+    try:
+        srv = p7_server(snap, "auto", dev, wal_dir=wal_dir, wal_fsync=True)
+        servers.append(srv)
+        srv.warmup()
+        compact_ms = []
+        orig_compact = srv._compact
+
+        def timed_compact(trigger):
+            t0 = time.perf_counter()
+            orig_compact(trigger)
+            compact_ms.append((time.perf_counter() - t0) * 1e3)
+
+        srv._compact = timed_compact
+        probe = FlushProbe(srv, "auto")
+        ack = {"insert": [], "delete": []}
+        deleted = []
+
+        async def churn():
+            for r in range(CHURN_ROUNDS):
+                sl = slice(r * CHURN_INSERT, (r + 1) * CHURN_INSERT)
+                t0 = time.perf_counter()
+                srv.insert_objects(emb[sl], q[2][sl], ids[sl])
+                ack["insert"].append((time.perf_counter() - t0) * 1e3)
+                dels = list(base_victims[r * 12:(r + 1) * 12])
+                if r:
+                    dels += list(ids[sl.start - CHURN_INSERT:
+                                     sl.start - CHURN_INSERT + 4])
+                t0 = time.perf_counter()
+                srv.delete_objects(np.asarray(dels))
+                ack["delete"].append((time.perf_counter() - t0) * 1e3)
+                deleted.extend(int(x) for x in dels)
+                rows = rng.integers(0, N_PARITY, CHURN_QUERIES)
+                await asyncio.gather(*[srv.submit(q[0][i], q[1][i], q[2][i])
+                                       for i in rows])
+            await asyncio.sleep(0)            # a compaction queued last
+
+        t0 = time.perf_counter()
+        asyncio.run(churn())
+        wall = time.perf_counter() - t0
+        probe.restore()
+        srv._compact = orig_compact
+        m = srv.metrics(wall)
+        if m["compaction_triggers"]["size"] < 2:
+            raise AssertionError(f"phase 7 (d): {m['compactions']} "
+                                 f"compactions, want >= 2 on a loop tick")
+        if srv.wal.n_records != 2 * CHURN_ROUNDS:
+            raise AssertionError(f"phase 7 (d): {srv.wal.n_records} WAL "
+                                 f"records")
+        final = srv.engine.snapshot
+        dead = set(deleted)
+        alive = np.array([j for j in range(n_rows)
+                          if int(ids[j]) not in dead])
+        got = own_rows_found(final, q, alive, ids[alive], dev)
+        # the victims' own source queries too: no deleted id comes back
+        src = np.arange(n_rows, N_PARITY)
+        got2 = api_query(final, q, src, dev)
+        for a in (got[0], got2[0]):
+            if np.isin(a, np.asarray(deleted)).any():
+                raise AssertionError("phase 7 (d): a deleted id came back")
+        # what a live delta costs a flush: the final snapshot's base with
+        # a delta of churn's mid size (512 rows, 64 tombstones) and
+        # without one, one 64-row chunk, engine walls in turns
+        eng = srv.engine
+        bare = dataclasses.replace(final, delta=None)
+        seg = delta_lib.DeltaSegment.empty(
+            int(final.buffers["emb"].shape[-1]), final.meta.precision)
+        m_d = min(512, n_rows)
+        seg = seg.insert(emb[:m_d], q[2][:m_d],
+                         np.arange(CHURN_ID0 + n_rows,
+                                   CHURN_ID0 + n_rows + m_d))
+        final = bare.with_delta(seg.delete(base_victims[:64]))
+        chunk = [a[:SERVE_CFG["batch_size"]] for a in q]
+        walls = {"delta": [], "bare": []}
+        for _ in range(6):
+            for key, s_ in (("delta", final), ("bare", bare)):
+                t0 = time.perf_counter()
+                eng.query(*chunk, k=SERVE_CFG["k"], cr=SERVE_CFG["cr"],
+                          batch=SERVE_CFG["batch_size"], snapshot=s_)
+                walls[key].append((time.perf_counter() - t0) * 1e3)
+        delta_cost = {f"{key}_flush_ms": median(v[1:])
+                      for key, v in walls.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        delta_lib.mask_tombstones(final.buffers["ids"],
+                                  final.delta.tombstone_array())
+        torch.cuda.synchronize()
+        delta_cost["mask_build_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        delta_lib.padded_rows(final.delta.arrays(), dev)
+        torch.cuda.synchronize()
+        delta_cost["delta_rows_build_ms"] = (time.perf_counter() - t0) * 1e3
+        rec = dict(rounds=CHURN_ROUNDS, wall_s=wall, qps=m["qps"],
+                   delta_cost=delta_cost,
+                   latency_ms=m["latency_ms"],
+                   insert_ack_ms={"p50": pct(ack["insert"], 50),
+                                  "p99": pct(ack["insert"], 99)},
+                   delete_ack_ms={"p50": pct(ack["delete"], 50),
+                                  "p99": pct(ack["delete"], 99)},
+                   compactions=m["compactions"],
+                   compaction_triggers=m["compaction_triggers"],
+                   compaction_ms=compact_ms, wal=m["wal"],
+                   invalidations=m["invalidations"],
+                   checked_inserts=len(alive), deleted=len(deleted),
+                   delta_rows_end=m["delta_rows"],
+                   tombstones_end=m["tombstones"], **probe.report())
+        p7_check_server(srv, "(d)")
+        srv.close()
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    record(f"phase 7 (d) churn: {CHURN_ROUNDS} rounds (insert {CHURN_INSERT}, "
+        f"delete {CHURN_DELETE}, {CHURN_QUERIES} queries) with the WAL on "
+        f"(fsync) in {wall:.2f} s; insert ack {rec['insert_ack_ms']} ms, "
+        f"delete ack {rec['delete_ack_ms']} ms; compactions "
+        f"{rec['compactions']} on a loop tick ({compact_ms} ms); query "
+        f"latency {m['latency_ms']}; flush after a write "
+        f"{rec['after_write_flush_ms_median']} ms vs steady "
+        f"{rec['flush_ms_median']:.2f}; a live delta's cost "
+        f"{rec['delta_cost']}; {len(alive)} acknowledged inserts "
+        f"found at cr = c on cuda-cm, no deleted id back")
+    return rec
+
+
+def api_query(snap, q, rows, dev):
+    """The answers of ``q``'s ``rows`` at cr = c on ``cuda-cm``."""
+    from repro_torch import api
+    c = snap.buffers["emb"].shape[0]
+    return api.Searcher(snap, backend="cuda-cm", device=dev).query(
+        *(a[rows] for a in q), k=SERVE_CFG["k"], cr=c, batch=256)
+
+
+def p7_crash(dev, trained, tq, servers):
+    """(e) Crash and recovery on phase 6's trained snapshot, saved once:
+    two inserts and a delete acknowledged, then a crash at each of
+    ``CRASH_POINTS``; ``api.recover(..., device=dev)`` must answer as a
+    server that never crashed and applied the surviving records: at cr =
+    c on ``cuda-cm``, ids equal and scores bit-equal."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import faults
+    from repro_torch.core import snapshot as snapshot_lib
+    from repro_torch.core.server import ServerConfig
+    n = len(tq[0])
+    emb = q_embeddings(trained, tq, 3 * 64, dev)
+    ids = np.arange(CHURN_ID0, CHURN_ID0 + 3 * 64)
+    base = trained.buffers["ids"][trained.buffers["ids"] >= 0][:8]
+    base = base.cpu().numpy()
+    snap_dir = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        api.save(trained, snap_dir)
+        rec["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snapshot_lib.load_latest_good(snap_dir, device=dev)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0     # recovery's first part
+        for point in CRASH_POINTS:
+            wal_dir = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+            try:
+                cfg = ServerConfig(**dict(SERVE_CFG, backend="auto",
+                                          wal_dir=wal_dir))
+                victim = api.Searcher(trained, device=dev).serve(cfg)
+                for j in (0, 1):
+                    sl = slice(j * 64, (j + 1) * 64)
+                    victim.insert_objects(emb[sl], tq[2][sl], ids[sl])
+                victim.delete_objects(np.concatenate([base, ids[:8]]))
+                faults.clear()
+                if point == "wal.torn_tail":
+                    faults.inject(point, callback=lambda nbytes, path:
+                                  nbytes // 3)
+                else:
+                    faults.inject(point, error=faults.Crash("died"))
+                try:
+                    if point == "ckpt.mid_save":
+                        victim.checkpoint(snap_dir)
+                    else:
+                        victim.insert_objects(emb[128:], tq[2][128:192],
+                                              ids[128:])
+                    raise AssertionError(f"phase 7 (e): {point} did not fire")
+                except faults.Crash:
+                    pass
+                finally:
+                    faults.clear()
+                victim.close()
+                t0 = time.perf_counter()
+                got = api.recover(snap_dir, wal_dir, config=cfg,
+                                  backend="auto", device=dev)
+                t_rec = time.perf_counter() - t0
+                servers.append(got)
+                want_n = 4 if point.startswith("write.") else 3
+                if got.stats.recovered_writes != want_n:
+                    raise AssertionError(
+                        f"phase 7 (e) {point}: replayed "
+                        f"{got.stats.recovered_writes}, want {want_n}")
+                oracle = api.Searcher(trained, device=dev).serve(
+                    ServerConfig(**dict(SERVE_CFG, backend="auto")))
+                for r in got.wal.records():
+                    if r["kind"] == "insert":
+                        oracle.insert_objects(r["emb"], r["loc"], r["ids"])
+                    else:
+                        oracle.delete_objects(r["ids"])
+                rows = np.arange(n)
+                a = api_query(got.engine.snapshot, tq, rows, dev)
+                b = api_query(oracle.engine.snapshot, tq, rows, dev)
+                if not (np.array_equal(a[0], b[0])
+                        and np.array_equal(a[1], b[1])):
+                    raise AssertionError(f"phase 7 (e) {point}: recovered "
+                                         f"answers differ from the oracle's")
+                acked = np.arange(8, 128)        # inserted, not deleted
+                own_rows_found(got.engine.snapshot, tq, acked, ids[acked],
+                               dev)
+                rec[point] = dict(recover_s=t_rec,
+                                  recovered_writes=want_n,
+                                  dropped_tail=got.wal.dropped_tail)
+                got.close()
+                del oracle, victim
+            finally:
+                shutil.rmtree(wal_dir, ignore_errors=True)
+            record(f"phase 7 (e) crash at {point}: api.recover (load + replay "
+                   f"of {rec[point]['recovered_writes']} records) "
+                   f"{t_rec:.2f} s; answers at cr = c on cuda-cm bit-equal "
+                   f"to the never-crashed server's")
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    return rec
+
+
+def p7_subs(dev, snap, q, servers):
+    """(f) ``N_SUBS`` standing queries on the int8 server, then
+    ``SUB_BATCHES`` insert batches of 64 rows (the subscribers' own
+    normalised embeddings at their locations): each batch notifies the
+    pairs a plain oracle on a CPU copy finds (argmax assignment ∈ routes,
+    ST ≥ threshold on the int8 row), scores within ``SUB_TOL``; a pair
+    may differ only as a tie (its score or the assignment's logit gap
+    within ``SUB_TOL``)."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import index as index_lib
+    srv = p7_server(snap, "auto", dev)
+    servers.append(srv)
+    thr = np.where(np.arange(N_SUBS) % 2 == 0, -1e9, 0.0).astype(np.float32)
+    t0 = time.perf_counter()
+    subs = [srv.subscribe(q[0][i], q[1][i], q[2][i], threshold=float(thr[i]))
+            for i in range(N_SUBS)]
+    t_reg = time.perf_counter() - t0
+    reg = srv.subscriptions
+    disp_ms = []
+    orig_dispatch = reg.dispatch
+
+    def timed_dispatch(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig_dispatch(*a, **kw)
+        disp_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    reg.dispatch = timed_dispatch
+    # the CPU copy of what the oracle needs
+    index_cpu = copy.deepcopy(snap.index).cpu()
+    norm_cpu = {k: v.cpu() for k, v in snap.norm.items()}
+    w_hat = snap.w_hat.cpu()
+    qe = torch.from_numpy(np.stack([s.q_emb for s in subs]))
+    ws = torch.from_numpy(np.stack([s.w_st for s in subs]))
+    ql = torch.from_numpy(np.stack([s.loc for s in subs]))
+    routes = np.stack([s.routes for s in subs])            # (S, cr)
+    emb = q_embeddings(snap, q, N_SUBS, dev)
+    rec = dict(pairs=0, ties=0, max_abs_err=0.0)
+    for bi in range(SUB_BATCHES):
+        rows = np.arange(bi * 64, (bi + 1) * 64) % N_SUBS
+        ids = np.arange(SUB_ID0 + bi * 64, SUB_ID0 + (bi + 1) * 64)
+        srv.insert_objects(emb[rows], q[2][rows], ids)
+        got = {(n.sub_id, n.object_id): n.score
+               for s in subs for n in s.drain()}
+        e, l_ = torch.from_numpy(emb[rows]), torch.from_numpy(q[2][rows])
+        with torch.no_grad():
+            logits = index_lib.cluster_logits(
+                index_cpu, index_lib.build_features(e, l_, norm_cpu))
+        top2 = torch.topk(logits, 2).values
+        gap = (top2[:, 0] - top2[:, 1]).numpy()
+        assign = torch.argmax(logits, dim=-1).numpy()
+        stored, scale = index_lib.quantize_rows(e, "int8")
+        st = engine_lib.score_candidates(
+            qe, ql, ws, stored, l_, torch.from_numpy(ids)[None], w_hat,
+            dist_max=snap.dist_max, cand_scale=scale).numpy()   # (S, 64)
+        hit = (routes[:, None, :] == assign[None, :, None]).any(-1) & \
+            (st >= thr[:, None])
+        want = {(int(s), int(ids[j])): float(st[s, j])
+                for s, j in zip(*np.nonzero(hit))}
+        for key in set(got) ^ set(want):
+            s, j = key[0], int(key[1] - ids[0])
+            if not (abs(st[s, j] - thr[s]) <= SUB_TOL or gap[j] <= SUB_TOL):
+                raise AssertionError(f"phase 7 (f) batch {bi}: pair {key} "
+                                     f"(score {st[s, j]}) differs from the "
+                                     f"CPU oracle")
+            rec["ties"] += 1
+        for key in set(got) & set(want):
+            err = abs(got[key] - want[key])
+            if err > SUB_TOL:
+                raise AssertionError(f"phase 7 (f): pair {key} score "
+                                     f"{got[key]} vs {want[key]}")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["pairs"] += len(want)
+    reg.dispatch = orig_dispatch
+    m = reg.metrics()
+    rec.update(subscriptions=N_SUBS, register_s=t_reg,
+               dispatch_ms={"median": median(disp_ms), "max": max(disp_ms)},
+               notifications_per_dispatch=m["notifications"] / SUB_BATCHES,
+               us_per_notification=sum(disp_ms) * 1e3 / max(
+                   m["notifications"], 1),
+               distinct_clusters_per_dispatch=m[
+                   "distinct_clusters_per_dispatch"],
+               notifications=m["notifications"], dispatches=m["dispatches"])
+    p7_check_server(srv, "(f)")
+    record(f"phase 7 (f) {N_SUBS} standing queries (registered in {t_reg:.2f} "
+        f"s): {SUB_BATCHES} insert batches of 64, {m['notifications']} "
+        f"notifications == the CPU oracle's {rec['pairs']} pairs "
+        f"({rec['ties']} ties at the threshold), max|Δ| "
+        f"{rec['max_abs_err']:.3g}; dispatch {rec['dispatch_ms']} ms, "
+        f"{m['distinct_clusters_per_dispatch']:.1f} distinct clusters a "
+        f"dispatch")
+    return rec
+
+
+def phase7(dev, wctx, trained, tq):
+    """The serving stack at full width: phase 3's int8 index (2,849,754
+    objects, c = 300) behind ``Searcher.serve`` at the reference CLI's
+    defaults, (a)–(f); the launch counters zeroed just before (a) and read
+    just after (f)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import server as server_lib
+    from repro_torch.kernels import fused_topk_score as fts
+    snap = wctx["snaps"]["int8"]
+    q = (wctx["tok"], wctx["msk"], wctx["q_loc"])
+    zipf = server_lib.zipf_sample(np.random.default_rng(SEED + 20), N_PARITY,
+                                  N_ZIPF, a=ZIPF_A)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    servers = []
+    fts.reset_launch_counts()
+    rec = {}
+    rec["parity"], offline = p7_parity(dev, snap, q, servers)
+    rec["closed_loop"] = p7_closed(dev, snap, q, zipf, offline, servers)
+    rec["open_loop"] = p7_open(dev, snap, q, zipf,
+                               rec["closed_loop"]["cuda"]["qps"], servers)
+    rec["churn"] = p7_churn(dev, snap, q, offline, servers)
+    rec["crash"] = p7_crash(dev, trained, tq, servers)
+    rec["subscriptions"] = p7_subs(dev, snap, q, servers)
+    rec["launches"] = dict(fts.launches)
+    for name in ("routed", "cluster_major"):
+        if not rec["launches"][name]:
+            raise AssertionError(f"phase 7: kernel {name} not launched")
+    # timings after the counts are read: where a flush goes, and how busy
+    # the card is while a server flushes back to back
+    rec["flush_split"] = p7_flush_split(dev, snap, q)
+    record(f"phase 7 a 64-row flush, split (ms): {rec['flush_split']}")
+    rec["device_busy"] = {}
+    for b in ("cuda", "auto"):
+        srv = p7_server(snap, b, dev, cache_size=0)
+        servers.append(srv)
+        srv.warmup()
+        rec["device_busy"][b] = device_busy(lambda srv=srv: srv.serve_all(
+            *(a[:1024] for a in q)))
+        record(f"phase 7 device busy over serve_all of 1,024 distinct "
+               f"requests on {b}: {rec['device_busy'][b]}")
+    probes = [r for part in ("parity", "closed_loop", "open_loop")
+              for r in rec[part].values()] + [rec["churn"]]
+    rec["flush_launches"] = {k: sum(p["launches"][k] for p in probes)
+                             for k in ("routed", "cluster_major")}
+    rec["breaker_trips"] = sum(s.stats.breaker_trips for s in servers)
+    rec["servers"] = len(servers)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return rec
 
 
@@ -2493,7 +3286,8 @@ def main() -> int:
     log(f"phase 4 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p4['peak_gb']:.1f} GB")
     t0 = time.perf_counter()
-    p5 = phase5(dev, p3.pop("write_ctx"), p3["walls_ms"])
+    wctx = p3.pop("write_ctx")
+    p5 = phase5(dev, wctx, p3["walls_ms"])
     log(f"phase 5 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p5['peak_gb']:.1f} GB; launches {p5['launches']}")
     t0 = time.perf_counter()
@@ -2501,6 +3295,10 @@ def main() -> int:
     log(f"phase 6 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p6['peak_gb']:.1f} GB; launches {p6['launches']}")
     p3["report"]["trained"] = p6.pop("trained_row")
+    t0 = time.perf_counter()
+    p7 = phase7(dev, wctx, p6.pop("trained_snap"), p6.pop("trained_q"))
+    log(f"phase 7 took {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{p7['peak_gb']:.1f} GB; launches {p7['launches']}")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -2523,6 +3321,7 @@ def main() -> int:
                             "score + top-k",
             "write_path_launches": p5["launches"][name],
             "build_launches": p6["launches"][name],
+            "serving_launches": p7["launches"][name],
             "shape": {"queries": p3["batch"], "cr": p3["cr"], "k": p3["k"],
                       "precision": "f32", "skew": "router",
                       "distinct_clusters": p3["distinct_clusters"]},
@@ -2611,6 +3410,9 @@ def main() -> int:
                | {"path_ms": own[p]["path_ms"],
                   "bound_ms": own[p]["bound"]["bound_ms"]}
                for p in TIERS}})}))
+    log(json.dumps({"serving": dict(card=card, config=SERVE_CFG,
+                                    zipf_a=ZIPF_A, concurrency=CONCURRENCY,
+                                    **p7)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

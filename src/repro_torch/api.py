@@ -12,9 +12,16 @@ score it exhaustively.
 
     ids, scores = api.brute_force(snap, corpus, query_ids, k=20)  # oracle
 
+    server = searcher.serve(ServerConfig(batch_size=64))   # long-lived
+    ids, scores = await server.submit(tok_row, msk_row, loc_row)
+    server.insert_objects(emb, loc, ids)       # WAL-then-publish
+    server = api.recover("artifacts/index", "artifacts/wal")  # after a crash
+
 Writes go through the snapshot's derivations: ``with_delta`` for the
 O(batch) delta segment, ``compact`` to fold it into the cluster buffers
-on the snapshot's device. The entry points take ``device=`` (default
+on the snapshot's device; a long-lived server
+(``core/server.py::StreamingServer``) derives, logs and publishes them
+for its callers. The entry points take ``device=`` (default
 ``"cuda"``) or follow the snapshot's device, and raise when no CUDA
 device is present unless the caller passes ``device="cpu"``.
 """
@@ -25,17 +32,26 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.ckpt import SnapshotCorrupt
 from repro_torch.core import engine as engine_lib
 from repro_torch.core import pipeline as pipeline_lib
 from repro_torch.core import relevance
+from repro_torch.core import server as server_lib
 from repro_torch.core import snapshot as snapshot_lib
 from repro_torch.core.index import topk_stable
 from repro_torch.core.snapshot import IndexSnapshot
 from repro_torch.device import full_f32_products
 
-__all__ = ["build", "save", "load", "Searcher", "brute_force",
-           "IndexSnapshot", "SnapshotCorrupt"]
+# the operational exception surface, the defining classes themselves:
+# Overloaded + DeadlineExceeded are the server's shedding responses,
+# SnapshotCorrupt is recovery's checksum verdict, ShardUnavailable the
+# sharded engine's total loss (raised once the port shards)
+from repro_torch.checkpoint.ckpt import SnapshotCorrupt
+from repro_torch.core.server import DeadlineExceeded, Overloaded
+from repro_torch.distributed.resilience import ShardUnavailable
+
+__all__ = ["build", "save", "load", "recover", "Searcher", "brute_force",
+           "IndexSnapshot", "Overloaded", "DeadlineExceeded",
+           "SnapshotCorrupt", "ShardUnavailable"]
 
 
 def build(cfg, corpus, *, rel_steps: int = 200, idx_steps: int = 400,
@@ -79,6 +95,39 @@ def load(directory: str, *, step: Optional[int] = None,
                                            device=device)
 
 
+def recover(snapshot_dir: str, wal_dir: Optional[str] = None, *,
+            config: Optional["server_lib.ServerConfig"] = None,
+            backend: str = "auto", device="cuda"):
+    """Crash recovery in one call (the reference's ``repro.api.recover``):
+    a serving stack on ``device`` whose index equals one that never
+    crashed.
+
+        server = api.recover("artifacts/index", "artifacts/wal")
+
+    Loads the newest snapshot under ``snapshot_dir`` that restores
+    (corrupt steps are skipped: ``snapshot.load_latest_good``) onto
+    ``device``, builds a :class:`Searcher` and its streaming server, and
+    replays the write-ahead log's intact records (a torn tail is dropped
+    by its checksum): every record newer than the loaded snapshot re-runs
+    through the normal write path, compaction triggers included. Either
+    package's snapshot and log recover here.
+
+    ``config`` must carry the write-path knobs (``delta_threshold``,
+    ``spill``) the crashed server ran with; its ``wal_dir`` defaults to
+    ``wal_dir``. Returns the
+    :class:`~repro_torch.core.server.StreamingServer` (its
+    ``stats.recovered_writes`` counts the replayed records)."""
+    import dataclasses as _dc
+
+    snap = snapshot_lib.load_latest_good(snapshot_dir, device=device)
+    cfg = config or server_lib.ServerConfig()
+    if wal_dir is not None and cfg.wal_dir != wal_dir:
+        cfg = _dc.replace(cfg, wal_dir=wal_dir)
+    server = Searcher(snap, backend=backend, device=device).serve(cfg)
+    server.replay_wal()
+    return server
+
+
 class Searcher:
     """A query façade over one snapshot, served on ``device``."""
 
@@ -90,6 +139,12 @@ class Searcher:
     @property
     def snapshot(self) -> IndexSnapshot:
         return self.engine.snapshot
+
+    @property
+    def last_coverage(self) -> float:
+        """Coverage fraction of the most recent :meth:`query`: 1.0 (the
+        reference's sharded engine reports less with a shard down)."""
+        return self.engine.last_coverage
 
     def publish(self, snapshot: IndexSnapshot) -> IndexSnapshot:
         """Swap the served snapshot (``cfg_digest`` checked; moved to the
@@ -105,6 +160,12 @@ class Searcher:
         2)`` float32; ids are global object ids, -1 past the end."""
         return self.engine.query(tokens, mask, loc, k=k, cr=cr, batch=batch,
                                  backend=backend, filters=filters)
+
+    def serve(self, config: Optional["server_lib.ServerConfig"] = None
+              ) -> "server_lib.StreamingServer":
+        """A streaming server (micro-batcher, caches, write path, WAL,
+        DESIGN.md §7) over this searcher's engine, on its device."""
+        return server_lib.StreamingServer(self.engine, config)
 
 
 def brute_force(snapshot: IndexSnapshot, corpus, query_ids, *, k: int = 20,

@@ -27,6 +27,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import faults as faults_lib
+
 _STEP_RE = re.compile(r"^step_(\d{9})$")
 
 # dtypes .npy cannot express, stored as a same-width integer view
@@ -86,7 +88,9 @@ def save(directory: str, step: int, leaves: Sequence, *, treedef: str,
     ``<step>.old``; ``.tmp`` renamed into place; the parent directory
     fsync'd; ``.old`` removed; keep-``keep`` garbage collection, orphaned
     ``.tmp`` and ``.old`` directories included. ``treedef`` is recorded
-    in the manifest and never read back."""
+    in the manifest and never read back. The fault points
+    ``ckpt.mid_save`` (before the commit rename) and ``ckpt.post_commit``
+    (after the garbage collection) sit where the reference's do."""
     os.makedirs(directory, exist_ok=True)
     tmp = _step_dir(directory, step, tmp=True)
     final = _step_dir(directory, step)
@@ -113,6 +117,7 @@ def save(directory: str, step: int, leaves: Sequence, *, treedef: str,
         f.flush()
         os.fsync(f.fileno())
     _fsync_dir(tmp)
+    faults_lib.fire("ckpt.mid_save", tmp=tmp, final=final)
     if os.path.exists(final):
         if os.path.exists(old):
             shutil.rmtree(old)
@@ -121,6 +126,7 @@ def save(directory: str, step: int, leaves: Sequence, *, treedef: str,
     _fsync_dir(directory)
     shutil.rmtree(old, ignore_errors=True)
     _gc(directory, keep)
+    faults_lib.fire("ckpt.post_commit", path=final)
     return final
 
 

@@ -366,7 +366,13 @@ class QueryEngine:
         self.backend = resolve_backend(backend, dev)
         self._auto_cm = backend == "auto"
         self.last_dedup_factor: Optional[float] = None
+        # the sharded engine's coverage annotations (the reference's
+        # DESIGN.md §15), read by the server: an unsharded snapshot is
+        # always fully covered
+        self.last_coverage = 1.0
+        self.last_down_shards: tuple = ()
         self._plans: "collections.OrderedDict" = collections.OrderedDict()
+        self._prefix_plans: dict = {}
 
     @property
     def snapshot(self):
@@ -388,6 +394,24 @@ class QueryEngine:
                 precision=precision)
         self._plans.move_to_end(key)
         return self._plans[key]
+
+    def prefix_fn(self, *, cr: int):
+        """The prefix (:func:`make_prefix_fn`) for ``cr``, one per engine:
+        the standing-query registry encodes and routes with it."""
+        if cr not in self._prefix_plans:
+            self._prefix_plans[cr] = make_prefix_fn(
+                cr=cr, weight_mode=self._snapshot.meta.weight_mode)
+        return self._prefix_plans[cr]
+
+    def down_signature(self) -> tuple:
+        """The DOWN shard set, a cache-key component of the server:
+        ``()`` while no snapshot is sharded."""
+        return ()
+
+    def recover_shard(self, s: int):
+        """Online shard recovery of the sharded engine; an unsharded
+        snapshot has no shard to recover."""
+        raise ValueError("recover_shard: snapshot is not mesh-sharded")
 
     def route(self, q_tokens, q_mask, q_loc, *, cr: int = 1, snapshot=None):
         """Route-only prefix → ``top_c (n, cr)`` int32 device tensor."""

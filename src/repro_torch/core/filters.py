@@ -43,14 +43,32 @@ class FilterSpec:
                 and self.category_mask == ANY_CATEGORY
                 and self.t_min == INT32_MIN and self.t_max == INT32_MAX)
 
+    def signature(self) -> Tuple[int, int, int, int]:
+        """Hashable identity for cache keys (exact component values)."""
+        return (int(self.tenant), int(self.category_mask),
+                int(self.t_min), int(self.t_max))
+
     def to_fvals(self) -> np.ndarray:
-        return np.array((int(self.tenant), int(self.category_mask),
-                         int(self.t_min), int(self.t_max)), np.int32)
+        return np.array(self.signature(), np.int32)
 
 
 NOOP_FILTER = FilterSpec()
 
 Filters = Union[None, FilterSpec, Sequence[Optional[FilterSpec]]]
+
+
+def filter_signature(filters: Filters):
+    """Hashable cache-key component. ``None`` / no-op collapse to ``None``
+    so pre-filter cache entries stay valid for unfiltered queries."""
+    if filters is None:
+        return None
+    if isinstance(filters, FilterSpec):
+        return None if filters.is_noop else filters.signature()
+    sigs = tuple((f.signature() if f is not None else NOOP_FILTER.signature())
+                 for f in filters)
+    if all(s == NOOP_FILTER.signature() for s in sigs):
+        return None
+    return sigs
 
 
 def validate_attrs(attrs, n: int) -> torch.Tensor:

@@ -189,3 +189,179 @@ def assert_topk_match(ids, scores, want_ids, want_scores, *, atol=1e-5,
             assert (same.size and tied[same].any()) or at_edge, (
                 f"row {q} position {p}: id {ids[q, p]} vs {want_ids[q, p]} "
                 f"(scores {scores[q, p]} / {want_scores[q, p]}) is no tie")
+
+
+# ---------------------------------------------------------------------------
+# The serving stack: both packages over one artifact
+# ---------------------------------------------------------------------------
+
+# the serving tests' geometry (tests/test_server.py's engine_parts), f32
+# compute so the two packages encode and route alike
+def serve_cfg():
+    return tiny_cfg(vocab_size=512, max_len=8, index_mlp_hidden=(16,),
+                    compute_dtype="float32")
+
+
+# server counters that must agree between the packages on one scenario
+# (the per-flush wall-time monitor's slow_flushes is timing, not logic)
+COUNTERS = ("n_requests", "exact_hits", "near_hits", "coalesced",
+            "engine_batches", "engine_queries", "flushes", "invalidations",
+            "writes", "compactions", "compaction_triggers", "shed",
+            "flush_retries", "poisoned_requests", "breaker_trips",
+            "breaker_fallback_flushes", "wal_appends", "recovered_writes",
+            "wal_checkpoints")
+
+
+class Side:
+    """One package's serving stack (``which`` is ``"ref"`` or ``"port"``)
+    over the snapshot saved in ``directory``; the port runs on the CPU,
+    the reference's jax under :func:`ref_on_cpu`. The modules a scenario
+    needs are attributes: ``api``, ``server_lib``, ``faults``, ``wal_lib``,
+    ``engine_lib``, ``continuous``, ``filters``, ``snapshot_lib``,
+    ``ckpt``, ``resilience``, ``index_lib``."""
+
+    def __init__(self, which, directory):
+        import importlib
+        self.which = which
+        pkg = "repro" if which == "ref" else "repro_torch"
+        for attr, mod in (("api", "api"), ("server_lib", "core.server"),
+                          ("faults", "core.faults"), ("wal_lib", "core.wal"),
+                          ("engine_lib", "core.engine"),
+                          ("continuous", "core.continuous"),
+                          ("filters", "core.filters"),
+                          ("snapshot_lib", "core.snapshot"),
+                          ("ckpt", "checkpoint.ckpt"),
+                          ("resilience", "distributed.resilience"),
+                          ("index_lib", "core.index")):
+            setattr(self, attr, importlib.import_module(f"{pkg}.{mod}"))
+        self.dir = directory
+        with self.ctx():
+            self.snap = self.load(directory)
+        self.cfg = self.snap.cfg
+
+    def __repr__(self):
+        return self.which
+
+    def ctx(self):
+        import contextlib
+        return ref_on_cpu() if self.which == "ref" else \
+            contextlib.nullcontext()
+
+    def _dev(self):
+        return {} if self.which == "ref" else {"device": "cpu"}
+
+    def load(self, directory):
+        return self.api.load(directory, **self._dev())
+
+    def load_latest_good(self, directory):
+        return self.snapshot_lib.load_latest_good(directory, **self._dev())
+
+    def engine(self, backend="dense", snap=None):
+        snap = self.snap if snap is None else snap
+        if self.which == "ref":
+            return self.engine_lib.QueryEngine.from_snapshot(
+                snap, backend=backend)
+        return self.engine_lib.QueryEngine(snap, backend=backend,
+                                           device="cpu")
+
+    def searcher(self, snap=None, backend="dense"):
+        snap = self.snap if snap is None else snap
+        return self.api.Searcher(snap, backend=backend, **self._dev())
+
+    def server(self, *, snap=None, engine_backend="dense", **over):
+        """A server over a fresh engine: tests/test_server.py's
+        ``make_server`` knobs (batch 4, 30 ms, k 5, cr 2, dense)."""
+        kw = dict(batch_size=4, max_delay_ms=30.0, k=5, cr=2,
+                  backend="dense")
+        kw.update(over)
+        return self.server_lib.StreamingServer(
+            self.engine(engine_backend, snap),
+            self.server_lib.ServerConfig(**kw))
+
+    def recover(self, snap_dir, wal_dir, **kw):
+        return self.api.recover(snap_dir, wal_dir, **kw, **self._dev())
+
+    def run(self, scenario, *args):
+        self.faults.clear()
+        try:
+            with self.ctx():
+                return scenario(self, *args)
+        finally:
+            self.faults.clear()
+
+
+def serve_requests(rng, n, cfg):
+    """The serving tests' requests (tests/test_server.py's
+    ``make_requests``): CLS first, full masks, uniform locations."""
+    tok = rng.integers(2, cfg.vocab_size, (n, cfg.max_len)).astype(np.int32)
+    tok[:, 0] = 1
+    msk = np.ones((n, cfg.max_len), bool)
+    loc = rng.uniform(size=(n, 2)).astype(np.float32)
+    return tok, msk, loc
+
+
+def make_sides(directory):
+    return Side("ref", directory), Side("port", directory)
+
+
+def saved_ref_snapshot(tmp_path_factory, name, **kw):
+    """``make_ref_snapshot(serve_cfg(), **kw)`` saved by the reference;
+    returns the directory (both packages load it)."""
+    d = str(tmp_path_factory.mktemp(name))
+    make_ref_snapshot(serve_cfg(), **kw).save(d)
+    return d
+
+
+def counters(server) -> dict:
+    s = server.stats
+    return {f: (dict(getattr(s, f)) if isinstance(getattr(s, f), dict)
+                else getattr(s, f)) for f in COUNTERS}
+
+
+def _as_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return x
+
+
+def assert_same(got, want, path="result", *, atol=1e-5):
+    """The port's scenario result ``got`` against the reference's ``want``:
+    int arrays equal, float arrays within ``atol`` (+ 1e-5 relative),
+    servers by :data:`COUNTERS`, exceptions by class name, containers
+    element by element, anything else equal."""
+    got, want = _as_np(got), _as_np(want)
+    if hasattr(want, "stats") and hasattr(want, "engine"):
+        assert counters(got) == counters(want), path
+    elif isinstance(want, BaseException):
+        assert type(got).__name__ == type(want).__name__, (path, got, want)
+    elif isinstance(want, dict):
+        assert set(got) == set(want), path
+        for key in want:
+            assert_same(got[key], want[key], f"{path}[{key!r}]", atol=atol)
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{path}[{i}]", atol=atol)
+    elif isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
+        got, want = np.asarray(got), np.asarray(want)
+        assert got.shape == want.shape, (path, got.shape, want.shape)
+        if np.issubdtype(want.dtype, np.floating):
+            np.testing.assert_allclose(got, want, atol=atol, rtol=1e-5,
+                                       err_msg=path)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=path)
+    elif isinstance(want, float):
+        assert abs(got - want) <= atol + 1e-5 * abs(want), (path, got, want)
+    else:
+        assert got == want, (path, got, want)
+
+
+def both(sides, scenario, *args):
+    """Run ``scenario(side, *args)`` on the reference, then on the port,
+    and hold the port's result to the reference's (:func:`assert_same`).
+    Returns both results."""
+    ref, port = sides
+    want = ref.run(scenario, *args)
+    got = port.run(scenario, *args)
+    assert_same(got, want)
+    return want, got
