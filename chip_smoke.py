@@ -138,10 +138,36 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    while the delta holds rows (``FlushProbe``); no breaker trips, no
    poisoned request.
 
+8. The user's tools on the card. (a) The command line
+   ``repro_torch.launch.serve.main`` in process, at the reference CLI's
+   flags with 131,072 objects, 4,096 queries, c 16 (n / 10k), cr 2, int8,
+   16,384 Zipf(1.05) requests closed loop at concurrency 64 and 32 churn
+   rounds with the WAL (``CLI_ARGS``; the CLI's model is its own 4L / d 64);
+   then a restart on the same directories that loads the snapshot, replays
+   the WAL and runs an open loop at half the first run's QPS. Build s,
+   recall@10, QPS and p50 / p95 / p99 are read from its report. (b) The
+   dispatch path (``serving.cluster_dispatch_query``) on phase 3's index,
+   one 256-query chunk at k 20, cr 2, every tier, at the default capacity
+   (pairs dropped, recorded) and at the chunk's largest cluster load
+   (nothing dropped, ids equal to ``cuda-cm`` up to ties): one
+   cluster-major launch per call, nothing routed; its pair lists against
+   the plain dispatch scan on the card (dropped pairs (-inf, -1) in both),
+   the path timed beside ``cuda-cm`` and the scan beside its bound. (c)
+   The paper's baselines on phase 6's trained retriever: IVF (c 300),
+   IVF_S (α 0.5) and LSH (16 bits × 4 tables) reranked with ``score_fn``,
+   recall@10 against ``ListRetriever.brute_force`` and the mean candidate
+   count beside LIST's at cr 2; ``kmeans`` on the card held step by step
+   against ``kmeans_step`` on a CPU copy. (d) ``python -m repro_torch.api``
+   and (e) the four ``examples/torch_*.py`` as subprocesses side by side
+   (the training example at ``--full``, 20 steps, then resumed to 30): each
+   must exit 0, the server and the engine must agree. The launch counters
+   are zeroed around (a) and around (b).
+
 Prints a JSON line of phase 3's numbers, one of the write path's
 (``write_path``), one of the build's (``build``), one of the serving
-stack's (``serving``), one of per-kernel numbers, then as its last line
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
+stack's (``serving``), one of phase 8's (``tools``), one of per-kernel
+numbers, then as its last line ``{"ok": true, "device": {...}}``. Any
+failed check exits non-zero.
 
 ``--compare`` times, on trees that share its wrappers: the gather scan on
 its full-width copies, the two engine scans on one chunk at two route
@@ -2349,9 +2375,11 @@ def phase6(dev, skew_ctx):
     rec["step_split_ms"] = step_split(dev, snap, corpus)
     record(f"phase 6 relevance step split (CUDA events, median of "
            f"{SPLIT_STEPS}): {rec['step_split_ms']}")
-    # the trained snapshot and its held-out queries: phase 7 (e)
+    # the trained snapshot and its held-out queries: phase 7 (e); the
+    # retriever, its corpus and the queries' ids: phase 8 (c)
     rec["trained_snap"], rec["trained_q"] = snap, q
-    del r, tiers, own_ctx, q_emb, w
+    rec["trained_retriever"], rec["trained_corpus"] = r, (corpus, held)
+    del tiers, own_ctx, q_emb, w
     torch.cuda.empty_cache()
     return rec
 
@@ -3121,6 +3149,520 @@ def phase7(dev, wctx, trained, tq):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the command line, the dispatch path, the baselines, the
+# round-trip selftest and the examples
+# ---------------------------------------------------------------------------
+
+# (a) the reference CLI's flags (src/repro/launch/serve.py) at a real
+# object count; c by the paper's n / 10k rule (131,072 objects → 16). The
+# CLI's model is fixed in its code: 4L / d 64, bf16 compute.
+CLI_ARGS = ["--objects", "131072", "--queries", "4096", "--clusters", "16",
+            "--cr", "2", "--precision", "int8", "--skew", "1.05",
+            "--concurrency", "64"]
+CLI_REQUESTS = 16_384            # the closed-loop run, with churn
+CLI_CHURN = 32
+CLI_OPEN_RATE = 0.5              # of the first run's QPS
+CLI_OPEN_REQUESTS = 16_384
+# (b) one 256-query chunk of phase 3's requests on its full-width index
+N_DISPATCH = 256
+DISPATCH_K, DISPATCH_CR = 20, 2
+# (c) the paper's baselines on phase 6's trained retriever
+BASELINE_K, BASELINE_CR = 10, 2
+IVF_C = 300
+IVF_S_ALPHA = 0.5
+LSH_BITS, LSH_TABLES = 16, 4
+KMEANS_ITERS = 25
+KMEANS_CHECK_STEPS = (0, 1, 2, 3, 4, KMEANS_ITERS - 1)
+KMEANS_TOL = 1e-4                # centroids, card against the CPU
+KMEANS_TIE = 1e-5                # near-tie: distance gap over |x|² + |c|²
+# (d) the selftest and (e) the examples, as subprocesses (arguments after
+# the interpreter); the training example runs the paper's towers, then
+# resumes from its checkpoint
+SELFTEST = ["-m", "repro_torch.api"]
+EXAMPLES = {"quickstart": ["examples/torch_quickstart.py"],
+            "serve_queries": ["examples/torch_serve_queries.py"],
+            "incremental_index": ["examples/torch_incremental_index.py"]}
+TRAIN_EXAMPLE = ["examples/torch_train_dual_encoder.py", "--full"]
+TRAIN_STEPS = (20, 30)
+SUBPROCESS_TIMEOUT = 600
+
+
+class Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, out):
+        import io
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_main(main, argv, what):
+    """``main(argv)`` in process, its output shown and kept: → (text,
+    wall seconds). A non-zero return fails the phase."""
+    import contextlib
+    import torch
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 8 {what}: exit code {rc}")
+    return tee.buf.getvalue(), wall
+
+
+def grab(pattern, text, what, cast=float):
+    import re
+    m = re.search(pattern, text)
+    if not m:
+        raise AssertionError(f"phase 8 {what}: no line matching {pattern!r}")
+    return [cast(g) for g in m.groups()]
+
+
+def cli_report(text, what):
+    """The CLI's printed numbers: recall@10 / ndcg@5 of brute force and of
+    LIST, served QPS, p50 / p95 / p99 latency, recall under serving."""
+    bf = grab(r"brute force : recall@10=([\d.]+) ndcg@5=([\d.]+)", text, what)
+    lst = grab(r"LIST cr=\d+\s*: recall@10=([\d.]+) ndcg@5=([\d.]+)", text,
+               what)
+    qps = grab(r"served QPS  : ([\d.]+)", text, what)[0]
+    lat = grab(r"latency ms  : p50=([\d.]+) p95=([\d.]+) p99=([\d.]+)", text,
+               what)
+    served = grab(r"recall@10 under serving: ([\d.]+)", text, what)[0]
+    return dict(brute_force_recall_at_10=bf[0], brute_force_ndcg_at_5=bf[1],
+                list_recall_at_10=lst[0], list_ndcg_at_5=lst[1], qps=qps,
+                p50_ms=lat[0], p95_ms=lat[1], p99_ms=lat[2],
+                served_recall_at_10=served)
+
+
+def p8_cli(dev, tmp):
+    """(a) ``repro_torch.launch.serve.main`` on the card: build, save,
+    churn with the WAL and a closed loop; then a restart that loads the
+    snapshot, replays the WAL and runs an open loop at half the first
+    run's QPS. The launch counters are zeroed before and read after."""
+    import os
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import fused_topk_score as fts
+    from repro_torch.launch import serve as cli
+    base = CLI_ARGS + ["--snapshot-dir", os.path.join(tmp, "snap"),
+                       "--wal-dir", os.path.join(tmp, "wal")]
+    build_s = []
+    build = api.build
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return build(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            build_s.append(time.perf_counter() - t0)
+
+    fts.reset_launch_counts()
+    api.build = timed_build
+    try:
+        first, wall1 = run_main(cli.main, base + [
+            "--mode", "closed", "--requests", str(CLI_REQUESTS),
+            "--churn", str(CLI_CHURN)], "(a) first run")
+    finally:
+        api.build = build
+    rep1 = cli_report(first, "(a) first run")
+    if len(build_s) != 1 or "== saved snapshot" not in first:
+        raise AssertionError("phase 8 (a): the first run did not build and "
+                             "save")
+    rate = CLI_OPEN_RATE * rep1["qps"]
+    second, wall2 = run_main(cli.main, base + [
+        "--mode", "open", "--qps", f"{rate:.3f}",
+        "--requests", str(CLI_OPEN_REQUESTS)], "(a) restart")
+    launches = dict(fts.launches)
+    rep2 = cli_report(second, "(a) restart")
+    replayed = grab(r"== recovery: replayed (\d+) WAL record", second,
+                    "(a) restart", int)[0]
+    if "== loaded snapshot" not in second or replayed < 1:
+        raise AssertionError(f"phase 8 (a): the restart loaded no snapshot "
+                             f"or replayed {replayed} WAL records")
+    if not launches["routed"] and not launches["cluster_major"]:
+        raise AssertionError("phase 8 (a): the CLI launched no scan kernel")
+    rec = dict(args=CLI_ARGS, requests=CLI_REQUESTS, churn=CLI_CHURN,
+               build_s=build_s[0], first=dict(rep1, wall_s=wall1),
+               restart=dict(rep2, wall_s=wall2, open_qps=rate,
+                            requests=CLI_OPEN_REQUESTS,
+                            wal_records_replayed=replayed),
+               launches=launches)
+    record(f"phase 8 (a) CLI: build {build_s[0]:.1f} s; closed loop "
+           f"{rep1['qps']:.1f} QPS p50/p95/p99 {rep1['p50_ms']:.2f}/"
+           f"{rep1['p95_ms']:.2f}/{rep1['p99_ms']:.2f} ms; restart replayed "
+           f"{replayed} WAL records, open loop at {rate:.1f} QPS: "
+           f"{rep2['qps']:.1f} QPS p50/p95/p99 {rep2['p50_ms']:.2f}/"
+           f"{rep2['p95_ms']:.2f}/{rep2['p99_ms']:.2f} ms; recall@10 brute "
+           f"force {rep1['brute_force_recall_at_10']:.4f}, LIST "
+           f"{rep1['list_recall_at_10']:.4f}; launches {launches}")
+    return rec
+
+
+def p8_dispatch(dev, wctx):
+    """(b) ``serving.cluster_dispatch_query`` on phase 3's full-width index,
+    one 256-query chunk at k 20, cr 2, every tier, at the default capacity
+    and at the chunk's largest cluster load (the launch counters zeroed
+    before and read after: one cluster-major launch per call, nothing
+    routed); then ids against ``cuda-cm``, the kernel's pair lists against
+    the plain dispatch scan on the card, and the times."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import serving
+    from repro_torch.kernels import fused_topk_score as fts
+    snaps = wctx["snaps"]
+    q = [a[:N_DISPATCH] for a in (wctx["tok"], wctx["msk"], wctx["q_loc"])]
+    k, cr = DISPATCH_K, DISPATCH_CR
+    c, _, d = snaps["f32"].buffers["emb"].shape
+    top_c = api.Searcher(snaps["f32"], device=dev).engine.route(*q, cr=cr)
+    loads = torch.bincount(top_c.reshape(-1).long(), minlength=c)
+    max_load = int(loads.max())
+    caps = {"default": None, "max_load": max_load}
+    torch.cuda.synchronize()
+    fts.reset_launch_counts()
+    out = {(p, name): serving.cluster_dispatch_query(
+        snaps[p], *q, k=k, cr=cr, capacity=cap, return_dropped=True)
+        for p in TIERS for name, cap in caps.items()}
+    torch.cuda.synchronize()
+    launches = dict(fts.launches)
+    if launches["cluster_major"] != len(out) or launches["routed"]:
+        raise AssertionError(f"phase 8 (b): {len(out)} dispatch calls made "
+                             f"launches {launches}")
+    default_cap = serving.query_capacity(N_DISPATCH, c, cr)
+    rec = dict(queries=N_DISPATCH, k=k, cr=cr, capacity=default_cap,
+               max_load=max_load, distinct_clusters=int((loads > 0).sum()),
+               launches=launches)
+    prefix = engine_lib.make_prefix_fn(cr=cr)
+    chunk = [torch.from_numpy(a).to(dev) for a in q]
+    for p in TIERS:
+        snap = snaps[p]
+        buf = snap.buffers
+        scale = buf["scale"] if p == "int8" else None
+        ids_m, sc_m, nd_m = out[(p, "max_load")]
+        if int(nd_m):
+            raise AssertionError(f"phase 8 (b) {p}: {int(nd_m)} pairs dropped "
+                                 f"at capacity {max_load}")
+        searcher = api.Searcher(snap, device=dev)
+        want = searcher.query(*q, k=k, cr=cr, batch=N_DISPATCH,
+                              backend="cuda-cm")
+        err_cm = topk_match(ids_m.cpu(), sc_m.cpu(), want[0], want[1])
+        # the kernel's pair lists against the plain dispatch scan
+        q_emb, w, tc = prefix(snap.rel, snap.index, snap.norm, *chunk)
+        errs = {}
+        for name, cap in caps.items():
+            origin, nd = serving.dispatch_slots(
+                tc, n_clusters=c, capacity=cap or default_cap)
+            args = (q_emb, chunk[2], w, origin, buf["emb"], buf["loc"],
+                    buf["ids"], snap.w_hat)
+            kw = dict(k=k, cr=cr, dist_max=snap.dist_max, buf_scale=scale)
+            got = serving.dispatch_scan(*args, **kw)
+            plain = serving.dispatch_scan_plain(*args, **kw)
+            n = N_DISPATCH * cr
+            placed = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+            placed[origin.reshape(-1).long()] = True
+            placed = placed[:n]
+            for s_, i_ in (got, plain):
+                if not ((s_[~placed] == -math.inf).all()
+                        and (i_[~placed] == -1).all()):
+                    raise AssertionError(f"phase 8 (b) {p} {name}: a dropped "
+                                         f"pair's row is not (-inf, -1)")
+            errs[name] = topk_match(got[1][placed].cpu(), got[0][placed].cpu(),
+                                    plain[1][placed].cpu(),
+                                    plain[0][placed].cpu())
+            if name == "default":
+                if int(nd) != int(out[(p, "default")][2]):
+                    raise AssertionError("phase 8 (b): n_dropped differs")
+                fold_k = engine_lib.merge_cluster_major(*got, b=N_DISPATCH,
+                                                        cr=cr, k=k)
+                fold_p = engine_lib.merge_cluster_major(*plain, b=N_DISPATCH,
+                                                        cr=cr, k=k)
+                lost = torch.isinf(fold_p[0]).all(dim=1)
+                if not (torch.equal(torch.isinf(fold_k[0]).all(dim=1), lost)
+                        and (fold_k[1][lost] == -1).all()):
+                    raise AssertionError(f"phase 8 (b) {p}: the all-dropped "
+                                         f"queries differ")
+                ids_d, sc_d, _ = out[(p, "default")]
+                if not torch.equal(ids_d, fold_k[1]):
+                    raise AssertionError(f"phase 8 (b) {p}: the dispatch "
+                                         f"path's ids are not its scan's fold")
+                keep = ~lost
+                errs["fold"] = topk_match(
+                    fold_k[1][keep].cpu(), fold_k[0][keep].cpu(),
+                    fold_p[1][keep].cpu(), fold_p[0][keep].cpu())
+                n_lost = int(lost.sum())
+        # times: the whole path beside cuda-cm, then the scan alone
+        origin, _ = serving.dispatch_slots(tc, n_clusters=c,
+                                           capacity=max_load)
+        args = (q_emb, chunk[2], w, origin, buf["emb"], buf["loc"],
+                buf["ids"], snap.w_hat)
+        kw = dict(k=k, cr=cr, dist_max=snap.dist_max, buf_scale=scale)
+        bd = bound(buf["ids"], tc, torch.unique(tc), d=d,
+                   elem_bytes=buf["emb"].element_size(), k=k, b=N_DISPATCH,
+                   dequant=p == "int8")
+        t = dict(
+            dispatch_path_ms=time_ms(lambda: serving.cluster_dispatch_query(
+                snap, *q, k=k, cr=cr, capacity=max_load), reps=3),
+            cuda_cm_path_ms=time_ms(lambda: searcher.query(
+                *q, k=k, cr=cr, batch=N_DISPATCH, backend="cuda-cm"), reps=3),
+            ms=time_ms(lambda: serving.dispatch_scan(*args, **kw)),
+            plain_ms=time_ms(lambda: serving.dispatch_scan_plain(*args, **kw),
+                             reps=1),
+            bound_ms=bd["bound_ms"], bound_by=bd["bound_by"])
+        t["x_bound"] = t["ms"] / bd["bound_ms"]
+        rec[p] = dict(n_dropped_default=int(out[(p, "default")][2]),
+                      queries_all_dropped=n_lost, err_vs_cuda_cm=err_cm,
+                      err_vs_plain=max(errs.values()), **t)
+        record(f"phase 8 (b) dispatch {p}: default capacity {default_cap} "
+               f"drops {rec[p]['n_dropped_default']} of {N_DISPATCH * cr} "
+               f"pairs ({n_lost} queries lose every route); capacity "
+               f"{max_load} drops none, ids == cuda-cm up to ties (max|Δ| "
+               f"{err_cm:.3g}); kernel == plain (max|Δ| "
+               f"{rec[p]['err_vs_plain']:.3g}); path {t['dispatch_path_ms']:.2f}"
+               f" ms vs cuda-cm {t['cuda_cm_path_ms']:.2f} ms; scan "
+               f"{t['ms']:.3f} ms ({t['x_bound']:.2f}x bound "
+               f"{bd['bound_ms']:.3f} ms, {bd['bound_by']}), plain "
+               f"{t['plain_ms']:.1f} ms")
+    return rec
+
+
+def p8_kmeans_check(dev, emb):
+    """``kmeans`` on the card, timed, then its trajectory step by step
+    (``kmeans_step`` from the same init) against the same step on a CPU
+    copy from the card's centroids: assignments (``kmeans_assign``) equal
+    except at near-ties, and the update from the card's assignment
+    (``kmeans_update``) within ``KMEANS_TOL`` of the card's centroids."""
+    import numpy as np
+    import torch
+    from repro_torch.core import baselines
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cent, assign = baselines.kmeans(emb, IVF_C, iters=KMEANS_ITERS, seed=0,
+                                    device=dev)
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    x = torch.from_numpy(emb).to(dev)
+    init = np.random.default_rng(0).choice(len(emb), IVF_C, replace=False)
+    cents, assigns = [x[torch.from_numpy(init).to(dev)]], []
+    with torch.no_grad():
+        for _ in range(KMEANS_ITERS):
+            c_, a_ = baselines.kmeans_step(x, cents[-1])
+            cents.append(c_)
+            assigns.append(a_)
+    own = bool(torch.equal(assigns[-1], assign)
+               and (cents[-1] - cent).abs().max() <= KMEANS_TOL)
+    xc = x.cpu()
+    xx = (xc * xc).sum(1)
+    n_ties, err = 0, 0.0
+    for s in KMEANS_CHECK_STEPS:
+        prev, ag = cents[s].cpu(), assigns[s].cpu()
+        ac = baselines.kmeans_assign(xc, prev)
+        bad = (ac != ag).nonzero().reshape(-1)
+        if bad.numel():
+            xb = xc[bad]
+            dist = (xx[bad, None] - 2 * xb @ prev.T
+                    + (prev * prev).sum(1)[None])
+            gap = (dist.gather(1, ag[bad, None]) - dist.gather(
+                1, ac[bad, None]))[:, 0].abs()
+            scale = xx[bad] + (prev * prev).sum(1)[ag[bad]]
+            if (gap > KMEANS_TIE * scale).any():
+                raise AssertionError(f"phase 8 (c) kmeans step {s}: an "
+                                     f"assignment differs beyond a near-tie")
+        # the update from the card's assignment, so a near-tie cannot move
+        # a centroid of the comparison
+        cc = baselines.kmeans_update(xc, ag, prev)
+        e = float((cc - cents[s + 1].cpu()).abs().max())
+        if e > KMEANS_TOL:
+            raise AssertionError(f"phase 8 (c) kmeans step {s}: centroids "
+                                 f"differ by {e}")
+        n_ties += int(bad.numel())
+        err = max(err, e)
+    return dict(kmeans_s=kmeans_s, steps_checked=list(KMEANS_CHECK_STEPS),
+                near_tie_assignments=n_ties, centroid_max_abs_err=err,
+                equals_its_steps_on_card=own)
+
+
+def p8_baselines(dev, r, corpus, held):
+    """(c) the paper's comparison on phase 6's trained retriever: IVF (c
+    300), IVF_S (α 0.5) and LSH (16 bits × 4 tables) over its object
+    embeddings, their candidates reranked with ``score_fn``; recall@10
+    against ``ListRetriever.brute_force`` and the mean candidate count,
+    beside LIST's own at cr 2; k-means held against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import baselines
+    from repro_torch.core import pipeline as pipeline_lib
+    k, cr = BASELINE_K, BASELINE_CR
+    t0 = time.perf_counter()
+    emb = np.asarray(r.ensure_embeddings(), np.float32)
+    rec = dict(ensure_embeddings_s=time.perf_counter() - t0,
+               n_objects=len(emb), queries=len(held))
+    q_emb = pipeline_lib.embed_queries(r.rel, corpus, held)
+    q_loc = corpus.q_loc[held].astype(np.float32)
+    t0 = time.perf_counter()
+    bf_ids, _ = r.brute_force(held, k=k)
+    rec["brute_force_s"] = time.perf_counter() - t0
+    ids, _ = r.query(held, k=k, cr=cr)
+    tok, msk = corpus.query_tokens(held)
+    top_c = r.engine().route(tok, msk, q_loc, cr=cr)
+    counts = r.snapshot().buffers["counts"]
+    rec["list"] = dict(recall_at_10=recall_at(ids, bf_ids, k),
+                       mean_candidates=float(counts[top_c.long()].sum(1)
+                                             .float().mean()), cr=cr)
+    # the trained embeddings (near-ties abound where the towers
+    # collapsed), then seeded blobs of the same shape, where they are rare
+    rec["kmeans"] = p8_kmeans_check(dev, emb)
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    centres = torch.randn(IVF_C, emb.shape[1], generator=g, device=dev)
+    pick = torch.randint(0, IVF_C, (len(emb),), generator=g, device=dev)
+    blobs = centres[pick] + torch.randn(emb.shape, generator=g, device=dev)
+    rec["kmeans_blobs"] = p8_kmeans_check(dev, blobs.cpu().numpy())
+    del centres, pick, blobs
+    fn = r.score_fn()
+
+    def timed(make):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = make()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    obj_loc = corpus.obj_loc.astype(np.float32)
+    ivf, t_ivf = timed(lambda: baselines.IVFIndex(emb, n_clusters=IVF_C,
+                                                  device=dev))
+    ivf_s, t_ivf_s = timed(lambda: baselines.IVFIndex(
+        emb, obj_loc, n_clusters=IVF_C, alpha=IVF_S_ALPHA, device=dev))
+    lsh, t_lsh = timed(lambda: baselines.LSHIndex(
+        emb, nbits=LSH_BITS, n_tables=LSH_TABLES, device=dev))
+    for name, index, t_build, cands in (
+            ("ivf", ivf, t_ivf, lambda: ivf.candidates(q_emb, cr=cr)),
+            ("ivf_s", ivf_s, t_ivf_s,
+             lambda: ivf_s.candidates(q_emb, q_loc, cr=cr)),
+            ("lsh", lsh, t_lsh, lambda: lsh.candidates(q_emb))):
+        t0 = time.perf_counter()
+        lists = cands()
+        t_probe = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, mean_c = baselines.rerank_candidates(
+            lambda i, cand: fn(q_emb[i], q_loc[i], cand), lists, k)
+        rec[name] = dict(recall_at_10=recall_at(out, bf_ids, k),
+                         mean_candidates=mean_c, build_s=t_build,
+                         probe_s=t_probe,
+                         rerank_s=time.perf_counter() - t0)
+    rec["ivf"]["cr"] = rec["ivf_s"]["cr"] = cr
+    rec["ivf_s"]["alpha"] = IVF_S_ALPHA
+    rec["lsh"].update(nbits=LSH_BITS, tables=LSH_TABLES)
+    record(f"phase 8 (c) baselines ({len(held)} held-out queries, "
+           f"{len(emb)} objects, recall@{k} against brute_force / mean "
+           f"candidates): LIST cr {cr} {rec['list']['recall_at_10']:.3f} / "
+           f"{rec['list']['mean_candidates']:.0f}; " + "; ".join(
+               f"{n} {rec[n]['recall_at_10']:.3f} / "
+               f"{rec[n]['mean_candidates']:.0f} (build "
+               f"{rec[n]['build_s']:.2f} s)" for n in ("ivf", "ivf_s", "lsh"))
+           + f"; kmeans {rec['kmeans']}; on blobs {rec['kmeans_blobs']}")
+    return rec
+
+
+def p8_subprocesses(tmp):
+    """(d) ``python -m repro_torch.api`` and (e) the four examples, as
+    subprocesses on the card, side by side (the training example's two
+    runs in turn): each must exit 0."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    # five processes share the host's cores: two threads each
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    ck = os.path.join(tmp, "ckpt")
+
+    def run(argv):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable] + argv, cwd=ROOT, env=env,
+                           capture_output=True, text=True,
+                           timeout=SUBPROCESS_TIMEOUT)
+        return dict(rc=p.returncode, out=p.stdout, err=p.stderr,
+                    s=time.perf_counter() - t0)
+
+    def train_chain():
+        return [run(TRAIN_EXAMPLE + ["--steps", str(s), "--ckpt-dir", ck])
+                for s in TRAIN_STEPS]
+
+    jobs = {"selftest": lambda: run(SELFTEST),
+            **{name: (lambda argv=argv: run(argv))
+               for name, argv in EXAMPLES.items()},
+            "train_dual_encoder": train_chain}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {name: pool.submit(fn) for name, fn in jobs.items()}
+        res = {name: f.result() for name, f in futs.items()}
+    wall = time.perf_counter() - t0
+    rec = {"wall_s": wall}
+    for name, out in res.items():
+        runs = out if isinstance(out, list) else [out]
+        for i, o in enumerate(runs):
+            tail = "\n".join(o["out"].strip().splitlines()[-6:])
+            log(f"phase 8 {name}[{i}] exit {o['rc']} in {o['s']:.1f} s:\n"
+                f"{tail}")
+            if o["rc"]:
+                log(o["err"][-4000:])
+                raise AssertionError(f"phase 8 {name}[{i}]: exit code "
+                                     f"{o['rc']}")
+        rec[name] = [round(o["s"], 3) for o in runs]
+    selftest = res["selftest"]["out"]
+    rec["selftest_legs"] = selftest.count("bit-identical")
+    if "0 leg(s) disagree" not in selftest:
+        raise AssertionError("phase 8 (d): the selftest reports a mismatch")
+    if "streaming server and engine path agree" not in \
+            res["serve_queries"]["out"]:
+        raise AssertionError("phase 8 (e): server and engine disagree")
+    agree = grab(r"paths agree on ([\d.]+)%", res["serve_queries"]["out"],
+                 "(e) serve_queries")[0]
+    rec["serve_queries_dispatch_agree_pct"] = agree
+    first, second = res["train_dual_encoder"]
+    if f"resume from step {TRAIN_STEPS[0]}" not in second["out"]:
+        raise AssertionError("phase 8 (e): the training example did not "
+                             "resume")
+    rec["train_resumed_from"] = TRAIN_STEPS[0]
+    record(f"phase 8 (d) selftest: {rec['selftest_legs']} legs bit-identical;"
+           f" (e) examples exit 0 (server == engine; dispatch agrees on "
+           f"{agree}% of ids; training resumed at step {TRAIN_STEPS[0]}) in "
+           f"{wall:.1f} s side by side")
+    return rec
+
+
+def phase8(dev, wctx, retriever, trained_corpus):
+    """(a) the CLI, (b) the dispatch path, (c) the baselines, (d) the
+    selftest and (e) the examples; the launch counters zeroed around (a)
+    and around (b)."""
+    import tempfile
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rec["cli"] = p8_cli(dev, tmp)
+        rec["cli"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["dispatch"] = p8_dispatch(dev, wctx)
+        rec["dispatch"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["baselines"] = p8_baselines(dev, retriever, *trained_corpus)
+        rec["baselines"]["phase_s"] = time.perf_counter() - t0
+        rec["subprocesses"] = p8_subprocesses(tmp)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
     card (parent / change / change / parent). The gather scan on its
@@ -3299,6 +3841,12 @@ def main() -> int:
     p7 = phase7(dev, wctx, p6.pop("trained_snap"), p6.pop("trained_q"))
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p7['peak_gb']:.1f} GB; launches {p7['launches']}")
+    t0 = time.perf_counter()
+    p8 = phase8(dev, wctx, p6.pop("trained_retriever"),
+                p6.pop("trained_corpus"))
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s; peak device memory "
+        f"{p8['peak_gb']:.1f} GB; launches (a) {p8['cli']['launches']}, (b) "
+        f"{p8['dispatch']['launches']}")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -3307,13 +3855,15 @@ def main() -> int:
     skews = p3["report"]
     for name in ("routed", "cluster_major"):
         main_rec = skews["router"]["f32"]
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], "launches": p3["launches"][name],
             "max_abs_err": max([err1[name]] + [
                 skews[sk][p][name]["err"] for sk in skews for p in TIERS] + (
                 [p5["delta_scan"]["max_abs_err"]] if name == "routed" else [])
-                + [p6["trained_own_row"][p][name]["err"] for p in TIERS]),
+                + [p6["trained_own_row"][p][name]["err"] for p in TIERS]
+                + ([p8["dispatch"][p]["err_vs_plain"] for p in TIERS]
+                   if name == "cluster_major" else [])),
             "ms": main_rec[name]["ms"], "plain_ms": main_rec[name]["plain_ms"],
             "bound_ms": main_rec["bound"]["bound_ms"],
             "bound_by": main_rec["bound"]["bound_by"], "library_ms": None,
@@ -3322,6 +3872,8 @@ def main() -> int:
             "write_path_launches": p5["launches"][name],
             "build_launches": p6["launches"][name],
             "serving_launches": p7["launches"][name],
+            "cli_launches": p8["cli"]["launches"][name],
+            "dispatch_launches": p8["dispatch"]["launches"][name],
             "shape": {"queries": p3["batch"], "cr": p3["cr"], "k": p3["k"],
                       "precision": "f32", "skew": "router",
                       "distinct_clusters": p3["distinct_clusters"]},
@@ -3332,7 +3884,12 @@ def main() -> int:
                                "bound_by": rec[p]["bound"]["bound_by"]}
                            for p in TIERS}
                       for sk, rec in skews.items()},
-        })
+        }
+        if name == "cluster_major":
+            row["dispatch"] = {p: {f: p8["dispatch"][p][f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "x_bound",
+                "err_vs_plain")} for p in TIERS}
+        kernels.append(row)
     csrc = "src/repro_torch/kernels/csrc/"
     new = {"gather": ("fused_topk_score.cu",
                       "src/repro/kernels/fused_topk_score.py:173"),
@@ -3413,6 +3970,10 @@ def main() -> int:
     log(json.dumps({"serving": dict(card=card, config=SERVE_CFG,
                                     zipf_a=ZIPF_A, concurrency=CONCURRENCY,
                                     **p7)}))
+    log(json.dumps({"tools": dict(card=card, **{
+        part: p8[part] for part in ("cli", "dispatch", "baselines",
+                                    "subprocesses")},
+        peak_device_gb=p8["peak_gb"])}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,10 @@ score it exhaustively.
     server.insert_objects(emb, loc, ids)       # WAL-then-publish
     server = api.recover("artifacts/index", "artifacts/wal")  # after a crash
 
+``python -m repro_torch.api [--device cpu]`` runs the save → load →
+query round-trip self-test on a small random index (on the card unless
+``--device cpu``; exit code 0 only when every leg agrees).
+
 Writes go through the snapshot's derivations: ``with_delta`` for the
 O(batch) delta segment, ``compact`` to fold it into the cluster buffers
 on the snapshot's device; a long-lived server
@@ -161,6 +165,14 @@ class Searcher:
         return self.engine.query(tokens, mask, loc, k=k, cr=cr, batch=batch,
                                  backend=backend, filters=filters)
 
+    def query_corpus(self, corpus, query_ids, *, k: int = 10, cr: int = 1,
+                     batch: int = 256, backend: Optional[str] = None):
+        """:meth:`query` of a corpus's queries by id."""
+        tokens, mask = corpus.query_tokens(query_ids)
+        loc = corpus.q_loc[query_ids].astype(np.float32)
+        return self.query(tokens, mask, loc, k=k, cr=cr, batch=batch,
+                          backend=backend)
+
     def serve(self, config: Optional["server_lib.ServerConfig"] = None
               ) -> "server_lib.StreamingServer":
         """A streaming server (micro-batcher, caches, write path, WAL,
@@ -195,3 +207,126 @@ def brute_force(snapshot: IndexSnapshot, corpus, query_ids, *, k: int = 20,
     with torch.no_grad():
         return engine_lib.run_batched(score_top, [q_emb, q_loc], batch=batch,
                                       device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Round-trip self-test
+# ---------------------------------------------------------------------------
+
+
+def _roundtrip_selftest(directory: Optional[str] = None,
+                        device="cuda") -> int:
+    """build (random params) → save → load → query, on every backend of
+    ``device`` (``cuda``, ``cuda-cm``, ``auto`` on the card; ``dense``,
+    ``dense-cm`` on the CPU) and every tier (f32, bf16, int8), unfiltered
+    and with a tenant filter, plus a snapshot with a delta segment: each
+    leg's answers must be bit-identical before and after the trip (and
+    the filtered ones inside the tenant). Returns the number of legs that
+    disagree. The reference's mesh leg waits for the sharded port
+    (ROADMAP Queue A 11)."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import delta as delta_lib
+    from repro_torch.core import filters as filters_lib
+    from repro_torch.core import index as index_lib
+    from repro_torch.device import require_device
+
+    dev = require_device(device)
+    backends = (("cuda", "cuda-cm", "auto") if dev.type == "cuda"
+                else ("dense", "dense-cm"))
+    cfg = dataclasses.replace(
+        get_config("list-dual-encoder"),
+        n_layers=2, d_model=32, n_heads=2, d_ff=64, vocab_size=512,
+        max_len=8, spatial_t=50, n_clusters=4, index_mlp_hidden=(16,))
+    rng = np.random.default_rng(0)
+    rel_p, idx_p = convert.random_params(
+        cfg, n_clusters=cfg.n_clusters,
+        generator=torch.Generator().manual_seed(0))
+    rel, index = convert.params_from_numpy(rel_p, idx_p, cfg)
+    n, c = 64, cfg.n_clusters
+    obj_emb = torch.from_numpy(
+        rng.normal(size=(n, cfg.d_model)).astype(np.float32))
+    obj_loc = torch.from_numpy(rng.uniform(size=(n, 2)).astype(np.float32))
+    norm = index_lib.loc_normalizer(obj_loc)
+    feats = index_lib.build_features(obj_emb, obj_loc, norm)
+    top = index_lib.assign_clusters(index, feats, top=2).numpy()
+    attrs = filters_lib.make_attrs(np.arange(n) % 3, 1 << (np.arange(n) % 4),
+                                   np.arange(n))
+    buf = index_lib.build_cluster_buffers(top, obj_emb, obj_loc,
+                                          n_clusters=c, capacity=32,
+                                          attrs=torch.from_numpy(attrs))
+    snap = IndexSnapshot.from_parts(cfg, rel, index, norm, buf,
+                                    dist_max=1.4142)
+    fspec = filters_lib.FilterSpec(tenant=1)
+
+    tok = rng.integers(2, cfg.vocab_size, (12, cfg.max_len)).astype(np.int32)
+    tok[:, 0] = 1
+    msk = np.ones_like(tok, bool)
+    loc = rng.uniform(size=(12, 2)).astype(np.float32)
+
+    def same(a, b):
+        return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+    root = tempfile.mkdtemp() if directory is None else directory
+    failures = 0
+    for precision in index_lib.PRECISIONS:
+        snap_p = snap.with_precision(precision)
+        tmp = os.path.join(root, precision)
+        path = save(snap_p, tmp)
+        loaded = load(tmp, device=dev)
+        assert loaded.meta == snap_p.meta, (loaded.meta, snap_p.meta)
+        assert loaded.cfg == snap_p.cfg
+        for backend in backends:
+            def ask(s, **kw):
+                return Searcher(s, backend=backend, device=dev).query(
+                    tok, msk, loc, k=5, cr=2, batch=4, **kw)
+            ok = same(ask(snap_p), ask(loaded))
+            print(f"snapshot-roundtrip [{backend:9s}|{precision:4s}] "
+                  f"{'bit-identical' if ok else 'MISMATCH'}  ({path})")
+            failures += 0 if ok else 1
+            fa, fb = ask(snap_p, filters=fspec), ask(loaded, filters=fspec)
+            live = fa[0][fa[0] >= 0]
+            ok = same(fa, fb) and bool(np.all(attrs[live, 0] == 1))
+            print(f"snapshot-roundtrip [filt {backend:4s}|{precision:4s}] "
+                  f"{'bit-identical' if ok else 'MISMATCH'}")
+            failures += 0 if ok else 1
+        # a snapshot with pending mutations round-trips and serves alike
+        seg = delta_lib.DeltaSegment.empty(cfg.d_model, precision)
+        seg = seg.insert(rng.normal(size=(3, cfg.d_model)).astype(np.float32),
+                         rng.uniform(size=(3, 2)).astype(np.float32),
+                         np.arange(9000, 9003))
+        seg = seg.delete([0, 1])
+        snap_d = snap_p.with_delta(seg)
+        tmp_d = os.path.join(root, precision + "-delta")
+        save(snap_d, tmp_d)
+        loaded_d = load(tmp_d, device=dev)
+        assert loaded_d.meta == snap_d.meta, (loaded_d.meta, snap_d.meta)
+        a = Searcher(snap_d, backend=backends[0], device=dev).query(
+            tok, msk, loc, k=5, cr=2, batch=4)
+        b = Searcher(loaded_d, backend=backends[0], device=dev).query(
+            tok, msk, loc, k=5, cr=2, batch=4)
+        ok = same(a, b)
+        print(f"snapshot-roundtrip [delta    |{precision:4s}] "
+              f"{'bit-identical' if ok else 'MISMATCH'}")
+        failures += 0 if ok else 1
+    return failures
+
+
+def _main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.api",
+        description="save → load → query round-trip self-test")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    failures = _roundtrip_selftest(device=args.device)
+    print(f"snapshot-roundtrip: {failures} leg(s) disagree")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

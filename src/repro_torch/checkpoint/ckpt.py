@@ -9,10 +9,12 @@ Layout of one committed step::
 
 :func:`save` writes leaves given as ``torch`` tensors (on any device,
 copied to the host one at a time) or numpy arrays; :func:`restore` gives
-them back as CPU tensors. bfloat16 leaves are stored as same-width
-unsigned views (numpy has no bf16 dtype); the manifest records the true
-dtype and the port reinterprets the 16 bits as ``torch.bfloat16``, bit
-for bit. Every leaf's crc32 is checked before the file is parsed: a
+them back as CPU tensors; :class:`CheckpointManager` saves and resumes
+nested dicts of tensors (a trainer's state) in that layout, so a state
+written by either package resumes in the other. bfloat16 leaves are
+stored as same-width unsigned views (numpy has no bf16 dtype); the
+manifest records the true dtype and the port reinterprets the 16 bits as
+``torch.bfloat16``, bit for bit. Every leaf's crc32 is checked before the file is parsed: a
 damaged artifact raises :class:`SnapshotCorrupt`.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import os
 import re
 import shutil
 import zlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -219,7 +221,7 @@ def _load_leaf(path: str, info: dict, i: int) -> torch.Tensor:
     if list(arr.shape) != list(info.get("shape", arr.shape)):
         raise SnapshotCorrupt(f"leaf {i} ({path}): shape {arr.shape} != "
                               f"manifest {info['shape']}")
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    return torch.from_numpy(np.require(arr, requirements="C"))
 
 
 def restore(directory: str, *, step: Optional[int] = None
@@ -236,3 +238,103 @@ def restore(directory: str, *, step: Optional[int] = None
     leaves = [_load_leaf(os.path.join(path, info["file"]), info, i)
               for i, info in enumerate(infos)]
     return leaves, step, manifest["meta"]
+
+
+# ---------------------------------------------------------------------------
+# Nested states: jax's tree order and treedef string, and the manager
+# ---------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a nested dict / list / tuple in jax ``tree_flatten``
+    order: dict children by sorted key, sequences in order; ``None`` is
+    an empty node, as in jax."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def treedef_str(tree) -> str:
+    """jax's ``str(tree_structure(tree))`` of a nested dict / list /
+    tuple: ``PyTreeDef({'a': *, 'b': [*, (*,)]})``."""
+    def node(t):
+        if t is None:
+            return "None"
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {node(t[k])}"
+                                   for k in sorted(t)) + "}"
+        if isinstance(t, list):
+            return "[" + ", ".join(node(v) for v in t) + "]"
+        if isinstance(t, tuple):
+            inner = ", ".join(node(v) for v in t)
+            return "(" + inner + ("," if len(t) == 1 else "") + ")"
+        return "*"
+    return f"PyTreeDef({node(tree)})"
+
+
+def _unflatten_like(template, leaves: Iterator[Any]):
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        out = {k: _unflatten_like(template[k], leaves)
+               for k in sorted(template)}
+        return {k: out[k] for k in template}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_unflatten_like(v, leaves) for v in template)
+    return next(leaves)
+
+
+class CheckpointManager:
+    """Save-every-N and resume over a nested dict of tensors (reference:
+    ``repro.checkpoint.ckpt.CheckpointManager``): a training loop calls
+    :meth:`maybe_save` each step and :meth:`restore_or_init` once at
+    start. Leaves are written in jax ``tree_flatten`` order with jax's
+    treedef string, so either package restores the other's state."""
+
+    def __init__(self, directory: str, *, every: int = 100, keep: int = 3):
+        self.directory = directory
+        self.every = every
+        self.keep = keep
+
+    def maybe_save(self, step: int, tree, *, meta=None, force=False):
+        """Commit ``tree`` as step ``step`` when ``force`` or when ``step``
+        is a positive multiple of ``every``; returns the path, else
+        None."""
+        if force or (self.every > 0 and step % self.every == 0 and step > 0):
+            return save(self.directory, step, tree_leaves(tree),
+                        treedef=treedef_str(tree), meta=meta, keep=self.keep)
+        return None
+
+    def restore_or_init(self, init_fn: Callable[[], Any], *, shard_fn=None):
+        """``(tree, start_step, meta)``: ``init_fn()`` and step 0 when the
+        directory holds no checkpoint; else the latest step restored into
+        ``init_fn()``'s structure, each leaf's shape checked and the leaf
+        placed on the device of the template leaf it replaces."""
+        if shard_fn is not None:
+            raise NotImplementedError(
+                "restore_or_init: shard_fn (elastic re-sharding) waits for "
+                "the sharded port, ROADMAP Queue A 11")
+        step = latest_step(self.directory)
+        if step is None:
+            return init_fn(), 0, {}
+        template = init_fn()
+        ref = tree_leaves(template)
+        leaves, step, meta = restore(self.directory, step=step)
+        if len(leaves) != len(ref):
+            raise ValueError(
+                f"checkpoint has {len(leaves)} leaves, expected {len(ref)} "
+                f"— structure mismatch")
+        placed = []
+        for i, (leaf, want) in enumerate(zip(leaves, ref)):
+            shape = tuple(getattr(want, "shape", leaf.shape))
+            if tuple(leaf.shape) != shape:
+                raise ValueError(f"leaf {i}: checkpoint shape "
+                                 f"{tuple(leaf.shape)} != expected {shape}")
+            if isinstance(want, torch.Tensor):
+                leaf = leaf.to(want.device)
+            placed.append(leaf)
+        return _unflatten_like(template, iter(placed)), step, meta

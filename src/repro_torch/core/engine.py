@@ -74,6 +74,27 @@ def resolve_backend(backend: str, device) -> str:
     return backend
 
 
+def resolve_cli_backend(backend: Optional[str], use_pallas: bool,
+                        *, default: str = "auto") -> str:
+    """The command lines' alias rule (the reference's
+    ``resolve_cli_backend``): ``--use-pallas`` is deprecated, warns and
+    forwards to ``cuda`` (the twin of ``pallas``); an explicit
+    ``--backend`` wins, with a warning that the alias was ignored.
+    Neither flag → ``default``."""
+    if use_pallas:
+        import warnings
+        if backend is None:
+            warnings.warn("--use-pallas is deprecated; forwarding to "
+                          "--backend cuda", DeprecationWarning,
+                          stacklevel=2)
+            return "cuda"
+        if backend != "cuda":
+            warnings.warn(f"--use-pallas ignored: explicit --backend "
+                          f"{backend} wins", DeprecationWarning,
+                          stacklevel=2)
+    return backend or default
+
+
 def cluster_major_variant(backend: str, dedup_factor: float, *,
                           threshold: float = CLUSTER_MAJOR_DEDUP_THRESHOLD
                           ) -> str:

@@ -86,6 +86,15 @@ def validate_attrs(attrs, n: int) -> torch.Tensor:
     return torch.from_numpy(out.astype(np.int32))
 
 
+def make_attrs(tenant, category_mask=0, timestamp=0) -> np.ndarray:
+    """Pack broadcastable per-object columns into an ``(n, 3)`` int32
+    table."""
+    t, c, ts = np.broadcast_arrays(
+        np.asarray(tenant), np.asarray(category_mask), np.asarray(timestamp))
+    return np.stack([t, c, ts], axis=-1).astype(np.int32).reshape(
+        -1, N_ATTRS)
+
+
 def compile_filters(filters: Filters, batch: int) -> Tuple[np.ndarray, bool]:
     """→ ``(fvals (batch, 4) int32, filtered)``. ``filtered`` is False when
     every row is a no-op, and callers then take the unfiltered plan."""
@@ -114,3 +123,10 @@ def predicate_mask(attrs: torch.Tensor, fvals: torch.Tensor) -> torch.Tensor:
     ok_cat = (f_mask == 0) | ((cat & f_mask) != 0)
     ok_time = (ts >= t_lo) & (ts <= t_hi)
     return ok_tenant & ok_cat & ok_time
+
+
+def predicate_mask_np(attrs, fvals) -> np.ndarray:
+    """:func:`predicate_mask` on CPU tensors, for host-side oracles:
+    numpy in, numpy bool out."""
+    return predicate_mask(torch.as_tensor(np.asarray(attrs)),
+                          torch.as_tensor(np.asarray(fvals))).numpy()

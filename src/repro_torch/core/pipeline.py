@@ -31,9 +31,11 @@ from repro_torch.core import engine as engine_lib
 from repro_torch.core import index as index_lib
 from repro_torch.core import pseudo_labels, relevance
 from repro_torch.core import snapshot as snapshot_lib
+from repro_torch.core import spatial as sp
 from repro_torch.core.baselines import BM25, tkq_topk
+from repro_torch.core.index import topk_stable
 from repro_torch.core.relevance import RelevanceModel
-from repro_torch.device import require_device
+from repro_torch.device import full_f32_products, require_device
 from repro_torch.optim import (clip_by_global_norm, linear_warmup_cosine,
                                make_optimizer)
 
@@ -384,3 +386,73 @@ class ListRetriever:
                             backend=backend)
         self.last_query_seconds = time.perf_counter() - t0
         return ids, sc
+
+    # --- brute force (LIST-R over the whole corpus) -------------------------
+
+    def brute_force(self, query_ids, *, k: int = 20, batch: int = 256):
+        """Exhaustive LIST-R scoring of the corpus's objects (the
+        retriever's own embeddings) for ``query_ids``, on the retriever's
+        device with TF32 off; ties ranked lowest index first. Returns
+        ``(ids (n, k) int32, scores (n, k) f32)`` numpy."""
+        dev = self.device
+        full_f32_products(dev)
+        q_emb = embed_queries(self.rel, self.corpus, query_ids, batch=batch)
+        q_loc = self.corpus.q_loc[query_ids].astype(np.float32)
+        obj_emb = torch.from_numpy(
+            np.asarray(self.ensure_embeddings(), np.float32)).to(dev)
+        obj_loc = torch.from_numpy(
+            self.corpus.obj_loc.astype(np.float32)).to(dev)
+
+        def score_top(qe, ql):
+            st = relevance.score_corpus(
+                self.rel, qe, ql, obj_emb, obj_loc,
+                dist_max=self.corpus.dist_max, spatial_mode=self.spatial_mode,
+                weight_mode=self.weight_mode)
+            sc, ids = topk_stable(st, k)
+            return ids.to(torch.int32), sc
+
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ids, sc = engine_lib.run_batched(score_top, [q_emb, q_loc],
+                                             batch=batch, device=dev)
+        self.last_query_seconds = time.perf_counter() - t0
+        return ids, sc
+
+    # --- embedding accessor for baselines -----------------------------------
+
+    def ensure_embeddings(self) -> np.ndarray:
+        """The ``(n_objects, d)`` f32 object embeddings, embedded on the
+        retriever's device at first use."""
+        if self.obj_emb is None:
+            self.obj_emb = embed_objects(self.rel, self.corpus)
+        return self.obj_emb
+
+    def score_fn(self):
+        """The baselines' rerank scorer: ``fn(q_emb_row (d,), q_loc_row
+        (2,), cand (m,) object ids) -> (m,) f32 numpy``, through the
+        engine's ``score_candidates`` (the serve path's ST: the step
+        table's lookup, the query's own mixing weights) on the
+        retriever's device with TF32 off."""
+        dev = self.device
+        full_f32_products(dev)
+        obj_emb = torch.from_numpy(
+            np.asarray(self.ensure_embeddings(), np.float32)).to(dev)
+        obj_loc = torch.from_numpy(
+            self.corpus.obj_loc.astype(np.float32)).to(dev)
+        w_hat = (sp.extract_lookup(self.rel.spatial["w_s"].data)
+                 if self.spatial_mode == "step"
+                 else torch.linspace(0, 1, self.cfg.spatial_t, device=dev))
+        dist_max = float(self.corpus.dist_max)
+
+        @torch.no_grad()
+        def fn(q_emb_row, q_loc_row, cand):
+            qe = torch.as_tensor(np.asarray(q_emb_row, np.float32)).to(dev)
+            ql = torch.as_tensor(np.asarray(q_loc_row, np.float32)).to(dev)
+            ci = torch.as_tensor(np.asarray(cand, np.int64)).to(dev)
+            w = relevance.st_weights(self.rel, qe[None],
+                                     weight_mode=self.weight_mode)
+            st = engine_lib.score_candidates(
+                qe[None], ql[None], w, obj_emb[ci], obj_loc[ci],
+                ci.to(torch.int32), w_hat, dist_max=dist_max)
+            return st[0].cpu().numpy()
+        return fn

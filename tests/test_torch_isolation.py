@@ -5,7 +5,9 @@ raises) imports every module of ``repro_torch`` and runs the slice on
 the CPU: random params in the reference's layout → ``params_from_numpy``
 → buffers → snapshot → ``Searcher.query`` on ``dense``, ``dense-cm``
 and ``auto``. The default device is CUDA, so without one the entry
-points raise instead of quietly running on the CPU.
+points raise instead of quietly running on the CPU. The import scan
+covers the port, ``chip_smoke.py`` and the port's examples
+(``examples/torch_*.py``).
 """
 import ast
 import os
@@ -90,7 +92,8 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]),
+    [p for p in PORT.rglob("*.py")] + [REPO / "chip_smoke.py"]
+    + list((REPO / "examples").glob("torch_*.py"))),
     ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_imports(path):
     for name in _imports(path):

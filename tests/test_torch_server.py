@@ -10,8 +10,8 @@ counters (``test_torch_common.COUNTERS``: flushes by reason, hits,
 coalesced, invalidations, compactions by trigger, shed, retries, breaker
 trips, WAL appends, recovered writes) must be equal.
 
-Left out: ``test_cli_backend_alias`` (the command line ``launch/serve.py``
-is ROADMAP Queue A 10). The ``cuda``-marked tests hold the ``cuda`` /
+``test_cli_backend_alias`` has its twin in ``test_torch_cli.py``, with
+the port's command line. The ``cuda``-marked tests hold the ``cuda`` /
 ``cuda-cm`` / ``auto`` servers against a ``dense`` server on a CPU copy
 and need a card.
 """
