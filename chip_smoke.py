@@ -163,10 +163,30 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    must exit 0, the server and the engine must agree. The launch counters
    are zeroed around (a) and around (b).
 
+9. The sharded query phase on phase 3's index (``SHARD_COUNTS``: 1, 2,
+   4 and 8 LOGICAL shards on this one card, placed by an explicit device
+   list; overhead, not scale-out). The launch counters are zeroed before
+   and read after the main path: 4,096 queries (batch 256, k 20, cr 2)
+   through ``Searcher.query`` on each placement of the int8 tier on
+   ``cuda``, ``cuda-cm`` and ``auto`` and of the f32 tier at S 4 on
+   ``cuda``, ids equal to the unsharded searchers' up to ties, beside
+   their walls; per S the parts' bytes and the device memory added (the
+   global buffers must stay on the host). Then one chunk's scan per shard
+   (CUDA events) summed against the unsharded scan; at S 4: a lost shard
+   (``shard.device_lost``: coverage = the share of routes the others own,
+   ids = a masked unsharded oracle), ``recover_shard`` (bit-equal to
+   before the loss, timed), a straggler (``shard.scan_slow``) hedged onto
+   its host replica (bit-equal; the replica scan timed beside the device
+   scan); ``mine_negatives_sharded`` and ``_dense`` on phase 6's 131,072
+   objects against ``mine_negatives`` (up to ties), timed; ``--mesh 1``
+   through the command line at phase 8's flags (training cut to 30 + 30
+   steps), and a mesh wider than the host's cards refused.
+
 Prints a JSON line of phase 3's numbers, one of the write path's
 (``write_path``), one of the build's (``build``), one of the serving
-stack's (``serving``), one of phase 8's (``tools``), one of per-kernel
-numbers, then as its last line ``{"ok": true, "device": {...}}``. Any
+stack's (``serving``), one of phase 8's (``tools``), one of phase 9's
+(``sharded``), one of per-kernel numbers, then as its last line
+``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero.
 
 ``--compare`` times, on trees that share its wrappers: the gather scan on
@@ -3663,6 +3683,576 @@ def phase8(dev, wctx, retriever, trained_corpus):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the sharded query phase (logical shards on one card)
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_BACKENDS = ("cuda", "cuda-cm", "auto")
+SHARD_QUERIES = 4096             # per run, at every shard count
+SHARD_K, SHARD_CR, SHARD_BATCH = 20, 2, 256
+P9_PLAIN_SUB = 32                # queries per slice of a shard's plain scan
+FAULT_S = 4                      # the lost-shard, recovery and hedging runs
+LOST_SHARD, SLOW_SHARD = 1, 2
+SLOW_SLEEP_S = 0.25              # the straggler's delay per device scan
+N_MINE_Q = 256                   # phase 6's training queries mined
+MINE_SHARDS = 8                  # mine_negatives_sharded's corpus blocks
+CLI_MESH_ARGS = CLI_ARGS + ["--train-steps", "30", "--index-steps", "30",
+                            "--requests", "4096", "--mode", "closed",
+                            "--mesh", "1"]
+
+
+def logical_mesh(dev, n):
+    """``n`` logical shards on ``dev``: an explicit device list."""
+    from repro_torch.distributed import sharding
+    return sharding.ClusterMesh((dev,) * n)
+
+
+def p9_shard(dev, snap, n, what):
+    """``snap`` sharded ``n`` ways on ``dev``, timed, with its memory:
+    the parts' bytes, and the device memory it added (its global buffers
+    must have gone to the host)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = snap.with_mesh(logical_mesh(dev, n))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    if any(v.device.type != "cpu" for v in s.buffers.values()
+           if isinstance(v, torch.Tensor)):
+        raise AssertionError(f"phase 9 {what}: global buffers not on the host")
+    per = s.shards.nbytes_per_device()
+    glob = sum(snap.buffers[k_].numel() * snap.buffers[k_].element_size()
+               for k_ in ("emb", "loc", "ids", "scale", "attrs", "counts"))
+    return s, dict(shard_s=shard_s, bytes_per_part=per, parts_gb=sum(per) / 1e9,
+                   global_gb=glob / 1e9, before=before, peak=0)
+
+
+def p9_memory(rec, what):
+    """Device memory added since ``p9_shard`` against the parts: what
+    stays resident after the queries must be the parts (the global
+    buffers stay on the host), and the peak over all the runs the parts
+    plus at most one part in flight (an as-served run's hedged scan
+    copies its host replica) and 1 GB of work space. The runs with
+    hedging off are held tighter in ``p9_run``."""
+    import torch
+    peak = (max(rec.pop("peak"), torch.cuda.max_memory_allocated())
+            - rec["before"]) / 1e9
+    resident = (torch.cuda.memory_allocated() - rec.pop("before")) / 1e9
+    rec.update(peak_added_gb=peak, resident_added_gb=resident,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9)
+    part = max(rec["bytes_per_part"]) / 1e9
+    if resident > rec["parts_gb"] + 0.25 or peak > rec["parts_gb"] + part + 1:
+        raise AssertionError(
+            f"phase 9 {what}: the card gained {resident:.2f} GB resident, "
+            f"{peak:.2f} GB at peak, for {rec['parts_gb']:.2f} GB of parts "
+            f"(one part {part:.2f} GB); the global buffers "
+            f"({rec['global_gb']:.2f} GB) came back")
+
+
+class NeverSlow:
+    """A straggler monitor that flags nothing: the sharded walls without
+    hedging (``p9_run``)."""
+
+    def record(self, host, seconds):
+        pass
+
+    def slow(self, host):
+        return False
+
+
+def p9_run(dev, snap, backend, q, n, want=None, mem=None):
+    """``Searcher.query`` of the first ``n`` queries (one chunk first, to
+    warm), checked against ``want`` up to ties when given → a record:
+    the wall as served (``wall_ms``: the engine's straggler monitor may
+    hedge a shard whose scan times jitter, and then each of its scans
+    copies the shard's host replica to the card) and, on a sharded
+    snapshot, the wall of a second run with hedging off
+    (``steady_wall_ms``, answers checked the same), with the shard
+    counters of each. The hedging-off run's own peak must stay within
+    the parts (``mem``, from ``p9_shard``) and 1 GB of work space: no
+    global buffer comes back, even for a moment."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    s = api.Searcher(snap, backend=backend, device=dev)
+    if snap.shards is not None and s.snapshot.buffers["emb"].device.type \
+            != "cpu":
+        raise AssertionError("phase 9: the engine moved the global buffers")
+    tok, msk, loc = (a[:n] for a in q)
+    kw = dict(k=SHARD_K, cr=SHARD_CR, batch=SHARD_BATCH)
+    s.query(tok[:SHARD_BATCH], msk[:SHARD_BATCH], loc[:SHARD_BATCH], **kw)
+    eng = s.engine
+
+    def timed():
+        torch.cuda.synchronize()
+        before = dict(eng.shard_stats)
+        t0 = time.perf_counter()
+        ids, sc = s.query(tok, msk, loc, **kw)
+        wall = time.perf_counter() - t0
+        if ids.shape != (n, SHARD_K) or not np.isfinite(sc).all():
+            raise AssertionError(f"phase 9 {backend}: bad output "
+                                 f"{ids.shape}")
+        if eng.last_coverage != 1.0:
+            raise AssertionError(f"phase 9 {backend}: coverage "
+                                 f"{eng.last_coverage}")
+        err = (None if want is None else
+               topk_match(ids, sc, want[0][:n], want[1][:n]))
+        return ids, sc, wall * 1e3, err, {
+            k_: eng.shard_stats[k_] - before[k_] for k_ in before}
+
+    ids, sc, wall, err, stats = timed()
+    rec = dict(wall_ms=wall, max_abs_err=err, shard_stats=stats,
+               dedup_factor=eng.last_dedup_factor)
+    if snap.shards is not None:
+        eng._shard_monitor, eng._hedged = NeverSlow(), {}
+        mem["peak"] = max(mem["peak"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        _, _, rec["steady_wall_ms"], e2, rec["steady_shard_stats"] = timed()
+        rec["max_abs_err"] = max(err, e2)
+        top = torch.cuda.max_memory_allocated()
+        mem["peak"] = max(mem["peak"], top)
+        rec["steady_peak_added_gb"] = (top - mem["before"]) / 1e9
+        if rec["steady_peak_added_gb"] > mem["parts_gb"] + 1:
+            raise AssertionError(
+                f"phase 9 {backend}: with hedging off the card gained "
+                f"{rec['steady_peak_added_gb']:.2f} GB at peak for "
+                f"{mem['parts_gb']:.2f} GB of parts; a global buffer came "
+                f"back")
+    return ids, sc, rec
+
+
+def p9_plain(backend, part, ctx, local, *, precision, dist_max):
+    """The plain version of one shard's scan on the card: the same part
+    and local routes through ``fts.routed_topk_plain`` (``cuda``) or
+    ``fts.cluster_major_partials_plain`` and the fold (``cuda-cm``), in
+    slices of ``P9_PLAIN_SUB`` queries → ``(ids, scores)`` on the host."""
+    import torch
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import serving
+    from repro_torch.kernels import fused_topk_score as fts
+    kw = dict(k=SHARD_K, dist_max=dist_max,
+              buf_scale=part["scale"] if precision == "int8" else None)
+    bufs = (part["emb"], part["loc"], part["ids"])
+    ids, scores = [], []
+    for a in range(0, local.shape[0], P9_PLAIN_SUB):
+        sl = slice(a, a + P9_PLAIN_SUB)
+        q = (ctx["q_emb"][sl], ctx["ql"][sl], ctx["w"][sl])
+        if backend == "cuda":
+            sc, ix = fts.routed_topk_plain(*q, local[sl], *bufs,
+                                           ctx["w_hat"], **kw)
+        else:
+            u, roster, _ = serving.cluster_major_plan(
+                local[sl], n_clusters=part["emb"].shape[0])
+            ps, pi = fts.cluster_major_partials_plain(
+                *q, u, roster, *bufs, ctx["w_hat"], cr=SHARD_CR, **kw)
+            sc, ix = engine_lib.merge_cluster_major(
+                ps, pi, b=q[0].shape[0], cr=SHARD_CR, k=SHARD_K)
+        ids.append(ix.cpu())
+        scores.append(sc.cpu())
+    return torch.cat(ids), torch.cat(scores)
+
+
+def p9_scan_split(dev, snap_s, ctx, backend):
+    """One 256-query chunk on each shard: the shard's scan (its kernel)
+    held against its plain version (``p9_plain``) on the same part and
+    the same local routes, up to ties within ATOL + RTOL (raises on a
+    mismatch), and timed with CUDA events, to be summed over the shards
+    beside the unsharded scan → ``(per-shard ms, max |score error|)``.
+    Launched after the main path's counts are read."""
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.core import serving
+    sh = snap_s.shards
+    precision = snap_s.meta.precision
+    eng = engine_lib.QueryEngine(snap_s, backend=backend, device=dev)
+    sfn = eng.shard_topk_fn(k=SHARD_K, backend=backend, precision=precision)
+    so, lo = eng._placement_maps(sh)
+    args = (ctx["q_emb"], ctx["ql"], ctx["w"])
+    per, err = [], 0.0
+    for s, part in enumerate(sh.parts):
+        local = serving.localize_routes(ctx["top_c"], so, lo, s,
+                                        sentinel=sh.sentinel)
+        ids, sc = sfn(ctx["w_hat"], part, *args, local)
+        w_ids, w_sc = p9_plain(backend, part, ctx, local,
+                               precision=precision, dist_max=snap_s.dist_max)
+        try:
+            err = max(err, topk_match(ids.cpu(), sc.cpu(), w_ids, w_sc))
+        except AssertionError as e:
+            raise AssertionError(
+                f"phase 9 {backend} S={sh.n_shards} shard {s}: the kernel "
+                f"differs from its plain version: {e}") from None
+        per.append(time_ms(lambda part=part, local=local: sfn(
+            ctx["w_hat"], part, *args, local)))
+    return per, err
+
+
+def p9_faults(dev, snap_s, base_snap, q):
+    """On ``FAULT_S`` logical shards, int8, ``cuda``: a lost shard
+    (coverage = the share of routes the others own, ids = a masked
+    unsharded oracle), ``recover_shard`` (bit-equal to before the loss,
+    timed), a straggler hedged onto its host replica (bit-equal; the
+    replica scan timed)."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import faults
+    tok, msk, loc = q
+    kw = dict(k=SHARD_K, cr=SHARD_CR, batch=SHARD_BATCH)
+    searcher = api.Searcher(snap_s, backend="cuda", device=dev)
+    eng = searcher.engine
+    healthy = searcher.query(tok, msk, loc, **kw)
+    sh = snap_s.shards
+    # the routes, chunk by chunk as the engine's prefix computes them
+    router = api.Searcher(base_snap, backend="cuda", device=dev).engine
+    top_c = np.concatenate([
+        router.route(tok[i:i + SHARD_BATCH], msk[i:i + SHARD_BATCH],
+                     loc[i:i + SHARD_BATCH], cr=SHARD_CR).cpu().numpy()
+        for i in range(0, len(tok), SHARD_BATCH)])
+    owned = int((sh.shard_of[top_c] == LOST_SHARD).sum())
+    want_cov = (top_c.size - owned) / top_c.size
+
+    def lost(shard):
+        if shard == LOST_SHARD:
+            raise RuntimeError(f"device of shard {shard} lost")
+    faults.inject("shard.device_lost", callback=lost, times=None)
+    try:
+        ids, sc = searcher.query(tok, msk, loc, **kw)
+    finally:
+        faults.clear()
+    cov = searcher.last_coverage
+    if cov != want_cov or eng.down_signature() != (LOST_SHARD,):
+        raise AssertionError(f"phase 9 lost shard: coverage {cov} != "
+                             f"{want_cov} or down {eng.down_signature()}")
+    masked = base_snap.buffers["ids"].clone()
+    masked[torch.from_numpy(sh.group(LOST_SHARD)).to(dev)] = -1
+    oracle = dataclasses.replace(base_snap,
+                                 buffers={**base_snap.buffers, "ids": masked})
+    o_ids, o_sc = api.Searcher(oracle, backend="cuda", device=dev).query(
+        tok, msk, loc, **kw)
+    err_lost = topk_match(ids, sc, o_ids, o_sc)
+    t0 = time.perf_counter()
+    eng.recover_shard(LOST_SHARD)
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    after = searcher.query(tok, msk, loc, **kw)
+    if not (np.array_equal(after[0], healthy[0])
+            and np.array_equal(after[1], healthy[1])
+            and searcher.last_coverage == 1.0):
+        raise AssertionError("phase 9 recovery: answers differ from before "
+                             "the loss")
+
+    def crawl(shard):
+        if shard == SLOW_SHARD:
+            time.sleep(SLOW_SLEEP_S)
+    # the straggler test reads a window of the shard's own scan times
+    mon = eng._shard_monitor
+    while len(mon.latencies[f"shard{SLOW_SHARD}"]) < mon.window:
+        searcher.query(tok[:SHARD_BATCH], msk[:SHARD_BATCH],
+                       loc[:SHARD_BATCH], **kw)
+    stats0 = dict(eng.shard_stats)
+    faults.inject("shard.scan_slow", callback=crawl, times=None)
+    try:
+        hedged = searcher.query(tok, msk, loc, **kw)
+    finally:
+        faults.clear()
+    st = {k_: eng.shard_stats[k_] - stats0[k_] for k_ in stats0}
+    if SLOW_SHARD not in eng._hedged or st["hedged_scans"] < 1:
+        raise AssertionError(f"phase 9 hedging: shard {SLOW_SHARD} not "
+                             f"hedged ({st})")
+    if not (np.array_equal(hedged[0], healthy[0])
+            and np.array_equal(hedged[1], healthy[1])):
+        raise AssertionError("phase 9 hedging: answers differ")
+    # the replica scan alone: its host part to the card, the same scan
+    snap_now = eng.snapshot
+    host = eng._host_shard_part(snap_now, snap_now.shards, SLOW_SHARD)
+    chunk = [torch.from_numpy(a[:SHARD_BATCH]).to(dev) for a in q]
+    q_emb, w, top = eng.prefix_fn(cr=SHARD_CR)(
+        snap_now.rel, snap_now.index, snap_now.norm, *chunk)
+    from repro_torch.core import serving
+    so, lo = eng._placement_maps(snap_now.shards)
+    local = serving.localize_routes(top, so, lo, SLOW_SHARD,
+                                    sentinel=snap_now.shards.sentinel)
+    sfn = eng.shard_topk_fn(k=SHARD_K, backend="cuda", precision="int8")
+    w_hat = snap_now.w_hat
+
+    def replica_scan():
+        p = {k_: v.to(dev, non_blocking=True) for k_, v in host.items()}
+        return sfn(w_hat, p, q_emb, chunk[2], w, local)
+
+    def device_scan():
+        return sfn(w_hat, snap_now.shards.parts[SLOW_SHARD], q_emb, chunk[2],
+                   w, local)
+    r_out, d_out = replica_scan(), device_scan()
+    if not (torch.equal(r_out[0], d_out[0]) and torch.equal(r_out[1],
+                                                             d_out[1])):
+        raise AssertionError("phase 9: the replica scan differs from the "
+                             "device scan")
+    part_gb = sum(v.numel() * v.element_size() for v in host.values()) / 1e9
+    rec = dict(shards=FAULT_S, lost_shard=LOST_SHARD,
+               lost_coverage=cov, lost_routes_owned=owned,
+               lost_routes=int(top_c.size),
+               even_share=(FAULT_S - 1) / FAULT_S, lost_max_abs_err=err_lost,
+               recover_s=recover_s, slow_shard=SLOW_SHARD,
+               slow_sleep_s=SLOW_SLEEP_S, hedge_stats=st,
+               replica_scan_ms=time_ms(replica_scan, reps=3),
+               device_scan_ms=time_ms(device_scan, reps=3),
+               replica_part_gb=part_gb)
+    record(f"phase 9 faults (S={FAULT_S}, int8, cuda): shard {LOST_SHARD} "
+           f"lost -> coverage {cov:.6f} = 1 - {owned}/{top_c.size} routes "
+           f"(an even split would say {(FAULT_S - 1) / FAULT_S:.4f}), ids == "
+           f"masked oracle up to ties (max|Δ| {err_lost:.3g}); recover_shard "
+           f"{recover_s:.3f} s, then bit-equal to before the loss; shard "
+           f"{SLOW_SHARD} slowed {SLOW_SLEEP_S} s per device scan -> hedged, "
+           f"bit-equal ({st}); replica scan {rec['replica_scan_ms']:.2f} ms "
+           f"(its {part_gb:.2f} GB part copied each time) vs device scan "
+           f"{rec['device_scan_ms']:.3f} ms")
+    return rec
+
+
+def p9_mining(dev, retriever, trained_corpus):
+    """The corpus-sharded minings on phase 6's 131,072 objects and trained
+    relevance model, ``N_MINE_Q`` training queries, phase 6's window:
+    ``mine_negatives_sharded`` and ``_dense`` against ``mine_negatives``
+    (up to ties: equal scores at every rank), each timed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core import pseudo_labels as plab
+    from repro_torch.core import relevance
+    corpus, _ = trained_corpus
+    rel = retriever.rel
+    qids = corpus.split()[0][:N_MINE_Q]
+    q_emb = torch.from_numpy(pl.embed_queries(rel, corpus, qids)).to(dev)
+    q_loc = torch.from_numpy(corpus.q_loc[qids].astype(np.float32)).to(dev)
+    obj = torch.from_numpy(np.asarray(retriever.obj_emb, np.float32)).to(dev)
+    oloc = torch.from_numpy(corpus.obj_loc.astype(np.float32)).to(dev)
+    window = dict(neg_start=retriever.cfg.neg_start,
+                  neg_end=retriever.cfg.neg_end, dist_max=corpus.dist_max)
+    args = (rel, q_emb, q_loc, obj, oloc)
+    runs = {"exact": lambda: plab.mine_negatives(*args, **window),
+            "sharded": lambda: plab.mine_negatives_sharded(
+                *args, shards=MINE_SHARDS, **window),
+            "dense": lambda: plab.mine_negatives_dense(*args, **window)}
+    out, ms = {}, {}
+    for name, fn in runs.items():
+        out[name] = fn().cpu().numpy()
+        ms[name] = time_ms(fn, reps=2, warmup=0)
+    scores = relevance.score_corpus(rel, q_emb, q_loc, obj, oloc,
+                                    dist_max=corpus.dist_max).cpu().numpy()
+    want = np.take_along_axis(scores, out["exact"], 1)
+    errs = {}
+    for name in ("sharded", "dense"):
+        if out[name].shape != out["exact"].shape:
+            raise AssertionError(f"phase 9 mining {name}: shape "
+                                 f"{out[name].shape}")
+        got = np.take_along_axis(scores, out[name], 1)
+        err = np.abs(got - want)
+        if (err > ATOL + RTOL * np.abs(want)).any():
+            raise AssertionError(f"phase 9 mining {name}: the window differs "
+                                 f"from mine_negatives' beyond ties "
+                                 f"(max |Δscore| {err.max():.3g})")
+        errs[name] = float(err.max())
+    rec = dict(queries=N_MINE_Q, n_objects=int(obj.shape[0]),
+               window=[window["neg_start"], window["neg_end"]],
+               sharded_shards=MINE_SHARDS, ms=ms, max_abs_score_err=errs,
+               same_ids={n: float((out[n] == out["exact"]).mean())
+                         for n in ("sharded", "dense")})
+    record(f"phase 9 mining ({N_MINE_Q} queries × {obj.shape[0]} objects, "
+           f"window {window['neg_start']}:{window['neg_end']}): "
+           f"mine_negatives {ms['exact']:.1f} ms, _sharded ({MINE_SHARDS} "
+           f"blocks) {ms['sharded']:.1f} ms, _dense (256 blocks) "
+           f"{ms['dense']:.1f} ms; windows equal up to ties (max |Δscore| "
+           f"{errs}, ids equal {rec['same_ids']})")
+    return rec
+
+
+def p9_cli(dev, tmp):
+    """``--mesh 1`` through the command line at phase 8's flags (training
+    cut to 30 + 30 steps): the mesh line printed, the quality queries'
+    ids equal to an unsharded searcher's over the same snapshot; and on
+    this host a mesh wider than its cards raises."""
+    import os
+    import torch
+    from repro_torch import api
+    from repro_torch.launch import serve as cli
+    seen = []
+    real = api.Searcher.query_corpus
+
+    def spy(self, *a, **kw):
+        out = real(self, *a, **kw)
+        seen.append((self.snapshot, a, kw, out))
+        return out
+
+    api.Searcher.query_corpus = spy
+    try:
+        text, wall = run_main(cli.main, CLI_MESH_ARGS + [
+            "--snapshot-dir", os.path.join(tmp, "mesh_snap")], "phase 9 CLI")
+    finally:
+        api.Searcher.query_corpus = real
+    if "== mesh: cluster buffers sharded across 1 devices" not in text:
+        raise AssertionError("phase 9 CLI: no mesh line")
+    if len(seen) != 1 or seen[0][0].shards is None:
+        raise AssertionError("phase 9 CLI: the quality queries were not "
+                             "served by the sharded snapshot")
+    snap, a, kw, (ids, sc) = seen[0]
+    w_ids, w_sc = api.Searcher(snap.unshard(), device=dev).query_corpus(*a,
+                                                                        **kw)
+    err = topk_match(ids, sc, w_ids, w_sc)
+    rep = cli_report(text, "phase 9 CLI")
+    try:
+        api.load(os.path.join(tmp, "mesh_snap"), device=dev,
+                 mesh=torch.cuda.device_count() + 1)
+    except ValueError as e:
+        refused = str(e).splitlines()[0]
+    else:
+        raise AssertionError("phase 9: a mesh wider than the host's cards "
+                             "was accepted")
+    rec = dict(args=CLI_MESH_ARGS, wall_s=wall, max_abs_err=err,
+               refused=refused, **rep)
+    record(f"phase 9 CLI --mesh 1: exit 0 in {wall:.1f} s, ids == unsharded "
+           f"(max|Δ| {err:.3g}), {rep['qps']:.1f} QPS p99 "
+           f"{rep['p99_ms']:.2f} ms; load(mesh={torch.cuda.device_count() + 1})"
+           f" refused: {refused}")
+    return rec
+
+
+def phase9(dev, wctx, retriever, trained_corpus):
+    """The sharded query phase on phase 3's full-width index: S logical
+    shards on this card (``SHARD_COUNTS``), int8 on ``cuda`` / ``cuda-cm``
+    / ``auto`` and f32 at S 4 on ``cuda``, against the unsharded
+    searchers; then the per-shard scans of one chunk, the faults, the
+    minings and the CLI. The launch counters are zeroed before the
+    sharded runs and read after them."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import engine as engine_lib
+    from repro_torch.kernels import fused_topk_score as fts
+    snaps = wctx["snaps"]
+    q = (wctx["tok"], wctx["msk"], wctx["q_loc"])
+    n_all = q[0].shape[0]
+    rec = dict(queries=SHARD_QUERIES, k=SHARD_K, cr=SHARD_CR,
+               batch=SHARD_BATCH, card=CARD)
+
+    # ---- the unsharded searchers: the answers and walls to beat ----------
+    base = {}
+    for p, b in [("int8", b) for b in SHARD_BACKENDS] + [("f32", "cuda")]:
+        ids, sc, r = p9_run(dev, snaps[p], b, q, n_all)
+        base[(p, b)] = (ids, sc, r["wall_ms"])
+    rec["unsharded_walls_ms"] = {f"{p}/{b}": v[2]
+                                 for (p, b), v in base.items()}
+    log(f"phase 9 unsharded walls ({n_all} queries): "
+        f"{rec['unsharded_walls_ms']}")
+
+    # ---- the main path: sharded searchers, counters read around it -------
+    runs = {}
+    # f32 first: its 18 GB of parts are freed before the int8 placements
+    # are kept for the chunk split
+    plan = [(FAULT_S, "f32", ("cuda",))] + [
+        (S, "int8", SHARD_BACKENDS) for S in SHARD_COUNTS]
+    kept = {}                         # the int8 placements, for the split
+    torch.cuda.synchronize()
+    fts.reset_launch_counts()
+    for S, p, backends in plan:
+        what = f"S={S} {p}"
+        snap_s, mem = p9_shard(dev, snaps[p], S, what)
+        n = SHARD_QUERIES
+        for b in backends:
+            _, _, r = p9_run(dev, snap_s, b, q, n, want=base[(p, b)][:2],
+                             mem=mem)
+            r.update(queries=n, unsharded_wall_ms=base[(p, b)][2] * n / n_all)
+            runs[f"{p}/{b}/S{S}"] = r
+            log(f"phase 9 {what} {b}: {n} queries in {r['wall_ms']:.1f} ms "
+                f"as served (hedges {r['shard_stats']['hedged_scans']}), "
+                f"{r['steady_wall_ms']:.1f} ms with hedging off (peak "
+                f"+{r['steady_peak_added_gb']:.3f} GB), vs "
+                f"unsharded {r['unsharded_wall_ms']:.1f} ms (overhead, not "
+                f"scale-out: {S} logical shards on one card); ids == "
+                f"unsharded up to ties (max|Δ| {r['max_abs_err']:.3g})")
+        p9_memory(mem, what)
+        rec.setdefault("memory", {})[what] = mem
+        record(f"phase 9 {what}: sharded in {mem['shard_s']:.2f} s; parts "
+               f"{[round(x / 1e9, 3) for x in mem['bytes_per_part']]} GB "
+               f"(sum {mem['parts_gb']:.3f} GB vs global "
+               f"{mem['global_gb']:.3f} GB, now on the host); the card "
+               f"gained {mem['peak_added_gb']:.3f} GB at peak, "
+               f"{mem['resident_added_gb']:.3f} GB resident; peak "
+               f"{mem['peak_device_gb']:.1f} GB")
+        if p == "int8":
+            kept[S] = snap_s
+        del snap_s, r
+    launches = dict(fts.launches)
+    rec["runs"], rec["launches"] = runs, launches
+    log(f"phase 9 main path launches {launches}")
+    for name in ("routed", "cluster_major"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 9: kernel {name} not launched on "
+                                 f"the sharded path")
+
+    # ---- one chunk's scans: summed over the shards vs unsharded ----------
+    rel, index, norm = (getattr(snaps["int8"], x) for x in ("rel", "index",
+                                                            "norm"))
+    chunk = [torch.from_numpy(a[:SHARD_BATCH]).to(dev) for a in q]
+    q_emb, w, top_c = engine_lib.make_prefix_fn(cr=SHARD_CR)(rel, index,
+                                                             norm, *chunk)
+    ctx = dict(q_emb=q_emb, ql=chunk[2], w=w, top_c=top_c,
+               w_hat=snaps["int8"].w_hat)
+    split = {}
+    buf8 = snaps["int8"].buffers
+    for b in ("cuda", "cuda-cm"):
+        unsh = time_ms(lambda b=b: engine_lib._routed_topk(
+            q_emb, chunk[2], w, top_c, buf8, ctx["w_hat"], k=SHARD_K,
+            backend=b, dist_max=1.4142, precision="int8"))
+        split[b] = {"unsharded_ms": unsh}
+    for S in SHARD_COUNTS:
+        snap_s = kept[S]
+        for b in ("cuda", "cuda-cm"):
+            per, err = p9_scan_split(dev, snap_s, ctx, b)
+            split[b][f"S{S}"] = dict(per_shard_ms=per, sum_ms=sum(per),
+                                     max_abs_err_vs_plain=err)
+            log(f"phase 9 chunk scan int8 {b} S={S}: per shard "
+                f"{[round(x, 3) for x in per]} ms, sum {sum(per):.3f} ms vs "
+                f"unsharded {split[b]['unsharded_ms']:.3f} ms (overhead: "
+                f"each shard streams its sentinel for off-shard routes); "
+                f"every shard == its plain version up to ties (max|Δ| "
+                f"{err:.3g})")
+        del snap_s
+    rec["chunk_scan_ms"] = split
+    rec["max_abs_err_vs_plain"] = {
+        name: max(split[b][f"S{S}"]["max_abs_err_vs_plain"]
+                  for S in SHARD_COUNTS)
+        for name, b in (("routed", "cuda"), ("cluster_major", "cuda-cm"))}
+    # what the scans do not explain: the S syncs and copies a chunk, the
+    # host merge and the lost overlap, per chunk
+    chunks = -(-SHARD_QUERIES // SHARD_BATCH)
+    rec["host_ms_per_chunk"] = {
+        b: {f"S{S}": (runs[f"int8/{b}/S{S}"]["steady_wall_ms"]
+                      - runs[f"int8/{b}/S{S}"]["unsharded_wall_ms"])
+            / chunks - (split[b][f"S{S}"]["sum_ms"]
+                           - split[b]["unsharded_ms"])
+            for S in SHARD_COUNTS}
+        for b in ("cuda", "cuda-cm")}
+    log(f"phase 9 per-chunk time beyond the scans (syncs, copies, merge, "
+        f"lost overlap), ms: {rec['host_ms_per_chunk']}")
+
+    # ---- faults, mining, the command line --------------------------------
+    fault_snap = kept.pop(FAULT_S)
+    kept.clear()
+    torch.cuda.empty_cache()
+    rec["faults"] = p9_faults(dev, fault_snap, snaps["int8"], q)
+    del fault_snap
+    rec["mining"] = p9_mining(dev, retriever, trained_corpus)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["cli"] = p9_cli(dev, tmp)
+    torch.cuda.empty_cache()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
     card (parent / change / change / parent). The gather scan on its
@@ -3842,11 +4432,18 @@ def main() -> int:
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p7['peak_gb']:.1f} GB; launches {p7['launches']}")
     t0 = time.perf_counter()
-    p8 = phase8(dev, wctx, p6.pop("trained_retriever"),
-                p6.pop("trained_corpus"))
+    retriever, trained_corpus = (p6.pop("trained_retriever"),
+                                 p6.pop("trained_corpus"))
+    p8 = phase8(dev, wctx, retriever, trained_corpus)
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p8['peak_gb']:.1f} GB; launches (a) {p8['cli']['launches']}, (b) "
         f"{p8['dispatch']['launches']}")
+    t0 = time.perf_counter()
+    p9 = phase9(dev, wctx, retriever, trained_corpus)
+    p9["phase_s"] = time.perf_counter() - t0
+    del retriever, trained_corpus
+    log(f"phase 9 took {p9['phase_s']:.1f} s; peak device memory "
+        f"{p9['peak_gb']:.1f} GB; launches {p9['launches']}")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -3863,7 +4460,8 @@ def main() -> int:
                 [p5["delta_scan"]["max_abs_err"]] if name == "routed" else [])
                 + [p6["trained_own_row"][p][name]["err"] for p in TIERS]
                 + ([p8["dispatch"][p]["err_vs_plain"] for p in TIERS]
-                   if name == "cluster_major" else [])),
+                   if name == "cluster_major" else [])
+                + [p9["max_abs_err_vs_plain"][name]]),
             "ms": main_rec[name]["ms"], "plain_ms": main_rec[name]["plain_ms"],
             "bound_ms": main_rec["bound"]["bound_ms"],
             "bound_by": main_rec["bound"]["bound_by"], "library_ms": None,
@@ -3874,6 +4472,7 @@ def main() -> int:
             "serving_launches": p7["launches"][name],
             "cli_launches": p8["cli"]["launches"][name],
             "dispatch_launches": p8["dispatch"]["launches"][name],
+            "sharded_launches": p9["launches"][name],
             "shape": {"queries": p3["batch"], "cr": p3["cr"], "k": p3["k"],
                       "precision": "f32", "skew": "router",
                       "distinct_clusters": p3["distinct_clusters"]},
@@ -3974,6 +4573,7 @@ def main() -> int:
         part: p8[part] for part in ("cli", "dispatch", "baselines",
                                     "subprocesses")},
         peak_device_gb=p8["peak_gb"])}))
+    log(json.dumps({"sharded": p9}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,15 +64,16 @@ def build(cfg, corpus, *, rel_steps: int = 200, idx_steps: int = 400,
           spatial_mode: str = "step", weight_mode: str = "mlp",
           precision: str = "f32", attrs=None, seed: int = 0,
           verbose: bool = False, log_every: Optional[int] = None,
-          return_retriever: bool = False, device="cuda"):
+          return_retriever: bool = False, mesh=None, device="cuda"):
     """Train LIST end to end on ``device`` and return the built
     :class:`IndexSnapshot` (the reference's ``repro.api.build`` and its
     defaults): relevance training (Eq. 8), index training (Eq. 13
     pseudo-labels + Eq. 14 MCL), buffer packing at ``precision``, through
     :class:`~repro_torch.core.pipeline.ListRetriever`. The snapshot's
     modules are frozen; ``return_retriever=True`` also returns the
-    retriever (training histories, object↦cluster assignments). The
-    mesh (``mesh=``) waits in ROADMAP Queue A 11."""
+    retriever (training histories, object↦cluster assignments).
+    ``mesh`` (a shard count or a ``sharding.ClusterMesh``) shards the
+    built snapshot's cluster buffers (``IndexSnapshot.with_mesh``)."""
     log = log_every if log_every is not None else max(rel_steps, 1)
     r = pipeline_lib.ListRetriever(cfg, corpus, spatial_mode=spatial_mode,
                                    weight_mode=weight_mode, device=device)
@@ -82,6 +83,8 @@ def build(cfg, corpus, *, rel_steps: int = 200, idx_steps: int = 400,
                   verbose=verbose, log_every=log)
     r.build(capacity=capacity, spill=spill, precision=precision, attrs=attrs)
     snap = r.snapshot()
+    if mesh is not None:
+        snap = snap.with_mesh(mesh)
     return (snap, r) if return_retriever else snap
 
 
@@ -92,11 +95,17 @@ def save(snapshot: IndexSnapshot, directory: str, *, keep: int = 3) -> str:
     return snapshot.save(directory, keep=keep)
 
 
-def load(directory: str, *, step: Optional[int] = None,
+def load(directory: str, *, step: Optional[int] = None, mesh=None,
          device="cuda") -> IndexSnapshot:
-    """Load the latest (or ``step``) committed snapshot onto ``device``."""
-    return snapshot_lib.IndexSnapshot.load(directory, step=step,
+    """Load the latest (or ``step``) committed snapshot onto ``device``.
+    Arrays are saved global, so ``mesh`` (a shard count or a
+    ``sharding.ClusterMesh``) re-shards the cluster buffers for this
+    host, whatever placement the saving process had."""
+    snap = snapshot_lib.IndexSnapshot.load(directory, step=step,
                                            device=device)
+    if mesh is not None:
+        snap = snap.with_mesh(mesh)
+    return snap
 
 
 def recover(snapshot_dir: str, wal_dir: Optional[str] = None, *,
@@ -146,8 +155,9 @@ class Searcher:
 
     @property
     def last_coverage(self) -> float:
-        """Coverage fraction of the most recent :meth:`query`: 1.0 (the
-        reference's sharded engine reports less with a shard down)."""
+        """Coverage fraction of the most recent :meth:`query`: the share
+        of routes a sharded engine scanned (less than 1.0 with a shard
+        down), 1.0 unsharded."""
         return self.engine.last_coverage
 
     def publish(self, snapshot: IndexSnapshot) -> IndexSnapshot:
@@ -221,9 +231,10 @@ def _roundtrip_selftest(directory: Optional[str] = None,
     ``dense-cm`` on the CPU) and every tier (f32, bf16, int8), unfiltered
     and with a tenant filter, plus a snapshot with a delta segment: each
     leg's answers must be bit-identical before and after the trip (and
-    the filtered ones inside the tenant). Returns the number of legs that
-    disagree. The reference's mesh leg waits for the sharded port
-    (ROADMAP Queue A 11)."""
+    the filtered ones inside the tenant). The mesh leg shards each tier
+    into 2 logical parts on ``device`` (``cuda`` on the card, ``dense``
+    on the CPU): ids equal to the unsharded ones, before and after a
+    save and ``load(mesh=)``. Returns the number of legs that disagree."""
     import dataclasses
     import os
     import tempfile
@@ -234,6 +245,7 @@ def _roundtrip_selftest(directory: Optional[str] = None,
     from repro_torch.core import filters as filters_lib
     from repro_torch.core import index as index_lib
     from repro_torch.device import require_device
+    from repro_torch.distributed import sharding as sharding_lib
 
     dev = require_device(device)
     backends = (("cuda", "cuda-cm", "auto") if dev.type == "cuda"
@@ -312,6 +324,24 @@ def _roundtrip_selftest(directory: Optional[str] = None,
         ok = same(a, b)
         print(f"snapshot-roundtrip [delta    |{precision:4s}] "
               f"{'bit-identical' if ok else 'MISMATCH'}")
+        failures += 0 if ok else 1
+        # mesh leg: 2 logical shards on this device keep the unsharded
+        # ids, and the sharded save → load(mesh=) serves them again
+        mesh = sharding_lib.ClusterMesh((dev,) * 2)
+        snap_m = snap_p.with_mesh(mesh)
+        a = Searcher(snap_p, backend=backends[0], device=dev).query(
+            tok, msk, loc, k=5, cr=2, batch=4)
+        b = Searcher(snap_m, backend=backends[0], device=dev).query(
+            tok, msk, loc, k=5, cr=2, batch=4)
+        tmp_m = os.path.join(root, precision + "-mesh")
+        save(snap_m, tmp_m)
+        c_ids, _ = Searcher(load(tmp_m, mesh=mesh, device=dev),
+                            backend=backends[0], device=dev).query(
+            tok, msk, loc, k=5, cr=2, batch=4)
+        ok = (np.array_equal(a[0], b[0]) and np.array_equal(b[0], c_ids)
+              and np.allclose(a[1], b[1], rtol=2e-5, atol=1e-6))
+        print(f"snapshot-roundtrip [mesh S=2 |{precision:4s}] "
+              f"{'ids bit-identical' if ok else 'MISMATCH'}")
         failures += 0 if ok else 1
     return failures
 

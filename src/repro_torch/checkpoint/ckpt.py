@@ -224,10 +224,13 @@ def _load_leaf(path: str, info: dict, i: int) -> torch.Tensor:
     return torch.from_numpy(np.require(arr, requirements="C"))
 
 
-def restore(directory: str, *, step: Optional[int] = None
-            ) -> Tuple[List[torch.Tensor], int, dict]:
+def restore(directory: str, *, step: Optional[int] = None,
+            shard_fn: Optional[Callable[[Any], Any]] = None
+            ) -> Tuple[Any, int, dict]:
     """All leaves of a committed step, in manifest (= ``tree_flatten``)
-    order, as CPU tensors. Returns ``(leaves, step, meta)``."""
+    order, as CPU tensors. ``shard_fn`` (optional) maps that host list to
+    what is returned in its place, e.g. the leaves placed for a new mesh
+    (elastic reload). Returns ``(leaves, step, meta)``."""
     step = _resolve_step(directory, step)
     path = _step_dir(directory, step)
     manifest = _read_manifest(path)
@@ -237,6 +240,8 @@ def restore(directory: str, *, step: Optional[int] = None
                               f"but declares {manifest['n_leaves']}")
     leaves = [_load_leaf(os.path.join(path, info["file"]), info, i)
               for i, info in enumerate(infos)]
+    if shard_fn is not None:
+        leaves = shard_fn(leaves)
     return leaves, step, manifest["meta"]
 
 
@@ -313,11 +318,10 @@ class CheckpointManager:
         """``(tree, start_step, meta)``: ``init_fn()`` and step 0 when the
         directory holds no checkpoint; else the latest step restored into
         ``init_fn()``'s structure, each leaf's shape checked and the leaf
-        placed on the device of the template leaf it replaces."""
-        if shard_fn is not None:
-            raise NotImplementedError(
-                "restore_or_init: shard_fn (elastic re-sharding) waits for "
-                "the sharded port, ROADMAP Queue A 11")
+        placed on the device of the template leaf it replaces. With
+        ``shard_fn``, the restored tree stays on the host and
+        ``shard_fn(tree)`` is returned in its place: the caller's
+        placement for the new mesh (elastic reload)."""
         step = latest_step(self.directory)
         if step is None:
             return init_fn(), 0, {}
@@ -334,7 +338,10 @@ class CheckpointManager:
             if tuple(leaf.shape) != shape:
                 raise ValueError(f"leaf {i}: checkpoint shape "
                                  f"{tuple(leaf.shape)} != expected {shape}")
-            if isinstance(want, torch.Tensor):
+            if isinstance(want, torch.Tensor) and shard_fn is None:
                 leaf = leaf.to(want.device)
             placed.append(leaf)
-        return _unflatten_like(template, iter(placed)), step, meta
+        tree = _unflatten_like(template, iter(placed))
+        if shard_fn is not None:
+            tree = shard_fn(tree)
+        return tree, step, meta

@@ -144,20 +144,74 @@ def kmeans_step(x: torch.Tensor, cent: torch.Tensor):
     return kmeans_update(x, a, cent), a
 
 
+_U32 = np.uint32
+
+
+def _rotl32(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << _U32(r)) | (x >> _U32(32 - r))
+
+
+def threefry2x32(key, x1: np.ndarray, x2: np.ndarray):
+    """The Threefry-2x32 block cipher (20 rounds) of ``jax.random``'s
+    default generator, in numpy: ``key`` a pair of uint32, ``x1``/``x2``
+    the two uint32 count words. Returns the two uint32 output words."""
+    k1, k2 = _U32(key[0]), _U32(key[1])
+    ks = (k1, k2, _U32(k1 ^ k2 ^ _U32(0x1BD11BDA)))
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    with np.errstate(over="ignore"):
+        a = np.asarray(x1, np.uint32) + ks[0]
+        b = np.asarray(x2, np.uint32) + ks[1]
+        for i in range(5):
+            for r in rotations[i % 2]:
+                a = a + b
+                b = _rotl32(b, r) ^ a
+            a = a + ks[(i + 1) % 3]
+            b = b + ks[(i + 2) % 3] + _U32(i + 1)
+    return a, b
+
+
+def _threefry_bits(key, n: int):
+    """``n`` words of ``jax.random``'s partitionable layout: the hash of
+    the 64-bit counts ``0..n-1`` (high word 0, low word the count)."""
+    return threefry2x32(key, np.zeros(n, np.uint32),
+                        np.arange(n, dtype=np.uint32))
+
+
+def kmeans_init_rows(n: int, c: int, *, seed: int = 0) -> np.ndarray:
+    """The ``c`` initial rows of :func:`kmeans` out of ``n``: what the
+    reference's ``jax.random.choice(PRNGKey(seed), n, (c,),
+    replace=False)`` draws, computed without jax.
+
+    That call is ``permutation(key, n)[:c]``: ``ceil(3·ln n / ln(2³²−1))``
+    rounds (one up to n = 1,625, two up to ~2.64M), each splitting the key
+    and stably sorting the rows by 32 fresh bits (the two Threefry output
+    words XORed). ``PRNGKey(seed)`` of a seed in the int32 range is the
+    key ``(0, seed mod 2³²)``. → ``(c,)`` int64."""
+    if not 0 < c <= n:
+        raise ValueError(f"kmeans_init_rows: need 0 < c <= n, got c={c}, "
+                         f"n={n}")
+    key = (_U32(0), _U32(int(seed) & 0xFFFFFFFF))
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    rows = np.arange(n, dtype=np.int64)
+    for _ in range(rounds):
+        s1, s2 = _threefry_bits(key, 2)                  # split(key)
+        key, sub = (s1[0], s2[0]), (s1[1], s2[1])
+        h1, h2 = _threefry_bits(sub, n)
+        rows = rows[np.argsort(h1 ^ h2, kind="stable")]
+    return rows[:c]
+
+
 def kmeans(x, n_clusters: int, *, iters: int = 25, seed: int = 0,
            device="cuda"):
     """``x (N, d)`` → ``(centroids (c, d), assign (N,))`` tensors on
     ``device``: ``iters`` steps of :func:`kmeans_step` with f32 products
-    in full f32. The initial centroids are the rows
-    ``np.random.default_rng(seed).choice(N, c, replace=False)``: the
-    reference draws them with ``jax.random.choice``, whose stream cannot
-    be reproduced without jax, so the two packages start from different
-    rows for one seed (the parity tests give both the same centroids)."""
+    in full f32, from the initial rows :func:`kmeans_init_rows` (the
+    reference's for one ``seed``)."""
     dev = require_device(device)
     full_f32_products(dev)
     x = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
-    init = np.random.default_rng(seed).choice(x.shape[0], n_clusters,
-                                              replace=False)
+    init = kmeans_init_rows(x.shape[0], n_clusters, seed=seed)
     cent = x[torch.from_numpy(init).to(dev)]
     assign = None
     with torch.no_grad():

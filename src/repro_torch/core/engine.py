@@ -1,4 +1,4 @@
-"""The LIST query engine, unsharded (reference: ``repro.core.engine``).
+"""The LIST query engine (reference: ``repro.core.engine``).
 
 The query phase (paper Algorithm 1): encode the query → router features
 (Eq. 9–10) → top-``cr`` clusters (Eq. 11) → score the routed clusters'
@@ -22,6 +22,14 @@ Backends (``backend=``):
 The CUDA backends run only on CUDA snapshots and the dense ones only on
 CPU snapshots: asking for the other raises instead of falling back.
 
+A mesh-sharded snapshot (``IndexSnapshot.with_mesh``) is served by
+:meth:`QueryEngine._query_sharded`: the prefix once on the engine's
+device, one scan per shard over its part with localized routes
+(:func:`make_shard_topk_fn`, the same kernels), a host tree merge
+(:func:`merge_shard_topk`), then the delta merge. Shard health, retries
+against a host replica, hedging of stragglers, degraded coverage and
+:meth:`QueryEngine.recover_shard` follow the reference.
+
 Inputs: ``q_tokens (B, L)`` int token ids (0 = padding), ``q_mask (B, L)``
 bool, ``q_loc (B, 2)`` float32. Outputs: ``ids (B, k)`` global object ids
 (-1 past the end) and ``scores (B, k)`` f32 descending, as numpy arrays.
@@ -29,11 +37,17 @@ bool, ``q_loc (B, 2)`` float32. Outputs: ``ids (B, k)`` global object ids
 from __future__ import annotations
 
 import collections
-from typing import Callable, Optional, Sequence
+import contextlib
+import dataclasses
+import time
+import weakref
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import delta as delta_lib
+from repro_torch.core import faults as faults_lib
 from repro_torch.core import filters as filters_lib
 from repro_torch.core import index as index_lib
 from repro_torch.core import relevance
@@ -57,6 +71,13 @@ _BACKEND_DEVICE = {"cuda": "cuda", "cuda-cm": "cuda", "dense": "cpu",
 CLUSTER_MAJOR_DEDUP_THRESHOLD = 2.0
 
 DEFAULT_PLAN_CACHE_SIZE = 32
+
+# shard fault tolerance: the reference's knobs
+SHARD_SCAN_RETRIES = 2             # extra attempts per shard per chunk
+SHARD_RETRY_BACKOFF_MS = 1.0       # first retry delay; doubles, capped
+SHARD_RETRY_BACKOFF_MAX_MS = 20.0
+SHARD_DOWN_AFTER = 3               # consecutive scan failures → DOWN
+SHARD_HEDGE_PROBE_EVERY = 8        # hedged scans between device probes
 
 
 def resolve_backend(backend: str, device) -> str:
@@ -287,6 +308,73 @@ def make_query_fn(*, cr: int = 1, k: int = 20, backend: str,
     return query_fn
 
 
+def make_shard_topk_fn(*, k: int = 20, backend: str,
+                       dist_max: float = 1.4142,
+                       precision: str = "f32") -> Callable:
+    """The per-shard scan of the sharded query phase: one shard's local
+    buffers against the prefix's queries and LOCAL routes
+    (``serving.localize_routes``; off-shard routes point at the
+    sentinel, which scores ``(−1, NEG_INF)`` like padding).
+
+    ``fn(w_hat, part, q_emb, q_loc, w, top_c, q_filt=None) -> (ids (B,
+    k), scores (B, k))`` device tensors on the part's device, with
+    ``part`` a dict of ``sharding.ClusterShards.parts``; ``q_filt (B, 4)``
+    engages the filtered scan over ``part["attrs"]``. ``backend`` must be
+    resolved: ``cuda`` and ``cuda-cm`` launch the routed and
+    cluster-major kernels, the dense backends their plain versions. Each
+    candidate scores as in the unsharded scan, so the per-shard lists
+    merged by :func:`merge_shard_topk` give the unsharded top-k up to
+    ties."""
+    if precision not in index_lib.PRECISIONS:
+        raise ValueError(f"precision must be one of {index_lib.PRECISIONS}, "
+                         f"got {precision!r}")
+    if backend not in _BACKEND_DEVICE:
+        raise ValueError(f"make_shard_topk_fn: backend must be one of "
+                         f"{tuple(_BACKEND_DEVICE)}, got {backend!r}")
+
+    @torch.no_grad()
+    def shard_fn(w_hat, part, q_emb, q_loc, w, top_c, q_filt=None):
+        return _routed_topk(q_emb, q_loc, w, top_c, part, w_hat, k=k,
+                            backend=backend, dist_max=dist_max,
+                            precision=precision, q_filt=q_filt)
+
+    return shard_fn
+
+
+def merge_shard_topk(parts, *, k: Optional[int] = None):
+    """Pairwise tree-reduce per-shard partial top-k lists (host, numpy).
+
+    ``parts`` is a sequence of per-shard ``(ids (B, m), scores (B, m))``
+    in shard order, merged pairwise (each level keeps the best ``k``)
+    until one list remains; ``k`` defaults to the partial width. Each
+    level's sort is STABLE with the lower-index operand first, so an
+    exact cross-shard tie resolves in shard order: the one divergence
+    from single-device tie order. Returns ``(ids (B, k) int32, scores
+    (B, k) f32)`` descending."""
+    items = [(np.asarray(i), np.asarray(v, np.float32)) for i, v in parts]
+    if not items:
+        raise ValueError("merge_shard_topk: no partial lists")
+    if k is None:
+        k = items[0][0].shape[-1]
+
+    def merge2(a, b):
+        ci = np.concatenate([a[0], b[0]], axis=-1)
+        cv = np.concatenate([a[1], b[1]], axis=-1)
+        order = np.argsort(-cv, axis=-1, kind="stable")[..., :k]
+        return (np.take_along_axis(ci, order, axis=-1),
+                np.take_along_axis(cv, order, axis=-1))
+
+    while len(items) > 1:
+        nxt = [merge2(items[i], items[i + 1])
+               for i in range(0, len(items) - 1, 2)]
+        if len(items) % 2:
+            nxt.append(items[-1])
+        items = nxt
+    ids, scores = items[0]
+    return (ids[..., :k].astype(np.int32),
+            scores[..., :k].astype(np.float32))
+
+
 def merge_delta(base_ids, base_scores, delta_ids=None, delta_scores=None, *,
                 tombstones=None, k=None):
     """Merge a delta scan's top-k into the base one (host, numpy).
@@ -365,6 +453,14 @@ def run_batched(fn: Callable, arrays: Sequence[np.ndarray], *, batch: int,
     return cat if len(cat) > 1 else cat[0]
 
 
+def _cached_for(cache: dict):
+    """The placement a per-placement cache was built for, or None. The
+    cache holds it weakly: a published-over placement's parts are freed
+    with it, not kept alive by the cache."""
+    ref = cache.get("key")
+    return None if ref is None else ref()
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
@@ -376,8 +472,9 @@ class QueryEngine:
     precision, filtered)``.
 
     ``device`` (default ``"cuda"``) is where the snapshot is served; a
-    snapshot elsewhere is moved there. Raises when CUDA is asked for and
-    absent."""
+    snapshot elsewhere is moved there (a sharded one moves its modules
+    only: its parts stay where the mesh put them, its global buffers on
+    the host). Raises when CUDA is asked for and absent."""
 
     def __init__(self, snapshot, *, backend: str = "auto", device="cuda"):
         dev = require_device(device)
@@ -394,6 +491,20 @@ class QueryEngine:
         self.last_down_shards: tuple = ()
         self._plans: "collections.OrderedDict" = collections.OrderedDict()
         self._prefix_plans: dict = {}
+        # shard fault tolerance: health and hedging of the sharded scan
+        self.shard_stats = {"hedged_scans": 0, "scan_retries": 0,
+                            "down_skips": 0, "host_scans": 0,
+                            "recoveries": 0}
+        self.shard_retries = SHARD_SCAN_RETRIES
+        self.shard_backoff_ms = SHARD_RETRY_BACKOFF_MS
+        self.shard_backoff_max_ms = SHARD_RETRY_BACKOFF_MAX_MS
+        self.shard_down_after = SHARD_DOWN_AFTER
+        self.hedge_probe_every = SHARD_HEDGE_PROBE_EVERY
+        self._shard_health = None       # sized at the first sharded query
+        self._shard_monitor = None      # StragglerMonitor of device scans
+        self._hedged: dict = {}         # shard → hedged-scan count
+        self._host_parts: dict = {}     # host replicas of one placement
+        self._shard_maps: dict = {}     # its placement maps on the device
 
     @property
     def snapshot(self):
@@ -405,16 +516,12 @@ class QueryEngine:
         backend = self.backend if backend is None else backend
         if precision is None:
             precision = self._snapshot.meta.precision
-        key = (batch, k, cr, backend, precision, filtered)
-        if key not in self._plans:
-            while len(self._plans) >= DEFAULT_PLAN_CACHE_SIZE:
-                self._plans.popitem(last=False)
-            self._plans[key] = make_query_fn(
+        return self._cached_plan(
+            (batch, k, cr, backend, precision, filtered),
+            lambda: make_query_fn(
                 cr=cr, k=k, backend=backend, dist_max=self._snapshot.dist_max,
                 weight_mode=self._snapshot.meta.weight_mode,
-                precision=precision)
-        self._plans.move_to_end(key)
-        return self._plans[key]
+                precision=precision))
 
     def prefix_fn(self, *, cr: int):
         """The prefix (:func:`make_prefix_fn`) for ``cr``, one per engine:
@@ -424,15 +531,282 @@ class QueryEngine:
                 cr=cr, weight_mode=self._snapshot.meta.weight_mode)
         return self._prefix_plans[cr]
 
-    def down_signature(self) -> tuple:
-        """The DOWN shard set, a cache-key component of the server:
-        ``()`` while no snapshot is sharded."""
-        return ()
+    def _cached_plan(self, key, make):
+        """The plan LRU: ``make()`` under ``key`` unless cached."""
+        if key not in self._plans:
+            while len(self._plans) >= DEFAULT_PLAN_CACHE_SIZE:
+                self._plans.popitem(last=False)
+            self._plans[key] = make()
+        self._plans.move_to_end(key)
+        return self._plans[key]
+
+    def shard_topk_fn(self, *, k: int, backend: Optional[str] = None,
+                      batch: Optional[int] = None,
+                      precision: Optional[str] = None):
+        """The per-shard scan (:func:`make_shard_topk_fn`), cached in the
+        plan LRU under ``("shard", batch, k, backend, precision)``: one
+        function serves every shard."""
+        backend = self.backend if backend is None else backend
+        if precision is None:
+            precision = self._snapshot.meta.precision
+        return self._cached_plan(
+            ("shard", batch, k, backend, precision),
+            lambda: make_shard_topk_fn(k=k, backend=backend,
+                                       dist_max=self._snapshot.dist_max,
+                                       precision=precision))
+
+    def delta_scan_fn(self, *, k: int, precision: str):
+        """The delta scan (:func:`make_delta_scan_fn`) of the sharded
+        path, cached in the plan LRU under ``("delta", k, precision)``."""
+        return self._cached_plan(
+            ("delta", k, precision),
+            lambda: make_delta_scan_fn(k=k, dist_max=self._snapshot.dist_max,
+                                       precision=precision))
+
+    def _shard_state(self, n_shards: int):
+        """Lazy per-mesh health state: a ``ShardHealth`` and a
+        ``StragglerMonitor`` sized to the shard count (made anew when a
+        publish changes the mesh width)."""
+        from repro_torch.distributed import resilience as resilience_lib
+
+        if (self._shard_health is None
+                or self._shard_health.n_shards != n_shards):
+            self._shard_health = resilience_lib.ShardHealth(
+                n_shards, down_after=self.shard_down_after)
+            self._shard_monitor = resilience_lib.StragglerMonitor()
+            self._hedged = {}
+        return self._shard_health
+
+    def _host_shard_part(self, snap, shards, s: int) -> dict:
+        """The host replica of shard ``s``: its local buffers rebuilt from
+        the snapshot's global host buffers with the layout and fills of
+        ``sharding.shard_cluster_buffers``, in pinned pages on a CUDA
+        host. A scan of it copies it to the engine's device and runs the
+        same scan as the device part, so a hedged or retried scan gives
+        the device scan's answer. Cached per placement object (a publish
+        or a recovery changes it)."""
+        from repro_torch.distributed import sharding as sharding_lib
+
+        cache = self._host_parts
+        if _cached_for(cache) is not shards:
+            self._host_parts = cache = {"key": weakref.ref(shards)}
+        part = cache.get(s)
+        if part is None:
+            part = sharding_lib.shard_part(
+                snap.buffers, shards.group(s), shards.c_local + 1,
+                torch.device("cpu"), pin=True)
+            cache[s] = part
+        return part
+
+    def _placement_maps(self, shards):
+        """``shard_of`` / ``local_of`` as tensors on the engine's device,
+        cached per placement object."""
+        if _cached_for(self._shard_maps) is not shards:
+            self._shard_maps = {
+                "key": weakref.ref(shards),
+                "maps": (torch.from_numpy(shards.shard_of).to(self.device),
+                         torch.from_numpy(shards.local_of).to(self.device))}
+        return self._shard_maps["maps"]
+
+    def down_signature(self) -> Tuple[int, ...]:
+        """The DOWN shard set: the server's cache-key component that keeps
+        a degraded answer from serving as a fully covered one."""
+        health = self._shard_health
+        return () if health is None else health.down_shards()
 
     def recover_shard(self, s: int):
-        """Online shard recovery of the sharded engine; an unsharded
-        snapshot has no shard to recover."""
-        raise ValueError("recover_shard: snapshot is not mesh-sharded")
+        """Online shard recovery: re-materialize shard ``s``'s part on its
+        device from the snapshot's global host buffers (the layout of
+        ``shard_cluster_buffers``), publish the patched placement in one
+        assignment, and mark the shard UP. Placement only: no version
+        bump, no content change, no notification. Returns the snapshot
+        now served."""
+        snap = self._snapshot
+        shards = snap.shards
+        if shards is None:
+            raise ValueError("recover_shard: snapshot is not mesh-sharded")
+        if not 0 <= s < shards.n_shards:
+            raise ValueError(f"recover_shard: shard {s} out of range "
+                             f"0..{shards.n_shards - 1}")
+        host = self._host_shard_part(snap, shards, s)
+        new_part = {key: arr.to(shards.devices[s], copy=True)
+                    for key, arr in host.items()}
+        parts = list(shards.parts)
+        parts[s] = new_part
+        new_shards = dataclasses.replace(shards, parts=tuple(parts))
+        # one reference assignment, like publish(): a concurrent query
+        # sees the old placement or the new one, never a mix
+        self._snapshot = dataclasses.replace(snap, shards=new_shards)
+        self._host_parts = {}
+        if self._shard_health is not None:
+            self._shard_health.mark_up(s)
+        self._hedged.pop(s, None)
+        self.shard_stats["recoveries"] += 1
+        return self._snapshot
+
+    def _query_sharded(self, snap, arrays, *, k: int, cr: int, batch: int,
+                       backend: str, filtered: bool, rows):
+        """The mesh-sharded query: the prefix once per chunk on the
+        engine's device, one scan per shard over its part with localized
+        routes (on the part's device), the host tree merge, and the delta
+        scan from the same prefix. → ``(ids, scores, delta ids, delta
+        scores)`` numpy, as the unsharded plan.
+
+        Fault tolerance: every shard scan is timed (synced) into
+        ``ShardHealth``; a failure retries on the host replica with
+        doubling, capped backoff; a shard the ``StragglerMonitor`` flags
+        slow is hedged: its scans run on the replica, with a device probe
+        every ``hedge_probe_every``-th scan; a DOWN shard is skipped and
+        the others merge into a degraded answer whose coverage (routes
+        scanned / routes, padded rows included) is ``last_coverage``.
+        Raises ``ShardUnavailable`` only when no shard can serve."""
+        from repro_torch.distributed import resilience as resilience_lib
+
+        shards = snap.shards
+        want = _BACKEND_DEVICE[backend]
+        if any(d.type != want for d in shards.devices):
+            raise ValueError(
+                f"backend {backend!r} scans parts on {want}; this "
+                f"snapshot's parts are on "
+                f"{sorted({str(d) for d in shards.devices})}")
+        dev = self.device
+        prefix = self.prefix_fn(cr=cr)
+        precision = snap.meta.precision
+        sfn = self.shard_topk_fn(k=k, backend=backend, batch=batch,
+                                 precision=precision)
+        delta_scan = (None if rows is None else
+                      self.delta_scan_fn(k=k, precision=precision))
+        w_hat = snap.w_hat
+        w_hat_on = {dev: w_hat}
+        health = self._shard_state(shards.n_shards)
+        monitor = self._shard_monitor
+        shard_of_d, local_of_d = self._placement_maps(shards)
+        parts = snap.scan_parts
+        tomb = (snap.delta.tombstone_array()
+                if snap.delta is not None and snap.delta.n_tombstones
+                else None)
+        coverage = [0, 0]               # routes scanned / routes
+        down_seen = set()
+
+        def run_scan(s, part, inputs, *, on_device):
+            # scan_error fires on device AND replica attempts (the
+            # shard's data is unscannable); scan_slow models a slow
+            # device only
+            if on_device:
+                faults_lib.fire("shard.scan_slow", shard=s)
+            faults_lib.fire("shard.scan_error", shard=s)
+            pdev = part["emb"].device
+            if pdev not in w_hat_on:
+                w_hat_on[pdev] = w_hat.to(pdev)
+            q_emb, q_loc, w, local_c, qf = (
+                None if x is None else x.to(pdev) for x in inputs)
+            with (torch.cuda.device(pdev) if pdev.type == "cuda"
+                  else contextlib.nullcontext()):
+                ids, scores = sfn(w_hat_on[pdev], part, q_emb, q_loc, w,
+                                  local_c, qf)
+            # the copy to the host syncs: the time fed to ShardHealth is
+            # this shard's scan, not what was queued behind it
+            return ids.cpu().numpy(), scores.cpu().numpy()
+
+        def replica(s):
+            host = self._host_shard_part(snap, shards, s)
+            part = {key: v.to(dev, non_blocking=True)
+                    for key, v in host.items()}
+            if tomb is not None:
+                part["ids"] = delta_lib.mask_tombstones(part["ids"], tomb)
+            return part
+
+        def scan_shard(s, part, inputs):
+            """One shard's partial ``(ids, scores)``, or None when it
+            could not be scanned this chunk."""
+            try:
+                faults_lib.fire("shard.device_lost", shard=s)
+            except Exception:
+                health.mark_down(s)
+                return None
+            hedge = s in self._hedged
+            probe = False
+            if hedge:
+                # hedged: serve from the replica, but probe the device
+                # every Nth scan so a recovered device is noticed
+                self._hedged[s] += 1
+                probe = self._hedged[s] % self.hedge_probe_every == 0
+            delay_ms = self.shard_backoff_ms
+            for attempt in range(1 + self.shard_retries):
+                if attempt > 0:
+                    self.shard_stats["scan_retries"] += 1
+                    if delay_ms > 0:
+                        time.sleep(min(delay_ms,
+                                       self.shard_backoff_max_ms) / 1e3)
+                    delay_ms = min(delay_ms * 2, self.shard_backoff_max_ms)
+                # retries go to the host replica: the device already
+                # failed once this chunk
+                on_host = (hedge and not probe) or attempt > 0
+                try:
+                    t0 = time.perf_counter()
+                    if on_host:
+                        out = run_scan(s, replica(s), inputs,
+                                       on_device=False)
+                        self.shard_stats["host_scans"] += 1
+                        if hedge and not probe:
+                            self.shard_stats["hedged_scans"] += 1
+                    else:
+                        out = run_scan(s, part, inputs, on_device=True)
+                    dt = time.perf_counter() - t0
+                    health.record_success(s, dt)
+                    if not on_host:
+                        # only device times feed the straggler stream: a
+                        # replica scan must not mask the slow device
+                        monitor.record(f"shard{s}", dt)
+                        if monitor.slow(f"shard{s}"):
+                            self._hedged.setdefault(s, 0)
+                        elif hedge:
+                            self._hedged.pop(s, None)   # probe was fast
+                    return out
+                except Exception:
+                    health.record_failure(s)
+                    if health.is_down(s):
+                        return None
+            return None                  # retries spent, not DOWN yet
+
+        def chunk_fn(t, m, l, *rest):
+            q_emb, w, top_c = prefix(snap.rel, snap.index, snap.norm, t, m, l)
+            qf = rest[0] if filtered else None
+            routes_per = torch.bincount(
+                shard_of_d[top_c.long()].reshape(-1),
+                minlength=shards.n_shards).cpu().numpy()
+            coverage[1] += int(top_c.numel())
+            partials = []
+            for s, part in enumerate(parts):
+                if health.is_down(s):
+                    self.shard_stats["down_skips"] += 1
+                    down_seen.add(s)
+                    continue
+                local_c = serving_lib.localize_routes(
+                    top_c, shard_of_d, local_of_d, s,
+                    sentinel=shards.sentinel)
+                out = scan_shard(s, part, (q_emb, l, w, local_c, qf))
+                if out is None:
+                    if health.is_down(s):
+                        down_seen.add(s)
+                    continue
+                coverage[0] += int(routes_per[s])
+                partials.append(out)
+            if not partials:
+                raise resilience_lib.ShardUnavailable(
+                    f"all {shards.n_shards} shards down/unscannable — "
+                    f"no partial top-k lists to merge")
+            ids, scores = merge_shard_topk(partials, k=k)
+            base = (torch.from_numpy(ids), torch.from_numpy(scores))
+            if delta_scan is None:
+                return base + (None, None)
+            return base + delta_scan(q_emb, l, w, w_hat, rows, qf)
+
+        out = run_batched(chunk_fn, arrays, batch=batch, device=dev)
+        self.last_coverage = (coverage[0] / coverage[1]
+                              if coverage[1] else 1.0)
+        self.last_down_shards = tuple(sorted(down_seen))
+        return out
 
     def route(self, q_tokens, q_mask, q_loc, *, cr: int = 1, snapshot=None):
         """Route-only prefix → ``top_c (n, cr)`` int32 device tensor."""
@@ -497,6 +871,9 @@ class QueryEngine:
         the base and merged on the host; its tombstoned ids are masked out
         of the base scan (``IndexSnapshot.scan_view``)."""
         snap = self._snapshot if snapshot is None else snapshot
+        # coverage of this call: 1.0 unless the sharded path loses a shard
+        self.last_coverage = 1.0
+        self.last_down_shards = ()
         q_tokens, q_mask, q_loc = (np.asarray(a) for a in
                                    (q_tokens, q_mask, q_loc))
         fvals, filtered = filters_lib.compile_filters(filters,
@@ -510,13 +887,23 @@ class QueryEngine:
         delta = snap.delta
         use_delta = delta is not None and not delta.is_empty
         rows = snap.delta_rows if use_delta else None
-        scan_snap = snap.scan_view
-        fn = self.query_fn(k=k, cr=cr, backend=backend, batch=batch,
-                           precision=snap.meta.precision, filtered=filtered)
+        if backend is None:
+            backend = self.backend
         arrays = [q_tokens, q_mask, q_loc] + ([fvals] if filtered else [])
-        ids, scores, d_ids, d_scores = run_batched(
-            lambda *a: fn(scan_snap, *a, delta_rows=rows), arrays,
-            batch=batch, device=snap.device)
+        if snap.shards is not None:
+            # per-shard scans and the host tree merge, before the same
+            # delta merge below
+            ids, scores, d_ids, d_scores = self._query_sharded(
+                snap, arrays, k=k, cr=cr, batch=batch, backend=backend,
+                filtered=filtered, rows=rows)
+        else:
+            scan_snap = snap.scan_view
+            fn = self.query_fn(k=k, cr=cr, backend=backend, batch=batch,
+                               precision=snap.meta.precision,
+                               filtered=filtered)
+            ids, scores, d_ids, d_scores = run_batched(
+                lambda *a: fn(scan_snap, *a, delta_rows=rows), arrays,
+                batch=batch, device=snap.device)
         if not use_delta:
             return ids, scores
         return merge_delta(ids, scores, d_ids, d_scores,

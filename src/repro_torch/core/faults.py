@@ -57,9 +57,7 @@ POINTS = frozenset({
     "ckpt.mid_save",         # between leaf writes and the atomic commit
     "ckpt.post_commit",      # after commit (callback gets path=, e.g. to
                              # corrupt a committed file on purpose)
-    # the sharded engine (reference: core/engine.py _query_sharded —
-    # callback gets shard=); fired by no port code until the port shards
-    # (ROADMAP Queue A 11)
+    # core/engine.py _query_sharded (callback gets shard=)
     "shard.scan_error",      # raised in place of a shard scan, device AND
                              # host-replica attempts (the shard's data is
                              # unscannable, not just its device)

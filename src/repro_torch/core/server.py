@@ -1016,9 +1016,8 @@ class StreamingServer:
         part and flip it back UP (:meth:`QueryEngine.recover_shard`) —
         under live traffic, no version bump, no drained queue, no cache
         invalidation (degraded answers are keyed by their down-shard
-        signature). The port's engine raises ``ValueError`` here: no
-        snapshot is sharded yet (ROADMAP Queue A 11). Returns the
-        snapshot being served after the call."""
+        signature). An unsharded engine raises ``ValueError``. Returns
+        the snapshot being served after the call."""
         snap = self.engine.recover_shard(s)
         self.stats.shard_recoveries += 1
         return snap
@@ -1174,9 +1173,18 @@ class StreamingServer:
             # distinct_clusters_per_dispatch is the O(·) the reversed
             # cluster-major plan promises per insert batch
             out["subscriptions"] = self._subs.metrics()
-        # the reference's shard block (bytes per device, shard health)
-        # comes with the port's sharding (ROADMAP Queue A 11)
-        out["n_shards"] = self.engine.snapshot.meta.n_shards
+        snap = self.engine.snapshot
+        out["n_shards"] = snap.meta.n_shards
+        if snap.shards is not None:
+            # mesh-sharded serving: resident bytes per part, and the
+            # shard health state machine with the hedge / retry /
+            # recovery counters
+            out["shard_bytes_per_device"] = snap.shards.nbytes_per_device()
+            health = self.engine._shard_health
+            out["shard_health"] = (health.snapshot()
+                                   if health is not None else None)
+            out["shard_stats"] = dict(self.engine.shard_stats)
+            out["shard_recoveries"] = s.shard_recoveries
         if wall_seconds is not None and wall_seconds > 0:
             out["qps"] = s.n_requests / wall_seconds
         return out

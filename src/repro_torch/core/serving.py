@@ -19,6 +19,9 @@ picks by the tensors' device).
 The cluster-major plan (:func:`cluster_major_plan`) is one roster row per
 DISTINCT routed cluster of a batch, so the cluster-major scan streams
 each distinct cluster once per batch (the engine's ``cuda-cm`` backend).
+
+:func:`localize_routes` maps global routes to one shard's local rows for
+the mesh-sharded engine.
 """
 from __future__ import annotations
 
@@ -149,6 +152,31 @@ def roster_query_rows(roster: torch.Tensor, *, cr: int,
     n_total``)."""
     return torch.where(roster < n_total, roster,
                        torch.zeros_like(roster)) // cr
+
+
+def localize_routes(top_c, shard_of, local_of, shard: int, *,
+                    sentinel: int):
+    """Map GLOBAL routed cluster ids to one shard's LOCAL buffer rows:
+    the route-localization step of mesh-sharded serving.
+
+    ``top_c (B, cr)`` global routed ids; ``shard_of`` / ``local_of`` the
+    ``(c,)`` placement maps of ``sharding.ClusterShards``; ``sentinel``
+    the shard's appended empty cluster row. Routes owned by ``shard`` map
+    to their local row and every other route to the sentinel, so the
+    per-shard scan keeps its static ``(B, cr)`` shape and off-shard
+    candidates score ``(−1, NEG_INF)`` like padding. Duplicate routes to
+    one cluster land on one shard together.
+
+    A tensor ``top_c`` stays on its device (the maps are moved there
+    unless they are tensors on it already) → int32 tensor; a numpy one
+    goes through the same steps on the CPU → numpy int32."""
+    tc = torch.as_tensor(top_c)
+    so = torch.as_tensor(shard_of).to(tc.device)
+    lo = torch.as_tensor(local_of).to(tc.device)
+    tc = tc.long()
+    out = torch.where(so[tc] == shard, lo[tc],
+                      torch.full_like(tc, sentinel)).to(torch.int32)
+    return out if isinstance(top_c, torch.Tensor) else out.numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,14 @@ device; :meth:`IndexSnapshot.to` moves it. It is never written in place:
 derive a successor (``meta.version + 1``), and an engine may go on
 serving the predecessor.
 
+:meth:`~IndexSnapshot.with_mesh` derives a mesh-sharded snapshot (no
+version bump: placement, not content): ``shards`` holds the per-shard
+parts of the cluster buffers (``distributed.sharding.ClusterShards``),
+and ``buffers`` drops to the host, where saving, compaction and the
+engine's host replicas read it. The modules stay where they were, so a
+sharded snapshot's :attr:`~IndexSnapshot.device` is theirs, and
+:meth:`~IndexSnapshot.to` moves them alone.
+
 On disk a snapshot is one checkpoint step, written by either package
 and read by both. The manifest's ``meta.tree_spec`` records the
 container structure of the saved tree, whose leaves are stored in
@@ -126,6 +134,7 @@ class IndexSnapshot:
     buffers: dict
     meta: SnapshotMeta
     delta: Optional[delta_lib.DeltaSegment] = None
+    shards: Optional[Any] = None
 
     @classmethod
     def from_parts(cls, cfg, rel: RelevanceModel, index: ClusterIndex,
@@ -168,7 +177,58 @@ class IndexSnapshot:
         meta = dataclasses.replace(
             self.meta, version=self.meta.version + 1, built_at=time.time(),
             n_objects=int(buffers["counts"].sum()))
-        return dataclasses.replace(self, buffers=buffers, meta=meta)
+        # content changed: a predecessor's mesh parts are stale, re-shard
+        out = dataclasses.replace(self, buffers=buffers, meta=meta,
+                                  shards=None)
+        return out._reshard_like(self)
+
+    def with_mesh(self, mesh, *, assignment=None) -> "IndexSnapshot":
+        """The same snapshot with its cluster buffers partitioned across
+        a mesh (``distributed.sharding``): ``mesh`` a shard count (the
+        first cards of a CUDA snapshot's host, raising when there are
+        fewer; logical parts for a CPU snapshot) or a
+        :class:`~repro_torch.distributed.sharding.ClusterMesh` (an
+        explicit device list, e.g. several logical shards on one card);
+        ``assignment`` an optional ``(c,)`` cluster→shard map.
+
+        Placement, not content: no version bump. The parts are gathered
+        from the buffers where they lie; ``buffers`` then moves to the
+        host. ``with_mesh(None)`` is :meth:`unshard`. A delta segment
+        rides along unsharded."""
+        from repro_torch.distributed import sharding as sharding_lib
+
+        if mesh is None:
+            return self.unshard()
+        shards = sharding_lib.shard_cluster_buffers(
+            self.buffers, mesh, assignment=assignment, device=self.device)
+        host = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in self.buffers.items()}
+        meta = dataclasses.replace(self.meta, n_shards=shards.n_shards)
+        return dataclasses.replace(self, buffers=host, shards=shards,
+                                   meta=meta)
+
+    def unshard(self) -> "IndexSnapshot":
+        """Drop the mesh placement: the global buffers move back to the
+        modules' device. No version bump."""
+        if self.shards is None and self.meta.n_shards == 1:
+            return self
+        dev = self.device
+        buffers = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                   for k, v in self.buffers.items()}
+        meta = dataclasses.replace(self.meta, n_shards=1)
+        return dataclasses.replace(self, buffers=buffers, shards=None,
+                                   meta=meta)
+
+    def _reshard_like(self, predecessor: "IndexSnapshot") -> "IndexSnapshot":
+        """Re-derive the mesh placement after a content change: the
+        predecessor's parts are stale, so shard again onto the same
+        devices with the default block assignment (a custom assignment
+        cannot survive a cluster-count change)."""
+        if predecessor.shards is None:
+            return self
+        from repro_torch.distributed import sharding as sharding_lib
+        return self.with_mesh(
+            sharding_lib.ClusterMesh(predecessor.shards.devices))
 
     def with_delta(self, delta: delta_lib.DeltaSegment) -> "IndexSnapshot":
         """The successor with a new delta segment (the O(batch) write
@@ -204,7 +264,9 @@ class IndexSnapshot:
             self.meta, version=self.meta.version + 1, built_at=time.time(),
             n_objects=int(buf["counts"].sum()), delta_rows=0,
             n_tombstones=0)
-        return dataclasses.replace(self, buffers=buf, delta=None, meta=meta)
+        out = dataclasses.replace(self, buffers=buf, delta=None, meta=meta,
+                                  shards=None)
+        return out._reshard_like(self)
 
     def with_precision(self, precision: str) -> "IndexSnapshot":
         """The same index at another tier (``index.quantize_buffers``:
@@ -221,10 +283,16 @@ class IndexSnapshot:
         meta = dataclasses.replace(
             self.meta, precision=precision, version=self.meta.version + 1,
             built_at=time.time())
-        return dataclasses.replace(self, buffers=buffers, meta=meta)
+        out = dataclasses.replace(self, buffers=buffers, meta=meta,
+                                  shards=None)
+        return out._reshard_like(self)
 
     @property
     def device(self) -> torch.device:
+        """Where the snapshot is served: its buffers' device, or, when it
+        is sharded (its global buffers on the host), its modules'."""
+        if self.shards is not None:
+            return self.norm["lo"].device
         return self.buffers["emb"].device
 
     @property
@@ -244,6 +312,24 @@ class IndexSnapshot:
         return delta_lib.mask_tombstones(self.buffers["ids"],
                                          self.delta.tombstone_array())
 
+    @property
+    def scan_parts(self) -> tuple:
+        """What the sharded scan reads: ``shards.parts``, with the
+        delta's tombstoned ids set to -1 in each part's ``ids`` (as
+        :attr:`scan_view` does for the unsharded buffers). The masked ids
+        are built at first use on each part's device and live as long as
+        this snapshot, which is one placement."""
+        if self.delta is None or not self.delta.n_tombstones:
+            return self.shards.parts
+        return self._masked_parts
+
+    @functools.cached_property
+    def _masked_parts(self) -> tuple:
+        tomb = self.delta.tombstone_array()
+        return tuple({**part, "ids": delta_lib.mask_tombstones(part["ids"],
+                                                               tomb)}
+                     for part in self.shards.parts)
+
     @functools.cached_property
     def delta_rows(self) -> Optional[dict]:
         """The delta's rows padded to a multiple of
@@ -256,8 +342,9 @@ class IndexSnapshot:
 
     def to(self, device) -> "IndexSnapshot":
         """The same snapshot with its modules and arrays on ``device``
-        (the delta segment stays host-side). ``self`` is left as it was:
-        modules are copied before they move."""
+        (the delta segment stays host-side; a sharded snapshot's buffers
+        stay on the host and its parts where the mesh put them). ``self``
+        is left as it was: modules are copied before they move."""
         device = require_device(device)
         if self.device == device:
             return self
@@ -267,8 +354,10 @@ class IndexSnapshot:
         def mod(m):
             return (copy.deepcopy(m) if copy_modules else m).to(device)
 
-        buffers = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
-                   for k, v in self.buffers.items()}
+        buffers = self.buffers
+        if self.shards is None:
+            buffers = {k: (v.to(device) if isinstance(v, torch.Tensor)
+                           else v) for k, v in buffers.items()}
         return dataclasses.replace(
             self, rel=mod(self.rel), index=mod(self.index),
             norm={k: v.to(device) for k, v in self.norm.items()},
@@ -298,8 +387,10 @@ class IndexSnapshot:
         """Persist as checkpoint step ``meta.version`` (atomic commit,
         keep-``keep`` GC) in the reference's layout, so either package
         loads it. Leaves on the card are copied to the host one at a
-        time. A directory holds one lineage: saving a version older than
-        its latest step is refused. Returns the committed path."""
+        time; a sharded snapshot writes its global host buffers, and its
+        ``meta.n_shards`` is provenance only (:meth:`load` sets 1). A
+        directory holds one lineage: saving a version older than its
+        latest step is refused. Returns the committed path."""
         latest = ckpt.latest_step(directory)
         if latest is not None and latest > self.meta.version:
             raise ValueError(
@@ -322,7 +413,8 @@ class IndexSnapshot:
     def load(cls, directory: str, step: Optional[int] = None, *,
              device="cuda") -> "IndexSnapshot":
         """Load a committed snapshot (latest unless ``step``) onto
-        ``device``. A schema or precision mismatch raises ``ValueError``
+        ``device``, unsharded (``meta.n_shards`` 1: re-shard with
+        :meth:`with_mesh`). A schema or precision mismatch raises ``ValueError``
         before any leaf is read; a damaged artifact raises
         :class:`~repro_torch.checkpoint.ckpt.SnapshotCorrupt`."""
         device = require_device(device)

@@ -5,17 +5,18 @@
   slow ones against a robust threshold (median + k·MAD). The streaming
   server feeds it one stream, its per-flush wall times
   (:meth:`StragglerMonitor.slow`).
+- :class:`ShardHealth` is the sharded engine's per-shard health: the
+  EWMA of scan times, the consecutive failures, UP → SUSPECT → DOWN.
 - :class:`ShardUnavailable` is the sharded engine's total-loss error,
   re-exported by ``repro_torch.api``.
 
-The reference's ``ShardHealth``, ``ElasticPlanner`` and ``watchdog_step``
-serve the sharded engine and the trainer fleet; they come with the
-port's sharding (ROADMAP Queue A 11). Host-side Python, no device.
+The reference's ``ElasticPlanner`` and ``watchdog_step`` serve the
+trainer fleet and are not ported here. Host-side Python, no device.
 """
 from __future__ import annotations
 
 from collections import defaultdict, deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 
 class StragglerMonitor:
@@ -84,4 +85,84 @@ class ShardUnavailable(RuntimeError):
     indistinguishable from "nothing matched"."""
 
 
-__all__ = ["StragglerMonitor", "ShardUnavailable"]
+class ShardHealth:
+    """Per-shard serving health of the mesh-sharded engine.
+
+    For each shard: an EWMA of scan wall time (every shard scan is
+    timed), a consecutive-failure count, and a state:
+
+    * UP → SUSPECT on the first scan failure;
+    * SUSPECT → UP when a scan (device or host replica) succeeds;
+    * SUSPECT → DOWN after ``down_after`` consecutive failures, or at
+      once through :meth:`mark_down` (device lost);
+    * DOWN is sticky: queries skip the shard until :meth:`mark_up`,
+      which only ``recover_shard`` calls after re-materializing the
+      part. A lucky success does not mask a dead device.
+    """
+
+    UP, SUSPECT, DOWN = "up", "suspect", "down"
+
+    def __init__(self, n_shards: int, *, alpha: float = 0.2,
+                 down_after: int = 3):
+        if n_shards < 1:
+            raise ValueError(f"ShardHealth: n_shards={n_shards} < 1")
+        if down_after < 1:
+            raise ValueError(f"ShardHealth: down_after={down_after} < 1")
+        self.n_shards = int(n_shards)
+        self.alpha = float(alpha)
+        self.down_after = int(down_after)
+        self._ewma: List[Optional[float]] = [None] * self.n_shards
+        self._failures: List[int] = [0] * self.n_shards
+        self._states: List[str] = [self.UP] * self.n_shards
+
+    def record_success(self, shard: int, seconds: float) -> None:
+        prev = self._ewma[shard]
+        self._ewma[shard] = (seconds if prev is None else
+                             self.alpha * seconds
+                             + (1.0 - self.alpha) * prev)
+        self._failures[shard] = 0
+        if self._states[shard] == self.SUSPECT:
+            self._states[shard] = self.UP
+
+    def record_failure(self, shard: int) -> str:
+        """Count one failed scan; returns the new state."""
+        self._failures[shard] += 1
+        if self._states[shard] != self.DOWN:
+            self._states[shard] = (
+                self.DOWN if self._failures[shard] >= self.down_after
+                else self.SUSPECT)
+        return self._states[shard]
+
+    def mark_down(self, shard: int) -> None:
+        self._states[shard] = self.DOWN
+
+    def mark_up(self, shard: int) -> None:
+        """Recovery: reset the shard to a clean UP slate."""
+        self._states[shard] = self.UP
+        self._failures[shard] = 0
+        self._ewma[shard] = None
+
+    def state(self, shard: int) -> str:
+        return self._states[shard]
+
+    def is_down(self, shard: int) -> bool:
+        return self._states[shard] == self.DOWN
+
+    def ewma(self, shard: int) -> Optional[float]:
+        return self._ewma[shard]
+
+    def down_shards(self) -> Tuple[int, ...]:
+        """Sorted DOWN set: the cache-key signature of degraded results."""
+        return tuple(s for s in range(self.n_shards) if self.is_down(s))
+
+    def snapshot(self) -> dict:
+        """Metrics view (``server.metrics()`` embeds it as it is)."""
+        return {
+            "states": list(self._states),
+            "ewma_s": list(self._ewma),
+            "failures": list(self._failures),
+            "down": list(self.down_shards()),
+        }
+
+
+__all__ = ["StragglerMonitor", "ShardHealth", "ShardUnavailable"]

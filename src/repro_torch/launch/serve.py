@@ -19,8 +19,11 @@ resident-buffer storage tier (DESIGN.md §9): int8 quantizes the scanned
 embeddings ~4× smaller with in-kernel dequant; a loaded artifact must
 already be at the requested tier. ``--backend`` takes the port's names
 (``cuda``, ``cuda-cm``, ``dense``, ``dense-cm``, ``auto``);
-``--use-pallas`` is the deprecated alias of ``cuda``. ``--mesh`` exits
-non-zero: sharded serving waits for ROADMAP Queue A 11.
+``--use-pallas`` is the deprecated alias of ``cuda``. ``--mesh N``
+shards the loaded or built snapshot's cluster buffers N ways
+(``IndexSnapshot.with_mesh``): across the first N cards with ``--device
+cuda`` (more than the host has raises), into N logical parts with
+``--device cpu``.
 
 Reports two layers of metrics:
 
@@ -115,8 +118,8 @@ def main(argv=None):
                          "own tier on --snapshot-dir load")
     ap.add_argument("--mesh", type=int, default=None, metavar="N",
                     help="shard the resident cluster buffers across N "
-                         "devices: not ported (sharding is ROADMAP Queue "
-                         "A 11); exits non-zero")
+                         "devices (the first N cards; N logical parts "
+                         "with --device cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--snapshot-dir", default=None,
                     help="durable IndexSnapshot artifact dir: load it when "
@@ -173,9 +176,6 @@ def main(argv=None):
     ap.add_argument("--skew", type=float, default=1.05,
                     help="Zipf exponent of the query workload (0 = uniform)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit(f"--mesh {args.mesh}: sharding is ROADMAP Queue "
-                         f"A 11; the port serves on one device only")
     backend = resolve_cli_backend(args.backend, args.use_pallas)
     dev = require_device(args.device)
 
@@ -226,6 +226,12 @@ def main(argv=None):
         if args.snapshot_dir:
             path = api.save(snap, args.snapshot_dir)
             print(f"== saved snapshot v{snap.meta.version} -> {path} ==")
+    if args.mesh:
+        snap = snap.with_mesh(args.mesh)
+        per_dev = snap.shards.nbytes_per_device()
+        print(f"== mesh: cluster buffers sharded across "
+              f"{snap.meta.n_shards} devices, "
+              f"{max(per_dev) / 1e6:.2f} MB/device resident ==")
     buf = snap.buffers
     counts = buf["counts"].cpu().numpy()
     print(f"== index: clusters={counts.tolist()} "

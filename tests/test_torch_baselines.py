@@ -1,12 +1,11 @@
 """The port's ANN baselines (k-means, IVF, IVF_S, LSH, the LIST-R rerank)
 against the reference's, on the CPU.
 
-k-means: the reference draws its initial rows with ``jax.random.choice``,
-which the port cannot reproduce, so both packages are started from the
-same rows here (``jax.random.choice`` monkeypatched for the reference's
-call) and held step by step (atol 1e-5). IVF and IVF_S: both packages'
-``kmeans`` monkeypatched to one result, so probes and candidates must be
-equal. LSH: the planes are one numpy draw, so the codes must be equal
+k-means: the port's initial rows (``kmeans_init_rows``, numpy) are
+``jax.random.choice``'s for the same seed, in one and two shuffle rounds;
+both packages run from their own draw and are held step by step (atol
+1e-5). IVF and IVF_S: each package clusters with its own ``kmeans``, so
+probes and candidates must be equal. LSH: the planes are one numpy draw, so the codes must be equal
 except for a projection within 1e-5 of zero (either bit is right).
 Rerank: ``ListRetriever.score_fn`` of both packages over the same params
 and embeddings, through ``rerank_candidates``. Last, the baseline cases of
@@ -46,64 +45,68 @@ def _blobs(seed, n=240, d=8, k=4):
     return x.astype(np.float32)
 
 
-def _ref_kmeans(monkeypatch, x, c, init, iters):
-    monkeypatch.setattr(ref_bl.jax.random, "choice",
-                        lambda key, n, shape, replace=True: jnp.asarray(init))
+def _ref_kmeans(x, c, iters, seed=0):
     with ref_on_cpu():
-        cent, assign = ref_bl.kmeans(jnp.asarray(x), c, iters=iters)
+        cent, assign = ref_bl.kmeans(jnp.asarray(x), c, iters=iters,
+                                     seed=seed)
         return np.asarray(cent), np.asarray(assign)
 
 
+@pytest.mark.parametrize("n,c", [(10, 3), (240, 6), (1625, 40),
+                                 (1626, 40), (20_000, 64), (50_000, 300)])
+def test_kmeans_init_rows_match_jax_choice(n, c):
+    """``kmeans_init_rows`` draws ``jax.random.choice(PRNGKey(seed), n,
+    (c,), replace=False)``'s rows: one shuffle round up to n = 1,625, two
+    above, over several seeds (a negative one included)."""
+    rounds = int(np.ceil(3 * np.log(n) / np.log(2.0 ** 32 - 1)))
+    assert rounds == (1 if n <= 1625 else 2)
+    for seed in (0, 1, 7, 2024, -3):
+        want = np.asarray(jax.random.choice(jax.random.PRNGKey(seed), n,
+                                            (c,), replace=False))
+        np.testing.assert_array_equal(
+            port_bl.kmeans_init_rows(n, c, seed=seed), want)
+
+
 @pytest.mark.parametrize("seed", range(3))
-def test_kmeans_step_matches_reference(monkeypatch, seed):
+def test_kmeans_step_matches_reference(seed):
     """Each Lloyd step of the port (``kmeans_step``) equals the
-    reference's from the same centroids."""
+    reference's from the same centroids: the reference's seed-0 rows."""
     x = _blobs(seed)
     c = 6
-    init = np.random.default_rng(seed).choice(len(x), c, replace=False)
+    init = port_bl.kmeans_init_rows(len(x), c, seed=0)
     xt = torch.from_numpy(x)
     cent = xt[torch.from_numpy(init)]
     for iters in range(1, 6):
         cent, assign = port_bl.kmeans_step(xt, cent)
-        want_c, want_a = _ref_kmeans(monkeypatch, x, c, init, iters)
+        want_c, want_a = _ref_kmeans(x, c, iters)
         np.testing.assert_array_equal(assign.numpy(), want_a)
         np.testing.assert_allclose(cent.numpy(), want_c, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("seed", range(2))
-def test_kmeans_matches_reference(monkeypatch, seed):
-    """``kmeans`` (25 steps) from its numpy-drawn rows equals the
-    reference's Lloyd from the same rows; an empty cluster keeps its
-    centroid (more clusters than blobs)."""
+def test_kmeans_matches_reference(seed):
+    """``kmeans`` (25 steps) equals the reference's for one seed, each
+    drawing its own initial rows; an empty cluster keeps its centroid
+    (more clusters than blobs)."""
     x = _blobs(seed + 10)
     c = 9
     cent, assign = port_bl.kmeans(x, c, seed=seed, device="cpu")
-    init = np.random.default_rng(seed).choice(len(x), c, replace=False)
-    want_c, want_a = _ref_kmeans(monkeypatch, x, c, init, 25)
+    want_c, want_a = _ref_kmeans(x, c, 25, seed=seed)
     np.testing.assert_array_equal(assign.numpy(), want_a)
     np.testing.assert_allclose(cent.numpy(), want_c, atol=1e-5, rtol=0)
 
 
-def _patch_kmeans(monkeypatch, cent, assign):
-    monkeypatch.setattr(ref_bl, "kmeans", lambda *a, **k: (
-        jnp.asarray(cent), jnp.asarray(assign)))
-    monkeypatch.setattr(port_bl, "kmeans", lambda *a, **k: (
-        torch.from_numpy(np.array(cent)), torch.from_numpy(np.array(assign))))
-
-
 @pytest.mark.parametrize("alpha", [1.0, 0.5])
 @pytest.mark.parametrize("cr", [1, 2])
-def test_ivf_probe_and_candidates_match(monkeypatch, alpha, cr):
-    """IVF (α 1) and IVF_S (α 0.5) from one clustering: the features,
-    probes and candidate lists of both packages agree."""
+def test_ivf_probe_and_candidates_match(alpha, cr):
+    """IVF (α 1) and IVF_S (α 0.5), each package clustering from its own
+    k-means (the same initial rows): the features, probes and candidate
+    lists of both packages agree."""
     rng = np.random.default_rng(4)
     emb = rng.normal(size=(300, 16)).astype(np.float32)
     loc = rng.uniform(size=(300, 2)).astype(np.float32)
     q = rng.normal(size=(20, 16)).astype(np.float32)
     ql = rng.uniform(size=(20, 2)).astype(np.float32)
-    with ref_on_cpu():
-        real = ref_bl.IVFIndex(emb, loc, n_clusters=5, alpha=alpha)
-    _patch_kmeans(monkeypatch, real.centroids, real.assign)
     with ref_on_cpu():
         ref = ref_bl.IVFIndex(emb, loc, n_clusters=5, alpha=alpha)
     port = port_bl.IVFIndex(emb, loc, n_clusters=5, alpha=alpha,

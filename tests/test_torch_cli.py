@@ -13,7 +13,7 @@ the query embedding on this artifact), so a near-tie in the top 10 may
 flip; the f32 parity of the same paths is held exactly in
 ``test_torch_dispatch.py`` and ``test_torch_slice.py``. A restart with
 ``--wal-dir`` after ``--churn`` replays the log;
-``--mesh`` exits non-zero (sharding is ROADMAP Queue A 11). A trainer's
+``--mesh 2`` serves the unsharded ids from 2 logical CPU shards. A trainer's
 state saved by either package's ``CheckpointManager`` resumes in the
 other's. Each ``examples/torch_*.py`` runs its ``main`` on the CPU at its
 smallest setting.
@@ -143,11 +143,31 @@ def test_cli_wal_restart_replays(tmp_path):
     assert quality(second)[0] == quality(first)[0]
 
 
-def test_cli_mesh_exits_nonzero():
-    with pytest.raises(SystemExit) as e:
-        port_serve.main(CLI + ["--mesh", "2", "--device", "cpu"])
-    assert e.value.code not in (0, None)
-    assert "Queue A 11" in str(e.value.code)
+def test_cli_mesh_exits_nonzero(tmp_path, monkeypatch):
+    """``--mesh 2 --device cpu`` serves (exit 0, the mesh line) and its
+    quality queries return the unsharded run's ids over the same
+    artifact. (The name dates from the port's --mesh exiting non-zero.)"""
+    from repro_torch import api as port_api
+    seen = []
+    real = port_api.Searcher.query_corpus
+
+    def spy(self, *a, **kw):
+        out = real(self, *a, **kw)
+        seen.append((self.snapshot.meta.n_shards, out))
+        return out
+
+    monkeypatch.setattr(port_api.Searcher, "query_corpus", spy)
+    argv = CLI + ["--snapshot-dir", str(tmp_path / "snap")]
+    rc, plain = run_cli("port", argv)
+    assert rc == 0, plain
+    rc, sharded = run_cli("port", argv + ["--mesh", "2"])
+    assert rc == 0, sharded
+    assert "== mesh: cluster buffers sharded across 2 devices" in sharded
+    assert [n for n, _ in seen] == [1, 2]
+    np.testing.assert_array_equal(seen[1][1][0], seen[0][1][0])
+    np.testing.assert_allclose(seen[1][1][1], seen[0][1][1], rtol=1e-5,
+                               atol=1e-5)
+    assert quality(sharded) == quality(plain)
 
 
 def test_cli_refuses_a_missing_card():
@@ -159,13 +179,13 @@ def test_cli_refuses_a_missing_card():
 
 def test_roundtrip_selftest_on_cpu(tmp_path, capsys):
     """``python -m repro_torch.api --device cpu``: every leg (dense,
-    dense-cm × f32, bf16, int8, unfiltered and filtered, and the delta
-    leg) bit-identical through save → load."""
+    dense-cm × f32, bf16, int8, unfiltered and filtered, the delta leg
+    and the 2-shard mesh leg) bit-identical through save → load."""
     from repro_torch import api
     assert api._roundtrip_selftest(str(tmp_path), device="cpu") == 0
     assert api._main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert out.count("bit-identical") == 2 * 15
+    assert out.count("bit-identical") == 2 * 18
     assert "MISMATCH" not in out
 
 
@@ -238,8 +258,16 @@ def test_checkpoint_manager_fresh_and_shard_fn(tmp_path):
     mgr = port_ckpt.CheckpointManager(str(tmp_path))
     tree, step, meta = mgr.restore_or_init(lambda: {"a": torch.zeros(2)})
     assert step == 0 and meta == {} and tree["a"].shape == (2,)
-    with pytest.raises(NotImplementedError, match="A 11"):
-        mgr.restore_or_init(lambda: {}, shard_fn=lambda t: t)
+    # shard_fn places the restored host tree (elastic reload); a fresh
+    # directory returns init_fn() as it is
+    mgr.maybe_save(1, {"a": torch.arange(2.0)}, force=True)
+    tree, step, _ = mgr.restore_or_init(
+        lambda: {"a": torch.zeros(2)},
+        shard_fn=lambda t: {k: (v.device.type, v + 1) for k, v in t.items()})
+    assert step == 1 and tree["a"][0] == "cpu"
+    assert torch.equal(tree["a"][1], torch.tensor([1.0, 2.0]))
+    leaves, _, _ = port_ckpt.restore(str(tmp_path), shard_fn=len)
+    assert leaves == 1
 
 
 # ---------------------------------------------------------------------------

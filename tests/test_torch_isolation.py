@@ -4,7 +4,7 @@ A subprocess with ``sys.modules["jax"] = None`` (any ``import jax`` then
 raises) imports every module of ``repro_torch`` and runs the slice on
 the CPU: random params in the reference's layout → ``params_from_numpy``
 → buffers → snapshot → ``Searcher.query`` on ``dense``, ``dense-cm``
-and ``auto``. The default device is CUDA, so without one the entry
+and ``auto``, and on 2 logical shards (``with_mesh``). The default device is CUDA, so without one the entry
 points raise instead of quietly running on the CPU. The import scan
 covers the port, ``chip_smoke.py`` and the port's examples
 (``examples/torch_*.py``).
@@ -63,6 +63,13 @@ for backend in ("dense", "dense-cm", "auto"):
     assert ids.shape == (10, 5) and np.isfinite(sc).all(), backend
     out[backend] = ids
 assert (out["dense"] == out["dense-cm"]).all()
+for mod in ("repro_torch.distributed.sharding",
+            "repro_torch.distributed.resilience"):
+    assert mod in sys.modules, mod
+ids, sc = api.Searcher(snap.with_mesh(2), backend="dense",
+                       device="cpu").query(tok, msk, q_loc, k=5, cr=2,
+                                           batch=4)
+assert (ids == out["dense"]).all()
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
 try:
     api.Searcher(snap)
