@@ -180,12 +180,45 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    scan); ``mine_negatives_sharded`` and ``_dense`` on phase 6's 131,072
    objects against ``mine_negatives`` (up to ties), timed; ``--mesh 1``
    through the command line at phase 8's flags (training cut to 30 + 30
-   steps), and a mesh wider than the host's cards refused.
+   steps), and a mesh wider than the host's cards refused. With no fault
+   injected no as-served run may hedge a scan (the hedge floor: a device
+   scan is hedged only when it took longer than a scan of the shard's host
+   replica would, the part's bytes at the measured pinned-to-card copy
+   rate plus a median device scan).
+
+10. The substrate's serving paths at full width, one model at a time, the
+   launch counters zeroed before and read after each path. (a) qwen2-7b at
+   its full config (28 layers, seeded f32 params ~30.5 GB): ``lm_prefill``
+   of 1 × 32,768 tokens (``prefill_32k`` at batch 1), then of 8 × 4,096
+   into a 32,768-slot cache (``decode_32k``'s cache at batch 8) and 32
+   greedy ``lm_decode_step``s. (b) gemma3-27b at its full widths, one
+   LLLLLG period (6 layers, tied embeddings): 2 × 8,192 (its local layers
+   take the banded case) and 32 steps on the ring caches. Each prefill
+   launches the flash twin once per layer; the first launch of each layer
+   kind is held within one bf16 rounding of the plain version on its first
+   4,096 rows (``FLASH_ONE_ROUNDING``) and timed beside SDPA; on the
+   model's float32-compute twin (the same weights) the last of the 32
+   decode steps equals ``lm_prefill`` over the prompt and those tokens
+   within ``tests/test_decode_parity.py``'s 2e-2 / 2e-2, and the served
+   bf16 run's own divergence from its prefill is recorded; every logit is
+   finite. (c) dlrm-mlperf at its full widths, each table
+   capped at 10,000,000 rows (~28 GB): ``dlrm_forward`` on ``CTRStream``
+   batches at ``serve_p99`` and ``serve_bulk``, one dot launch each, held
+   against the plain version and timed beside bmm + triangle; then
+   ``recsys.embedding_bag`` on table 0 over 262,144 bags of 1–16 ids in
+   ``sum`` and ``mean``, one bag launch each, held within 1e-5 relative
+   and timed beside ``F.embedding_bag``. (d) xDeepFM at ``serve_p99``,
+   BERT4Rec's ``score_all`` over 1M items at B 512 and MIND's
+   ``score_candidates`` at ``retrieval_cand`` (plain torch): walls, rows/s
+   and peaks.
 
 Prints a JSON line of phase 3's numbers, one of the write path's
 (``write_path``), one of the build's (``build``), one of the serving
 stack's (``serving``), one of phase 8's (``tools``), one of phase 9's
-(``sharded``), one of per-kernel numbers, then as its last line
+(``sharded``), one of phase 10's (``substrate``), one of per-kernel
+numbers (flash attention, dot interaction and embedding bag with
+``launches`` on phase 10's paths and ``substrate_shapes``), then as its
+last line
 ``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero.
 
@@ -3735,8 +3768,8 @@ def p9_memory(rec, what):
     """Device memory added since ``p9_shard`` against the parts: what
     stays resident after the queries must be the parts (the global
     buffers stay on the host), and the peak over all the runs the parts
-    plus at most one part in flight (an as-served run's hedged scan
-    copies its host replica) and 1 GB of work space. The runs with
+    plus at most one part in flight (a hedged scan's replica copy) and
+    1 GB of work space. The runs with
     hedging off are held tighter in ``p9_run``."""
     import torch
     peak = (max(rec.pop("peak"), torch.cuda.max_memory_allocated())
@@ -3767,12 +3800,13 @@ class NeverSlow:
 def p9_run(dev, snap, backend, q, n, want=None, mem=None):
     """``Searcher.query`` of the first ``n`` queries (one chunk first, to
     warm), checked against ``want`` up to ties when given → a record:
-    the wall as served (``wall_ms``: the engine's straggler monitor may
-    hedge a shard whose scan times jitter, and then each of its scans
-    copies the shard's host replica to the card) and, on a sharded
-    snapshot, the wall of a second run with hedging off
-    (``steady_wall_ms``, answers checked the same), with the shard
-    counters of each. The hedging-off run's own peak must stay within
+    the wall as served (``wall_ms``; on a sharded snapshot no scan may be
+    hedged or run on a host replica: with no fault injected a device scan
+    never costs more than a replica scan, the engine's hedge floor, whose
+    values ``hedge_floor_ms`` holds for the shards host jitter flagged)
+    and, on a sharded snapshot, the wall of a second run with
+    hedging off (``steady_wall_ms``, answers checked the same), with the
+    shard counters of each. The hedging-off run's own peak must stay within
     the parts (``mem``, from ``p9_shard``) and 1 GB of work space: no
     global buffer comes back, even for a moment."""
     import numpy as np
@@ -3808,6 +3842,13 @@ def p9_run(dev, snap, backend, q, n, want=None, mem=None):
     rec = dict(wall_ms=wall, max_abs_err=err, shard_stats=stats,
                dedup_factor=eng.last_dedup_factor)
     if snap.shards is not None:
+        rec["hedge_floor_ms"] = {s_: t * 1e3 for s_, t in
+                                 eng.replica_scan_s.items()}
+        if stats["hedged_scans"] or stats["host_scans"]:
+            raise AssertionError(
+                f"phase 9 {backend}: {stats['hedged_scans']} hedged scans "
+                f"with no fault injected (hedge floors "
+                f"{rec['hedge_floor_ms']} ms)")
         eng._shard_monitor, eng._hedged = NeverSlow(), {}
         mem["peak"] = max(mem["peak"], torch.cuda.max_memory_allocated())
         torch.cuda.reset_peak_memory_stats()
@@ -3997,6 +4038,8 @@ def p9_faults(dev, snap_s, base_snap, q):
                even_share=(FAULT_S - 1) / FAULT_S, lost_max_abs_err=err_lost,
                recover_s=recover_s, slow_shard=SLOW_SHARD,
                slow_sleep_s=SLOW_SLEEP_S, hedge_stats=st,
+               hedge_floor_ms=eng.replica_scan_s[SLOW_SHARD] * 1e3,
+               host_copy_gb_s=eng.host_copy_rate() / 1e9,
                replica_scan_ms=time_ms(replica_scan, reps=3),
                device_scan_ms=time_ms(device_scan, reps=3),
                replica_part_gb=part_gb)
@@ -4005,7 +4048,9 @@ def p9_faults(dev, snap_s, base_snap, q):
            f"(an even split would say {(FAULT_S - 1) / FAULT_S:.4f}), ids == "
            f"masked oracle up to ties (max|Δ| {err_lost:.3g}); recover_shard "
            f"{recover_s:.3f} s, then bit-equal to before the loss; shard "
-           f"{SLOW_SHARD} slowed {SLOW_SLEEP_S} s per device scan -> hedged, "
+           f"{SLOW_SHARD} slowed {SLOW_SLEEP_S} s per device scan -> hedged "
+           f"(above its hedge floor {rec['hedge_floor_ms']:.2f} ms: the part "
+           f"at {rec['host_copy_gb_s']:.1f} GB/s plus a median scan), "
            f"bit-equal ({st}); replica scan {rec['replica_scan_ms']:.2f} ms "
            f"(its {part_gb:.2f} GB part copied each time) vs device scan "
            f"{rec['device_scan_ms']:.3f} ms")
@@ -4167,7 +4212,9 @@ def phase9(dev, wctx, retriever, trained_corpus):
             r.update(queries=n, unsharded_wall_ms=base[(p, b)][2] * n / n_all)
             runs[f"{p}/{b}/S{S}"] = r
             log(f"phase 9 {what} {b}: {n} queries in {r['wall_ms']:.1f} ms "
-                f"as served (hedges {r['shard_stats']['hedged_scans']}), "
+                f"as served (hedges {r['shard_stats']['hedged_scans']}; "
+                f"hedge floors of the shards jitter flagged "
+                f"{r['hedge_floor_ms']} ms), "
                 f"{r['steady_wall_ms']:.1f} ms with hedging off (peak "
                 f"+{r['steady_peak_added_gb']:.3f} GB), vs "
                 f"unsharded {r['unsharded_wall_ms']:.1f} ms (overhead, not "
@@ -4250,6 +4297,539 @@ def phase9(dev, wctx, retriever, trained_corpus):
         rec["cli"] = p9_cli(dev, tmp)
     torch.cuda.empty_cache()
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the substrate's serving paths at full width
+# ---------------------------------------------------------------------------
+
+
+# qwen2-7b at its full config; gemma3-27b at its full widths, one
+# LLLLLG period (6 of 62 layers: its 27B f32 params are ~108 GB)
+LM_PLANS = {
+    "qwen2-7b": dict(layers=None, long=(1, 32_768), batch=8, prompt=4096,
+                     max_len=32_768),
+    "gemma3-27b": dict(layers=6, long=None, batch=2, prompt=8192,
+                       max_len=8192 + 32),
+}
+DECODE_STEPS = 32
+DECODE_TOL = (2e-2, 2e-2)        # rtol, atol: tests/test_decode_parity.py
+HELD_S = 4096                    # rows of a held launch checked against plain
+DLRM_MAX_ROWS = 10_000_000       # per table (MLPerf's --max-ind-range)
+DLRM_SERVE = {"serve_p99": 512, "serve_bulk": 262_144}
+BAG_BATCH, BAG_MAX = 262_144, 16  # bags of 1..16 ids on table 0
+BAG_TOL = 1e-5                   # relative, and absolute on near-zero sums
+MIND_CANDIDATES = 1_000_000      # the retrieval_cand cell
+
+
+def causal_pairs(s, window):
+    """Unmasked (query, key) pairs of one head: causal, window-limited."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+class FlashTap:
+    """Wraps ``kernels.flash_attention.flash_attention`` (the function the
+    LM layers call): passes every call through and keeps the inputs and
+    output of the launches whose index (counted from 0 since ``reset``) is
+    in ``keep``."""
+
+    def __init__(self, keep):
+        from repro_torch.kernels import flash_attention as fa
+        self.fa, self.real, self.keep = fa, fa.flash_attention, set(keep)
+        self.calls, self.kept = 0, {}
+
+    def __call__(self, q, k, v, **kw):
+        out = self.real(q, k, v, **kw)
+        if self.calls in self.keep:
+            self.kept[self.calls] = (q, k, v, kw, out)
+        self.calls += 1
+        return out
+
+    def __enter__(self):
+        self.fa.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention = self.real
+
+
+def held_flash(q, k, v, kw, out, what):
+    """The launch's first ``HELD_S`` rows of sequence 0 against the plain
+    version on those rows (causal, so they see only those keys), within
+    one bf16 rounding (``FLASH_ONE_ROUNDING``)."""
+    sl = slice(0, min(HELD_S, q.shape[1]))
+    return one_rounding_check(out[:1, sl], q[:1, sl], k[:1, sl], v[:1, sl],
+                              causal=kw["causal"], window=kw["window"],
+                              what=what)
+
+
+def flash_shape_times(dev, q, k, v, kw):
+    """Kernel, plain (per sequence, first ``HELD_S`` rows, the most one
+    score tensor of the plain version holds here) and SDPA times on one
+    prefill layer's inputs, with the bound of the full launch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, d = q.shape
+    w = kw["window"]
+    rec = dict(shape=[b, s, h, k.shape[2], d], window=w)
+    rec["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=3)
+    sl = slice(0, min(HELD_S, s))
+    rec["plain_rows"] = sl.stop
+    rec["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
+        q[:1, sl], k[:1, sl], v[:1, sl], **kw), reps=2)
+    # SDPA on K/V expanded to the query heads (outside the timing): with
+    # enable_gqa or a mask at these lengths it may leave its fused
+    # backends for the math one, whose score tensor would not fit
+    g = h // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2) for x in (k, v))
+    if w:
+        mask = fa.attention_mask(s, s, causal=True, window=w, device=dev)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+    rec["library_ms"] = time_ms(lib, reps=3)
+    del kt, vt
+    pairs = causal_pairs(s, w) * h * b
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    rec.update(roof(nbytes, 4 * d * pairs, BF16_FLOPS_PER_S))
+    rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    return rec
+
+
+def decode_divergence(model, toks, gen, last_logits):
+    """``lm_prefill`` over the prompt and the decoded tokens (S + steps)
+    against the last decode step's logits: ``(record, prefill logits)``
+    with the largest and mean |Δ| and the logits beyond ``DECODE_TOL``."""
+    import torch
+    from repro_torch.models import transformer as tf
+    full = torch.cat([toks, gen], dim=1)
+    want, cache = tf.lm_prefill(model, full)
+    del cache
+    rtol, atol = DECODE_TOL
+    diff = (last_logits - want).abs()
+    bad = int((diff > atol + rtol * want.abs()).sum())
+    return dict(positions=int(full.shape[1]), max_abs_err=diff.max().item(),
+                mean_abs_err=diff.mean().item(), beyond_tol=bad,
+                of=int(diff.numel())), want
+
+
+def decode_check(model, toks, gen, what):
+    """The KV-cache check on ``model``'s float32-compute twin (the same
+    weights; f32 activations, flash's f32 body): prefill the prompt into a
+    cache of S + steps, decode the served run's tokens teacher-forced, and
+    hold the last step against ``lm_prefill`` over all of them within
+    ``DECODE_TOL`` (raises). In bf16 the two paths round in other places
+    (M = B rows against B·S in each product, flash against the plain
+    decode attention) and those roundings grow over the layers, so the
+    served run's own divergence is recorded beside it, not gated."""
+    import torch
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(model.cfg, compute_dtype="float32")
+    twin = tf.LM(cfg, model.embed.data, list(model.blocks), model.final_norm,
+                 None if model.unembed is None else model.unembed.data)
+    b, p = toks.shape
+    steps = gen.shape[1]
+    logits, cache = tf.lm_prefill(twin, toks, max_len=p + steps)
+    for i in range(steps):
+        logits, cache = tf.lm_decode_step(
+            twin, cache, gen[:, i:i + 1],
+            torch.full((b,), p + i, device=toks.device))
+    del cache
+    rec, want = decode_divergence(twin, toks, gen, logits)
+    if rec["beyond_tol"] or not torch.isfinite(want).all():
+        raise AssertionError(
+            f"phase 10 {what}: the f32 twin's decode step {steps - 1} "
+            f"differs from lm_prefill over {rec['positions']} tokens beyond "
+            f"{DECODE_TOL} in {rec['beyond_tol']}/{rec['of']} logits (max "
+            f"|Δ| {rec['max_abs_err']:.4g}): the KV cache is wrong")
+    return rec
+
+
+def p10_lm(dev, arch, plan):
+    """One LM: init at full width, the long prefill (when planned), the
+    decode prompt's prefill into a ``max_len`` cache, ``DECODE_STEPS``
+    greedy steps, the decode-against-prefill check, the held launches and
+    the flash times on the prompt prefill's first layer of each kind."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch)
+    if plan["layers"]:
+        n = plan["layers"]
+        cfg = dataclasses.replace(cfg, n_layers=n,
+                                  layer_pattern=cfg.pattern()[:n])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.lm_init(cfg, seed=SEED, device=dev).requires_grad_(False)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in model.parameters())
+    rec = dict(arch=arch, n_layers=cfg.n_layers, pattern="".join(
+        cfg.pattern()), params=params, params_gb=params * 4 / 1e9,
+        init_s=time.perf_counter() - t0, prefill={}, launches={})
+    stream = LMStream(cfg.vocab_size, seed=SEED)
+    first = {kind: cfg.pattern().index(kind) for kind in set(cfg.pattern())}
+
+    def prefill(name, b, s, max_len):
+        toks = torch.from_numpy(stream.batch(len(rec["prefill"]), b, s)[
+            "tokens"][:, :s]).to(dev)
+        fa.launches["flash_attention"] = 0
+        with FlashTap(first.values()) as tap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = tf.lm_prefill(model, toks, max_len=max_len)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n_launch = fa.launches["flash_attention"]
+        rec["launches"][name] = n_launch
+        if n_launch != cfg.n_layers:
+            raise AssertionError(f"phase 10 {arch} {name}: {n_launch} flash "
+                                 f"launches for {cfg.n_layers} layers")
+        if logits.shape != (b, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"phase 10 {arch} {name}: bad logits")
+        held = {kind: held_flash(*tap.kept[i], what=f"{arch} {name} layer {i}")
+                for kind, i in first.items()}
+        rec["prefill"][name] = dict(
+            batch=b, seq=s, cache_len=max_len, wall_ms=wall * 1e3,
+            tokens_per_s=b * s / wall, flash_launches=n_launch,
+            held_one_rounding=held,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"phase 10 {arch} {name} (B {b} × S {s}, cache {max_len}): "
+            f"{wall * 1e3:.1f} ms, {b * s / wall:.0f} tokens/s, {n_launch} "
+            f"flash launches = layers; held launches within "
+            f"{held} of one rounding; peak "
+            f"{rec['prefill'][name]['peak_gb']:.1f} GB")
+        return toks, logits, cache, tap
+
+    if plan["long"]:
+        b, s = plan["long"]
+        _, _, cache, tap = prefill(f"prefill_{s // 1024}k", b, s, s)
+        del cache
+        q, k, v, kw, _ = tap.kept[first["G"]]
+        rec["flash_long"] = flash_shape_times(dev, q, k, v, kw)
+        del tap, q, k, v
+        torch.cuda.empty_cache()
+    b, p = plan["batch"], plan["prompt"]
+    toks, logits, cache, tap = prefill("decode_prompt", b, p, plan["max_len"])
+    rec["flash"] = {kind: flash_shape_times(dev, *tap.kept[i][:4])
+                    for kind, i in first.items()}
+    del tap
+    torch.cuda.empty_cache()
+    fa.launches["flash_attention"] = 0
+    toks = toks.long()
+    tok = logits.argmax(-1, keepdim=True)
+    gen, steps_ms = [tok], []
+    for i in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tf.lm_decode_step(model, cache, tok,
+                                          torch.full((b,), p + i, device=dev))
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"phase 10 {arch}: decode step {i} logits "
+                                 f"not finite")
+        tok = logits.argmax(-1, keepdim=True)
+        if i < DECODE_STEPS - 1:
+            gen.append(tok)
+    if fa.launches["flash_attention"]:
+        raise AssertionError(f"phase 10 {arch}: decode launched flash")
+    del cache
+    torch.cuda.empty_cache()
+    rec["decode"] = dict(
+        batch=b, start=p, steps=DECODE_STEPS, cache_len=plan["max_len"],
+        step_ms=steps_ms, mean_step_ms=sum(steps_ms[1:]) / (len(steps_ms) - 1),
+        tokens_per_s=b * (len(steps_ms) - 1) / (sum(steps_ms[1:]) / 1e3))
+    gen = torch.cat(gen, 1)
+    rec["decode_vs_prefill_bf16"], _ = decode_divergence(model, toks, gen,
+                                                         logits)
+    torch.cuda.empty_cache()
+    rec["decode_vs_prefill"] = decode_check(model, toks, gen, arch)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    bf, f32 = rec["decode_vs_prefill_bf16"], rec["decode_vs_prefill"]
+    log(f"phase 10 {arch} decode: {DECODE_STEPS} greedy steps of B {b} from "
+        f"position {p} on a {plan['max_len']}-slot cache, "
+        f"{rec['decode']['mean_step_ms']:.2f} ms a step, "
+        f"{rec['decode']['tokens_per_s']:.0f} tokens/s; the last step's "
+        f"logits against lm_prefill over {f32['positions']} tokens: f32 twin "
+        f"max |Δ| {f32['max_abs_err']:.3g} (within {DECODE_TOL}), served "
+        f"bf16 max |Δ| {bf['max_abs_err']:.4g}, mean {bf['mean_abs_err']:.4g}"
+        f", {bf['beyond_tol']}/{bf['of']} beyond {DECODE_TOL} (recorded); "
+        f"flash per kind "
+        f"{ {kind: round(r['ms'], 3) for kind, r in rec['flash'].items()} } "
+        f"ms vs SDPA "
+        f"{ {kind: round(r['library_ms'], 3) for kind, r in rec['flash'].items()} }"
+        f" ms; peak {rec['peak_gb']:.1f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def p10_dlrm(dev):
+    """DLRM at its full widths (tables capped at ``DLRM_MAX_ROWS``):
+    ``dlrm_forward`` on ``CTRStream`` batches at ``serve_p99`` and
+    ``serve_bulk``, one dot launch each (its features held against the
+    plain version and timed beside bmm + triangle), then
+    ``recsys.embedding_bag`` on table 0 at ``BAG_BATCH`` bags in ``sum``
+    and ``mean``, one bag launch each, held against the plain version and
+    ``F.embedding_bag``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.data.recsys_data import CTRStream
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.models import recsys as rs
+    cfg = get_config("dlrm-mlperf")
+    sizes = [min(v, DLRM_MAX_ROWS) for v in cfg.table_sizes]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = rs.dlrm_init(cfg, seed=SEED, device=dev,
+                          max_rows=DLRM_MAX_ROWS)
+    torch.cuda.synchronize()
+    rows = sum(t.shape[0] for t in params["tables"])
+    rec = dict(table_rows=rows, tables_gb=rows * cfg.embed_dim * 4 / 1e9,
+               init_s=time.perf_counter() - t0, serve={}, launches={})
+    stream = CTRStream(cfg.n_dense, sizes, seed=SEED)
+    real = di.dot_interaction
+    for step, (name, b) in enumerate(DLRM_SERVE.items()):
+        batch = stream.batch(step, b)
+        dense = torch.from_numpy(batch["dense"]).to(dev)
+        sparse = torch.from_numpy(batch["sparse"]).to(dev)
+        kept = []
+
+        def tap(feats):
+            out = real(feats)
+            kept.append((feats, out))
+            return out
+        di.launches["dot_interaction"] = 0
+        di.dot_interaction = tap
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logit = rs.dlrm_forward(params, dense, sparse, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            di.dot_interaction = real
+        n_launch = di.launches["dot_interaction"]
+        rec["launches"][name] = n_launch
+        if n_launch != 1 or logit.shape != (b,) or \
+                not torch.isfinite(logit).all():
+            raise AssertionError(f"phase 10 dlrm {name}: {n_launch} dot "
+                                 f"launches, logits {tuple(logit.shape)}")
+        feats, out = kept[0]
+        want = di.dot_interaction_plain(feats)
+        err = (out - want).abs()
+        if (err > DOT_TOL + DOT_TOL * want.abs()).any():
+            raise AssertionError(f"phase 10 dlrm {name}: dot interaction "
+                                 f"differs from plain by {err.max().item()}")
+        iu, ju = di.triu_pairs(feats.shape[1], dev)
+        r = dict(batch=b, wall_ms=wall * 1e3, rows_per_s=b / wall,
+                 dot=dict(err=err.max().item(), shape=list(feats.shape),
+                          ms=time_ms(lambda: real(feats), reps=DOT_REPS),
+                          plain_ms=time_ms(lambda: di.dot_interaction_plain(
+                              feats), reps=3),
+                          library_ms=time_ms(lambda: torch.bmm(
+                              feats, feats.mT)[:, iu, ju], reps=DOT_REPS)))
+        r["forward_ms"] = time_ms(lambda: rs.dlrm_forward(
+            params, dense, sparse, cfg), reps=3)
+        n_pairs = iu.numel()
+        r["dot"].update(roof(feats.numel() * 4 + b * n_pairs * 4,
+                             b * n_pairs * 2 * feats.shape[2],
+                             F32_FLOPS_PER_S))
+        rec["serve"][name] = r
+        log(f"phase 10 dlrm {name} (B {b}): forward {r['forward_ms']:.3f} ms "
+            f"({b / r['forward_ms'] * 1e3:.0f} rows/s), 1 dot launch, dot "
+            f"{r['dot']['ms']:.3f} ms vs plain {r['dot']['plain_ms']:.3f} ms, "
+            f"bmm+triu {r['dot']['library_ms']:.3f} ms, bound "
+            f"{r['dot']['bound_ms']:.4f} ms; max|err| {r['dot']['err']:.3g}")
+        del feats, out, want, kept, dense, sparse, logit
+    # ---- embedding bags on table 0 ------------------------------------------
+    table = params["tables"][0]
+    rng = np.random.default_rng(SEED + 10)
+    counts = rng.integers(1, BAG_MAX + 1, BAG_BATCH)
+    idx = torch.from_numpy(rng.integers(0, sizes[0], int(counts.sum()))
+                           ).to(dev)
+    offsets = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(counts)[:-1]])).to(dev)
+    rec["bags"] = {}
+    for mode in ("sum", "mean"):
+        eb.launches["embedding_bag"] = 0
+        got = rs.embedding_bag(table, idx, offsets=offsets, n_bags=BAG_BATCH,
+                               mode=mode)
+        torch.cuda.synchronize()
+        n_launch = eb.launches["embedding_bag"]
+        rec["launches"][f"bag_{mode}"] = n_launch
+        if n_launch != 1:
+            raise AssertionError(f"phase 10 bag {mode}: {n_launch} launches")
+        seg = torch.searchsorted(offsets, torch.arange(
+            idx.numel(), device=dev), right=True) - 1
+        ids = rs.bag_matrix(seg, BAG_BATCH, idx)
+        want = eb.embedding_bag_plain(table, ids)
+        if mode == "mean":
+            want = want / torch.from_numpy(counts).to(dev, torch.float32)[:,
+                                                                         None]
+        err = (got - want).abs()
+        if (err > BAG_TOL * want.abs() + BAG_TOL).any():
+            raise AssertionError(f"phase 10 bag {mode}: differs from plain "
+                                 f"by {err.max().item()}")
+        lib = lambda: F.embedding_bag(  # noqa: E731
+            idx, table, offsets, mode=mode)
+        touched = int(torch.unique(idx).numel())
+        r = dict(err=err.max().item(), library_err=(lib() - got).abs().max(
+            ).item(), bags=BAG_BATCH, ids=int(idx.numel()), width=ids.shape[1],
+            rows_touched=touched,
+            ms=time_ms(lambda: eb.embedding_bag(table, ids)),
+            path_ms=time_ms(lambda: rs.embedding_bag(
+                table, idx, offsets=offsets, n_bags=BAG_BATCH, mode=mode),
+                reps=3),
+            plain_ms=time_ms(lambda: eb.embedding_bag_plain(table, ids),
+                             reps=3),
+            library_ms=time_ms(lib, reps=3))
+        r.update(roof(touched * cfg.embed_dim * 4 + ids.numel() * 4
+                      + BAG_BATCH * cfg.embed_dim * 4,
+                      int(idx.numel()) * cfg.embed_dim, F32_FLOPS_PER_S))
+        rec["bags"][mode] = r
+        log(f"phase 10 embedding_bag {mode} on table 0 ({sizes[0]} rows; "
+            f"{BAG_BATCH} bags of 1..{BAG_MAX}, padded to {ids.shape[1]}): "
+            f"kernel {r['ms']:.3f} ms (with the offsets' conversion "
+            f"{r['path_ms']:.3f} ms) vs plain {r['plain_ms']:.3f} ms, "
+            f"F.embedding_bag {r['library_ms']:.3f} ms (|Δ| "
+            f"{r['library_err']:.3g}); bound {r['bound_ms']:.4f} ms "
+            f"({touched} rows); max|err| {r['err']:.3g}")
+        del got, want, ids, seg
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, table
+    torch.cuda.empty_cache()
+    return rec
+
+
+def p10_plain_models(dev):
+    """xDeepFM at ``serve_p99``, BERT4Rec's ``score_all`` over its 1M items
+    at B 512, MIND's ``score_candidates`` at the ``retrieval_cand`` cell:
+    full configs, plain torch (the reference computes them in jnp); walls,
+    rows/s and peaks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data.recsys_data import CTRStream, SeqRecStream
+    from repro_torch.models import recsys as rs
+    out = {}
+    b = get_shape("xdeepfm", "serve_p99").dims["batch"]
+
+    def run(name, init, fn, rows, check_shape):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        res = fn(params)
+        torch.cuda.synchronize()
+        if tuple(res.shape) != check_shape or not torch.isfinite(res).all():
+            raise AssertionError(f"phase 10 {name}: output "
+                                 f"{tuple(res.shape)} != {check_shape}")
+        ms = time_ms(lambda: fn(params), reps=3)
+        out[name] = dict(init_s=init_s, ms=ms, rows=rows,
+                         rows_per_s=rows / ms * 1e3, shape=list(check_shape),
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        log(f"phase 10 {name}: {ms:.3f} ms for {rows} rows "
+            f"({rows / ms * 1e3:.0f} rows/s), output {check_shape}, peak "
+            f"{out[name]['peak_gb']:.2f} GB")
+        del params, res
+        torch.cuda.empty_cache()
+
+    xcfg = get_config("xdeepfm")
+    xb = CTRStream(1, [xcfg.vocab_per_field] * xcfg.n_sparse,
+                   seed=SEED).batch(0, b)
+    xs = torch.from_numpy(xb["sparse"]).to(dev)
+    run("xdeepfm/serve_p99", lambda: rs.xdeepfm_init(xcfg, device=dev),
+        lambda p: rs.xdeepfm_forward(p, xs, xcfg), b, (b,))
+    bcfg = get_config("bert4rec")
+    bb = SeqRecStream(bcfg.n_items, seed=SEED).bert4rec_batch(
+        0, b, bcfg.seq_len, bcfg.mask_prob, mask_token=bcfg.n_items + 1)
+    seq = torch.from_numpy(bb["seq"]).to(dev)
+    msk = torch.from_numpy(bb["mask"]).to(dev)
+    run("bert4rec/score_all", lambda: rs.bert4rec_init(bcfg, device=dev),
+        lambda p: rs.bert4rec_score_all(p, seq, msk, bcfg), b,
+        (b, rs.pad_rows(bcfg.n_items + 2)))
+    mcfg = get_config("mind")
+    dims = get_shape("mind", "retrieval_cand").dims
+    mb = SeqRecStream(mcfg.n_items, seed=SEED).mind_batch(
+        0, dims["batch"], mcfg.hist_len)
+    hist = torch.from_numpy(mb["hist"]).to(dev)
+    hmask = torch.from_numpy(mb["hist_mask"]).to(dev)
+    cand = torch.arange(1, dims["n_candidates"] + 1, device=dev)
+    run("mind/retrieval_cand", lambda: rs.mind_init(mcfg, device=dev),
+        lambda p: rs.mind_score_candidates(p, hist, hmask, cand, mcfg),
+        dims["n_candidates"], (dims["batch"], dims["n_candidates"]))
+    return out
+
+
+def substrate_row(name, p10):
+    """The kernels line's substrate fields of flash attention, dot
+    interaction or embedding bag: ``launches`` on phase 10's paths (the
+    kernel's main path), the times at phase 10's shapes beside their bound,
+    plain version and library call, and the largest error there."""
+    keys = ("ms", "plain_ms", "plain_rows", "library_ms", "bound_ms",
+            "bound_by", "x_bound", "shape", "window", "batch", "err",
+            "library_err", "rows_touched", "path_ms")
+    pick = lambda r: {f: r[f] for f in keys if f in r}  # noqa: E731
+    shapes, err, launches = {}, 0.0, 0
+    if name == "flash_attention":
+        for arch, r in p10["lm"].items():
+            launches += sum(r["launches"].values())
+            if "flash_long" in r:
+                shapes[f"{arch}/prefill_32k/G"] = pick(r["flash_long"])
+            for kind, f in r["flash"].items():
+                shapes[f"{arch}/decode_prompt/{kind}"] = pick(f)
+    elif name == "dot_interaction":
+        for shape, r in p10["dlrm"]["serve"].items():
+            launches += p10["dlrm"]["launches"][shape]
+            shapes[f"dlrm-mlperf/{shape}"] = pick(dict(r["dot"], batch=r[
+                "batch"]))
+            err = max(err, r["dot"]["err"])
+    else:
+        for mode, r in p10["dlrm"]["bags"].items():
+            launches += p10["dlrm"]["launches"][f"bag_{mode}"]
+            shapes[f"dlrm-mlperf/table0_{mode}"] = pick(r)
+            err = max(err, r["err"])
+    return dict(launches=launches, substrate_shapes=shapes,
+                substrate_err=err)
+
+
+def phase10(dev):
+    """The substrate's serving paths at full width, one model at a time
+    (each freed before the next): qwen2-7b and gemma3-27b (6 layers)
+    prefill and decode through the flash twin, DLRM through the dot and
+    bag twins, then xDeepFM, BERT4Rec and MIND (plain torch). The launch
+    counters are zeroed before and read after each path."""
+    import torch
+    rec = dict(card=CARD, lm={}, launches={})
+    with torch.no_grad():
+        for arch, plan in LM_PLANS.items():
+            rec["lm"][arch] = p10_lm(dev, arch, plan)
+            rec["launches"][arch] = rec["lm"][arch]["launches"]
+        rec["dlrm"] = p10_dlrm(dev)
+        rec["launches"]["dlrm-mlperf"] = rec["dlrm"]["launches"]
+        rec["plain_models"] = p10_plain_models(dev)
+    rec["peak_gb"] = max([r["peak_gb"] for r in rec["lm"].values()]
+                         + [rec["dlrm"]["peak_gb"]]
+                         + [r["peak_gb"] for r in
+                            rec["plain_models"].values()])
     return rec
 
 
@@ -4444,6 +5024,18 @@ def main() -> int:
     del retriever, trained_corpus
     log(f"phase 9 took {p9['phase_s']:.1f} s; peak device memory "
         f"{p9['peak_gb']:.1f} GB; launches {p9['launches']}")
+    # phase 10 needs the card to itself: the LIST phases' indexes go
+    del wctx
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        f"allocated before the substrate")
+    t0 = time.perf_counter()
+    p10 = phase10(dev)
+    p10["phase_s"] = time.perf_counter() - t0
+    log(f"phase 10 took {p10['phase_s']:.1f} s; peak device memory "
+        f"{p10['peak_gb']:.1f} GB; launches {p10['launches']}")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -4521,6 +5113,11 @@ def main() -> int:
                        for key, rec in r["shapes"].items()}}
         if "library_note" in r:
             entry["library_note"] = r["library_note"]
+        if name != "gather":
+            entry.update(substrate_row(name, p10))
+            entry["bench_launches"] = p4["launches"][name]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       entry.pop("substrate_err"))
         kernels.append(entry)
     log(json.dumps({
         "card": card, "route_loads": p3["route_loads"], "qps": p3["qps"],
@@ -4574,6 +5171,7 @@ def main() -> int:
                                     "subprocesses")},
         peak_device_gb=p8["peak_gb"])}))
     log(json.dumps({"sharded": p9}))
+    log(json.dumps({"substrate": p10}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,14 @@
 """Carry the reference's parameter pytrees into the port's modules and back.
 
+The LIST models (below) and the substrate's: ``lm_from_numpy`` /
+``lm_to_numpy`` (the decoder LMs: the reference's ``periods`` / ``rem``
+scan layout unstacked into one :class:`LMBlock` per layer and restacked),
+``cache_from_numpy`` / ``cache_to_numpy`` (KV caches, ``{"main": {kind:
+{"k", "v"}: (n_periods, n_k, B, T, KV, D)}, "rem": {kind: …: (n_k, B, T,
+KV, D)} or None}`` against one ``{"k", "v"}`` per layer), and
+``recsys_from_numpy`` / ``recsys_to_numpy`` (DLRM, xDeepFM, BERT4Rec and
+MIND keep the reference's pytrees, tensors as leaves).
+
 ``rel_params`` / ``index_params`` are the nested dicts and lists the JAX
 package trains and saves (``relevance.relevance_init``,
 ``index.index_init``), with numpy arrays (or CPU tensors) as leaves. The
@@ -18,13 +27,20 @@ import torch
 
 from repro_torch.core.index import ClusterIndex, index_init
 from repro_torch.core.relevance import RelevanceModel, relevance_init
-from repro_torch.models.layers import MLP, Dense, LayerNorm
-from repro_torch.models.transformer import Encoder, EncoderBlock
+from repro_torch.models.layers import MLP, Dense, LayerNorm, RMSNorm
+from repro_torch.models.transformer import (LM, Encoder, EncoderBlock,
+                                            LMBlock, scan_structure)
 
 
 def _t(x) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) \
-        else x
+    """A leaf as a tensor, unchanged; a numpy bfloat16 array (ml_dtypes)
+    comes across through its bits."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.as_tensor(a)
 
 
 def _dense(p, i=None) -> Dense:
@@ -146,6 +162,8 @@ def to_numpy(tree):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_numpy(v) for v in tree]
+    if tree is None:
+        return None
     t = tree.detach().cpu()
     return t if t.dtype == torch.bfloat16 else t.numpy().copy()
 
@@ -177,3 +195,132 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# The substrate: decoder LMs, their KV caches, the recsys models
+# ---------------------------------------------------------------------------
+
+
+def _layer_slots(cfg):
+    """``(group, index)`` of every layer in pattern order: ``("periods",
+    (i, j))`` for layer j of period i, ``("rem", (j,))`` for the
+    remainder's layer j."""
+    n, period, rem = scan_structure(cfg)
+    return ([("periods", (i, j)) for i in range(n) for j in range(len(period))]
+            + [("rem", (j,)) for j in range(len(rem))])
+
+
+def _pick(tree, at):
+    if isinstance(tree, dict):
+        return {k: _pick(v, at) for k, v in tree.items()}
+    return _t(tree)[at]
+
+
+def lm_from_numpy(params, cfg) -> LM:
+    """The :class:`LM` of the reference's ``lm_init`` pytree ``params``
+    (numpy or CPU tensor leaves), on the CPU, one :class:`LMBlock` per
+    layer. No value or dtype changes. Raises for a MoE config."""
+    blocks = []
+    for (group, at), kind in zip(_layer_slots(cfg), cfg.pattern()):
+        p = _pick(params[group], at)
+        a, m = p["attn"], p["mlp"]
+        blocks.append(LMBlock(
+            RMSNorm(p["ln1"]["scale"], eps=cfg.norm_eps),
+            RMSNorm(p["ln2"]["scale"], eps=cfg.norm_eps),
+            _dense(a["wq"]), _dense(a["wk"]), _dense(a["wv"]),
+            _dense(a["wo"]), _dense(m["w1"]), _dense(m["w3"]),
+            _dense(m["w2"]), kind=kind))
+    return LM(cfg, _t(params["embed"]), blocks,
+              RMSNorm(_t(params["final_norm"]["scale"]), eps=cfg.norm_eps),
+              None if cfg.tie_embeddings else _t(params["unembed"]))
+
+
+def lm_to_numpy(model: LM):
+    """The inverse of :func:`lm_from_numpy`: the reference's pytree of
+    ``model`` on the host — blocks restacked to ``periods`` ``(n_periods,
+    period, ...)`` and ``rem`` ``(len(rem), ...)`` — with numpy leaves
+    (bfloat16 ones stay CPU tensors)."""
+    cfg = model.cfg
+    n, period, rem = scan_structure(cfg)
+
+    def block(b: LMBlock):
+        return {"ln1": {"scale": b.ln1.scale.data},
+                "ln2": {"scale": b.ln2.scale.data},
+                "attn": {k: _dense_tree(getattr(b, k), _data)
+                         for k in ("wq", "wk", "wv", "wo")},
+                "mlp": {k: _dense_tree(getattr(b, k), _data)
+                        for k in ("w1", "w3", "w2")}}
+    trees = [block(b) for b in model.blocks]
+    plen = len(period)
+    out = {"embed": model.embed.data,
+           "periods": _stack([_stack(trees[i * plen:(i + 1) * plen])
+                              for i in range(n)]),
+           "final_norm": {"scale": model.final_norm.scale.data}}
+    if rem:
+        out["rem"] = _stack(trees[n * plen:])
+    if not cfg.tie_embeddings:
+        out["unembed"] = model.unembed.data
+    return to_numpy(out)
+
+
+def _kind_slots(cfg):
+    """``(where, kind, at)`` of every layer's cache entry in the
+    reference's layout: ``("main", kind, (i, ki))`` or ``("rem", kind,
+    (ki,))``, ki the layer's index among its period's (or the
+    remainder's) layers of that kind."""
+    n, period, rem = scan_structure(cfg)
+
+    def ki(pat, j):
+        return sum(1 for k in pat[:j] if k == pat[j])
+    return ([("main", period[j], (i, ki(period, j)))
+             for i in range(n) for j in range(len(period))]
+            + [("rem", rem[j], (ki(rem, j),)) for j in range(len(rem))])
+
+
+def cache_from_numpy(cache, cfg) -> list:
+    """The reference's KV-cache pytree (``lm_prefill``,
+    ``make_decode_cache``) as the port's list of per-layer ``{"k",
+    "v"}`` tensors on the CPU."""
+    return [{kv: _t(cache[where][kind][kv])[at] for kv in ("k", "v")}
+            for where, kind, at in _kind_slots(cfg)]
+
+
+def cache_to_numpy(cache, cfg):
+    """The inverse of :func:`cache_from_numpy`: the reference's layout
+    (``"rem"`` None without a remainder), numpy leaves on the host
+    (bfloat16 ones stay CPU tensors)."""
+    n, period, rem = scan_structure(cfg)
+    slots = _kind_slots(cfg)
+    out = {"main": {}, "rem": {} if rem else None}
+    for kind in sorted(set(period)):
+        out["main"][kind] = {kv: torch.stack([
+            torch.stack([c[kv] for c, (w, k, at) in zip(cache, slots)
+                         if w == "main" and k == kind and at[0] == i])
+            for i in range(n)]) for kv in ("k", "v")}
+    for kind in sorted(set(rem)):
+        out["rem"][kind] = {kv: torch.stack(
+            [c[kv] for c, (w, k, _) in zip(cache, slots)
+             if w == "rem" and k == kind]) for kv in ("k", "v")}
+    return to_numpy(out)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v) for v in tree]
+    return _t(tree)
+
+
+def recsys_from_numpy(params):
+    """A recsys pytree (``dlrm_init``, ``xdeepfm_init``,
+    ``bert4rec_init``, ``mind_init`` of either package) with CPU tensor
+    leaves, unchanged; the port's recsys functions take it as it is."""
+    return _tensors(params)
+
+
+def recsys_to_numpy(params):
+    """The inverse of :func:`recsys_from_numpy`: numpy leaves on the
+    host."""
+    return to_numpy(_tensors(params))

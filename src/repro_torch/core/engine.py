@@ -78,6 +78,8 @@ SHARD_RETRY_BACKOFF_MS = 1.0       # first retry delay; doubles, capped
 SHARD_RETRY_BACKOFF_MAX_MS = 20.0
 SHARD_DOWN_AFTER = 3               # consecutive scan failures → DOWN
 SHARD_HEDGE_PROBE_EVERY = 8        # hedged scans between device probes
+# the port's hedge floor: the pinned-to-card copy whose rate it measures
+HOST_COPY_PROBE_BYTES = 64 << 20
 
 
 def resolve_backend(backend: str, device) -> str:
@@ -503,6 +505,10 @@ class QueryEngine:
         self._shard_health = None       # sized at the first sharded query
         self._shard_monitor = None      # StragglerMonitor of device scans
         self._hedged: dict = {}         # shard → hedged-scan count
+        # shard → seconds one scan of its host replica costs (the copy to
+        # the card and the scan): the floor of the straggler rule
+        self.replica_scan_s: dict = {}
+        self._host_copy_rate: Optional[float] = None   # bytes/s, measured
         self._host_parts: dict = {}     # host replicas of one placement
         self._shard_maps: dict = {}     # its placement maps on the device
 
@@ -571,6 +577,8 @@ class QueryEngine:
 
         if (self._shard_health is None
                 or self._shard_health.n_shards != n_shards):
+            if self._shard_health is not None:
+                self.replica_scan_s = {}
             self._shard_health = resilience_lib.ShardHealth(
                 n_shards, down_after=self.shard_down_after)
             self._shard_monitor = resilience_lib.StragglerMonitor()
@@ -597,6 +605,24 @@ class QueryEngine:
                 torch.device("cpu"), pin=True)
             cache[s] = part
         return part
+
+    def host_copy_rate(self) -> float:
+        """Bytes per second from pinned host memory to the engine's device:
+        the best of three copies of ``HOST_COPY_PROBE_BYTES``, measured
+        once per engine (what a hedged scan's replica copy runs at)."""
+        if self._host_copy_rate is None:
+            src = torch.empty(HOST_COPY_PROBE_BYTES, dtype=torch.uint8,
+                              pin_memory=True)
+            dst = torch.empty_like(src, device=self.device)
+            best = float("inf")
+            for _ in range(3):
+                torch.cuda.synchronize(self.device)
+                t0 = time.perf_counter()
+                dst.copy_(src, non_blocking=True)
+                torch.cuda.synchronize(self.device)
+                best = min(best, time.perf_counter() - t0)
+            self._host_copy_rate = src.numel() / best
+        return self._host_copy_rate
 
     def _placement_maps(self, shards):
         """``shard_of`` / ``local_of`` as tensors on the engine's device,
@@ -659,7 +685,18 @@ class QueryEngine:
         every ``hedge_probe_every``-th scan; a DOWN shard is skipped and
         the others merge into a degraded answer whose coverage (routes
         scanned / routes, padded rows included) is ``last_coverage``.
-        Raises ``ShardUnavailable`` only when no shard can serve."""
+        Raises ``ShardUnavailable`` only when no shard can serve.
+
+        A hedge must pay: a flagged shard is hedged only if its device
+        scan took longer than one scan of its replica
+        (``replica_scan_s``). Where the part lives on the card, a replica
+        scan copies the whole part from pinned host memory and then scans
+        it, so its cost is the part's bytes at the measured host-to-card
+        copy rate (:meth:`host_copy_rate`) plus the shard's median device
+        scan, taken once, the first time the shard is flagged; no replica
+        is built for it. A CPU part's replica is on its own device: the
+        reference's rule holds as it is, unless the caller sets the
+        shard's entry."""
         from repro_torch.distributed import resilience as resilience_lib
 
         shards = snap.shards
@@ -716,6 +753,20 @@ class QueryEngine:
                 part["ids"] = delta_lib.mask_tombstones(part["ids"], tomb)
             return part
 
+        def hedge_floor(s, part):
+            """What one scan of shard ``s``'s replica costs (seconds): its
+            copy at the measured rate and a median device scan, for a part
+            on the card; 0 for a CPU part unless set."""
+            if s not in self.replica_scan_s:
+                if part["emb"].device.type == "cpu":
+                    return 0.0
+                nbytes = sum(v.numel() * v.element_size()
+                             for v in part.values())
+                lat = sorted(monitor.latencies[f"shard{s}"])
+                self.replica_scan_s[s] = (nbytes / self.host_copy_rate()
+                                          + lat[len(lat) // 2])
+            return self.replica_scan_s[s]
+
         def scan_shard(s, part, inputs):
             """One shard's partial ``(ids, scores)``, or None when it
             could not be scanned this chunk."""
@@ -758,7 +809,8 @@ class QueryEngine:
                         # only device times feed the straggler stream: a
                         # replica scan must not mask the slow device
                         monitor.record(f"shard{s}", dt)
-                        if monitor.slow(f"shard{s}"):
+                        if (monitor.slow(f"shard{s}")
+                                and dt > hedge_floor(s, part)):
                             self._hedged.setdefault(s, 0)
                         elif hedge:
                             self._hedged.pop(s, None)   # probe was fast

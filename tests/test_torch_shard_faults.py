@@ -533,3 +533,86 @@ def test_fault_points_fire_in_the_sharded_scan(sides):
 
     want, got = both(sides, scenario)
     assert got == {p: 2 * N_SHARDS for p in got}
+
+
+# ---------------------------------------------------------------------------
+# The hedge floor (port only): a hedge must beat a replica scan
+# ---------------------------------------------------------------------------
+
+
+def _flag_shard_2(searcher, tok, msk, loc, s, sleep_s):
+    """Slow shard 2's device scans by ``sleep_s`` for one query."""
+    def crawl(shard):
+        if shard == 2:
+            time.sleep(sleep_s)
+    s.faults.inject("shard.scan_slow", callback=crawl, times=None)
+    try:
+        return _full_fanout(searcher, tok, msk, loc)
+    finally:
+        s.faults.clear()
+
+
+def test_replica_cost_floor_suppresses_spurious_hedges(sides):
+    """On logical CPU parts nothing is measured (the reference's rule);
+    with a replica cost of 1 s set for every shard, a device scan slowed
+    by 0.3 s is flagged by the monitor but not hedged (a replica
+    scan would cost more), and one slowed by 1.5 s is hedged, with the
+    healthy answers bit for bit."""
+    s = sides[1]
+    assert s.which == "port"
+    searcher = _sharded_searcher(s)
+    eng = searcher.engine
+    tok, msk, loc = _queries(s, 8, 11)
+    healthy = _full_fanout(searcher, tok, msk, loc)
+    for _ in range(12):                       # slow() needs a history
+        _full_fanout(searcher, tok, msk, loc)
+    assert eng.replica_scan_s == {}
+    eng._hedged = {}                          # what host jitter flagged
+    eng.replica_scan_s = {x: 1.0 for x in range(N_SHARDS)}
+    before = dict(eng.shard_stats)
+    _flag_shard_2(searcher, tok, msk, loc, s, 0.3)
+    assert eng._shard_monitor.slow("shard2")
+    assert eng._hedged == {}
+    out = _full_fanout(searcher, tok, msk, loc)
+    assert eng.shard_stats == before
+    np.testing.assert_array_equal(out[0], healthy[0])
+    _flag_shard_2(searcher, tok, msk, loc, s, 1.5)
+    assert 2 in eng._hedged
+    ids, scores = _full_fanout(searcher, tok, msk, loc)   # now hedged
+    assert eng.shard_stats["hedged_scans"] >= 1
+    np.testing.assert_array_equal(ids, healthy[0])
+    np.testing.assert_array_equal(scores, healthy[1])
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the scan kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_no_spurious_hedges(sides, cuda_device):
+    """4 logical shards on one card, no fault: 0 hedged scans over 20
+    chunks (host jitter may flag a 1 ms scan, but a replica scan copies
+    the whole part and costs more). A shard slowed by 0.5 s is still
+    hedged, its replica cost measured once, with the same answers."""
+    from repro_torch.distributed import sharding as sh
+    s = sides[1]
+    snap = s.api.load(s.dir, device=cuda_device).with_mesh(
+        sh.ClusterMesh((cuda_device,) * 4))
+    searcher = s.api.Searcher(snap, backend="cuda", device=cuda_device)
+    eng = searcher.engine
+    tok, msk, loc = _queries(s, 80, 12)
+    want = searcher.query(tok, msk, loc, k=5, cr=2, batch=4)
+    assert eng.shard_stats["hedged_scans"] == 0
+    c = int(searcher.snapshot.buffers["emb"].shape[0])
+    healthy = searcher.query(tok[:8], msk[:8], loc[:8], k=5, cr=c, batch=8)
+    _flag_shard_2(searcher, tok[:8], msk[:8], loc[:8], s, 0.5)
+    assert 2 in eng._hedged and 2 in eng.replica_scan_s
+    assert 0 < eng.replica_scan_s[2] < 0.5
+    got = searcher.query(tok[:8], msk[:8], loc[:8], k=5, cr=c, batch=8)
+    assert eng.shard_stats["hedged_scans"] >= 1
+    np.testing.assert_array_equal(got[0], healthy[0])
+    np.testing.assert_array_equal(got[1], healthy[1])
+    assert want[0].shape == (80, 5)
