@@ -506,8 +506,10 @@ class QueryEngine:
         self._shard_monitor = None      # StragglerMonitor of device scans
         self._hedged: dict = {}         # shard → hedged-scan count
         # shard → seconds one scan of its host replica costs (the copy to
-        # the card and the scan): the floor of the straggler rule
+        # the card and the scan): the floor of the straggler rule, for the
+        # placement that ``_floors_for`` holds weakly
         self.replica_scan_s: dict = {}
+        self._floors_for = None
         self._host_copy_rate: Optional[float] = None   # bytes/s, measured
         self._host_parts: dict = {}     # host replicas of one placement
         self._shard_maps: dict = {}     # its placement maps on the device
@@ -577,8 +579,6 @@ class QueryEngine:
 
         if (self._shard_health is None
                 or self._shard_health.n_shards != n_shards):
-            if self._shard_health is not None:
-                self.replica_scan_s = {}
             self._shard_health = resilience_lib.ShardHealth(
                 n_shards, down_after=self.shard_down_after)
             self._shard_monitor = resilience_lib.StragglerMonitor()
@@ -693,8 +693,8 @@ class QueryEngine:
         scan copies the whole part from pinned host memory and then scans
         it, so its cost is the part's bytes at the measured host-to-card
         copy rate (:meth:`host_copy_rate`) plus the shard's median device
-        scan, taken once, the first time the shard is flagged; no replica
-        is built for it. A CPU part's replica is on its own device: the
+        scan, taken once per placement, the first time the shard is
+        flagged; no replica is built for it. A CPU part's replica is on its own device: the
         reference's rule holds as it is, unless the caller sets the
         shard's entry."""
         from repro_torch.distributed import resilience as resilience_lib
@@ -716,6 +716,11 @@ class QueryEngine:
         w_hat = snap.w_hat
         w_hat_on = {dev: w_hat}
         health = self._shard_state(shards.n_shards)
+        if self._floors_for is None or self._floors_for() is not shards:
+            # a publish, re-shard or recovery places other parts, even at
+            # the same shard count: their floors are measured anew
+            self._floors_for = weakref.ref(shards)
+            self.replica_scan_s = {}
         monitor = self._shard_monitor
         shard_of_d, local_of_d = self._placement_maps(shards)
         parts = snap.scan_parts

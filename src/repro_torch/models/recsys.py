@@ -164,18 +164,15 @@ def _bce(logit, label):
 # ---------------------------------------------------------------------------
 
 
-def dlrm_init(cfg, *, seed: int = 0, device="cuda", max_rows=None):
+def dlrm_init(cfg, *, seed: int = 0, device="cuda"):
     """DLRM's params (reference ``dlrm_init``'s layout and scales): one
     ``N(0, 1/d)`` table per sparse feature of ``pad_rows(rows)`` rows,
-    the bottom and top MLPs. ``max_rows`` caps every table's rows before
-    the padding (MLPerf's ``--max-ind-range``; None keeps the config's);
-    ids must then be below the cap."""
+    the bottom and top MLPs."""
     g = _generator(seed, device)
     dtype = torch_dtype(cfg.param_dtype)
-    sizes = [v if max_rows is None else min(v, max_rows)
-             for v in cfg.table_sizes]
     tables = [_normal(g, (pad_rows(v), cfg.embed_dim),
-                      1.0 / math.sqrt(cfg.embed_dim), dtype) for v in sizes]
+                      1.0 / math.sqrt(cfg.embed_dim), dtype)
+              for v in cfg.table_sizes]
     bot = _mlp_init(g, (cfg.n_dense,) + tuple(cfg.bot_mlp), dtype=dtype)
     n_feat = cfg.n_sparse + 1
     top_in = cfg.embed_dim + n_feat * (n_feat - 1) // 2

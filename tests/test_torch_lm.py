@@ -8,7 +8,8 @@ ways). The dense archs run reduced (``configs.reduced``) at 1e-5 with
 function in the same order up to f32 rounding. In bf16 the port is held
 to itself at the reference's own 2e-2 (``tests/test_decode_parity.py``'s
 decode-against-forward cases, mirrored), and to the reference at
-``BF16_CROSS``. The MoE archs raise, naming ROADMAP Queue A 12.4.
+``BF16_CROSS`` with at most ``BF16_CROSS_FRAC`` of the logits beyond
+2e-2. The MoE archs raise, naming ROADMAP Queue A 12.4.
 ``cuda``-marked cases hold the flash twin's launches on the prefill path
 against the plain version on the card.
 """
@@ -41,10 +42,24 @@ BF16 = dict(rtol=2e-2, atol=2e-2)       # tests/test_decode_parity.py
 # the port against the reference in bf16: the frameworks' f32 attention
 # sums and exp differ in the last bits (P·V in ~77% of the elements, exp in
 # ~10%), which flips bf16 roundings (2^-8) that then grow through the
-# layers; at these sizes (logit std 1.0) the largest excess over
-# 2e-2·|logit| measured 0.046, against 0 for the reference's own decode
-# against its forward. The f32 cases check the arithmetic at 1e-5.
-BF16_CROSS = dict(rtol=2e-2, atol=1e-1)
+# layers. At these sizes (logit std 1.0) the largest |Δ| − 2e-2·|logit|
+# measured 0.046 and at most 3.5% of a step's logits missed the reference's
+# own 2e-2 / 2e-2 (gemma3's remainder config; 0 for the reference's decode
+# against its forward). Every logit is held at atol 0.06 (that 0.046 and a
+# margin) and at most BF16_CROSS_FRAC of them may miss 2e-2 / 2e-2, so a
+# fault that moves many logits a little fails as well as one that moves a
+# few a lot. The f32 cases check the arithmetic at 1e-5.
+BF16_CROSS = dict(rtol=2e-2, atol=6e-2)
+BF16_CROSS_FRAC = 0.05
+
+
+def _assert_bf16_cross(got, want, err_msg=""):
+    """``got`` within ``BF16_CROSS`` of ``want`` everywhere and within
+    the reference's ``BF16`` on all but ``BF16_CROSS_FRAC`` of it."""
+    np.testing.assert_allclose(got, want, **BF16_CROSS, err_msg=err_msg)
+    miss = np.abs(got - want) > BF16["atol"] + BF16["rtol"] * np.abs(want)
+    assert miss.mean() <= BF16_CROSS_FRAC, (
+        f"{err_msg}: {miss.mean():.4f} of the values miss 2e-2 / 2e-2")
 
 
 def _np(x):
@@ -307,17 +322,20 @@ def test_lm_prefill_decode_parity(arch, kw, dtype):
     rcfg, params, model = _models(arch, compute_dtype=dtype, **kw)
     steps, p_cache, r_cache = _prefill_decode(rcfg, params, model, b=2, s=32,
                                               n_new=6)
-    tol = F32 if dtype == "float32" else BF16_CROSS
+    def close(got, want, err_msg):
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, **F32, err_msg=err_msg)
+        else:
+            _assert_bf16_cross(got, want, err_msg)
     for i, (got, want) in enumerate(steps):
         assert got.dtype == torch.float32
-        np.testing.assert_allclose(_np(got), _np(want), **tol,
-                                   err_msg=f"step {i}")
+        close(_np(got), _np(want), f"step {i}")
     back = convert.cache_to_numpy(p_cache, model.cfg)
     want = np_tree(r_cache)
     assert jax.tree.structure(back) == jax.tree.structure(want)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want)):
         assert tuple(a.shape) == tuple(b.shape)
-        np.testing.assert_allclose(_np(a), _np(b), **tol)
+        close(_np(a), _np(b), "cache")
 
 
 @pytest.mark.parametrize("arch", ["stablelm-1.6b", "gemma3-27b"])

@@ -223,16 +223,6 @@ def test_dlrm_forward_and_loss():
     assert float(metrics["loss"]) == float(gloss)
 
 
-def test_dlrm_capped_tables():
-    """``max_rows`` caps each table before the padding (MLPerf's
-    ``--max-ind-range``)."""
-    cfg = port_configs.get_config("dlrm-mlperf")
-    p = rs.dlrm_init(port_configs.reduced(cfg), device="cpu", max_rows=64)
-    assert [t.shape[0] for t in p["tables"]] == [512] * 26
-    sizes = [min(v, 10_000_000) for v in cfg.table_sizes]
-    assert sum(rs.pad_rows(v) for v in sizes) * cfg.embed_dim * 4 < 30e9
-
-
 def test_xdeepfm_forward_and_loss():
     rcfg, pcfg, params, port = _params("xdeepfm")
     b = RefCTR(1, [rcfg.vocab_per_field] * rcfg.n_sparse, seed=0).batch(0, 16)

@@ -584,6 +584,26 @@ def test_replica_cost_floor_suppresses_spurious_hedges(sides):
     np.testing.assert_array_equal(scores, healthy[1])
 
 
+def test_hedge_floors_follow_the_placement(sides):
+    """The floors hold for the placement they were measured on: a query
+    on the same placement keeps them, and a new placement at the same
+    shard count (a re-shard or a recovery publishes one) drops them."""
+    s = sides[1]
+    searcher = _sharded_searcher(s)
+    eng = searcher.engine
+    tok, msk, loc = _queries(s, 8, 13)
+    healthy = _full_fanout(searcher, tok, msk, loc)
+    floors = {x: 1.0 for x in range(N_SHARDS)}
+    eng.replica_scan_s = dict(floors)
+    _full_fanout(searcher, tok, msk, loc)
+    assert eng.replica_scan_s == floors
+    eng.publish(s.snap.with_mesh(N_SHARDS))
+    ids, scores = _full_fanout(searcher, tok, msk, loc)
+    assert eng.replica_scan_s == {}
+    np.testing.assert_array_equal(ids, healthy[0])
+    np.testing.assert_array_equal(scores, healthy[1])
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
