@@ -214,14 +214,39 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    BERT4Rec's ``score_all`` over 1M items at B 512 and MIND's
    ``score_candidates`` at ``retrieval_cand`` (plain torch): walls, rows/s
    and peaks.
+11. The MoE LMs and GatedGCN at full width, one model at a time, and
+   Adafactor. (a) moonshot-v1-16b-a3b at its full widths (64 experts
+   top-6, f32 params) and the depth that fits (``MOE_PLANS``: two trial
+   depths' ``max_memory_allocated``): 8 × 4,096 into a 4,128-slot cache
+   (flash launches = layers, the first held within one bf16 rounding and
+   timed beside SDPA), 32 greedy steps with the drop fractions summed over
+   the layers, the served decode against ``lm_prefill`` (recorded: its
+   prefill and decode group tokens differently and drop differently), a
+   decode step's split into the expert stacks' casts and products, the
+   first layer's dispatch on 1,024 tokens with nothing dropped against
+   ``moe_dense_plain`` in f32 (``MOE_ORACLE_TOL``), and on the no-drop
+   twin (capacity_factor = E, 2 × 512) decode against ``lm_prefill``
+   under ``DECODE_BF16_GATE`` with the planted faults failing it, and the
+   f32 twin's ``decode_check``. (b) kimi-k2-1t-a32b at its full widths,
+   one layer (bf16, 38.8 GB): the same at 2 × 4,096 and a 1 × 128 twin,
+   no f32 twin (its expert stacks in f32 would take 67.6 GB). (c) gatedgcn
+   (16 layers, d 70): ``minibatch_lg`` (a reddit-size graph, its CSR and a
+   1,024-seed (15, 10) sample, generation, CSR, sampling and forward timed
+   apart), ``ogb_products`` full batch with the edges cut to what fits
+   (every layer held against the CPU on its first 100,000 nodes) and a
+   128-graph ``molecule`` batch, each forward and loss against the CPU.
+   (d) one ``adafactor_update`` of a (64, 2,048, 1,408) leaf in f32 and
+   bf16 against the CPU. Phase 3 also reads ``max_memory_allocated``
+   around one routed scan: it must stay below a (B, cr·cap, d) candidate
+   copy.
 
 Prints a JSON line of phase 3's numbers, one of the write path's
 (``write_path``), one of the build's (``build``), one of the serving
 stack's (``serving``), one of phase 8's (``tools``), one of phase 9's
-(``sharded``), one of phase 10's (``substrate``), one of per-kernel
-numbers (flash attention, dot interaction and embedding bag with
-``launches`` on phase 10's paths and ``substrate_shapes``), then as its
-last line
+(``sharded``), one of phase 10's (``substrate``), one of phase 11's
+(``moe_gnn``), one of per-kernel numbers (flash attention, dot
+interaction and embedding bag with ``launches`` on phase 10's and 11's
+paths and ``substrate_shapes``), then as its last line
 ``{"ok": true, "device": {...}}``. Any
 failed check exits non-zero.
 
@@ -827,6 +852,38 @@ def full_width_index(dev):
 
 
 N_FAN = 32                       # queries of the full fan-out (cr = c) run
+
+
+def candidate_copy_check(q_emb, ql, w, top_c, buf, w_hat, *, k):
+    """The torch analogue of the reference's jaxpr test
+    (``test_pallas_jaxpr_has_no_candidate_gather``): one routed scan of
+    the chunk on the card, and the rise of ``max_memory_allocated`` over
+    what was allocated before it; raises if it reaches the bytes of a
+    ``(B, cr·cap, d)`` copy of the routed candidates."""
+    import torch
+    from repro_torch.kernels import fused_topk_score as fts
+    b, cr = top_c.shape
+    cap, d = buf["emb"].shape[1:]
+    copy_bytes = b * cr * cap * d * buf["emb"].element_size()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fts.fused_topk_score_routed(q_emb, ql, w, top_c, buf["emb"], buf["loc"],
+                                buf["ids"], w_hat, k=k, dist_max=1.4142)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    rec = dict(queries=b, cr=cr, capacity=cap, d=d, rise_bytes=rise,
+               candidate_copy_bytes=copy_bytes,
+               rise_share=rise / copy_bytes)
+    if rise >= copy_bytes:
+        raise AssertionError(f"the routed scan's memory rose by {rise} B, a "
+                             f"(B, cr·cap, d) candidate copy is "
+                             f"{copy_bytes} B")
+    log(f"phase 3 candidate-copy check: one routed f32 scan of {b} queries "
+        f"(cr {cr}, cap {cap}, d {d}) raised max_memory_allocated by "
+        f"{rise} B, {rise / copy_bytes:.2e} of a {copy_bytes / 1e9:.1f} GB "
+        f"candidate copy")
+    return rec
 N_TOMB = 300                     # tombstones of the mask build's timing
 
 
@@ -949,6 +1006,9 @@ def phase3(dev):
         f"to ties, max|Δ| {e_fan:.3g}")
     del fan
 
+    # ---- no candidate copy in the routed scan (ROADMAP Queue C 5) ---------
+    c5 = candidate_copy_check(q_emb, ql, w, top_router, buf32, w_hat, k=k)
+
     # ---- the tombstone mask's build at full width --------------------------
     held = buf32["ids"][buf32["ids"] >= 0]
     gt = torch.Generator(device=dev).manual_seed(SEED + 11)
@@ -965,7 +1025,7 @@ def phase3(dev):
     del held, masked
 
     return dict(report=report, launches=main_launches, fan_out=fan_rec,
-                mask_ms=mask_ms,
+                mask_ms=mask_ms, candidate_copy_check=c5,
                 distinct_clusters=report["router"]["U"],
                 route_loads=report["router"]["loads"], picks=picks,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -4524,24 +4584,27 @@ def logit_divergence(got, want):
                 of=int(diff.numel()))
 
 
-def decode_gate(served, faults, what, lim):
+def decode_gate(served, faults, what, lim, faults_must_fail=True):
     """Raises unless the served run and the sound single step pass the
     gate ``lim`` and every planted fault and the control fail it (so the
-    gate is shown, in each run, to catch what it is for)."""
+    gate is shown, in each run, to catch what it is for). With
+    ``faults_must_fail`` false (another gate of the run holds the faults)
+    → the names of the faults this gate passes."""
     def passes(r):
         return (r["max_abs_err"] <= lim["max_abs_err"]
                 and r["beyond_tol"] <= lim["beyond_frac"] * r["of"])
     for name, r in [("served", served), ("one_step", faults["one_step"])]:
         if not passes(r):
             raise AssertionError(
-                f"phase 10 {what}: the {name} decode differs from "
+                f"{what}: the {name} decode differs from "
                 f"lm_prefill by max |Δ| {r['max_abs_err']:.4g} with "
                 f"{r['beyond_tol']}/{r['of']} logits beyond {DECODE_TOL} "
                 f"(gate {lim})")
     missed = [n for n, r in faults.items() if n != "one_step" and passes(r)]
-    if missed:
-        raise AssertionError(f"phase 10 {what}: the gate {lim} passes "
+    if missed and faults_must_fail:
+        raise AssertionError(f"{what}: the gate {lim} passes "
                              f"the planted faults {missed}: {faults}")
+    return missed
 
 
 def decode_check(model, toks, gen, what):
@@ -4569,11 +4632,87 @@ def decode_check(model, toks, gen, what):
     del cache
     rec, want = decode_divergence(twin, toks, gen, logits)
     if not torch.isfinite(want).all():
-        raise AssertionError(f"phase 10 {what}: the f32 twin's prefill "
+        raise AssertionError(f"{what}: the f32 twin's prefill "
                              f"logits are not finite")
     rec["faults"] = decode_faults(twin, toks, gen, want, p + steps)
     decode_gate(rec, rec["faults"], f"{what} f32 twin", DECODE_F32_GATE)
     return rec
+
+
+def lm_prefill_held(model, toks, max_len, first, what):
+    """One ``lm_prefill`` of ``toks`` into a ``max_len`` cache with the
+    flash counter zeroed before and read after: raises unless it launched
+    flash once per layer and the logits are finite, holds the first
+    launch of each layer kind (``first``: kind → layer index) within one
+    rounding (``held_flash``) → ``(logits, cache, tap, record)``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tf
+    cfg = model.cfg
+    b, s = toks.shape
+    fa.launches["flash_attention"] = 0
+    with FlashTap(first.values()) as tap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tf.lm_prefill(model, toks, max_len=max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_launch = fa.launches["flash_attention"]
+    if n_launch != cfg.n_layers:
+        raise AssertionError(f"{what}: {n_launch} flash launches for "
+                             f"{cfg.n_layers} layers")
+    if logits.shape != (b, cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: bad logits")
+    held = {kind: held_flash(*tap.kept[i], what=f"{what} layer {i}")
+            for kind, i in first.items()}
+    rec = dict(batch=b, seq=s, cache_len=max_len, wall_ms=wall * 1e3,
+               tokens_per_s=b * s / wall, flash_launches=n_launch,
+               held_one_rounding=held,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{what} (B {b} × S {s}, cache {max_len}): {wall * 1e3:.1f} ms, "
+        f"{b * s / wall:.0f} tokens/s, {n_launch} flash launches = layers; "
+        f"held launches within {held} of one rounding; peak "
+        f"{rec['peak_gb']:.1f} GB")
+    return logits, cache, tap, rec
+
+
+def lm_greedy_decode(model, cache, logits, start, what, on_step=None):
+    """``DECODE_STEPS`` greedy steps from ``logits`` (the prompt's last)
+    at positions ``start``.., flash's counter zeroed: raises if decode
+    launched flash or a step's logits are not finite. ``on_step(i)`` is
+    called after step i. → ``(generated tokens (B, steps) fed to the
+    steps, last logits, record)``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tf
+    b = logits.shape[0]
+    dev = logits.device
+    fa.launches["flash_attention"] = 0
+    tok = logits.argmax(-1, keepdim=True)
+    gen, steps_ms = [tok], []
+    for i in range(DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tf.lm_decode_step(model, cache, tok,
+                                          torch.full((b,), start + i,
+                                                     device=dev))
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        if on_step is not None:
+            on_step(i)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{what}: decode step {i} logits not "
+                                 f"finite")
+        tok = logits.argmax(-1, keepdim=True)
+        if i < DECODE_STEPS - 1:
+            gen.append(tok)
+    if fa.launches["flash_attention"]:
+        raise AssertionError(f"{what}: decode launched flash")
+    mean_ms = sum(steps_ms[1:]) / (len(steps_ms) - 1)
+    rec = dict(batch=b, start=start, steps=DECODE_STEPS, step_ms=steps_ms,
+               mean_step_ms=mean_ms, tokens_per_s=b / (mean_ms / 1e3))
+    return torch.cat(gen, 1), logits, rec
 
 
 def p10_lm(dev, arch, plan):
@@ -4584,7 +4723,6 @@ def p10_lm(dev, arch, plan):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.lm_data import LMStream
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as tf
     cfg = get_config(arch)
     if plan["layers"]:
@@ -4606,33 +4744,10 @@ def p10_lm(dev, arch, plan):
     def prefill(name, b, s, max_len):
         toks = torch.from_numpy(stream.batch(len(rec["prefill"]), b, s)[
             "tokens"][:, :s]).to(dev)
-        fa.launches["flash_attention"] = 0
-        with FlashTap(first.values()) as tap:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = tf.lm_prefill(model, toks, max_len=max_len)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        n_launch = fa.launches["flash_attention"]
-        rec["launches"][name] = n_launch
-        if n_launch != cfg.n_layers:
-            raise AssertionError(f"phase 10 {arch} {name}: {n_launch} flash "
-                                 f"launches for {cfg.n_layers} layers")
-        if logits.shape != (b, cfg.vocab_size) or \
-                not torch.isfinite(logits).all():
-            raise AssertionError(f"phase 10 {arch} {name}: bad logits")
-        held = {kind: held_flash(*tap.kept[i], what=f"{arch} {name} layer {i}")
-                for kind, i in first.items()}
-        rec["prefill"][name] = dict(
-            batch=b, seq=s, cache_len=max_len, wall_ms=wall * 1e3,
-            tokens_per_s=b * s / wall, flash_launches=n_launch,
-            held_one_rounding=held,
-            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-        log(f"phase 10 {arch} {name} (B {b} × S {s}, cache {max_len}): "
-            f"{wall * 1e3:.1f} ms, {b * s / wall:.0f} tokens/s, {n_launch} "
-            f"flash launches = layers; held launches within "
-            f"{held} of one rounding; peak "
-            f"{rec['prefill'][name]['peak_gb']:.1f} GB")
+        logits, cache, tap, r = lm_prefill_held(
+            model, toks, max_len, first, f"phase 10 {arch} {name}")
+        rec["launches"][name] = r["flash_launches"]
+        rec["prefill"][name] = r
         return toks, logits, cache, tap
 
     if plan["long"]:
@@ -4649,32 +4764,12 @@ def p10_lm(dev, arch, plan):
                     for kind, i in first.items()}
     del tap
     torch.cuda.empty_cache()
-    fa.launches["flash_attention"] = 0
     toks = toks.long()
-    tok = logits.argmax(-1, keepdim=True)
-    gen, steps_ms = [tok], []
-    for i in range(DECODE_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = tf.lm_decode_step(model, cache, tok,
-                                          torch.full((b,), p + i, device=dev))
-        torch.cuda.synchronize()
-        steps_ms.append((time.perf_counter() - t0) * 1e3)
-        if not torch.isfinite(logits).all():
-            raise AssertionError(f"phase 10 {arch}: decode step {i} logits "
-                                 f"not finite")
-        tok = logits.argmax(-1, keepdim=True)
-        if i < DECODE_STEPS - 1:
-            gen.append(tok)
-    if fa.launches["flash_attention"]:
-        raise AssertionError(f"phase 10 {arch}: decode launched flash")
+    gen, logits, rec["decode"] = lm_greedy_decode(model, cache, logits, p,
+                                                  f"phase 10 {arch}")
+    rec["decode"]["cache_len"] = plan["max_len"]
     del cache
     torch.cuda.empty_cache()
-    rec["decode"] = dict(
-        batch=b, start=p, steps=DECODE_STEPS, cache_len=plan["max_len"],
-        step_ms=steps_ms, mean_step_ms=sum(steps_ms[1:]) / (len(steps_ms) - 1),
-        tokens_per_s=b * (len(steps_ms) - 1) / (sum(steps_ms[1:]) / 1e3))
-    gen = torch.cat(gen, 1)
     rec["decode_vs_prefill_bf16"], want = decode_divergence(model, toks, gen,
                                                             logits)
     torch.cuda.empty_cache()
@@ -4683,8 +4778,9 @@ def p10_lm(dev, arch, plan):
     del want
     torch.cuda.empty_cache()
     decode_gate(rec["decode_vs_prefill_bf16"], rec["decode_faults_bf16"],
-                arch, DECODE_BF16_GATE)
-    rec["decode_vs_prefill"] = decode_check(model, toks, gen, arch)
+                f"phase 10 {arch}", DECODE_BF16_GATE)
+    rec["decode_vs_prefill"] = decode_check(model, toks, gen,
+                                            f"phase 10 {arch}")
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     bf, f32 = rec["decode_vs_prefill_bf16"], rec["decode_vs_prefill"]
     log(f"phase 10 {arch} decode: {DECODE_STEPS} greedy steps of B {b} from "
@@ -4911,11 +5007,11 @@ def p10_plain_models(dev):
     return out
 
 
-def substrate_row(name, p10):
+def substrate_row(name, p10, p11):
     """The kernels line's substrate fields of flash attention, dot
-    interaction or embedding bag: ``launches`` on phase 10's paths (the
-    kernel's main path), the times at phase 10's shapes beside their bound,
-    plain version and library call, and the largest error there."""
+    interaction or embedding bag: ``launches`` on phase 10's and 11's
+    paths (the kernel's main path), the times at their shapes beside their
+    bound, plain version and library call, and the largest error there."""
     keys = ("ms", "plain_ms", "plain_rows", "library_ms", "bound_ms",
             "bound_by", "x_bound", "shape", "window", "batch", "err",
             "library_err", "rows_touched", "path_ms")
@@ -4928,6 +5024,9 @@ def substrate_row(name, p10):
                 shapes[f"{arch}/prefill_32k/G"] = pick(r["flash_long"])
             for kind, f in r["flash"].items():
                 shapes[f"{arch}/decode_prompt/{kind}"] = pick(f)
+        for arch, r in p11["lm"].items():
+            launches += r["launches"]
+            shapes[f"{arch}/prefill/G"] = pick(r["flash"]["G"])
     elif name == "dot_interaction":
         for shape, r in p10["dlrm"]["serve"].items():
             launches += p10["dlrm"]["launches"][shape]
@@ -4962,6 +5061,787 @@ def phase10(dev):
                          + [rec["dlrm"]["peak_gb"]]
                          + [r["peak_gb"] for r in
                             rec["plain_models"].values()])
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the MoE LMs and GatedGCN at full width, Adafactor on the card
+# ---------------------------------------------------------------------------
+
+
+# moonshot-v1-16b-a3b at its full widths (f32 params, ≈ 2.28 GB a layer):
+# as many of its 48 layers as fit MOE_MEMORY_SHARE of the card with the
+# B 8 × 4,096 prompt's prefill, from two trial depths' max_memory_allocated;
+# kimi-k2-1t-a32b at its full widths, one of 61 layers (bf16 params 38.8 GB
+# with both 163,840 × 7,168 tables: two layers do not fit one card). The
+# decode gate runs on a no-drop twin (capacity_factor = E) at a prompt whose
+# dispatch buffer (G·E·T·k·d elements) stays small; the oracle check's
+# 1,024 tokens at cf = E would need a 45 GB buffer at kimi's widths, so
+# kimi's runs at cf = E / 8 (C = 1,024 slots an expert; its drop fraction
+# is checked to be 0).
+MOE_PLANS = {
+    "moonshot-v1-16b-a3b": dict(layers=None, batch=8, prompt=4096,
+                                max_len=4096 + DECODE_STEPS, twin=(2, 512),
+                                oracle_cf=None, f32_twin=True),
+    "kimi-k2-1t-a32b": dict(layers=1, batch=2, prompt=4096,
+                            max_len=4096 + DECODE_STEPS, twin=(1, 128),
+                            oracle_cf=48.0, f32_twin=False),
+}
+MOE_MEMORY_SHARE = 0.85
+MOE_TRIAL_LAYERS = (1, 2)
+MOE_ORACLE_TOKENS = 1024
+# the bf16 dispatch against the f32 oracle, |Δ| ≤ atol + rtol·|oracle|:
+# a few bf16 roundings of outputs of order 1 (the check records its own
+# largest |Δ| beside this bound); a token sent to a wrong expert moves its
+# output by O(1)
+MOE_ORACLE_TOL = dict(rtol=2 ** -6, atol=2 ** -6)
+# GatedGCN on the card against the CPU on the same inputs: one layer (and
+# the input and readout denses) at GNN_TOL, sixteen layers end to end at
+# GNN_FORWARD_TOL (the card's scatter-add and products sum in other orders,
+# and each LayerNorm rescales what that leaves)
+GNN_TOL = dict(rtol=1e-4, atol=1e-4)
+GNN_FORWARD_TOL = dict(rtol=1e-3, atol=1e-3)
+GNN_LOSS_RTOL = 1e-4
+GNN_MEMORY_SHARE = 0.85          # ogb_products' edge cut
+OGB_TRIAL_EDGES = (4_000_000, 8_000_000)
+OGB_EDGE_STEP = 1_000_000        # the cut's edge count is a multiple of it
+OGB_SLICE = 100_000              # nodes held against the CPU, layer by layer
+ADAFACTOR_SHAPE = (64, 2048, 1408)   # a moonshot expert stack
+ADAFACTOR_LR = 1e-2
+
+
+class MoETap:
+    """Wraps ``models.moe.moe_apply`` (the function the LM blocks call)
+    and ``models.moe.route``: keeps each call's ``drop_fraction`` (a
+    tensor, no sync) and each route call's top-k ids and probabilities
+    (``routes``, cleared by the caller)."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_lib
+        self.mod = moe_lib
+        self.real_apply, self.real_route = moe_lib.moe_apply, moe_lib.route
+        self.drops, self.routes = [], []
+
+    def apply(self, moe, x, spec, **kw):
+        out, aux = self.real_apply(moe, x, spec, **kw)
+        self.drops.append(aux["drop_fraction"].detach())
+        return out, aux
+
+    def route(self, router, x, spec):
+        import torch
+        out = self.real_route(router, x, spec)
+        self.routes.append((out[0], torch.softmax(
+            x.float() @ router.float(), dim=-1)))
+        return out
+
+    def take_drops(self):
+        """The drop fractions recorded since the last take, summed (over
+        the layers of one call: ``lm_forward``'s aux)."""
+        import torch
+        total = float(torch.stack(self.drops).sum()) if self.drops else 0.0
+        self.drops = []
+        return total
+
+    def __enter__(self):
+        self.mod.moe_apply, self.mod.route = self.apply, self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_apply, self.mod.route = self.real_apply, self.real_route
+
+
+def moe_depth(dev, cfg, plan):
+    """The layers of ``cfg`` that fit ``MOE_MEMORY_SHARE`` of the card in
+    the planned prefill: two trial depths' peaks (params, cache and the
+    dispatch's working set) → the growth per layer → the depth."""
+    import torch
+    from repro_torch.data.lm_data import LMStream
+    from repro_torch.models import transformer as tf
+    b, p = plan["batch"], plan["prompt"]
+    toks = torch.from_numpy(LMStream(cfg.vocab_size, seed=SEED).batch(
+        0, b, p)["tokens"][:, :p]).to(dev)
+    peaks = {}
+    for n in MOE_TRIAL_LAYERS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = tf.lm_init(dataclasses.replace(cfg, n_layers=n), seed=SEED,
+                           device=dev).requires_grad_(False)
+        logits, cache = tf.lm_prefill(model, toks, max_len=plan["max_len"])
+        torch.cuda.synchronize()
+        peaks[n] = torch.cuda.max_memory_allocated() - base
+        del model, logits, cache
+    torch.cuda.empty_cache()
+    n0, n1 = MOE_TRIAL_LAYERS
+    per_layer = (peaks[n1] - peaks[n0]) / (n1 - n0)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    depth = n0 + int((MOE_MEMORY_SHARE * total - peaks[n0]) // per_layer)
+    depth = max(1, min(cfg.n_layers, depth))
+    rec = dict(trial_peak_gb={n: v / 1e9 for n, v in peaks.items()},
+               per_layer_gb=per_layer / 1e9, card_gb=total / 1e9,
+               share=MOE_MEMORY_SHARE, layers=depth)
+    log(f"phase 11 {cfg.arch_id} depth: trial peaks "
+        f"{ {n: round(v / 1e9, 2) for n, v in peaks.items()} } GB at "
+        f"{MOE_TRIAL_LAYERS} layers, {per_layer / 1e9:.3f} GB a layer → "
+        f"{depth} of {cfg.n_layers} layers in {MOE_MEMORY_SHARE:.0%} of "
+        f"{total / 1e9:.1f} GB")
+    return depth, rec
+
+
+def moe_oracle(dev, model, plan, what):
+    """The first layer's dispatch on ``MOE_ORACLE_TOKENS`` seeded hidden
+    states in the compute dtype at a capacity factor where nothing drops,
+    against ``moe_dense_plain`` in f32 on the same inputs
+    (``MOE_ORACLE_TOL``; raises), and both timed."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    cfg, m = model.cfg, model.blocks[0].moe
+    cf = plan["oracle_cf"] or float(cfg.moe.n_experts)
+    spec = dataclasses.replace(cfg.moe, capacity_factor=cf)
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    x = torch.randn(1, MOE_ORACLE_TOKENS, cfg.d_model, generator=g,
+                    device=dev).to(tf.torch_dtype(cfg.compute_dtype))
+    out, aux = moe_lib.moe_apply(m, x, spec)
+    drop = float(aux["drop_fraction"])
+    if drop != 0.0:
+        raise AssertionError(f"{what}: the oracle check's dispatch dropped "
+                             f"{drop} of its assignments at cf {cf}")
+    want = moe_lib.moe_dense_plain(m, x.float(), spec)
+    diff = (out.float() - want).abs()
+    excess = (diff / (MOE_ORACLE_TOL["atol"]
+                      + MOE_ORACLE_TOL["rtol"] * want.abs())).max().item()
+    rec = dict(tokens=MOE_ORACLE_TOKENS, capacity_factor=cf,
+               capacity=moe_lib.capacity(MOE_ORACLE_TOKENS, spec),
+               drop_fraction=drop, max_abs_err=diff.max().item(),
+               mean_abs_err=diff.mean().item(), tol=MOE_ORACLE_TOL,
+               excess=excess)
+    del out, want, diff
+    if not excess <= 1.0:
+        raise AssertionError(f"{what}: the dispatch differs from "
+                             f"moe_dense_plain by {rec['max_abs_err']:.4g} "
+                             f"({excess:.3g}× {MOE_ORACLE_TOL})")
+    rec["ms"] = time_ms(lambda: moe_lib.moe_apply(m, x, spec), reps=3)
+    rec["plain_ms"] = time_ms(lambda: moe_lib.moe_dense_plain(
+        m, x.float(), spec), reps=1)
+    log(f"{what} dispatch: {MOE_ORACLE_TOKENS} tokens at cf {cf} (C "
+        f"{rec['capacity']}), drop 0, against moe_dense_plain (f32) max |Δ| "
+        f"{rec['max_abs_err']:.4g}, {excess:.3f}× {MOE_ORACLE_TOL}; "
+        f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms")
+    return rec
+
+
+def moe_decode_split(dev, model, b, step_ms, what):
+    """A decode step's MoE split on the first layer at decode's shape (one
+    group of B tokens): the whole ``moe_apply``, the f32 → compute-dtype
+    casts of the three expert stacks (a no-op for bf16 params) and the
+    three expert products on weights cast beforehand, each × the layers
+    against the measured step."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    cfg, m = model.cfg, model.blocks[0].moe
+    cdt = tf.torch_dtype(cfg.compute_dtype)
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    x = torch.randn(b, 1, cfg.d_model, generator=g, device=dev).to(cdt)
+    c = moe_lib.capacity(b, cfg.moe)
+    xin = torch.randn(cfg.moe.n_experts, c, cfg.d_model, generator=g,
+                      device=dev).to(cdt)
+    stacks = (m.w1, m.w3, m.w2)
+    w1, w3, w2 = (w.to(cdt) for w in stacks)
+    cast_ms = time_ms(lambda: [w.to(cdt) for w in stacks])
+    prod_ms = time_ms(lambda: torch.bmm(
+        layers.silu(torch.bmm(xin, w1)) * torch.bmm(xin, w3), w2))
+    moe_ms = time_ms(lambda: moe_lib.moe_apply(m, x, cfg.moe))
+    del w1, w3, w2, xin
+    n = cfg.n_layers
+    w_bytes = sum(w.numel() * w.element_size() for w in stacks)
+    cast_bytes = (w_bytes + sum(w.numel() for w in stacks) * 2
+                  if stacks[0].dtype != cdt else 0)
+    rec = dict(layer_moe_ms=moe_ms, layer_cast_ms=cast_ms,
+               layer_products_ms=prod_ms, layer_cast_gb=cast_bytes / 1e9,
+               layer_expert_gb=w_bytes / 1e9, capacity=c, layers=n,
+               step_ms=step_ms, moe_share=moe_ms * n / step_ms,
+               cast_share=cast_ms * n / step_ms,
+               products_share=prod_ms * n / step_ms)
+    log(f"{what} decode split (B {b}, C {c}): a layer's moe_apply "
+        f"{moe_ms:.3f} ms = casts {cast_ms:.3f} ms ({cast_bytes / 1e9:.2f} "
+        f"GB moved) + expert products {prod_ms:.3f} ms + routing, gather "
+        f"and scatter; × {n} layers: {moe_ms * n:.1f} of the step's "
+        f"{step_ms:.1f} ms (casts {rec['cast_share']:.0%}, products "
+        f"{rec['products_share']:.0%})")
+    return rec
+
+
+class RouteReplay:
+    """Pins ``models.moe.route``'s expert choices to recorded ones, so
+    that a bf16 comparison of two paths (decode against ``lm_prefill``)
+    tests their arithmetic and not the router's discontinuity: a prefill
+    (one group a sequence, T > 1) takes the recorded routes of its first
+    T positions (``seq``: per layer ``(B, S, k)``), a decode step (one
+    group ``(1, B)``) the recorded last step's (``step``: per layer
+    ``(1, B, k)``); the weights are the call's own probabilities at the
+    pinned experts, renormalised, as ``route`` computes them. Every
+    decision the pin changes must be one that the two paths' difference
+    could flip: the call's own probabilities at its k-th expert and at
+    the weakest pinned one differ by at most twice the largest |Δ|
+    between its and the recorded probabilities of that token (raises
+    otherwise); the changes are counted."""
+
+    def __init__(self, seq, step, b):
+        from repro_torch.models import moe as moe_lib
+        self.mod, self.real = moe_lib, moe_lib.route
+        self.seq, self.step, self.b = seq, step, b
+        self.calls = self.changed = self.decisions = 0
+
+    def route(self, router, x, spec):
+        import torch
+        _, _, aux = self.real(router, x, spec)
+        layer = self.calls % len(self.seq)
+        self.calls += 1
+        g, t = x.shape[:2]
+        decode = g == 1 and t == self.b
+        ids, rec_p = (self.step[layer] if decode else
+                      [r[:, :t] for r in self.seq[layer]])
+        probs = torch.softmax(x.float() @ router.float(), dim=-1)
+        own = torch.topk(probs, spec.top_k, dim=-1)
+        changed = (torch.sort(own.indices, dim=-1).values
+                   != torch.sort(ids, dim=-1).values).any(-1)
+        pinned = torch.gather(probs, -1, ids)
+        drift = (probs - rec_p).abs().amax(-1)
+        gap = own.values[..., -1] - pinned.amin(-1)
+        if bool((changed & (gap > 2 * drift)).any()):
+            raise AssertionError(
+                f"route replay: a pinned choice differs from the call's own "
+                f"by more than the two paths' probabilities do (layer "
+                f"{layer}, largest gap {gap[changed].max().item():.4g})")
+        self.changed += int(changed.sum())
+        self.decisions += changed.numel()
+        w = pinned / torch.clamp(pinned.sum(-1, keepdim=True), min=1e-9)
+        return ids, w, aux
+
+    def __enter__(self):
+        self.mod.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.real
+
+
+def moe_twin_gate(dev, model, plan, what):
+    """Decode against ``lm_prefill`` on the no-drop twin (the same
+    weights at capacity_factor = E: prefill groups tokens by sequence,
+    decode by batch, so capacity drops would differ between them):
+    prefill the twin prompt, ``DECODE_STEPS`` greedy steps recording
+    every layer's routes, then ``lm_prefill`` over all the tokens and
+    the planted faults with those routes pinned (``RouteReplay``); the
+    last step against that prefill within ``DECODE_BF16_GATE``
+    (``decode_gate``; raises), and where planned the f32 twin's
+    ``decode_check``, whose gate the faults must then fail (else they
+    must fail the bf16 gate). Records the drops (must be 0), the routing
+    decisions the pin changed and the faults the bf16 gate passes."""
+    import torch
+    from repro_torch.data.lm_data import LMStream
+    from repro_torch.models import transformer as tf
+    cfg = model.cfg
+    e = cfg.moe.n_experts
+    tcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(e)))
+    twin = tf.LM(tcfg, model.embed.data, list(model.blocks),
+                 model.final_norm,
+                 None if model.unembed is None else model.unembed.data)
+    b, s = plan["twin"]
+    toks = torch.from_numpy(LMStream(cfg.vocab_size, seed=SEED + 1).batch(
+        0, b, s)["tokens"][:, :s]).to(dev).long()
+    with MoETap() as mt:
+        logits, cache = tf.lm_prefill(twin, toks, max_len=s + DECODE_STEPS)
+        prompt, steps = list(mt.routes), []
+        drops = [mt.take_drops()]
+
+        def on_step(i):
+            drops.append(mt.take_drops())
+            steps.append(list(mt.routes))
+            mt.routes.clear()
+        mt.routes.clear()
+        gen, logits, dec = lm_greedy_decode(twin, cache, logits, s,
+                                            f"{what} twin", on_step)
+        del cache
+    if any(drops):
+        raise AssertionError(f"{what} twin: drops {drops} at cf = E")
+    n = cfg.n_layers
+    seq = [[torch.cat([prompt[l][j]] + [st[l][j].reshape(b, 1, -1)
+                                        for st in steps], dim=1)
+            for j in range(2)] for l in range(n)]
+    del prompt
+    torch.cuda.empty_cache()
+    with RouteReplay(seq, steps[-1], b) as replay:
+        served, want = decode_divergence(twin, toks, gen, logits)
+        faults = decode_faults(twin, toks, gen, want, s + DECODE_STEPS)
+    del want, seq, steps
+    rec = dict(batch=b, prompt=s, capacity_factor=float(e),
+               drop_fraction=max(drops), decode=dec, served=served,
+               faults=faults, pinned_changed=replay.changed,
+               pinned_decisions=replay.decisions)
+    brief = {k: (round(r["max_abs_err"], 4), r["beyond_tol"])
+             for k, r in faults.items()}
+    log(f"{what} no-drop twin (cf {e}, B {b} × {s} + {DECODE_STEPS}): "
+        f"decode against lm_prefill with decode's routes pinned max |Δ| "
+        f"{served['max_abs_err']:.4g}, {served['beyond_tol']}/"
+        f"{served['of']} beyond {DECODE_TOL}; the pin changed "
+        f"{replay.changed} of {replay.decisions} routing decisions (each "
+        f"within the paths' drift); faults {brief}")
+    # the faults must fail a gate that can see them: the f32 twin's where
+    # there is one (at moonshot's widths a lost cache write moves the bf16
+    # logits no further than the two paths' rounding does)
+    rec["bf16_passes_faults"] = decode_gate(
+        served, faults, f"{what} no-drop twin", DECODE_BF16_GATE,
+        faults_must_fail=not plan["f32_twin"])
+    if plan["f32_twin"]:
+        rec["f32"] = decode_check(twin, toks, gen, f"{what} no-drop twin")
+    return rec
+
+
+def p11_moe(dev, arch, plan):
+    """One MoE LM at full width: its depth (planned, or from memory), the
+    B × prompt prefill into a prompt + ``DECODE_STEPS`` cache through the
+    flash twin (launches = layers, the first held within one rounding,
+    timed beside SDPA), ``DECODE_STEPS`` greedy steps with the summed drop
+    fractions, the served decode against ``lm_prefill`` (recorded), the
+    decode step's split, the dispatch against its oracle and the no-drop
+    twin's decode gate."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMStream
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tf
+    what = f"phase 11 {arch}"
+    cfg = get_config(arch)
+    rec = dict(arch=arch, full_layers=cfg.n_layers)
+    n = plan["layers"]
+    if n is None:
+        n, rec["depth"] = moe_depth(dev, cfg, plan)
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.lm_init(cfg, seed=SEED, device=dev).requires_grad_(False)
+    torch.cuda.synchronize()
+    params = list(model.parameters())
+    b, p = plan["batch"], plan["prompt"]
+    rec.update(n_layers=n, params=sum(x.numel() for x in params),
+               params_gb=sum(x.numel() * x.element_size()
+                             for x in params) / 1e9,
+               init_s=time.perf_counter() - t0,
+               capacity_prefill=moe_lib.capacity(p, cfg.moe),
+               capacity_decode=moe_lib.capacity(b, cfg.moe))
+    del params
+    toks = torch.from_numpy(LMStream(cfg.vocab_size, seed=SEED).batch(
+        0, b, p)["tokens"][:, :p]).to(dev).long()
+    with MoETap() as mt:
+        logits, cache, tap, rec["prefill"] = lm_prefill_held(
+            model, toks, plan["max_len"], {"G": 0}, f"{what} prefill")
+        rec["prefill"]["drop_fraction"] = mt.take_drops()
+    rec["launches"] = rec["prefill"]["flash_launches"]
+    rec["flash"] = {"G": flash_shape_times(dev, *tap.kept[0][:4])}
+    del tap
+    torch.cuda.empty_cache()
+    step_drops = []
+    with MoETap() as mt:
+        gen, logits, rec["decode"] = lm_greedy_decode(
+            model, cache, logits, p, what,
+            lambda i: step_drops.append(mt.take_drops()))
+    rec["decode"].update(cache_len=plan["max_len"], drop_fraction=dict(
+        mean=sum(step_drops) / len(step_drops), max=max(step_drops),
+        per_step=step_drops))
+    del cache
+    torch.cuda.empty_cache()
+    with MoETap() as mt:
+        rec["served_decode_vs_prefill"], want = decode_divergence(
+            model, toks, gen, logits)
+        rec["served_decode_vs_prefill"]["prefill_drop_fraction"] = \
+            mt.take_drops()
+    del want
+    torch.cuda.empty_cache()
+    rec["decode_split"] = moe_decode_split(dev, model, b,
+                                           rec["decode"]["mean_step_ms"],
+                                           what)
+    rec["oracle"] = moe_oracle(dev, model, plan, what)
+    torch.cuda.empty_cache()
+    rec["twin"] = moe_twin_gate(dev, model, plan, what)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    pre, dec = rec["prefill"], rec["decode"]
+    sv = rec["served_decode_vs_prefill"]
+    log(f"{what}: {n} of {rec['full_layers']} layers, "
+        f"{rec['params_gb']:.1f} GB of params; prefill B {b} × {p} "
+        f"{pre['tokens_per_s']:.0f} tokens/s (C {rec['capacity_prefill']}, "
+        f"drop fraction summed over the layers {pre['drop_fraction']:.4f}); "
+        f"decode {dec['mean_step_ms']:.2f} ms a step "
+        f"({dec['tokens_per_s']:.0f} tokens/s, C {rec['capacity_decode']}, "
+        f"drop mean {dec['drop_fraction']['mean']:.4f}); served decode vs "
+        f"lm_prefill max |Δ| {sv['max_abs_err']:.4g} "
+        f"({sv['beyond_tol']}/{sv['of']} beyond, recorded); flash "
+        f"{rec['flash']['G']['ms']:.3f} ms vs SDPA "
+        f"{rec['flash']['G']['library_ms']:.3f}; peak {rec['peak_gb']:.1f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gnn_excess(got, want, tol):
+    """max |got − want| / (atol + rtol·|want|) and max |got − want|."""
+    diff = (got.float() - want.float()).abs()
+    return ((diff / (tol["atol"] + tol["rtol"] * want.float().abs()))
+            .max().item(), diff.max().item())
+
+
+def gnn_cpu_twin(model):
+    """The model's CPU copy through the reference's layout."""
+    from repro_torch import convert
+    return convert.gnn_from_numpy(convert.gnn_to_numpy(model), model.cfg)
+
+
+def gnn_run(dev, model, graph, host_graph, what):
+    """Forward and loss on the card (timed) against the same on the CPU's
+    copy of the model over ``host_graph`` (``GNN_FORWARD_TOL``,
+    ``GNN_LOSS_RTOL``; raises)."""
+    import torch
+    from repro_torch.models import gnn as gnn_lib
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits = gnn_lib.gnn_forward(model, graph)
+    loss = gnn_lib.gnn_loss(model, graph)[0].item()
+    ms = time_ms(lambda: gnn_lib.gnn_forward(model, graph), reps=3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    cpu = gnn_cpu_twin(model)
+    want = gnn_lib.gnn_forward(cpu, host_graph)
+    w_loss = gnn_lib.gnn_loss(cpu, host_graph)[0].item()
+    cpu_s = time.perf_counter() - t0
+    excess, err = gnn_excess(logits.cpu(), want, GNN_FORWARD_TOL)
+    rec = dict(logits=list(logits.shape), forward_ms=ms, loss=loss,
+               cpu_loss=w_loss, max_abs_err=err, excess=excess,
+               cpu_forward_s=cpu_s, peak_gb=peak)
+    if not (excess <= 1.0 and math.isfinite(loss)
+            and abs(loss - w_loss) <= GNN_LOSS_RTOL * abs(w_loss)):
+        raise AssertionError(f"{what}: card against CPU: logits max |Δ| "
+                             f"{err:.3g} ({excess:.3g}× {GNN_FORWARD_TOL}),"
+                             f" loss {loss} vs {w_loss}")
+    return rec
+
+
+def p11_minibatch(dev, cfg):
+    """minibatch_lg: a reddit-size ``community_graph``, its CSR
+    (``NeighborSampler``), one 1,024-seed (15, 10) sample padded to its
+    bounds, forward and loss on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.data.graph_data import NeighborSampler, community_graph
+    from repro_torch.models import gnn as gnn_lib
+    dims = get_shape("gatedgcn", "minibatch_lg").dims
+    n, e = dims["n_nodes"], dims["n_edges"]
+    t0 = time.perf_counter()
+    g = community_graph(n, e, dims["d_feat"], dims["n_classes"], seed=SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ns = NeighborSampler(g["edge_src"], g["edge_dst"], n)
+    csr_s = time.perf_counter() - t0
+    bn, (f1, f2) = dims["batch_nodes"], dims["fanout"]
+    pad_nodes, pad_edges = bn * (1 + f1 + f1 * f2), bn * (f1 + f1 * f2)
+    seeds = np.random.default_rng(SEED).choice(n, bn, replace=False)
+    t0 = time.perf_counter()
+    sub = ns.padded_batch(seeds, (f1, f2), g["x"], g["labels"],
+                          pad_nodes=pad_nodes, pad_edges=pad_edges, seed=SEED)
+    sample_s = time.perf_counter() - t0
+    del g, ns
+    model = gnn_lib.gnn_init(cfg, dims["d_feat"], dims["n_classes"],
+                             seed=SEED, device=dev).requires_grad_(False)
+    graph = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                 else v) for k, v in sub.items()}
+    rec = dict(nodes=n, edges=e, gen_s=gen_s, csr_s=csr_s,
+               sample_s=sample_s, seeds=bn, fanout=[f1, f2],
+               pad_nodes=pad_nodes, pad_edges=pad_edges,
+               sampled_nodes=int(sub["node_mask"].sum()),
+               sampled_edges=int(sub["edge_mask"].sum()),
+               **gnn_run(dev, model, graph, sub, "phase 11 minibatch_lg"))
+    log(f"phase 11 gatedgcn minibatch_lg: graph {n} nodes / {e} edges "
+        f"generated in {gen_s:.1f} s, CSR "
+        f"{csr_s:.1f} s, sample {sample_s:.2f} s ({rec['sampled_nodes']} "
+        f"nodes, {rec['sampled_edges']} edges in {pad_nodes} / {pad_edges});"
+        f" forward {rec['forward_ms']:.2f} ms, loss {rec['loss']:.5f}, "
+        f"against the CPU max |Δ| {rec['max_abs_err']:.3g} "
+        f"({rec['excess']:.3f}× {GNN_FORWARD_TOL})")
+    del model, graph
+    torch.cuda.empty_cache()
+    return rec
+
+
+def p11_ogb(dev, cfg):
+    """ogb_products full batch: every node, the edges cut to the largest
+    count (a multiple of ``OGB_EDGE_STEP``, a prefix of the generated
+    edges) whose
+    forward fits ``GNN_MEMORY_SHARE`` of the card by two trial forwards'
+    peaks; the forward timed, then run again with every layer (and the
+    input and readout denses) held against the CPU on the first
+    ``OGB_SLICE`` nodes: the CPU recomputes the layer from the card's
+    inputs over the edges into those nodes (``GNN_TOL``; raises)."""
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.data.graph_data import community_graph
+    from repro_torch.models import gnn as gnn_lib
+    dims = get_shape("gatedgcn", "ogb_products").dims
+    n, e_full = dims["n_nodes"], dims["n_edges"]
+    t0 = time.perf_counter()
+    full = community_graph(n, e_full, dims["d_feat"], dims["n_classes"],
+                           seed=SEED)
+    gen_s = time.perf_counter() - t0
+    model = gnn_lib.gnn_init(cfg, dims["d_feat"], dims["n_classes"],
+                             seed=SEED, device=dev).requires_grad_(False)
+    nodes = {k: torch.from_numpy(full[k]).to(dev)
+             for k in ("x", "node_mask", "labels", "label_mask")}
+    src_all = torch.from_numpy(full["edge_src"])
+    dst_all = torch.from_numpy(full["edge_dst"])
+    del full
+
+    def graph_of(ne):
+        return dict(nodes, edge_src=src_all[:ne].to(dev).long(),
+                    edge_dst=dst_all[:ne].to(dev).long(),
+                    edge_mask=torch.ones(ne, dtype=torch.bool, device=dev),
+                    edge_attr=None)
+    peaks = {}
+    for ne in OGB_TRIAL_EDGES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gnn_lib.gnn_forward(model, graph_of(ne))
+        torch.cuda.synchronize()
+        peaks[ne] = torch.cuda.max_memory_allocated() - base
+    e0, e1 = OGB_TRIAL_EDGES
+    per_edge = (peaks[e1] - peaks[e0]) / (e1 - e0)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    room = GNN_MEMORY_SHARE * total - torch.cuda.memory_allocated()
+    ne = int(e0 + (room - peaks[e0]) / per_edge) // OGB_EDGE_STEP * \
+        OGB_EDGE_STEP
+    ne = min(e_full, ne)
+    graph = graph_of(ne)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = gnn_lib.gnn_loss(model, graph)[0].item()     # warms up, too
+    ms = time_ms(lambda: gnn_lib.gnn_forward(model, graph), reps=1,
+                 warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    split = gnn_layer_split(model, graph)
+    log(f"phase 11 gatedgcn ogb_products: {n} nodes, {e_full} edges "
+        f"generated in {gen_s:.1f} s; {per_edge:.0f} B an edge at the peak "
+        f"→ {ne} edges ({ne / e_full:.1%}) fit {GNN_MEMORY_SHARE:.0%} of the "
+        f"card; forward {ms:.1f} ms, loss {loss:.5f}, peak {peak:.1f} GB; "
+        f"a layer's ops: { {k: round(v, 2) for k, v in split.items()} } ms")
+
+    # the slice check: hooks on every layer and the two denses. The CPU
+    # runs each layer on the slice's subgraph: its nodes first (ids
+    # 0..sl-1, so they keep their ids), then the sources of the edges
+    # into them; a slice node has all its in-edges there, so its output
+    # is the full graph's
+    cpu = gnn_cpu_twin(model)
+    sl = OGB_SLICE
+    sel = torch.nonzero(graph["edge_dst"] < sl).squeeze(1)
+    src_sel = graph["edge_src"][sel]
+    needed = torch.unique(torch.cat([torch.arange(sl, device=dev), src_sel]))
+    sub = [torch.searchsorted(needed, src_sel).cpu(),
+           graph["edge_dst"][sel].cpu()]
+    del src_sel
+    worst = dict(node_in=0.0, readout=0.0, layers=[0.0] * cfg.n_layers)
+    errs = dict(node_in=0.0, readout=0.0, layers=[0.0] * cfg.n_layers)
+
+    def dense_hook(name):
+        def hook(mod, inputs, out):
+            want = getattr(cpu, name)(inputs[0][:sl].cpu())
+            worst[name], errs[name] = gnn_excess(out[:sl].cpu(), want,
+                                                 GNN_TOL)
+        return hook
+
+    def layer_hook(i):
+        def hook(mod, inputs, outputs):
+            h, e, _, _, emask = inputs
+            want_h, want_e = cpu.layers[i](h[needed].cpu(), e[sel].cpu(),
+                                           *sub, emask[sel].cpu())
+            xh, eh = gnn_excess(outputs[0][:sl].cpu(), want_h[:sl], GNN_TOL)
+            xe, ee = gnn_excess(outputs[1][sel].cpu(), want_e, GNN_TOL)
+            worst["layers"][i], errs["layers"][i] = max(xh, xe), max(eh, ee)
+        return hook
+    handles = ([model.node_in.register_forward_hook(dense_hook("node_in")),
+                model.readout.register_forward_hook(dense_hook("readout"))]
+               + [m.register_forward_hook(layer_hook(i))
+                  for i, m in enumerate(model.layers)])
+    t0 = time.perf_counter()
+    try:
+        logits = gnn_lib.gnn_forward(model, graph)
+    finally:
+        for h in handles:
+            h.remove()
+    check_s = time.perf_counter() - t0
+    top = max([worst["node_in"], worst["readout"]] + worst["layers"])
+    rec = dict(nodes=n, edges=e_full, edges_run=ne, gen_s=gen_s,
+               trial_edges=list(OGB_TRIAL_EDGES),
+               trial_peak_gb=[peaks[x] / 1e9 for x in OGB_TRIAL_EDGES],
+               bytes_per_edge=per_edge, share=GNN_MEMORY_SHARE,
+               forward_ms=ms, loss=loss, peak_gb=peak,
+               layer_split_ms=split, logits=list(logits.shape),
+               slice_nodes=sl, slice_subgraph_nodes=int(needed.numel()),
+               slice_edges=int(sel.numel()), slice_excess=worst,
+               slice_max_abs_err=errs, check_s=check_s)
+    if not (top <= 1.0 and math.isfinite(loss)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"phase 11 ogb_products: the first {sl} nodes "
+                             f"against the CPU, layer by layer: {worst} of "
+                             f"{GNN_TOL}; loss {loss}")
+    log(f"phase 11 gatedgcn ogb_products: nodes 0..{sl - 1} over "
+        f"{sel.numel()} edges held against the CPU layer by layer: worst "
+        f"{top:.3f}× {GNN_TOL} (max |Δ| {max(errs['layers']):.3g}) in "
+        f"{check_s:.1f} s")
+    del model, graph, nodes, logits, cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gnn_layer_split(model, graph):
+    """The first layer's ops at the graph's size, each timed alone on the
+    graph's own node states: the two edge gathers, the four edge denses
+    (A, B, C, V), the two scatter-adds into the nodes, and the whole
+    layer."""
+    import torch
+    layer = model.layers[0]
+    src, dst = graph["edge_src"], graph["edge_dst"]
+    emask = graph["edge_mask"].float()[:, None]
+    h = model.node_in(graph["x"])
+    e = h.new_zeros((src.shape[0], h.shape[1]))
+    n = h.shape[0]
+    h_src = h.index_select(0, src)
+
+    def run(ops):           # each result dropped at once: (E, d) each
+        for op in ops:
+            op()
+    rec = dict(
+        gathers=time_ms(lambda: run([lambda: h.index_select(0, src),
+                                     lambda: h.index_select(0, dst)]),
+                        reps=1),
+        edge_denses=time_ms(lambda: run([lambda m=m: m(h_src) for m in (
+            layer.A, layer.B, layer.C, layer.V)]), reps=1),
+        scatters=time_ms(lambda: run([lambda: h.new_zeros(
+            h.shape).index_add(0, dst, h_src)] * 2), reps=1))
+    del h_src
+    rec["layer"] = time_ms(lambda: layer(h, e, src, dst, emask), reps=1)
+    return rec
+
+
+def p11_molecule(dev, cfg):
+    """molecule: 128 graphs of 30 nodes / 64 edges with 4 edge features,
+    the ``graph_ids`` mean readout; forward and loss against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.data.graph_data import molecule_batch
+    from repro_torch.models import gnn as gnn_lib
+    dims = get_shape("gatedgcn", "molecule").dims
+    mb = molecule_batch(dims["batch"], dims["n_nodes"], dims["n_edges"],
+                        dims["d_feat"], seed=SEED)
+    model = gnn_lib.gnn_init(cfg, dims["d_feat"], dims["n_classes"],
+                             d_edge_in=mb["edge_attr"].shape[1], seed=SEED,
+                             device=dev).requires_grad_(False)
+    graph = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                 else v) for k, v in mb.items()}
+    rec = dict(graphs=dims["batch"], nodes=int(mb["x"].shape[0]),
+               edges=int(mb["edge_src"].shape[0]),
+               **gnn_run(dev, model, graph, mb, "phase 11 molecule"))
+    log(f"phase 11 gatedgcn molecule: {rec['graphs']} graphs "
+        f"({rec['nodes']} nodes, {rec['edges']} edges) → logits "
+        f"{rec['logits']}, forward {rec['forward_ms']:.3f} ms, loss "
+        f"{rec['loss']:.5f}, against the CPU max |Δ| "
+        f"{rec['max_abs_err']:.3g}")
+    return rec
+
+
+def p11_adafactor(dev):
+    """One ``adafactor_update`` of an ``ADAFACTOR_SHAPE`` leaf, f32 and a
+    bf16 copy, on the card against the same update on the CPU: f32
+    params at rtol 1e-6 / atol 1e-7, bf16 params within one bf16 rounding
+    (2^-7 of the value) and atol 1e-7, the factored state at rtol 1e-5
+    (its means sum in another order); the card's update timed."""
+    import torch
+    from repro_torch.optim import make_optimizer
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    p0 = torch.randn(ADAFACTOR_SHAPE, generator=g, device=dev) * 0.03
+    grad = torch.randn(ADAFACTOR_SHAPE, generator=g, device=dev)
+    init, update = make_optimizer("adafactor")
+    out = {}
+    for name, dt in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        p, gr = p0.to(dt, copy=True), grad.to(dt)
+        p_cpu, g_cpu = p.cpu(), gr.cpu()
+        st = init([p])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update([gr], st, [p], ADAFACTOR_LR)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        st_c = init([p_cpu])
+        t0 = time.perf_counter()
+        update([g_cpu], st_c, [p_cpu], ADAFACTOR_LR)
+        cpu_s = time.perf_counter() - t0
+        got, want = p.cpu().float(), p_cpu.float()
+        diff = (got - want).abs()
+        # bf16: one rounding apart, plus the f32 update's own difference
+        # before the cast (≤ 1.5e-8 in the f32 run): where p ≈ lr·u
+        # cancels, the two tiny results are far apart relative to
+        # themselves
+        ok = bool((diff <= 1e-7 + (1e-6 if dt == torch.float32
+                                   else 2 ** -7) * want.abs()).all())
+        state_err = max(
+            ((st["v"][0][k].cpu() - st_c["v"][0][k]).abs()
+             / st_c["v"][0][k].abs()).max().item() for k in ("vr", "vc"))
+        rec = dict(first_ms=first_ms, cpu_s=cpu_s,
+                   max_abs_err=diff.max().item(),
+                   differing=int((diff > 0).sum()), of=int(diff.numel()),
+                   state_max_rel_err=state_err)
+        if not (ok and state_err <= 1e-5):
+            raise AssertionError(f"phase 11 adafactor {name}: card against "
+                                 f"CPU {rec}")
+        rec["ms"] = time_ms(lambda: update([gr], st, [p], ADAFACTOR_LR),
+                            reps=3)
+        nbytes = 3 * p.numel() * p.element_size()
+        rec["gb_per_s"] = nbytes / (rec["ms"] / 1e3) / 1e9
+        out[name] = rec
+        log(f"phase 11 adafactor {name} {list(ADAFACTOR_SHAPE)}: "
+            f"{rec['ms']:.3f} ms an update ({rec['gb_per_s']:.0f} GB/s of "
+            f"param + grad reads and param writes); against the CPU max "
+            f"|Δ| {rec['max_abs_err']:.3g} ({rec['differing']} of "
+            f"{rec['of']} differ), state {state_err:.3g}")
+        del p, gr, p_cpu, g_cpu, st, st_c, got, want, diff
+    return out
+
+
+def phase11(dev):
+    """The MoE LMs (moonshot at the depth that fits, kimi one layer), the
+    GatedGCN on its three graphs and Adafactor, one model at a time (each
+    freed before the next). The flash counter is zeroed before and read
+    after each MoE prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    rec = dict(card=CARD, lm={}, launches={})
+    with torch.no_grad():
+        for arch, plan in MOE_PLANS.items():
+            rec["lm"][arch] = p11_moe(dev, arch, plan)
+            rec["launches"][arch] = rec["lm"][arch]["launches"]
+        cfg = get_config("gatedgcn")
+        rec["gnn"] = dict(minibatch_lg=p11_minibatch(dev, cfg),
+                          ogb_products=p11_ogb(dev, cfg),
+                          molecule=p11_molecule(dev, cfg))
+    rec["adafactor"] = p11_adafactor(dev)
+    rec["peak_gb"] = max([r["peak_gb"] for r in rec["lm"].values()]
+                         + [r["peak_gb"] for r in rec["gnn"].values()])
     return rec
 
 
@@ -5168,6 +6048,12 @@ def main() -> int:
     p10["phase_s"] = time.perf_counter() - t0
     log(f"phase 10 took {p10['phase_s']:.1f} s; peak device memory "
         f"{p10['peak_gb']:.1f} GB; launches {p10['launches']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p11 = phase11(dev)
+    p11["phase_s"] = time.perf_counter() - t0
+    log(f"phase 11 took {p11['phase_s']:.1f} s; peak device memory "
+        f"{p11['peak_gb']:.1f} GB; launches {p11['launches']}")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -5246,7 +6132,7 @@ def main() -> int:
         if "library_note" in r:
             entry["library_note"] = r["library_note"]
         if name != "gather":
-            entry.update(substrate_row(name, p10))
+            entry.update(substrate_row(name, p10, p11))
             entry["bench_launches"] = p4["launches"][name]
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        entry.pop("substrate_err"))
@@ -5260,6 +6146,7 @@ def main() -> int:
                               "bound": rec[p]["bound"]} for p in TIERS}}
                   for sk, rec in skews.items()},
         "full_fan_out": p3["fan_out"], "tombstone_mask_ms": p3["mask_ms"],
+        "candidate_copy_check": p3["candidate_copy_check"],
         "memory_rates": p4["rates"],
         "peak_device_gb": p3["peak_gb"]}))
     bf = p5["brute_force"]
@@ -5304,6 +6191,7 @@ def main() -> int:
         peak_device_gb=p8["peak_gb"])}))
     log(json.dumps({"sharded": p9}))
     log(json.dumps({"substrate": p10}))
+    log(json.dumps({"moe_gnn": p11}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ scan layout unstacked into one :class:`LMBlock` per layer and restacked),
 {"k", "v"}: (n_periods, n_k, B, T, KV, D)}, "rem": {kind: …: (n_k, B, T,
 KV, D)} or None}`` against one ``{"k", "v"}`` per layer), and
 ``recsys_from_numpy`` / ``recsys_to_numpy`` (DLRM, xDeepFM, BERT4Rec and
-MIND keep the reference's pytrees, tensors as leaves).
+MIND keep the reference's pytrees, tensors as leaves), and
+``gnn_from_numpy`` / ``gnn_to_numpy`` (GatedGCN: the stacked ``blocks``
+unstacked into one :class:`GatedGCNLayer` per layer and restacked).
 
 ``rel_params`` / ``index_params`` are the nested dicts and lists the JAX
 package trains and saves (``relevance.relevance_init``,
@@ -27,7 +29,9 @@ import torch
 
 from repro_torch.core.index import ClusterIndex, index_init
 from repro_torch.core.relevance import RelevanceModel, relevance_init
+from repro_torch.models.gnn import GNN, GatedGCNLayer
 from repro_torch.models.layers import MLP, Dense, LayerNorm, RMSNorm
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import (LM, Encoder, EncoderBlock,
                                             LMBlock, scan_structure)
 
@@ -220,17 +224,25 @@ def _pick(tree, at):
 def lm_from_numpy(params, cfg) -> LM:
     """The :class:`LM` of the reference's ``lm_init`` pytree ``params``
     (numpy or CPU tensor leaves), on the CPU, one :class:`LMBlock` per
-    layer. No value or dtype changes. Raises for a MoE config."""
+    layer; a MoE config's ``moe`` leaves (``router``, ``w1``, ``w3``,
+    ``w2``) become the block's :class:`MoE`. No value or dtype
+    changes."""
     blocks = []
     for (group, at), kind in zip(_layer_slots(cfg), cfg.pattern()):
         p = _pick(params[group], at)
-        a, m = p["attn"], p["mlp"]
+        a = p["attn"]
+        if "moe" in p:
+            m = p["moe"]
+            ffn = dict(moe=MoE(m["router"], m["w1"], m["w3"], m["w2"]))
+        else:
+            m = p["mlp"]
+            ffn = dict(w1=_dense(m["w1"]), w3=_dense(m["w3"]),
+                       w2=_dense(m["w2"]))
         blocks.append(LMBlock(
             RMSNorm(p["ln1"]["scale"], eps=cfg.norm_eps),
             RMSNorm(p["ln2"]["scale"], eps=cfg.norm_eps),
             _dense(a["wq"]), _dense(a["wk"]), _dense(a["wv"]),
-            _dense(a["wo"]), _dense(m["w1"]), _dense(m["w3"]),
-            _dense(m["w2"]), kind=kind))
+            _dense(a["wo"]), kind=kind, **ffn))
     return LM(cfg, _t(params["embed"]), blocks,
               RMSNorm(_t(params["final_norm"]["scale"]), eps=cfg.norm_eps),
               None if cfg.tie_embeddings else _t(params["unembed"]))
@@ -245,12 +257,17 @@ def lm_to_numpy(model: LM):
     n, period, rem = scan_structure(cfg)
 
     def block(b: LMBlock):
-        return {"ln1": {"scale": b.ln1.scale.data},
-                "ln2": {"scale": b.ln2.scale.data},
-                "attn": {k: _dense_tree(getattr(b, k), _data)
-                         for k in ("wq", "wk", "wv", "wo")},
-                "mlp": {k: _dense_tree(getattr(b, k), _data)
-                        for k in ("w1", "w3", "w2")}}
+        out = {"ln1": {"scale": b.ln1.scale.data},
+               "ln2": {"scale": b.ln2.scale.data},
+               "attn": {k: _dense_tree(getattr(b, k), _data)
+                        for k in ("wq", "wk", "wv", "wo")}}
+        if b.moe is not None:
+            out["moe"] = {k: getattr(b.moe, k).data
+                          for k in ("router", "w1", "w3", "w2")}
+        else:
+            out["mlp"] = {k: _dense_tree(getattr(b, k), _data)
+                          for k in ("w1", "w3", "w2")}
+        return out
     trees = [block(b) for b in model.blocks]
     plen = len(period)
     out = {"embed": model.embed.data,
@@ -324,3 +341,34 @@ def recsys_to_numpy(params):
     """The inverse of :func:`recsys_from_numpy`: numpy leaves on the
     host."""
     return to_numpy(_tensors(params))
+
+
+_GNN_DENSE = ("A", "B", "C", "U", "V")
+
+
+def gnn_from_numpy(params, cfg) -> GNN:
+    """The :class:`GNN` of the reference's ``gnn_init`` pytree ``params``
+    (numpy or CPU tensor leaves), on the CPU: ``blocks``, stacked along a
+    leading ``n_layers`` axis, unstacked into one layer each. No value or
+    dtype changes."""
+    blk = params["blocks"]
+    eps = 1e-6                         # the reference's apply_norm default
+    gnn_layers = [GatedGCNLayer(*(_dense(blk[k], i) for k in _GNN_DENSE),
+                                _norm(blk["ln_h"], eps, i),
+                                _norm(blk["ln_e"], eps, i))
+                  for i in range(cfg.n_layers)]
+    return GNN(cfg, _dense(params["node_in"]), _dense(params["edge_in"]),
+               gnn_layers, _dense(params["readout"]))
+
+
+def gnn_to_numpy(model: GNN):
+    """The inverse of :func:`gnn_from_numpy`: the reference's pytree of
+    ``model`` on the host, the layers restacked under ``blocks``, numpy
+    leaves (bfloat16 ones stay CPU tensors)."""
+    trees = [{**{k: _dense_tree(getattr(m, k), _data) for k in _GNN_DENSE},
+              "ln_h": _norm_tree(m.ln_h, _data),
+              "ln_e": _norm_tree(m.ln_e, _data)} for m in model.layers]
+    return to_numpy({"node_in": _dense_tree(model.node_in, _data),
+                     "edge_in": _dense_tree(model.edge_in, _data),
+                     "blocks": _stack(trees),
+                     "readout": _dense_tree(model.readout, _data)})

@@ -15,7 +15,11 @@ in plain torch, as the reference does. The KV cache is a list with one
 keeps ``T`` = the cache length, a local one a ring of ``window`` slots.
 ``lm_decode_step`` writes the new token's slot in place (the reference
 returns a new pytree; at a 32k cache a copy per step would double the
-cache). The MoE configs raise: their layer is ROADMAP Queue A 12.4.
+cache). A MoE config's blocks hold a :class:`~repro_torch.models.moe.MoE`
+in place of the dense MLP (``models/moe.py``): the prefill groups its
+tokens by sequence, decode by batch, and ``lm_forward`` sums each
+layer's ``aux`` (the load-balance and z losses, ``drop_fraction``) over
+the layers, as the reference does.
 
 **The encoder**: ``encoder_init`` / ``Encoder``.
 
@@ -41,6 +45,7 @@ from torch import nn
 
 from repro_torch.device import require_device
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import Dense, LayerNorm, RMSNorm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -153,29 +158,34 @@ def scan_structure(cfg) -> Tuple[int, Tuple[str, ...], Tuple[str, ...]]:
     return len(pat), (pat[0],), ()  # unreachable
 
 
-def _refuse_moe(cfg) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.arch_id} is a MoE config: the port has no MoE layer yet "
-            f"(ROADMAP Queue A 12.4), and runs no dense stand-in for it")
-
-
 class LMBlock(nn.Module):
     """One decoder layer: RMS norm → GQA attention with RoPE → residual;
-    RMS norm → SwiGLU MLP (``w2(silu(w1 h) · w3 h)``) → residual. ``kind``
-    is ``"G"`` (global) or ``"L"`` (local, window-limited)."""
+    RMS norm → SwiGLU MLP (``w2(silu(w1 h) · w3 h)``) or, given ``moe``,
+    the MoE (``moe_lib.moe_apply``) → residual. ``kind`` is ``"G"``
+    (global) or ``"L"`` (local, window-limited)."""
 
     def __init__(self, ln1: RMSNorm, ln2: RMSNorm, wq: Dense, wk: Dense,
-                 wv: Dense, wo: Dense, w1: Dense, w3: Dense, w2: Dense, *,
-                 kind: str):
+                 wv: Dense, wo: Dense, w1: Optional[Dense] = None,
+                 w3: Optional[Dense] = None, w2: Optional[Dense] = None, *,
+                 kind: str, moe: Optional[moe_lib.MoE] = None):
         super().__init__()
+        if (moe is None) == (w1 is None or w3 is None or w2 is None):
+            raise ValueError("a block holds the dense MLP (w1, w3, w2) or "
+                             "a MoE, not both")
         self.ln1, self.ln2 = ln1, ln2
         self.wq, self.wk, self.wv, self.wo = wq, wk, wv, wo
         self.w1, self.w3, self.w2 = w1, w3, w2
+        self.moe = moe
         self.kind = kind
 
-    def mlp(self, h: torch.Tensor) -> torch.Tensor:
-        return self.w2(layers.silu(self.w1(h)) * self.w3(h))
+    def ffn(self, h: torch.Tensor, cfg) -> Tuple[torch.Tensor, dict]:
+        """The feed-forward half on the normed ``h`` → ``(out, aux)``:
+        the MoE with ``cfg.moe`` (its routing group from h's shape), or
+        the dense MLP with zero aux."""
+        if self.moe is not None:
+            return moe_lib.moe_apply(self.moe, h, cfg.moe)
+        return (self.w2(layers.silu(self.w1(h)) * self.w3(h)),
+                _zero_aux(h.device))
 
 
 class LM(nn.Module):
@@ -186,9 +196,11 @@ class LM(nn.Module):
     def __init__(self, cfg, embed: torch.Tensor, blocks: Sequence[LMBlock],
                  final_norm: RMSNorm, unembed: Optional[torch.Tensor]):
         super().__init__()
-        _refuse_moe(cfg)
         if [b.kind for b in blocks] != list(cfg.pattern()):
             raise ValueError("the blocks' kinds do not follow cfg.pattern()")
+        if any((b.moe is not None) != cfg.is_moe for b in blocks):
+            raise ValueError("a MoE config's blocks hold MoEs, a dense "
+                             "config's dense MLPs")
         if (unembed is None) != bool(cfg.tie_embeddings):
             raise ValueError("an unembedding is given iff the embeddings "
                              "are not tied")
@@ -204,18 +216,27 @@ class LM(nn.Module):
 
 
 def _block_init(generator, cfg, kind, dtype) -> LMBlock:
+    """One layer in ``dtype``, each dense drawn in float32 and cast as it
+    is drawn; a MoE's router stays float32 (``moe_lib.moe_init``)."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     bias, dev = cfg.qkv_bias, generator.device
-    wq = layers.dense_init(generator, d, h * hd, bias=bias)
-    wk = layers.dense_init(generator, d, kv * hd, bias=bias)
-    wv = layers.dense_init(generator, d, kv * hd, bias=bias)
-    wo = layers.dense_init(generator, h * hd, d)
-    w1 = layers.dense_init(generator, d, cfg.d_ff)
-    w3 = layers.dense_init(generator, d, cfg.d_ff)
-    w2 = layers.dense_init(generator, cfg.d_ff, d)
-    return LMBlock(layers.norm_init(d, eps=cfg.norm_eps, device=dev),
-                   layers.norm_init(d, eps=cfg.norm_eps, device=dev),
-                   wq, wk, wv, wo, w1, w3, w2, kind=kind).to(dtype)
+
+    def dense(i, o, **kw):
+        return layers.dense_init(generator, i, o, **kw).to(dtype)
+    wq = dense(d, h * hd, bias=bias)
+    wk = dense(d, kv * hd, bias=bias)
+    wv = dense(d, kv * hd, bias=bias)
+    wo = dense(h * hd, d)
+    norms = [layers.norm_init(d, eps=cfg.norm_eps, device=dev).to(dtype)
+             for _ in range(2)]
+    if cfg.is_moe:
+        return LMBlock(*norms, wq, wk, wv, wo, kind=kind,
+                       moe=moe_lib.moe_init(generator, d, cfg.moe,
+                                            dtype=dtype))
+    w1 = dense(d, cfg.d_ff)
+    w3 = dense(d, cfg.d_ff)
+    w2 = dense(cfg.d_ff, d)
+    return LMBlock(*norms, wq, wk, wv, wo, w1, w3, w2, kind=kind)
 
 
 def lm_init(cfg, *, seed: int = 0, device="cuda") -> LM:
@@ -224,20 +245,22 @@ def lm_init(cfg, *, seed: int = 0, device="cuda") -> LM:
     ``N(0, 1/d)``, every dense kernel ``1/√fan_in`` (zero QKV biases when
     ``cfg.qkv_bias``), unit RMS norms, in ``cfg.param_dtype``. Drawn on
     ``device`` from a ``torch.Generator`` seeded with ``seed``: the
-    embedding, then per layer wq, wk, wv, wo, w1, w3, w2, then the
-    unembedding. Raises for a MoE config."""
-    _refuse_moe(cfg)
+    embedding, then per layer wq, wk, wv, wo and w1, w3, w2 (a MoE
+    config: the router, then the expert stacks ``moe_lib.moe_init``),
+    then the unembedding. The MoE's router stays float32."""
     dev = require_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     g = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
-    embed = layers.normal(g, (cfg.vocab_size, d), 1.0 / math.sqrt(d))
+    embed = layers.normal(g, (cfg.vocab_size, d),
+                          1.0 / math.sqrt(d)).to(dtype)
     blocks = [_block_init(g, cfg, kind, dtype) for kind in cfg.pattern()]
     unembed = (None if cfg.tie_embeddings else
-               layers.normal(g, (d, cfg.vocab_size), 1.0 / math.sqrt(d)))
-    return LM(cfg, embed.to(dtype), blocks,
+               layers.normal(g, (d, cfg.vocab_size),
+                             1.0 / math.sqrt(d)).to(dtype))
+    return LM(cfg, embed, blocks,
               layers.norm_init(d, eps=cfg.norm_eps, device=dev).to(dtype),
-              None if unembed is None else unembed.to(dtype))
+              unembed)
 
 
 def _qkv(blk: LMBlock, x, cfg, positions):
@@ -266,7 +289,8 @@ def _block_full(blk: LMBlock, x, cfg, *, return_cache=False, cache_len=0):
                                   window=cfg.window_size if local else 0,
                                   chunk=min(cfg.attn_chunk, s))
     x = x + blk.wo(o.reshape(b, s, -1))
-    x = x + blk.mlp(blk.ln2(x))
+    m, aux = blk.ffn(blk.ln2(x), cfg)
+    x = x + m
     cache = None
     if return_cache:
         if local:
@@ -282,7 +306,7 @@ def _block_full(blk: LMBlock, x, cfg, *, return_cache=False, cache_len=0):
             kc = nn.functional.pad(k, pad)
             vc = nn.functional.pad(v, pad)
         cache = {"k": kc, "v": vc}
-    return x, _zero_aux(x.device), cache
+    return x, aux, cache
 
 
 def _block_decode(blk: LMBlock, x, cache, pos, cfg):
@@ -303,7 +327,7 @@ def _block_decode(blk: LMBlock, x, cache, pos, cfg):
                                 window=cfg.window_size if local else 0,
                                 ring=local)
     x = x + blk.wo(o.reshape(b, 1, -1))
-    return x + blk.mlp(blk.ln2(x))
+    return x + blk.ffn(blk.ln2(x), cfg)[0]
 
 
 def _zero_aux(device) -> dict:
@@ -321,17 +345,19 @@ def lm_forward(model: LM, tokens, *, collect_cache: bool = False,
     """``tokens (B, S)`` → ``(hidden (B, S, d) after the final norm, aux,
     cache or None)``; the cache (one ``{"k", "v"}`` per layer) is
     allocated at ``cache_len`` for global layers. ``aux`` holds the MoE
-    losses, zero for a dense model."""
+    losses and ``drop_fraction``, each summed over the layers (the
+    reference's sum, not a mean), zero for a dense model."""
     cfg = model.cfg
-    _refuse_moe(cfg)
     x = _embed(model, tokens)
-    caches = []
+    caches, auxes = [], []
     for blk in model.blocks:
-        x, _, cache = _block_full(blk, x, cfg, return_cache=collect_cache,
-                                  cache_len=cache_len)
+        x, aux, cache = _block_full(blk, x, cfg, return_cache=collect_cache,
+                                    cache_len=cache_len)
         caches.append(cache)
+        auxes.append(aux)
     x = model.final_norm(x)
-    return x, _zero_aux(x.device), (caches if collect_cache else None)
+    aux = {k: torch.stack([a[k] for a in auxes]).sum() for k in auxes[0]}
+    return x, aux, (caches if collect_cache else None)
 
 
 def unembed_matrix(model: LM) -> torch.Tensor:
@@ -373,7 +399,6 @@ def lm_decode_step(model: LM, cache: List[dict], token, pos):
     """``token (B, 1)``, ``pos (B,)`` → ``(logits (B, V) f32, cache)``.
     The cache is updated in place and returned. Runs under ``no_grad``."""
     cfg = model.cfg
-    _refuse_moe(cfg)
     pos = torch.as_tensor(pos, device=model.device).long()
     x = _embed(model, token)
     for blk, c in zip(model.blocks, cache):

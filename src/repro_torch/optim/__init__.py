@@ -1,7 +1,9 @@
-"""Optimizer, gradient clipping and learning-rate schedules of the port
+"""Optimizers, gradient clipping and learning-rate schedules of the port
 (reference: ``repro.optim``): functions over lists of tensors, the
 reference's arithmetic."""
 from repro_torch.optim.optimizers import (  # noqa: F401
+    adafactor_init,
+    adafactor_update,
     adamw_init,
     adamw_update,
     clip_by_global_norm,

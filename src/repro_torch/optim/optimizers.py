@@ -1,10 +1,12 @@
-"""AdamW and global-norm clipping over lists of tensors (reference:
-``repro.optim.optimizers``).
+"""AdamW, Adafactor and global-norm clipping over lists of tensors
+(reference: ``repro.optim.optimizers``).
 
-``adamw_update`` writes the new values into the parameters themselves
-(under ``torch.no_grad``) and into the state's moment tensors; the
-arithmetic is the reference's, in float32, one multi-tensor op per step
-of the formula."""
+``adamw_update`` and ``adafactor_update`` write the new values into the
+parameters themselves (under ``torch.no_grad``) and into the state's
+tensors; the arithmetic is the reference's, in float32, the new value
+cast back to each parameter's dtype. AdamW runs one multi-tensor op per
+step of its formula, Adafactor one leaf at a time (its factored
+reductions differ by shape)."""
 from __future__ import annotations
 
 import functools
@@ -82,14 +84,70 @@ def adamw_update(grads: Sequence[torch.Tensor], state: dict,
     return state
 
 
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def adafactor_init(params: Sequence[torch.Tensor]) -> dict:
+    """``{"step": 0, "v": [...]}``: per parameter float32 zeros, factored
+    (``{"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}``) when its last
+    two axes both exceed 1, else ``{"v": shape}``. No first moment."""
+    def leaf(p):
+        z = functools.partial(torch.zeros, dtype=torch.float32,
+                              device=p.device)
+        if _factored(p.shape):
+            return {"vr": z(p.shape[:-1]),
+                    "vc": z(p.shape[:-2] + p.shape[-1:])}
+        return {"v": z(p.shape)}
+    return {"step": 0, "v": [leaf(p) for p in params]}
+
+
+@torch.no_grad()
+def adafactor_update(grads: Sequence[torch.Tensor], state: dict,
+                     params: Sequence[torch.Tensor], lr: float, *,
+                     decay_pow: float = 0.8, eps: float = 1e-30,
+                     clip_threshold: float = 1.0,
+                     weight_decay: float = 0.0) -> dict:
+    """One Adafactor step (β1 = 0): ``β2 = 1 − t^−decay_pow`` in float32;
+    the second moment of ``g² + eps`` kept as row and column means for a
+    factored leaf (its rank-1 reconstruction ``vr / mean(vr) ⊗ vc``),
+    whole otherwise; ``u = g / √(v + eps)`` clipped to an RMS of at most
+    ``clip_threshold``; ``p −= lr·(u + wd·p)``, the decay on ``ndim ≥ 2``
+    only, computed in float32 and cast back to p's dtype. Updates
+    ``params`` and ``state`` in place; returns ``state``."""
+    step = state["step"] + 1
+    b2 = np.float32(1.0) - np.power(np.float32(step), np.float32(-decay_pow))
+    beta2, rest = float(b2), float(np.float32(1.0) - b2)
+    for p, g, v in zip(params, grads, state["v"]):
+        g32 = g.float()
+        g2 = torch.square(g32) + eps
+        if _factored(p.shape):
+            vr = beta2 * v["vr"] + rest * g2.mean(dim=-1)
+            vc = beta2 * v["vc"] + rest * g2.mean(dim=-2)
+            del g2
+            r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+            u = g32 * torch.rsqrt(r[..., None] * vc[..., None, :] + eps)
+            v["vr"], v["vc"] = vr, vc
+        else:
+            vv = beta2 * v["v"] + rest * g2
+            del g2
+            u = g32 * torch.rsqrt(vv + eps)
+            v["v"] = vv
+        del g32
+        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        if weight_decay and p.ndim >= 2:
+            u = u + weight_decay * p.float()
+        p.copy_(p.float() - lr * u)
+    state["step"] = step
+    return state
+
+
 def make_optimizer(name: str, **kw) -> Tuple[Callable, Callable]:
-    """``(init_fn(params), update_fn(grads, state, params, lr))``. Only
-    ``"adamw"`` is ported: Adafactor serves the substrate's kimi config,
-    which waits in ROADMAP Queue A 12."""
+    """``(init_fn(params), update_fn(grads, state, params, lr))`` of
+    ``"adamw"`` or ``"adafactor"``, ``kw`` bound into the update."""
     if name == "adamw":
         return adamw_init, functools.partial(adamw_update, **kw)
     if name == "adafactor":
-        raise NotImplementedError(
-            "adafactor is not ported: it serves only the substrate's kimi "
-            "config (ROADMAP Queue A 12)")
+        return adafactor_init, functools.partial(adafactor_update, **kw)
     raise ValueError(f"unknown optimizer {name!r}")

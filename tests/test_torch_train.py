@@ -5,7 +5,7 @@ build and its artifacts are ``test_torch_build.py``'s.
 * the straight-through step, the contrastive loss (Eq. 8) in every
   spatial × weight mode and the MCL loss (Eq. 14): values and every
   gradient leaf at the reference's own params, converted;
-* AdamW, global-norm clipping and the four schedules;
+* AdamW, Adafactor, global-norm clipping and the four schedules;
 * the training batches and the draws of the classifier's batches;
 * both minings (TkQ hard negatives, Eq. 13 pseudo-negatives);
 * on the card: the losses and gradients against the CPU's.
@@ -339,9 +339,98 @@ def test_schedules_match_reference(name):
         assert got[0] == 0.0
 
 
-def test_adafactor_waits():
-    with pytest.raises(NotImplementedError, match="A 12"):
-        port_optim.make_optimizer("adafactor")
+# ---------------------------------------------------------------------------
+# Adafactor (tests/test_substrate.py's cases, and the port against the
+# reference)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_descends_quadratic(name):
+    """tests/test_substrate.py's case on the port: 200 steps at lr 5e-2
+    take Σ w² + Σ m² below 5% of its start."""
+    init, update = port_optim.make_optimizer(name, weight_decay=0.0)
+    params = [torch.tensor([3.0, -2.0]), torch.ones((4, 6)) * 2]
+    state = init(params)
+
+    def loss(ps):
+        return sum(torch.sum(p ** 2) for p in ps)
+    l0 = float(loss(params))
+    for _ in range(200):
+        update([2 * p for p in params], state, params, 5e-2)
+    assert float(loss(params)) < 0.05 * l0
+
+
+def test_adafactor_state_is_factored():
+    """tests/test_substrate.py's case on the port, and each state leaf of
+    the reference's shape."""
+    shapes = [(8, 16), (5,), (3, 4, 6), (1, 7), (9, 1)]
+    params = [torch.ones(s) for s in shapes]
+    init, _ = port_optim.make_optimizer("adafactor")
+    state = init(params)
+    v = state["v"]
+    assert v[0]["vr"].shape == (8,) and v[0]["vc"].shape == (16,)
+    assert v[1]["v"].shape == (5,)
+    assert v[2]["vr"].shape == (3, 4) and v[2]["vc"].shape == (3, 6)
+    n_state = sum(x.numel() for leaf in v for x in leaf.values())
+    n_param = sum(p.numel() for p in params)
+    assert n_state < 0.5 * n_param
+    with ref_on_cpu():
+        want = ref_opt.adafactor_init([jnp.ones(s) for s in shapes])
+    assert state["step"] == 0
+    for got, w in zip(v, want["v"]):
+        assert set(got) == set(w)
+        for key in w:
+            assert tuple(got[key].shape) == w[key].shape
+            assert got[key].dtype == torch.float32
+
+
+def _adafactor_case():
+    """Params of every state kind (factored 2-d and 3-d, a vector, a
+    degenerate matrix) and three steps of gradients."""
+    rng = np.random.default_rng(12)
+    shapes = [(6, 10), (3, 4, 5), (7,), (1, 8)]
+    params = [np.asarray(rng.normal(size=s), np.float32) for s in shapes]
+    grads = [[np.asarray(rng.normal(size=s) * 3, np.float32)
+              for s in shapes] for _ in range(3)]
+    return params, grads
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_adafactor_matches_reference(dtype, weight_decay):
+    """Three updates from equal params and gradients (the lr of a warmup
+    schedule at steps 1..3): f32 params and every state leaf at rtol
+    1e-6; bf16 params within one rounding of the reference's (each
+    update computed in f32 and cast back), the state at 1e-6."""
+    params, grads = _adafactor_case()
+    lrs = [1e-2 * (s + 1) / 3 for s in range(3)]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with ref_on_cpu():
+        p = [jnp.asarray(x, jdt) for x in params]
+        state = ref_opt.adafactor_init(p)
+        for g, lr in zip(grads, lrs):
+            p, state = ref_opt.adafactor_update(
+                [jnp.asarray(x, jdt) for x in g], state, p, lr,
+                weight_decay=weight_decay)
+    tp = [torch.tensor(x).to(tdt) for x in params]
+    init, update = port_optim.make_optimizer("adafactor",
+                                             weight_decay=weight_decay)
+    tstate = init(tp)
+    for g, lr in zip(grads, lrs):
+        update([torch.from_numpy(x).to(tdt) for x in g], tstate, tp, lr)
+    assert tstate["step"] == 3
+    for got, want in zip(tp, p):
+        assert got.dtype == tdt
+        want = np.asarray(jnp.asarray(want, jnp.float32))
+        tol = (dict(rtol=1e-6, atol=1e-7) if dtype == "float32"
+               else dict(rtol=2 ** -8, atol=0))
+        np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    for got, want in zip(tstate["v"], state["v"]):
+        for key in want:
+            np.testing.assert_allclose(got[key].numpy(),
+                                       np.asarray(want[key]), rtol=1e-6,
+                                       atol=1e-7)
 
 
 # ---------------------------------------------------------------------------
