@@ -226,10 +226,10 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    first layer's dispatch on 1,024 tokens with nothing dropped against
    ``moe_dense_plain`` in f32 (``MOE_ORACLE_TOL``), and on the no-drop
    twin (capacity_factor = E, 2 × 512) decode against ``lm_prefill``
-   under ``DECODE_BF16_GATE`` with the planted faults failing it, and the
-   f32 twin's ``decode_check``. (b) kimi-k2-1t-a32b at its full widths,
-   one layer (bf16, 38.8 GB): the same at 2 × 4,096 and a 1 × 128 twin,
-   no f32 twin (its expert stacks in f32 would take 67.6 GB). (c) gatedgcn
+   under ``MOE_TWIN_GATE`` with the planted faults failing it. (b)
+   kimi-k2-1t-a32b at its full widths, one layer (bf16, 38.8 GB): the
+   same at 2 × 4,096 and a 1 × 128 twin. Each prefill is timed after an
+   untimed one at its shape. (c) gatedgcn
    (16 layers, d 70): ``minibatch_lg`` (a reddit-size graph, its CSR and a
    1,024-seed (15, 10) sample, generation, CSR, sampling and forward timed
    apart), ``ogb_products`` full batch with the edges cut to what fits
@@ -237,8 +237,8 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    128-graph ``molecule`` batch, each forward and loss against the CPU.
    (d) one ``adafactor_update`` of a (64, 2,048, 1,408) leaf in f32 and
    bf16 against the CPU. Phase 3 also reads ``max_memory_allocated``
-   around one routed scan: it must stay below a (B, cr·cap, d) candidate
-   copy.
+   around one routed scan: it must stay below ``COPY_RISE_LIMIT``, a
+   small share of a (B, cr·cap, d) candidate copy.
 
 Prints a JSON line of phase 3's numbers, one of the write path's
 (``write_path``), one of the build's (``build``), one of the serving
@@ -852,14 +852,19 @@ def full_width_index(dev):
 
 
 N_FAN = 32                       # queries of the full fan-out (cr = c) run
+# the routed scan's rise of max_memory_allocated: it reads 2.4 MB (its
+# outputs and partial top-k, PERF.md §6) against a 30 GB (B, cr·cap, d)
+# candidate copy; a copy of even 0.2% of the candidates passes this
+COPY_RISE_LIMIT = 64 << 20
 
 
 def candidate_copy_check(q_emb, ql, w, top_c, buf, w_hat, *, k):
     """The torch analogue of the reference's jaxpr test
     (``test_pallas_jaxpr_has_no_candidate_gather``): one routed scan of
     the chunk on the card, and the rise of ``max_memory_allocated`` over
-    what was allocated before it; raises if it reaches the bytes of a
-    ``(B, cr·cap, d)`` copy of the routed candidates."""
+    what was allocated before it; raises if it reaches
+    ``COPY_RISE_LIMIT`` (recorded beside the bytes of a ``(B, cr·cap, d)``
+    copy of the routed candidates)."""
     import torch
     from repro_torch.kernels import fused_topk_score as fts
     b, cr = top_c.shape
@@ -873,16 +878,16 @@ def candidate_copy_check(q_emb, ql, w, top_c, buf, w_hat, *, k):
     torch.cuda.synchronize()
     rise = torch.cuda.max_memory_allocated() - base
     rec = dict(queries=b, cr=cr, capacity=cap, d=d, rise_bytes=rise,
-               candidate_copy_bytes=copy_bytes,
+               limit_bytes=COPY_RISE_LIMIT, candidate_copy_bytes=copy_bytes,
                rise_share=rise / copy_bytes)
-    if rise >= copy_bytes:
-        raise AssertionError(f"the routed scan's memory rose by {rise} B, a "
-                             f"(B, cr·cap, d) candidate copy is "
-                             f"{copy_bytes} B")
+    if rise >= COPY_RISE_LIMIT:
+        raise AssertionError(f"the routed scan's memory rose by {rise} B "
+                             f"(limit {COPY_RISE_LIMIT} B; a (B, cr·cap, d) "
+                             f"candidate copy is {copy_bytes} B)")
     log(f"phase 3 candidate-copy check: one routed f32 scan of {b} queries "
         f"(cr {cr}, cap {cap}, d {d}) raised max_memory_allocated by "
-        f"{rise} B, {rise / copy_bytes:.2e} of a {copy_bytes / 1e9:.1f} GB "
-        f"candidate copy")
+        f"{rise} B (limit {COPY_RISE_LIMIT} B), {rise / copy_bytes:.2e} of "
+        f"a {copy_bytes / 1e9:.1f} GB candidate copy")
     return rec
 N_TOMB = 300                     # tombstones of the mask build's timing
 
@@ -4584,12 +4589,10 @@ def logit_divergence(got, want):
                 of=int(diff.numel()))
 
 
-def decode_gate(served, faults, what, lim, faults_must_fail=True):
+def decode_gate(served, faults, what, lim):
     """Raises unless the served run and the sound single step pass the
     gate ``lim`` and every planted fault and the control fail it (so the
-    gate is shown, in each run, to catch what it is for). With
-    ``faults_must_fail`` false (another gate of the run holds the faults)
-    → the names of the faults this gate passes."""
+    gate is shown, in each run, to catch what it is for)."""
     def passes(r):
         return (r["max_abs_err"] <= lim["max_abs_err"]
                 and r["beyond_tol"] <= lim["beyond_frac"] * r["of"])
@@ -4601,10 +4604,9 @@ def decode_gate(served, faults, what, lim, faults_must_fail=True):
                 f"{r['beyond_tol']}/{r['of']} logits beyond {DECODE_TOL} "
                 f"(gate {lim})")
     missed = [n for n, r in faults.items() if n != "one_step" and passes(r)]
-    if missed and faults_must_fail:
+    if missed:
         raise AssertionError(f"{what}: the gate {lim} passes "
                              f"the planted faults {missed}: {faults}")
-    return missed
 
 
 def decode_check(model, toks, gen, what):
@@ -5082,11 +5084,18 @@ def phase10(dev):
 MOE_PLANS = {
     "moonshot-v1-16b-a3b": dict(layers=None, batch=8, prompt=4096,
                                 max_len=4096 + DECODE_STEPS, twin=(2, 512),
-                                oracle_cf=None, f32_twin=True),
+                                oracle_cf=None),
     "kimi-k2-1t-a32b": dict(layers=1, batch=2, prompt=4096,
                             max_len=4096 + DECODE_STEPS, twin=(1, 128),
-                            oracle_cf=48.0, f32_twin=False),
+                            oracle_cf=48.0),
 }
+# the no-drop twin's decode against lm_prefill (routes pinned). Moonshot's
+# sound runs read at most 0.057 and 1.54% beyond DECODE_TOL, its lost cache
+# write at least 0.063 and 2.77% (kimi: sound 0.034 / 0.012%, lost write
+# 0.74 / 80%; PERF.md §6, on an H100); the share's limit is the geometric
+# mean of 1.54% and 2.77% (2.06%), rounded up. DECODE_BF16_GATE's 10%
+# passes moonshot's lost write.
+MOE_TWIN_GATE = dict(max_abs_err=0.125, beyond_frac=0.021)
 MOE_MEMORY_SHARE = 0.85
 MOE_TRIAL_LAYERS = (1, 2)
 MOE_ORACLE_TOKENS = 1024
@@ -5111,19 +5120,19 @@ ADAFACTOR_LR = 1e-2
 
 
 class MoETap:
-    """Wraps ``models.moe.moe_apply`` (the function the LM blocks call)
-    and ``models.moe.route``: keeps each call's ``drop_fraction`` (a
-    tensor, no sync) and each route call's top-k ids and probabilities
-    (``routes``, cleared by the caller)."""
+    """Wraps ``models.moe.moe_apply`` (the function the LM blocks call):
+    keeps each call's ``drop_fraction`` (a tensor, no sync). With
+    ``routes`` it also wraps ``models.moe.route`` and keeps each call's
+    top-k ids and probabilities (``routes``, cleared by the caller)."""
 
-    def __init__(self):
+    def __init__(self, routes=False):
         from repro_torch.models import moe as moe_lib
         self.mod = moe_lib
         self.real_apply, self.real_route = moe_lib.moe_apply, moe_lib.route
-        self.drops, self.routes = [], []
+        self.drops, self.routes = [], [] if routes else None
 
-    def apply(self, moe, x, spec, **kw):
-        out, aux = self.real_apply(moe, x, spec, **kw)
+    def apply(self, moe, x, spec):
+        out, aux = self.real_apply(moe, x, spec)
         self.drops.append(aux["drop_fraction"].detach())
         return out, aux
 
@@ -5143,7 +5152,9 @@ class MoETap:
         return total
 
     def __enter__(self):
-        self.mod.moe_apply, self.mod.route = self.apply, self.route
+        self.mod.moe_apply = self.apply
+        if self.routes is not None:
+            self.mod.route = self.route
         return self
 
     def __exit__(self, *exc):
@@ -5337,11 +5348,9 @@ def moe_twin_gate(dev, model, plan, what):
     prefill the twin prompt, ``DECODE_STEPS`` greedy steps recording
     every layer's routes, then ``lm_prefill`` over all the tokens and
     the planted faults with those routes pinned (``RouteReplay``); the
-    last step against that prefill within ``DECODE_BF16_GATE``
-    (``decode_gate``; raises), and where planned the f32 twin's
-    ``decode_check``, whose gate the faults must then fail (else they
-    must fail the bf16 gate). Records the drops (must be 0), the routing
-    decisions the pin changed and the faults the bf16 gate passes."""
+    last step against that prefill within ``MOE_TWIN_GATE``, which the
+    planted faults must fail (``decode_gate``; raises). Records the drops
+    (must be 0) and the routing decisions the pin changed."""
     import torch
     from repro_torch.data.lm_data import LMStream
     from repro_torch.models import transformer as tf
@@ -5355,7 +5364,7 @@ def moe_twin_gate(dev, model, plan, what):
     b, s = plan["twin"]
     toks = torch.from_numpy(LMStream(cfg.vocab_size, seed=SEED + 1).batch(
         0, b, s)["tokens"][:, :s]).to(dev).long()
-    with MoETap() as mt:
+    with MoETap(routes=True) as mt:
         logits, cache = tf.lm_prefill(twin, toks, max_len=s + DECODE_STEPS)
         prompt, steps = list(mt.routes), []
         drops = [mt.take_drops()]
@@ -5392,14 +5401,7 @@ def moe_twin_gate(dev, model, plan, what):
         f"{served['of']} beyond {DECODE_TOL}; the pin changed "
         f"{replay.changed} of {replay.decisions} routing decisions (each "
         f"within the paths' drift); faults {brief}")
-    # the faults must fail a gate that can see them: the f32 twin's where
-    # there is one (at moonshot's widths a lost cache write moves the bf16
-    # logits no further than the two paths' rounding does)
-    rec["bf16_passes_faults"] = decode_gate(
-        served, faults, f"{what} no-drop twin", DECODE_BF16_GATE,
-        faults_must_fail=not plan["f32_twin"])
-    if plan["f32_twin"]:
-        rec["f32"] = decode_check(twin, toks, gen, f"{what} no-drop twin")
+    decode_gate(served, faults, f"{what} no-drop twin", MOE_TWIN_GATE)
     return rec
 
 
@@ -5439,6 +5441,10 @@ def p11_moe(dev, arch, plan):
     del params
     toks = torch.from_numpy(LMStream(cfg.vocab_size, seed=SEED).batch(
         0, b, p)["tokens"][:, :p]).to(dev).long()
+    # the timed prefill is not the first at its shapes (the products' and
+    # the allocator's first calls)
+    tf.lm_prefill(model, toks, max_len=plan["max_len"])
+    torch.cuda.empty_cache()
     with MoETap() as mt:
         logits, cache, tap, rec["prefill"] = lm_prefill_held(
             model, toks, plan["max_len"], {"G": 0}, f"{what} prefill")

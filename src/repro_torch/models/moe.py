@@ -126,15 +126,15 @@ def route(router: torch.Tensor, x: torch.Tensor, spec):
     return top_i, top_p, {"lb_loss": lb_loss, "z_loss": z_loss}
 
 
-def moe_apply(moe: MoE, x: torch.Tensor, spec, *, group: str = "seq"
+def moe_apply(moe: MoE, x: torch.Tensor, spec
               ) -> Tuple[torch.Tensor, dict]:
     """``x (B, S, d)`` → ``(out (B, S, d) in x's dtype, aux)``: the
-    capacity-limited dispatch of the module docstring. ``group="seq"``
-    with S > 1 routes each sequence as its own group; otherwise (decode)
-    the whole batch is one group. ``aux`` adds ``drop_fraction``, the
-    share of the T·k assignments past their expert's capacity."""
+    capacity-limited dispatch of the module docstring. With S > 1 each
+    sequence is its own routing group; with S == 1 (decode) the whole
+    batch is one group. ``aux`` adds ``drop_fraction``, the share of the
+    T·k assignments past their expert's capacity."""
     b, s, d = x.shape
-    xg = x if (group == "seq" and s > 1) else x.reshape(1, b * s, d)
+    xg = x if s > 1 else x.reshape(1, b, d)
     g, t, _ = xg.shape
     k, e = spec.top_k, spec.n_experts
     c = capacity(t, spec)

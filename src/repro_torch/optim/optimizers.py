@@ -84,6 +84,13 @@ def adamw_update(grads: Sequence[torch.Tensor], state: dict,
     return state
 
 
+# Adafactor's constants (the reference's defaults): β2 = 1 − t^−DECAY_POW,
+# the floor EPS under the second moment, the RMS clip of the update
+ADAFACTOR_DECAY_POW = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP = 1.0
+
+
 def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
@@ -105,18 +112,18 @@ def adafactor_init(params: Sequence[torch.Tensor]) -> dict:
 @torch.no_grad()
 def adafactor_update(grads: Sequence[torch.Tensor], state: dict,
                      params: Sequence[torch.Tensor], lr: float, *,
-                     decay_pow: float = 0.8, eps: float = 1e-30,
-                     clip_threshold: float = 1.0,
                      weight_decay: float = 0.0) -> dict:
-    """One Adafactor step (β1 = 0): ``β2 = 1 − t^−decay_pow`` in float32;
-    the second moment of ``g² + eps`` kept as row and column means for a
-    factored leaf (its rank-1 reconstruction ``vr / mean(vr) ⊗ vc``),
-    whole otherwise; ``u = g / √(v + eps)`` clipped to an RMS of at most
-    ``clip_threshold``; ``p −= lr·(u + wd·p)``, the decay on ``ndim ≥ 2``
-    only, computed in float32 and cast back to p's dtype. Updates
-    ``params`` and ``state`` in place; returns ``state``."""
+    """One Adafactor step (β1 = 0): ``β2 = 1 − t^−ADAFACTOR_DECAY_POW``
+    in float32; the second moment of ``g² + eps`` kept as row and column
+    means for a factored leaf (its rank-1 reconstruction ``vr / mean(vr)
+    ⊗ vc``), whole otherwise; ``u = g / √(v + eps)`` clipped to an RMS of
+    at most ``ADAFACTOR_CLIP``; ``p −= lr·(u + wd·p)``, the decay on
+    ``ndim ≥ 2`` only, computed in float32 and cast back to p's dtype.
+    Updates ``params`` and ``state`` in place; returns ``state``."""
+    eps = ADAFACTOR_EPS
     step = state["step"] + 1
-    b2 = np.float32(1.0) - np.power(np.float32(step), np.float32(-decay_pow))
+    b2 = np.float32(1.0) - np.power(np.float32(step),
+                                    np.float32(-ADAFACTOR_DECAY_POW))
     beta2, rest = float(b2), float(np.float32(1.0) - b2)
     for p, g, v in zip(params, grads, state["v"]):
         g32 = g.float()
@@ -135,7 +142,7 @@ def adafactor_update(grads: Sequence[torch.Tensor], state: dict,
             v["v"] = vv
         del g32
         rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
-        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        u = u / torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
         if weight_decay and p.ndim >= 2:
             u = u + weight_decay * p.float()
         p.copy_(p.float() - lr * u)
