@@ -239,16 +239,52 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    bf16 against the CPU. Phase 3 also reads ``max_memory_allocated``
    around one routed scan: it must stay below ``COPY_RISE_LIMIT``, a
    small share of a (B, cr·cap, d) candidate copy.
+12. The substrate's trainer (``repro_torch.launch``), its gradients through
+   the flash and dot twins' backward kernels. (a) The flash backward
+   kernel against its plain version on the inputs widened to f32, within
+   ``FLASH_BWD_REL`` (one rounding in 16 bits) + ``FLASH_BWD_ATOL`` of
+   each tensor's largest magnitude: f32 / bf16 / fp16 over
+   ``FLASH_BWD_SMALL`` (causal, window, MHA and GQA, ragged S, D 64 and
+   128), then stablelm-1.6b's layer (8 × 4,096, 32 / 32 heads, D 64) and
+   gemma3-27b's local layer (2 × 8,192, window 1,024) in bf16; the
+   forward's output bit-equal with and without lse; the kernel given lse
+   + ``FLASH_BWD_FAULT`` must fail the gate; once through
+   ``FlashAttentionFn`` under autograd; timed beside the bound, the plain
+   version and SDPA (forward + backward minus forward). (b) The dot
+   backward at B 65,536, F 27, d 128 against its plain version, timed
+   beside bmm with the symmetric matrix. (c) Every family's reduced config
+   (LMs in f32, stablelm with remat): loss and every gradient leaf on the
+   card against the same port code on the CPU (``GRAD_TOL``, TF32 off),
+   every leaf's card gradient nonzero, the twins' forward and backward
+   launched. (d) ``python -m repro_torch.launch.train`` (``TRAIN_ARGS``:
+   stablelm-1.6b full, 24 layers, remat, 8 × 4,096 in 2 microbatches, 6
+   steps) as a subprocess: the loss falls, flash launches 2 forwards and
+   one backward per layer and microbatch, step ms and its forward /
+   backward / optimizer split (CUDA events), tokens/s, model FLOPs over
+   989 TFLOP/s, peak GB from its ``summary`` line. (e) A 2-layer
+   full-width stablelm run straight for 6 steps and stopped at 3 with
+   ``--ckpt-dir`` and resumed: losses within ``RESUME_LOSS_RTOL``. (f)
+   dlrm-mlperf at full widths and B 65,536, tables capped at
+   ``DLRM_TRAIN_MAX_ROWS``: one dot forward and backward launch a step,
+   rows/s. (g) gatedgcn, xdeepfm, bert4rec and mind at full widths and
+   moonshot at full widths with 2 of 48 layers, a few steps each. (e)–(g)
+   run ``launch.train.main`` in process. The launches of (d)–(g) are the
+   backward kernels' main-path counts (``train_launches`` on the forward
+   rows). Phase 0's SASS check also wants tensor-core instructions in
+   every 16-bit backward instantiation.
 
 Prints a JSON line of phase 3's numbers, one of the write path's
 (``write_path``), one of the build's (``build``), one of the serving
 stack's (``serving``), one of phase 8's (``tools``), one of phase 9's
 (``sharded``), one of phase 10's (``substrate``), one of phase 11's
-(``moe_gnn``), one of per-kernel numbers (flash attention, dot
-interaction and embedding bag with ``launches`` on phase 10's and 11's
-paths and ``substrate_shapes``), then as its last line
-``{"ok": true, "device": {...}}``. Any
-failed check exits non-zero.
+(``moe_gnn``), one of phase 12's (``train``), one of per-kernel numbers
+(flash attention, dot interaction and embedding bag with ``launches`` on
+phase 10's and 11's paths and ``substrate_shapes``, and the two backward
+kernels with ``launches`` on phase 12's), then as its last line
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
+
+``--phase12`` runs phase 0 and phase 12 alone (its JSON, the backward
+kernels' rows and the last line).
 
 ``--compare`` times, on trees that share its wrappers: the gather scan on
 its full-width copies, the two engine scans on one chunk at two route
@@ -1159,13 +1195,17 @@ def flash_sass_check(lib_path):
             counts[name] += 1
     found = {}
     for tag, mangled in (("bfloat16", "13__nv_bfloat16"), ("float16", "6__half")):
-        fns = {n: c for n, c in counts.items()
-               if "flash_tc_kernel" in n and mangled in n}
-        if len(fns) != 4 or min(fns.values()) == 0:
-            raise AssertionError(f"flash {tag}: tensor-core instructions "
-                                 f"per instantiation {fns}; want HMMA or "
-                                 f"HGMMA in all four head dims")
-        found[tag] = sorted(fns.values())
+        for kern, n in (("flash_tc_kernel", 4), ("flash_bwd_dkdv_tc", 4),
+                        ("flash_bwd_dq_tc", 4)):
+            fns = {name: c for name, c in counts.items()
+                   if kern in name and mangled in name}
+            if len(fns) != n or min(fns.values()) == 0:
+                raise AssertionError(f"flash {kern} {tag}: tensor-core "
+                                     f"instructions per instantiation "
+                                     f"{fns}; want HMMA or HGMMA in all "
+                                     f"four head dims")
+            key = tag if kern == "flash_tc_kernel" else f"{kern}/{tag}"
+            found[key] = sorted(fns.values())
     return found
 
 
@@ -2093,11 +2133,12 @@ def step_tokens(rel, params, opt_state, opt_update, batch, lr, **kw):
                + batch["neg_mask"].sum())
 
 
-def grads_close(got, want):
+def grads_close(got, want, zero_suffix="wk.b"):
     """``got``, ``want``: ``{name: gradient}``. → max over leaves of |Δ| /
     (rtol·max|g_want| + atol); raises above 1. A key projection's bias
-    (``wk.b``) has a zero gradient in exact arithmetic (the softmax
-    cancels it): both sides must stay below rtol of the largest gradient."""
+    (a name ending in ``zero_suffix``; None for a model with RoPE) has a
+    zero gradient in exact arithmetic (the softmax cancels it): both sides
+    must stay below rtol of the largest gradient."""
     import numpy as np
     _, rtol, atol = GRAD_TOL
     if got.keys() != want.keys():
@@ -2106,7 +2147,7 @@ def grads_close(got, want):
     worst = 0.0
     for name, w in want.items():
         g = got[name]
-        if name.endswith("wk.b"):
+        if zero_suffix and name.endswith(zero_suffix):
             if max(float(g.abs().max()), float(w.abs().max())) > rtol * g_max:
                 raise AssertionError(f"gradient {name}: not zero")
             continue
@@ -3325,7 +3366,7 @@ class Tee:
         self.out.flush()
 
 
-def run_main(main, argv, what):
+def run_main(main, argv, what, phase="phase 8"):
     """``main(argv)`` in process, its output shown and kept: → (text,
     wall seconds). A non-zero return fails the phase."""
     import contextlib
@@ -3337,7 +3378,7 @@ def run_main(main, argv, what):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"phase 8 {what}: exit code {rc}")
+        raise AssertionError(f"{phase} {what}: exit code {rc}")
     return tee.buf.getvalue(), wall
 
 
@@ -5851,6 +5892,596 @@ def phase11(dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the substrate's trainer on the card, through the backward kernels
+# ---------------------------------------------------------------------------
+
+
+# flash backward against its plain version on the same inputs (the
+# kernel's own o and lse) widened to f32: |kernel - plain_f32| ≤
+# rel·|plain_f32| + FLASH_BWD_ATOL·max|plain_f32|, rel half a unit in the
+# last place of the 16-bit types (one rounding of f32 sums, as
+# FLASH_ONE_ROUNDING holds the forward) and FLASH_TOL's 2e-5 in f32; ≤ 1
+# passes. The planted fault (the kernel given lse + FLASH_BWD_FAULT, every
+# P off by 1%) must fail it.
+FLASH_BWD_REL = {"float32": 2e-5, "bfloat16": 2 ** -8, "float16": 2 ** -11}
+FLASH_BWD_ATOL = 1e-4
+FLASH_BWD_FAULT = 1e-2
+# (B, S, H, KV, D, causal, window): MHA and GQA, S not a multiple of the
+# tiles, windows, D 64 and 128, causal and not
+FLASH_BWD_SMALL = [(2, 100, 4, 4, 64, True, 0), (1, 77, 4, 2, 64, True, 0),
+                   (2, 130, 8, 2, 64, True, 24), (1, 200, 2, 2, 128, True, 0),
+                   (1, 129, 4, 1, 128, True, 40),
+                   (1, 64, 2, 2, 128, False, 0),
+                   (1, 90, 4, 2, 64, False, 17)]
+# stablelm-1.6b's layer at the trainer's 8 × 4,096 and gemma3-27b's local
+# layer at 2 × 8,192 (window 1,024), bf16
+FLASH_BWD_MAIN = {"stablelm-1.6b": dict(b=8, s=4096, h=32, kv=32, d=64,
+                                        window=0),
+                  "gemma3-27b-local": dict(b=2, s=8192, h=32, kv=16, d=128,
+                                           window=1024)}
+BWD_PLAIN_SCORES = 1 << 27       # f32 scores per block of the plain backward
+DOT_BWD = dict(b=65_536, f=27, d=128)   # dlrm-mlperf's train_batch, f32
+# (c): every family's reduced config, its gradients on the card against the
+# same port code on the CPU (f32 compute, TF32 off, GRAD_TOL); gatedgcn on
+# the molecule batch, whose edge features reach edge_in (the community
+# graph has none, so edge_in and the first layer's C get no gradient there)
+P12_FAMILIES = ("stablelm-1.6b", "gemma3-27b", "moonshot-v1-16b-a3b",
+                "dlrm-mlperf", "xdeepfm", "bert4rec", "mind", "gatedgcn")
+P12_GRAD_BATCH = dict(batch=4, seq_len=64, gnn_shape="molecule")
+# (d): the trainer's entry point at stablelm-1.6b's full config, remat on
+TRAIN_ARGS = ["--arch", "stablelm-1.6b", "--full", "--steps", "6",
+              "--batch", "8", "--seq-len", "4096", "--microbatch", "2",
+              "--log-every", "1"]
+# (e): a 2-layer full-width stablelm stopped after RESUME_STOP steps and
+# resumed, against a run straight through; the losses agree within
+# RESUME_LOSS_RTOL (the embedding's gradient is a scatter with float
+# atomics, so two runs on the card differ in the last bits)
+RESUME_LAYERS = 2
+RESUME_STOP, RESUME_STEPS = 3, 6
+RESUME_ARGS = ["--arch", "stablelm-1.6b", "--full", "--batch", "8",
+               "--seq-len", "1024", "--log-every", "1", "--ckpt-every",
+               "100"]                # only each run's final state is saved
+RESUME_LOSS_RTOL = 1e-3
+# (f): dlrm-mlperf at its full widths and train_batch; each table capped
+# at DLRM_TRAIN_MAX_ROWS so f32 params, gradients and AdamW's moments and
+# temporaries (≈ 28 B an element at the update's peak) fit the card
+DLRM_TRAIN_MAX_ROWS = 2_000_000
+DLRM_TRAIN_ARGS = ["--arch", "dlrm-mlperf", "--full", "--batch", "65536",
+                   "--steps", "4", "--log-every", "1"]
+# (g): the others at full widths, the trainer's default batch; moonshot
+# with MOE_TRAIN_LAYERS of its 48 layers
+MOE_TRAIN_LAYERS = 2
+OTHER_TRAIN = ("gatedgcn", "xdeepfm", "bert4rec", "mind",
+               "moonshot-v1-16b-a3b")
+OTHER_STEPS = 4
+
+
+def bwd_excess(got, want, dtype):
+    """max |got − want| / (rel·|want| + FLASH_BWD_ATOL·max|want|)."""
+    a = FLASH_BWD_ATOL * float(want.abs().max())
+    return float(((got.float() - want).abs()
+                  / (FLASH_BWD_REL[dtype] * want.abs() + a)).max())
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, kw):
+    """``flash_attention_backward_plain`` on the inputs widened to f32, a
+    sequence and a block of KV heads (at most ``BWD_PLAIN_SCORES`` scores)
+    at a time → f32 ``(dq, dk, dv)``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, d = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    per = max(1, BWD_PLAIN_SCORES // (g * s * s))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty(x.shape, **f32) for x in (q, k, v))
+    for i in range(b):
+        for j0 in range(0, n_kv, per):
+            j1 = min(n_kv, j0 + per)
+            hs, ks = slice(j0 * g, j1 * g), slice(j0, j1)
+            r = fa.flash_attention_backward_plain(
+                q[i:i + 1, :, hs].float(), k[i:i + 1, :, ks].float(),
+                v[i:i + 1, :, ks].float(), o[i:i + 1, :, hs].float(),
+                lse[i:i + 1, hs].contiguous(), do[i:i + 1, :, hs].float(),
+                **kw)
+            dq[i:i + 1, :, hs], dk[i:i + 1, :, ks], dv[i:i + 1, :, ks] = r
+    return dq, dk, dv
+
+
+def flash_bwd_gate(q, k, v, do, kw, what):
+    """The forward with and without lse (outputs bit-equal), the backward
+    kernel against the plain version (the gate), the planted fault (must
+    fail it) → ``(record, kernel inputs)``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = kw["causal"], kw["window"]
+    dt = str(q.dtype).split(".")[1]
+    o, lse = fa._launch(q, k, v, causal, window, True)
+    if not torch.equal(o, fa._launch(q, k, v, causal, window, False)[0]):
+        raise AssertionError(f"phase 12 (a) {what}: the forward's output "
+                             f"changes when it writes lse")
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    bad = fa.flash_attention_backward(q, k, v, o, lse + FLASH_BWD_FAULT, do,
+                                      **kw)
+    torch.cuda.synchronize()
+    want = flash_bwd_plain(q, k, v, o, lse, do, kw)
+    rec = dict(excess={}, fault_excess={}, err=0.0)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, bad):
+        rec["excess"][name] = bwd_excess(g, w, dt)
+        rec["fault_excess"][name] = bwd_excess(x, w, dt)
+        rec["err"] = max(rec["err"], float((g.float() - w).abs().max()))
+    if not max(rec["excess"].values()) <= 1.0:
+        raise AssertionError(f"phase 12 (a) {what}: |kernel − plain| is "
+                             f"{rec['excess']}× the gate")
+    if not min(rec["fault_excess"].values()) > 1.0:
+        raise AssertionError(f"phase 12 (a) {what}: the planted lse fault "
+                             f"passes the gate ({rec['fault_excess']})")
+    del want, bad
+    return rec, (o, lse)
+
+
+def sdpa_backward_ms(q, k, v, do, kw):
+    """SDPA's forward + backward minus its forward, under autograd, K/V
+    expanded to the query heads (outside the timing)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    s, h = q.shape[1], q.shape[2]
+    g = h // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).detach()
+              .requires_grad_() for x in (k, v))
+    dot = do.transpose(1, 2)
+    if kw["window"]:
+        mask = fa.attention_mask(s, s, causal=True, window=kw["window"],
+                                 device=q.device)
+        fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask)
+    else:
+        fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+    t_fwd = time_ms(fwd, reps=3)
+    t_both = time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot),
+                     reps=3)
+    return dict(library_ms=t_both - t_fwd, library_fwd_ms=t_fwd,
+                library_fwd_bwd_ms=t_both)
+
+
+def p12_flash(dev):
+    """(a) The flash backward kernel against its plain version: the small
+    shapes in f32 / bf16 / fp16 (and once through ``FlashAttentionFn``
+    under autograd), then stablelm's and gemma3's local layer in bf16,
+    timed beside its bound, the plain version and SDPA."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rec = dict(small={}, main={})
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for case in FLASH_BWD_SMALL:
+            b, s, h, kv, d, causal, window = case
+            q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
+            do = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+            kw = dict(causal=causal, window=window)
+            key = f"{str(dtype).split('.')[1]}/{b}x{s}/{h}-{kv}/d{d}/" \
+                  f"{'causal' if causal else 'full'}/w{window}"
+            rec["small"][key], _ = flash_bwd_gate(q, k, v, do, kw, key)
+    # once under autograd, on the last small case: FlashAttentionFn
+    # launches the forward with lse and the backward kernel, and gives the
+    # kernel's gradients
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(fa.launches)
+    out = fa.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, do)
+    o, lse = fa._launch(q, k, v, kw["causal"], kw["window"], True)
+    direct = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    n = {key: fa.launches[key] - before[key] for key in before}
+    if n["flash_attention_backward"] != 2 or not all(
+            torch.equal(a, b_) for a, b_ in zip(grads, direct)):
+        raise AssertionError(f"phase 12 (a): FlashAttentionFn launches {n} "
+                             f"or its gradients differ from the kernel's")
+    worst = max(max(r["excess"].values()) for r in rec["small"].values())
+    fault = min(min(r["fault_excess"].values())
+                for r in rec["small"].values())
+    log(f"phase 12 (a) flash backward, {len(rec['small'])} small cases: "
+        f"largest excess {worst:.3f} of the gate, the planted lse fault at "
+        f"least {fault:.2f}×")
+    for name, c in FLASH_BWD_MAIN.items():
+        b, s, h, kv, d, w = (c[x] for x in ("b", "s", "h", "kv", "d",
+                                            "window"))
+        kw = dict(causal=True, window=w)
+        q = torch.randn(b, s, h, d, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        k = torch.randn(b, s, kv, d, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn(b, s, kv, d, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        do = torch.randn(b, s, h, d, generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        r, (o, lse) = flash_bwd_gate(q, k, v, do, kw, name)
+        r["shape"] = [b, s, h, kv, d]
+        r["window"] = w
+        r["ms"] = time_ms(lambda: fa.flash_attention_backward(
+            q, k, v, o, lse, do, **kw), reps=3)
+        r["forward_lse_ms"] = time_ms(lambda: fa._launch(
+            q, k, v, True, w, True), reps=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flash_bwd_plain(q, k, v, o, lse, do, kw)
+        torch.cuda.synchronize()
+        r["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        r.update(sdpa_backward_ms(q, k, v, do, kw))
+        pairs = causal_pairs(s, w) * h * b
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + lse.numel() * 4
+        # 5 products of 2·d flops per unmasked pair: S again, dP, dV, dK, dQ
+        r.update(roof(nbytes, 10 * d * pairs, BF16_FLOPS_PER_S))
+        r["x_bound"] = r["ms"] / r["bound_ms"]
+        rec["main"][name] = r
+        record(f"phase 12 (a) flash backward {name} {b}×{s} H {h}/{kv} D {d}"
+               f" w {w}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f}, "
+               f"×{r['x_bound']:.1f}; plain {r['plain_ms']:.1f}, SDPA "
+               f"backward {r['library_ms']:.3f}); excess "
+               f"{max(r['excess'].values()):.3f}, planted fault "
+               f"{min(r['fault_excess'].values()):.2f}")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    rec["err"] = max(r["err"] for part in ("small", "main")
+                     for r in rec[part].values())
+    return rec
+
+
+def p12_dot(dev):
+    """(b) The dot-interaction backward at dlrm-mlperf's train_batch (B
+    65,536, F 27, d 128, f32) against its plain version, timed beside its
+    bound, the plain version and one bmm with the symmetric matrix."""
+    import torch
+    from repro_torch.kernels import dot_interaction as di
+    b, f, d = DOT_BWD["b"], DOT_BWD["f"], DOT_BWD["d"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(b, f, d, generator=g, device=dev)
+    gr = torch.randn(b, f * (f - 1) // 2, generator=g, device=dev)
+    got = di.dot_interaction_backward(x, gr)
+    want = di.dot_interaction_backward_plain(x, gr)
+    err = (got - want).abs()
+    if (err > DOT_TOL + DOT_TOL * want.abs()).any():
+        raise AssertionError(f"phase 12 (b): dot backward differs from plain"
+                             f" by {err.max().item()}")
+    iu, ju = di.triu_pairs(f, dev)
+    gsym = torch.zeros((b, f, f), device=dev)
+    gsym[:, iu, ju] = gr
+    gsym = gsym + gsym.transpose(1, 2)
+    rec = dict(shape=[b, f, d], err=float(err.max()),
+               ms=time_ms(lambda: di.dot_interaction_backward(x, gr),
+                          reps=10),
+               plain_ms=time_ms(lambda: di.dot_interaction_backward_plain(
+                   x, gr), reps=3),
+               library_ms=time_ms(lambda: torch.bmm(gsym, x), reps=10))
+    nbytes = (2 * x.numel() + gr.numel()) * 4
+    rec.update(roof(nbytes, 2 * f * f * d * b, F32_FLOPS_PER_S))
+    rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    record(f"phase 12 (b) dot backward B {b} F {f} d {d}: {rec['ms']:.3f} "
+           f"ms (bound {rec['bound_ms']:.3f} by {rec['bound_by']}, "
+           f"×{rec['x_bound']:.2f}; plain {rec['plain_ms']:.3f}, bmm "
+           f"{rec['library_ms']:.3f}); max |Δ| {rec['err']:.3g}")
+    return rec
+
+
+def _named_leaves(params, prefix=""):
+    """``{name: tensor}`` of a module's parameters or a nested dict's
+    leaves (dotted paths)."""
+    import torch
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    if isinstance(params, dict):
+        return {n: t for k in sorted(params)
+                for n, t in _named_leaves(params[k], f"{prefix}{k}.").items()}
+    if isinstance(params, (list, tuple)):
+        return {n: t for i, x in enumerate(params)
+                for n, t in _named_leaves(x, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: params}
+
+
+def _tree_to(tree, dev):
+    """A nested dict / list of tensors copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _train_args(**kw):
+    import argparse
+    base = dict(batch=8, seq_len=128, seed=SEED, gnn_shape="full_graph_sm")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def p12_grads(dev):
+    """(c) Every family's reduced config (LMs in f32, stablelm with remat):
+    loss and every gradient leaf on the card against the same port code on
+    the CPU, TF32 off; every leaf's card gradient nonzero; the flash and
+    dot twins' forward and backward launched."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import steps, train
+    rec = {}
+    for arch in P12_FAMILIES:
+        cfg = reduced(get_config(arch))
+        if cfg.family == "lm":
+            cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                      remat=arch == "stablelm-1.6b")
+        args = _train_args(**P12_GRAD_BATCH)
+        init_fn, loss_fn, batch_fn = train._train_fns(cfg, args, "cpu")
+        host = init_fn(SEED)
+        batch = batch_fn(0)
+        out = {}
+        for side in ("cpu", dev):
+            params = (copy.deepcopy(host).to(side)
+                      if isinstance(host, torch.nn.Module)
+                      else _tree_to(host, side))
+            kops.reset_launch_counts()
+            loss, _, grads = steps.loss_and_grads(
+                loss_fn, params, train._on_device(batch, side))
+            names = list(_named_leaves(params))
+            out[str(side)] = (float(loss), dict(zip(names, grads)),
+                              kops.launch_counts())
+        (cl, cg, _), (gl, gg, launches) = out["cpu"], out[str(dev)]
+        if abs(gl - cl) > GRAD_TOL[0] * max(1.0, abs(cl)):
+            raise AssertionError(f"phase 12 (c) {arch}: loss {gl} on the "
+                                 f"card, {cl} on the CPU")
+        zero = [n for n, t in gg.items() if not bool(t.ne(0).any())]
+        if zero:
+            raise AssertionError(f"phase 12 (c) {arch}: no gradient on the "
+                                 f"card for {zero}")
+        worst = grads_close(gg, cg, zero_suffix=None if cfg.family == "lm"
+                            else "wk.b")
+        want = {}
+        if cfg.family == "lm":
+            want = {"flash_attention": cfg.n_layers * (2 if cfg.remat else 1),
+                    "flash_attention_backward": cfg.n_layers}
+        elif arch == "dlrm-mlperf":
+            want = {"dot_interaction": 1, "dot_interaction_backward": 1}
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"phase 12 (c) {arch}: launches {launches},"
+                                 f" want {want}")
+        rec[arch] = dict(loss=gl, leaves=len(gg), worst_over_tol=worst,
+                         launches={k: launches[k] for k in want})
+    record(f"phase 12 (c) gradients on the card = the CPU's for "
+           f"{len(rec)} families, every leaf nonzero: " + ", ".join(
+               f"{a} {r['leaves']} leaves ×{r['worst_over_tol']:.2f}"
+               for a, r in rec.items()))
+    return rec
+
+
+def flag(argv, name):
+    """The int value of ``name`` in ``argv``."""
+    return int(argv[argv.index(name) + 1])
+
+
+def train_summary(text, what):
+    import json
+    line = next((x for x in text.splitlines() if x.startswith("summary ")),
+                None)
+    if line is None:
+        raise AssertionError(f"phase 12 {what}: no summary line")
+    return json.loads(line[len("summary "):])
+
+
+def _medians(summary, skip=1):
+    """Median step and split ms over the steps after the first ``skip``."""
+    steps_ = summary["step_ms"][skip:] or summary["step_ms"]
+    out = dict(step_ms=median(steps_))
+    for k, xs in summary["split_ms"].items():
+        xs = xs[skip:] or xs
+        out[f"{k}_ms"] = median(xs)
+    return out
+
+
+def p12_stablelm(dev):
+    """(d) ``python -m repro_torch.launch.train`` at stablelm-1.6b's full
+    config (24 layers, remat) at 8 × 4,096 in 2 microbatches, as a
+    subprocess: its loss falls, flash launches 2 forwards (remat) and one
+    backward per layer and microbatch; step ms and its split, tokens/s,
+    model FLOPs over the step and 989 TFLOP/s, peak GB."""
+    import os
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config("stablelm-1.6b")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *TRAIN_ARGS], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=SUBPROCESS_TIMEOUT)
+    wall = time.perf_counter() - t0
+    tail = "\n".join(p.stdout.strip().splitlines()[-10:-1])
+    log(f"phase 12 (d) launch.train {' '.join(TRAIN_ARGS)}: exit "
+        f"{p.returncode} in {wall:.1f} s\n{tail}")
+    if p.returncode:
+        log(p.stderr[-4000:])
+        raise AssertionError(f"phase 12 (d): exit code {p.returncode}")
+    s = train_summary(p.stdout, "(d)")
+    n_steps, b, seq, mb = (flag(TRAIN_ARGS, k) for k in (
+        "--steps", "--batch", "--seq-len", "--microbatch"))
+    want = {"flash_attention": cfg.n_layers * mb * 2 * n_steps,
+            "flash_attention_backward": cfg.n_layers * mb * n_steps}
+    if any(s["launches"][k] != n for k, n in want.items()):
+        raise AssertionError(f"phase 12 (d): launches {s['launches']}, want "
+                             f"{want}")
+    losses = s["losses"]
+    if not (losses[-1] < losses[0] and "(improved)" in p.stdout):
+        raise AssertionError(f"phase 12 (d): the loss did not fall {losses}")
+    rec = dict(wall_s=wall, losses=losses, launches=s["launches"],
+               peak_gb=s["peak_gb"], n_params=s["n_params"],
+               device_name=s["device_name"], step_ms_all=s["step_ms"],
+               split_ms_all=s["split_ms"], **_medians(s))
+    tokens = b * seq
+    pairs = causal_pairs(seq, 0) * b * cfg.n_heads
+    # 6·N·tokens for the dense products (forward + backward), and the
+    # attention's 4·d per unmasked pair three times over
+    rec["model_flops"] = 6 * s["n_params"] * tokens \
+        + 3 * 4 * cfg.head_dim * pairs * cfg.n_layers
+    rec["tokens_per_s"] = tokens / (rec["step_ms"] / 1e3)
+    rec["flops_share"] = rec["model_flops"] / (rec["step_ms"] / 1e3) \
+        / BF16_FLOPS_PER_S
+    record(f"phase 12 (d) stablelm-1.6b full, {b} × {seq:,} ({mb} "
+           f"microbatches, remat): step {rec['step_ms']:.0f} ms median (forward "
+           f"{rec['forward_ms']:.0f}, backward {rec['backward_ms']:.0f}, "
+           f"optimizer {rec['optimizer_ms']:.0f}), {rec['tokens_per_s']:.0f}"
+           f" tokens/s, model FLOPs {rec['model_flops'] / 1e12:.1f} T = "
+           f"{rec['flops_share']:.3f} of 989 TFLOP/s, peak "
+           f"{rec['peak_gb']:.1f} GB; loss {losses[0]:.4f} -> "
+           f"{losses[-1]:.4f}; launches {s['launches']}")
+    return rec
+
+
+class PatchedConfig:
+    """``launch.train.get_config`` patched for the run: ``edit(cfg)``
+    applied to the config it returns."""
+
+    def __init__(self, edit):
+        from repro_torch.launch import train
+        self.train, self.real, self.edit = train, train.get_config, edit
+
+    def __enter__(self):
+        self.train.get_config = lambda arch: self.edit(self.real(arch))
+        return self
+
+    def __exit__(self, *exc):
+        self.train.get_config = self.real
+
+
+def p12_resume(dev, tmp):
+    """(e) A 2-layer full-width stablelm: 6 steps straight through, and 3
+    steps with ``--ckpt-dir``, a stop, and a resume to 6; the losses of
+    both runs agree within ``RESUME_LOSS_RTOL``."""
+    import os
+    import shutil
+    from repro_torch.launch import train
+    ck = os.path.join(tmp, "resume_ckpt")
+    edit = lambda c: dataclasses.replace(c, n_layers=RESUME_LAYERS)  # noqa
+    with PatchedConfig(edit):
+        whole = train_summary(run_main(train.main, RESUME_ARGS + [
+            "--steps", str(RESUME_STEPS)], "(e) straight", "phase 12")[0],
+            "(e)")
+        first = train_summary(run_main(train.main, RESUME_ARGS + [
+            "--steps", str(RESUME_STOP), "--ckpt-dir", ck], "(e) stop",
+            "phase 12")[0], "(e)")
+        text, _ = run_main(train.main, RESUME_ARGS + [
+            "--steps", str(RESUME_STEPS), "--ckpt-dir", ck], "(e) resume",
+            "phase 12")
+        second = train_summary(text, "(e)")
+    shutil.rmtree(ck, ignore_errors=True)
+    if f"resumed from step {RESUME_STOP}" not in text:
+        raise AssertionError("phase 12 (e): the run did not resume")
+    got = first["losses"] + second["losses"]
+    want = whole["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    if len(got) != len(want) or max(rel) > RESUME_LOSS_RTOL:
+        raise AssertionError(f"phase 12 (e): resumed losses {got} against "
+                             f"{want}")
+    rec = dict(losses_straight=want, losses_resumed=got, max_rel=max(rel),
+               launches=second["launches"], first_launches=first["launches"],
+               straight_launches=whole["launches"], **_medians(whole))
+    record(f"phase 12 (e) resume at step {RESUME_STOP} of a {RESUME_LAYERS}"
+           f"-layer full-width stablelm: losses within {max(rel):.2e} "
+           f"(limit {RESUME_LOSS_RTOL}) of the straight run")
+    return rec
+
+
+def p12_dlrm(dev):
+    """(f) dlrm-mlperf at full widths and its train_batch (tables capped at
+    ``DLRM_TRAIN_MAX_ROWS``): one dot forward and one backward launch per
+    step, rows/s."""
+    from repro_torch.launch import train
+    edit = lambda c: dataclasses.replace(c, table_sizes=tuple(  # noqa: E731
+        min(v, DLRM_TRAIN_MAX_ROWS) for v in c.table_sizes))
+    with PatchedConfig(edit):
+        text, wall = run_main(train.main, DLRM_TRAIN_ARGS, "(f)",
+                              "phase 12")
+    s = train_summary(text, "(f)")
+    n, b = flag(DLRM_TRAIN_ARGS, "--steps"), flag(DLRM_TRAIN_ARGS, "--batch")
+    if (s["launches"]["dot_interaction"], s["launches"][
+            "dot_interaction_backward"]) != (n, n):
+        raise AssertionError(f"phase 12 (f): launches {s['launches']}, want "
+                             f"{n} dot forward and backward")
+    rec = dict(losses=s["losses"], launches=s["launches"],
+               peak_gb=s["peak_gb"], n_params=s["n_params"],
+               table_cap=DLRM_TRAIN_MAX_ROWS, **_medians(s))
+    rec["rows_per_s"] = b / (rec["step_ms"] / 1e3)
+    record(f"phase 12 (f) dlrm-mlperf B {b}, tables ≤ {DLRM_TRAIN_MAX_ROWS:,}"
+           f" rows ({s['n_params'] / 1e9:.2f} B params): step "
+           f"{rec['step_ms']:.1f} ms (forward {rec['forward_ms']:.1f}, "
+           f"backward {rec['backward_ms']:.1f}, optimizer "
+           f"{rec['optimizer_ms']:.1f}), {rec['rows_per_s']:.0f} rows/s, "
+           f"peak {rec['peak_gb']:.1f} GB")
+    return rec
+
+
+def p12_others(dev):
+    """(g) gatedgcn, xdeepfm, bert4rec and mind at full widths, moonshot
+    at full widths with ``MOE_TRAIN_LAYERS`` layers: a few steps each."""
+    from repro_torch.launch import train
+    rec = {}
+    for arch in OTHER_TRAIN:
+        edit = (lambda c: dataclasses.replace(c, n_layers=MOE_TRAIN_LAYERS)
+                ) if arch.startswith("moonshot") else (lambda c: c)
+        argv = ["--arch", arch, "--full", "--steps", str(OTHER_STEPS),
+                "--log-every", "1"]
+        with PatchedConfig(edit):
+            text, wall = run_main(train.main, argv, f"(g) {arch}",
+                                  "phase 12")
+        s = train_summary(text, f"(g) {arch}")
+        if not all(math.isfinite(x) for x in s["losses"]):
+            raise AssertionError(f"phase 12 (g) {arch}: losses {s['losses']}")
+        rec[arch] = dict(losses=s["losses"], launches=s["launches"],
+                         peak_gb=s["peak_gb"], n_params=s["n_params"],
+                         wall_s=wall, **_medians(s))
+    record("phase 12 (g) " + "; ".join(
+        f"{a} {r['n_params'] / 1e6:.1f}M params {r['step_ms']:.1f} ms a step"
+        f" (peak {r['peak_gb']:.1f} GB)" for a, r in rec.items()))
+    return rec
+
+
+def phase12(dev):
+    """The substrate's trainer on the card: (a) the flash and (b) the dot
+    backward kernels against their plain versions, (c) every family's
+    gradients on the card against the CPU's, (d) launch.train at
+    stablelm-1.6b's full config as a subprocess, (e) a resume, (f) DLRM at
+    its train_batch, (g) the other families. The launches of (d)–(g), the
+    trainer's runs, are the backward kernels' main-path counts."""
+    import tempfile
+    import torch
+    rec = dict(card=CARD)
+    t0 = time.perf_counter()
+    rec["flash"] = p12_flash(dev)
+    rec["dot"] = p12_dot(dev)
+    rec["grads"] = p12_grads(dev)
+    rec["checks_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    rec["stablelm"] = p12_stablelm(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["resume"] = p12_resume(dev, tmp)
+    torch.cuda.empty_cache()
+    rec["dlrm"] = p12_dlrm(dev)
+    torch.cuda.empty_cache()
+    rec["others"] = p12_others(dev)
+    runs = [rec["stablelm"]["launches"], rec["resume"]["launches"],
+            rec["resume"]["first_launches"],
+            rec["resume"]["straight_launches"], rec["dlrm"]["launches"]] + [
+        r["launches"] for r in rec["others"].values()]
+    rec["launches"] = {k: sum(r[k] for r in runs) for k in runs[0]}
+    rec["peak_gb"] = max([rec["stablelm"]["peak_gb"], rec["dlrm"]["peak_gb"]]
+                         + [r["peak_gb"] for r in rec["others"].values()])
+    return rec
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
     card (parent / change / change / parent). The gather scan on its
@@ -5954,6 +6585,61 @@ def delta_walls(dev, fi, reps=2):
     return out
 
 
+def backward_rows(p12):
+    """The kernels line's rows of the two backward kernels, from phase 12:
+    ``launches`` on the trainer's runs (d)–(g), times at their main
+    shapes."""
+    csrc = "src/repro_torch/kernels/csrc/"
+    note = ("backward; no Pallas counterpart: the reference differentiates "
+            "its jnp path")
+    flash = p12["flash"]["main"]
+    main_f = flash["stablelm-1.6b"]
+    fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "x_bound", "shape", "window", "excess", "fault_excess",
+              "library_fwd_ms", "library_fwd_bwd_ms", "forward_lse_ms")
+    dot = p12["dot"]
+    return [
+        {"name": "flash_attention_backward", "route": "cuda",
+         "source": csrc + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:82",
+         "replaces_note": note,
+         "launches": p12["launches"]["flash_attention_backward"],
+         "max_abs_err": p12["flash"]["err"], "ms": main_f["ms"],
+         "plain_ms": main_f["plain_ms"], "bound_ms": main_f["bound_ms"],
+         "bound_by": main_f["bound_by"], "library_ms": main_f["library_ms"],
+         "library_note": "SDPA forward + backward minus SDPA forward",
+         "shape": "stablelm-1.6b",
+         "shapes": {k: {f: r[f] for f in fields if f in r}
+                    for k, r in flash.items()}},
+        {"name": "dot_interaction_backward", "route": "cuda",
+         "source": csrc + "dot_interaction.cu",
+         "replaces": "src/repro/kernels/dot_interaction.py:26",
+         "replaces_note": note,
+         "launches": p12["launches"]["dot_interaction_backward"],
+         "max_abs_err": dot["err"], "ms": dot["ms"],
+         "plain_ms": dot["plain_ms"], "bound_ms": dot["bound_ms"],
+         "bound_by": dot["bound_by"], "library_ms": dot["library_ms"],
+         "library_note": "torch.bmm with the symmetric gradient matrix",
+         "shape": dot["shape"]}]
+
+
+def phase12_alone(dev) -> int:
+    """``--phase12``: phase 0's builds, then phase 12 only, its JSON and
+    the backward kernels' rows (for iterating on the trainer)."""
+    import torch
+    t0 = time.perf_counter()
+    p12 = phase12(dev)
+    p12["phase_s"] = time.perf_counter() - t0
+    log(f"phase 12 took {p12['phase_s']:.1f} s; peak device memory "
+        f"{p12['peak_gb']:.1f} GB; launches {p12['launches']}")
+    log(json.dumps({"train": p12}))
+    log(json.dumps({"kernels": backward_rows(p12)}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
@@ -6000,6 +6686,8 @@ def main() -> int:
     sass = flash_sass_check(infos["flash_attention"]["path"])
     log(f"phase 0: flash_attention SASS, tensor-core instructions per "
         f"16-bit instantiation (D 16..128): {sass}")
+    if "--phase12" in sys.argv[1:]:
+        return phase12_alone(dev)
 
     t0 = time.perf_counter()
     err1 = phase1(dev)
@@ -6060,6 +6748,13 @@ def main() -> int:
     p11["phase_s"] = time.perf_counter() - t0
     log(f"phase 11 took {p11['phase_s']:.1f} s; peak device memory "
         f"{p11['peak_gb']:.1f} GB; launches {p11['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p12 = phase12(dev)
+    p12["phase_s"] = time.perf_counter() - t0
+    log(f"phase 12 took {p12['phase_s']:.1f} s; peak device memory "
+        f"{p12['peak_gb']:.1f} GB; launches {p12['launches']}")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -6142,7 +6837,10 @@ def main() -> int:
             entry["bench_launches"] = p4["launches"][name]
             entry["max_abs_err"] = max(entry["max_abs_err"],
                                        entry.pop("substrate_err"))
+            if name != "embedding_bag":
+                entry["train_launches"] = p12["launches"][name]
         kernels.append(entry)
+    kernels += backward_rows(p12)
     log(json.dumps({
         "card": card, "route_loads": p3["route_loads"], "qps": p3["qps"],
         "walls_ms": p3["walls_ms"], "picks": p3["picks"],
@@ -6198,6 +6896,7 @@ def main() -> int:
     log(json.dumps({"sharded": p9}))
     log(json.dumps({"substrate": p10}))
     log(json.dumps({"moe_gnn": p11}))
+    log(json.dumps({"train": p12}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

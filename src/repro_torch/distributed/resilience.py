@@ -9,12 +9,16 @@
   EWMA of scan times, the consecutive failures, UP → SUSPECT → DOWN.
 - :class:`ShardUnavailable` is the sharded engine's total-loss error,
   re-exported by ``repro_torch.api``.
+- :func:`watchdog_step` runs one training step against a wall-clock
+  deadline (``launch.train``).
 
-The reference's ``ElasticPlanner`` and ``watchdog_step`` serve the
-trainer fleet and are not ported here. Host-side Python, no device.
+The reference's ``ElasticPlanner`` plans a trainer fleet's mesh and is
+not ported yet (ROADMAP A 12.6b). Host-side Python; ``watchdog_step``
+waits for the card its step ran on.
 """
 from __future__ import annotations
 
+import time
 from collections import defaultdict, deque
 from typing import Dict, List, Optional, Tuple
 
@@ -166,3 +170,39 @@ class ShardHealth:
 
 
 __all__ = ["StragglerMonitor", "ShardHealth", "ShardUnavailable"]
+
+
+def _first_tensor(tree):
+    """The first tensor of a nested dict / list / tuple, in jax's leaf
+    order (dict children by sorted key), or None."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        for x in tree:
+            t = _first_tensor(x)
+            if t is not None:
+                return t
+    return None
+
+
+def watchdog_step(fn, *args, deadline_s: float = 600.0):
+    """``(fn(*args), seconds)``: one step with a wall-clock deadline;
+    raises ``TimeoutError`` past it (a hung card or collective). CUDA
+    runs asynchronously, so the clock stops after the device of the
+    output's first tensor has finished its work (the reference blocks on
+    the first output leaf)."""
+    import torch
+    t0 = time.time()
+    out = fn(*args)
+    leaf = _first_tensor(out)
+    if leaf is not None and leaf.device.type == "cuda":
+        torch.cuda.synchronize(leaf.device)
+    dt = time.time() - t0
+    if dt > deadline_s:
+        raise TimeoutError(
+            f"step exceeded deadline ({dt:.1f}s > {deadline_s}s) — "
+            "likely a hung card or collective")
+    return out, dt

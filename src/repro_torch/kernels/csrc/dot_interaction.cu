@@ -72,6 +72,42 @@ __device__ __forceinline__ void load_vec(const T* p, float (&o)[16 / sizeof(T)])
   for (int i = 0; i < int(16 / sizeof(T)); ++i) o[i] = to_f32(vals[i]);
 }
 
+// Step s of a block's walk (its row group s / n_chunks, chunk s % n_chunks of d) → dst:
+// `rows` batch rows × F features × one 128-byte chunk, rows row_elems apart, features DC
+// apart; rows at or past B are not copied. A thread's copies e = tid, tid + nthr, ... split
+// into (row rr, feature f, piece p) by counters that carry instead of dividing per copy.
+// One commit group per call. The forward and the backward stage X alike.
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage_step(const T* __restrict__ x, T* dst, int s, int B, int F,
+                                           int d, int rows, int n_chunks, int row_elems) {
+  constexpr int DC = 128 / sizeof(T);
+  constexpr int V = 16 / sizeof(T);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int b0 = (blockIdx.x + (s / n_chunks) * gridDim.x) * rows;
+  const int c0 = (s % n_chunks) * DC, cn = min(DC, d - c0);
+  const int w = VEC ? V : 1, pieces = cn / w, total = rows * F * pieces;
+  const int dp = nthr % pieces, df = (nthr / pieces) % F, dr = nthr / pieces / F;
+  int p = tid % pieces, f = (tid / pieces) % F, rr = tid / pieces / F;
+  const T* src = x + size_t(b0) * F * d + c0;
+  for (int e = tid; e < total; e += nthr) {
+    if (b0 + rr < B) {
+      if constexpr (VEC) {
+        cp_async16(dst + rr * row_elems + f * DC + p * V, src + (rr * F + f) * d + p * V);
+      } else {
+        dst[rr * row_elems + f * DC + p] = src[(rr * F + f) * d + p];
+      }
+    }
+    p += dp;
+    int carry = p >= pieces;
+    p -= carry ? pieces : 0;
+    f += df + carry;
+    carry = f >= F;
+    f -= carry ? F : 0;
+    rr += dr + carry;
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kMaxThreads)
 dot_interaction_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int F, int d,
@@ -98,48 +134,21 @@ dot_interaction_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int 
   if (bx >= n_groups) return;
   const int n_steps = ((n_groups - 1 - bx) / gx + 1) * n_chunks;
 
-  // step s = (this block's group s / n_chunks, chunk s % n_chunks) → dst.
-  // A thread's copies e = tid, tid + nthr, ... split into (row rr, feature
-  // f, piece p) by counters that carry instead of dividing per copy.
-  const int nthr = blockDim.x;
-  auto stage_step = [&](int s, T* dst) {
-    const int b0 = (bx + (s / n_chunks) * gx) * rows;
-    const int c0 = (s % n_chunks) * DC, cn = min(DC, d - c0);
-    const int w = VEC ? V : 1, pieces = cn / w, total = rows * F * pieces;
-    const int dp = nthr % pieces, df = (nthr / pieces) % F, dr = nthr / pieces / F;
-    int p = tid % pieces, f = (tid / pieces) % F, rr = tid / pieces / F;
-    const T* src = x + size_t(b0) * F * d + c0;
-    for (int e = tid; e < total; e += nthr) {
-      if (b0 + rr < B) {
-        if constexpr (VEC) {
-          cp_async16(dst + rr * row_elems + f * DC + p * V, src + (rr * F + f) * d + p * V);
-        } else {
-          dst[rr * row_elems + f * DC + p] = src[(rr * F + f) * d + p];
-        }
-      }
-      p += dp;
-      int carry = p >= pieces;
-      p -= carry ? pieces : 0;
-      f += df + carry;
-      carry = f >= F;
-      f -= carry ? F : 0;
-      rr += dr + carry;
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {      // one commit group per step
-    if (s < n_steps) stage_step(s, stages + s * stage_elems);
+    if (s < n_steps) stage_step<T, VEC>(x, stages + s * stage_elems, s, B, F, d, rows, n_chunks,
+                                        row_elems);
     else asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
   for (int s = 0; s < n_steps; ++s) {
     const int ahead = s + kStages - 1;
-    if (ahead < n_steps) stage_step(ahead, stages + (ahead % kStages) * stage_elems);
+    if (ahead < n_steps)
+      stage_step<T, VEC>(x, stages + (ahead % kStages) * stage_elems, ahead, B, F, d, rows,
+                         n_chunks, row_elems);
     else asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
     __syncthreads();
@@ -197,6 +206,113 @@ dot_interaction_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int 
   }
 }
 
+// 16 / sizeof(T) floats → 16 bytes of T at p, each rounded once
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[16 / sizeof(T)]) {
+  uint4 raw;
+  T* vals = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < int(16 / sizeof(T)); ++i) vals[i] = from_f32<T>(v[i]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// The backward: dX[b] = Gsym[b]·X[b], Gsym[i][j] = Gsym[j][i] = g[b, pair(i, j)] for i < j,
+// zero on the diagonal. Every chunk of d is independent, so the block walks the forward's
+// (row group, chunk) steps over the same double-buffered stages of X (stage_step). At a
+// group's first step it expands the group's rows of g into Gsym (rows × Fp × Fp floats,
+// zero past F) in shared memory. An item is (row, 4-feature block, 16-byte piece of the
+// chunk): it sums Σ_j Gsym[i][j]·x[j][c] over j in order for its 4 features × 16 bytes in
+// f32 registers and rounds each once. Consecutive threads take consecutive pieces, so a
+// quarter-warp reads one 128-byte row of the stage and shares its Gsym entries.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+dot_interaction_backward_kernel(const T* __restrict__ x, const T* __restrict__ grad,
+                                T* __restrict__ dx, int B, int F, int d, int rows,
+                                int row_elems) {
+  constexpr int DC = 128 / sizeof(T);
+  constexpr int V = 16 / sizeof(T);
+  constexpr int W = VEC ? V : 1;               // elements of d per item
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const stages = reinterpret_cast<T*>(smem_raw);      // kStages × rows × row_elems
+  const int stage_elems = rows * row_elems;
+  const int nb = (F + 3) / 4, fp = 4 * nb, n_pairs = F * (F - 1) / 2;
+  float* const gsym = reinterpret_cast<float*>(stages + kStages * stage_elems);  // rows×fp×fp
+
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int bx = blockIdx.x, gx = gridDim.x;
+  const int n_groups = (B + rows - 1) / rows, n_chunks = (d + DC - 1) / DC;
+  if (bx >= n_groups) return;
+  const int n_steps = ((n_groups - 1 - bx) / gx + 1) * n_chunks;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_steps) stage_step<T, VEC>(x, stages + s * stage_elems, s, B, F, d, rows, n_chunks,
+                                        row_elems);
+    else asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    const int ahead = s + kStages - 1;
+    if (ahead < n_steps)
+      stage_step<T, VEC>(x, stages + (ahead % kStages) * stage_elems, ahead, B, F, d, rows,
+                         n_chunks, row_elems);
+    else asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int b0 = (bx + (s / n_chunks) * gx) * rows;
+    if (s % n_chunks == 0) {                   // a new group: its rows of g → Gsym
+      for (int e = tid; e < rows * fp * fp; e += nthr) {
+        const int r = e / (fp * fp), i = (e / fp) % fp, j = e % fp, b = b0 + r;
+        float val = 0.f;
+        if (b < B && i < F && j < F && i != j) {
+          const int lo = min(i, j), hi = max(i, j);
+          val = to_f32(grad[size_t(b) * n_pairs + lo * F - lo * (lo + 1) / 2 + hi - lo - 1]);
+        }
+        gsym[e] = val;
+      }
+    }
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
+    __syncthreads();
+    const int c0 = (s % n_chunks) * DC, cn = min(DC, d - c0), pieces = cn / W;
+    const T* st = stages + (s % kStages) * stage_elems;
+    for (int item = tid; item < rows * nb * pieces; item += nthr) {
+      const int piece = item % pieces, ib = (item / pieces) % nb, r = item / pieces / nb;
+      const int b = b0 + r;
+      if (b >= B) continue;
+      const float* gr = gsym + (r * fp + 4 * ib) * fp;
+      const T* xr = st + r * row_elems + piece * W;
+      float acc[4][W];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[ii][w] = 0.f;
+      for (int j = 0; j < F; ++j) {
+        float xv[W];
+        if constexpr (VEC) {
+          load_vec<T>(xr + j * DC, xv);
+        } else {
+          xv[0] = to_f32(xr[j * DC]);
+        }
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const float gv = gr[ii * fp + j];
+#pragma unroll
+          for (int w = 0; w < W; ++w) acc[ii][w] = fmaf(gv, xv[w], acc[ii][w]);
+        }
+      }
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int i = 4 * ib + ii;
+        if (i >= F) break;
+        T* out = dx + (size_t(b) * F + i) * d + c0 + piece * W;
+        if constexpr (VEC) {
+          store_vec<T>(out, acc[ii]);
+        } else {
+          out[0] = from_f32<T>(acc[ii][0]);
+        }
+      }
+    }
+    __syncthreads();                           // this stage and Gsym are free
+  }
+}
+
 template <typename T>
 int launch(const void* x, void* out, int B, int F, int d, int rows, int row_elems, int threads,
            int smem, int vec, cudaStream_t stream) {
@@ -215,6 +331,27 @@ int launch(const void* x, void* out, int B, int F, int d, int rows, int row_elem
   return int(cudaGetLastError());
 }
 
+template <typename T>
+int launch_backward(const void* x, const void* grad, void* dx, int B, int F, int d, int rows,
+                    int row_elems, int threads, int smem, int vec, cudaStream_t stream) {
+  const int fp = (F + 3) / 4 * 4;
+  if (threads > kMaxThreads ||
+      size_t(smem) < size_t(kStages) * rows * row_elems * sizeof(T) + size_t(rows) * fp * fp * 4)
+    return int(cudaErrorInvalidValue);
+  auto kern = vec ? dot_interaction_backward_kernel<T, true>
+                  : dot_interaction_backward_kernel<T, false>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int occ = 0, dev = 0, n_sm = 0;
+  if (e || (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem)) ||
+      (e = cudaGetDevice(&dev)) ||
+      (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)))
+    return int(e);
+  const int grid = min((B + rows - 1) / rows, max(occ, 1) * n_sm);
+  kern<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(grad),
+                                        static_cast<T*>(dx), B, F, d, rows, row_elems);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. x (B, F, d) → out (B, F(F-1)/2).
@@ -228,6 +365,26 @@ extern "C" int dot_interaction(const void* x, int dtype, int B, int F, int d, in
     case 0: return launch<float>(x, out, B, F, d, rows, row_elems, threads, smem, vec, s);
     case 1: return launch<__nv_bfloat16>(x, out, B, F, d, rows, row_elems, threads, smem, vec, s);
     case 2: return launch<__half>(x, out, B, F, d, rows, row_elems, threads, smem, vec, s);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// The backward of dot_interaction: grad (B, F(F-1)/2) and x (B, F, d) in one dtype → dx
+// (B, F, d) in it. rows, row_elems, threads (≤ 256) and smem (2 stages + rows·Fp²·4 bytes)
+// from backward_launch_shape; vec as for the forward (x and dx 16-byte aligned).
+extern "C" int dot_interaction_backward(const void* x, const void* grad, int dtype, int B, int F,
+                                        int d, int rows, int row_elems, int threads, int smem,
+                                        int vec, void* dx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_backward<float>(x, grad, dx, B, F, d, rows, row_elems, threads, smem, vec, s);
+    case 1:
+      return launch_backward<__nv_bfloat16>(x, grad, dx, B, F, d, rows, row_elems, threads, smem,
+                                            vec, s);
+    case 2:
+      return launch_backward<__half>(x, grad, dx, B, F, d, rows, row_elems, threads, smem, vec,
+                                     s);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -9,6 +9,15 @@ thread keeps a 4×4 tile of pairs in registers while ``cp.async`` streams
 the next chunk of rows (:func:`launch_shape` sizes the launch). For a
 CPU tensor it runs :func:`dot_interaction_plain`; any other device
 raises. Sums are f32, rounded once to ``feats``' dtype.
+
+The backward (:func:`dot_interaction_backward`, kernel
+``dot_interaction_backward`` in the same source) replaces no Pallas
+kernel: the reference differentiates its jnp path. ``dX[b] =
+Gsym[b]·X[b]`` with ``Gsym`` the symmetric, zero-diagonal matrix of the
+pairs' gradients; it reads X through the forward's stages and is bound by
+the bytes of X, the gradient and dX. :class:`DotInteractionFn` joins the
+two for autograd, and :func:`dot_interaction` goes through it whenever
+autograd needs a gradient of ``feats``.
 """
 from __future__ import annotations
 
@@ -19,7 +28,7 @@ import torch
 from repro_torch.kernels import build
 
 # kernel launches since the last reset (kernels.ops.reset_launch_counts)
-launches = {"dot_interaction": 0}
+launches = {"dot_interaction": 0, "dot_interaction_backward": 0}
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 THREADS = 256                    # the most threads a block runs (one tile each)
@@ -32,6 +41,9 @@ def _bind(lib) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.dot_interaction.argtypes = [ptr] + [i32] * 9 + [ptr, ptr]
     lib.dot_interaction.restype = i32
+    lib.dot_interaction_backward.argtypes = [ptr, ptr] + [i32] * 9 + [ptr,
+                                                                     ptr]
+    lib.dot_interaction_backward.restype = i32
 
 
 _lib = build.KernelLibrary("dot_interaction", ["dot_interaction.cu"], _bind)
@@ -79,6 +91,27 @@ def launch_shape(f: int, elem_size: int) -> dict:
                 fp=fp, chunk=chunk, row_elems=row_elems, smem_bytes=smem)
 
 
+def backward_launch_shape(f: int, elem_size: int) -> dict:
+    """Rows per block, threads, stage layout and shared bytes of the
+    backward kernel for ``x (B, f, d)``: the forward's stages of ``rows``
+    batch rows (:func:`launch_shape`'s ``fp``, ``chunk`` and
+    ``row_elems``), plus each row's symmetric gradient matrix (``fp²``
+    floats). A block runs ``rows`` × ``fp / 4`` feature blocks × 8
+    16-byte pieces of a chunk as items over at most 256 threads."""
+    shape = launch_shape(f, elem_size)
+    fp, row_elems = shape["fp"], shape["row_elems"]
+    per_row = STAGES * row_elems * elem_size + fp * fp * 4
+    rows = max(1, min(8, _SMEM_TARGET // per_row))
+    smem = rows * per_row
+    if smem > SMEM_MAX:
+        raise ValueError(f"F={f}: {smem} bytes of shared memory exceed "
+                         f"{SMEM_MAX}")
+    items = rows * (fp // 4) * 8
+    return dict(rows=rows, threads=min(THREADS, -(-items // 32) * 32),
+                fp=fp, chunk=shape["chunk"], row_elems=row_elems,
+                smem_bytes=smem)
+
+
 def dot_interaction_plain(feats: torch.Tensor) -> torch.Tensor:
     """The Gram matrix X·Xᵀ in f32, its upper triangle, in feats' dtype."""
     x = feats.float()
@@ -87,30 +120,109 @@ def dot_interaction_plain(feats: torch.Tensor) -> torch.Tensor:
     return gram[:, iu, ju].to(feats.dtype)
 
 
-def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
-    """``feats (B, F, d)`` f32/bf16/f16 → ``(B, F(F-1)/2)`` pairwise dots."""
-    if feats.device.type == "cpu":
-        return dot_interaction_plain(feats)
+def dot_interaction_backward_plain(feats: torch.Tensor, grad: torch.Tensor
+                                   ) -> torch.Tensor:
+    """``dX = Gsym·X`` in f32, ``Gsym`` the pairs' gradients ``grad (B,
+    F(F-1)/2)`` placed at (i, j) and (j, i), zero on the diagonal; in
+    feats' dtype."""
+    b, f, _ = feats.shape
+    iu, ju = triu_pairs(f, feats.device)
+    gsym = torch.zeros((b, f, f), dtype=torch.float32, device=feats.device)
+    gsym[:, iu, ju] = grad.float()
+    gsym = gsym + gsym.transpose(1, 2)
+    return (gsym @ feats.float()).to(feats.dtype)
+
+
+def _check(feats: torch.Tensor) -> None:
     if feats.device.type != "cuda":
         raise ValueError(f"no kernel for device {feats.device}")
     if feats.dtype not in _DTYPE:
         raise TypeError(f"feats dtype {feats.dtype} not in {list(_DTYPE)}")
     if feats.dim() != 3 or not feats.is_contiguous():
         raise ValueError("feats must be a contiguous (B, F, d) tensor")
+
+
+def _vec(feats: torch.Tensor) -> int:
+    """1 when every row and chunk starts 16-byte aligned (the kernels'
+    cp.async and vector path)."""
+    return int((feats.shape[2] * feats.element_size()) % 16 == 0
+               and feats.data_ptr() % 16 == 0)
+
+
+def _forward(feats: torch.Tensor) -> torch.Tensor:
+    if feats.device.type == "cpu":
+        return dot_interaction_plain(feats)
+    _check(feats)
     b, f, d = feats.shape
     out = torch.empty((b, f * (f - 1) // 2), dtype=feats.dtype,
                       device=feats.device)
     if out.numel() == 0:
         return out
     shape = launch_shape(f, feats.element_size())
-    vec = int((d * feats.element_size()) % 16 == 0
-              and feats.data_ptr() % 16 == 0)
     err = _lib().dot_interaction(
         feats.data_ptr(), _DTYPE[feats.dtype], b, f, d, shape["rows"],
-        shape["row_elems"], shape["threads"], shape["smem_bytes"], vec,
-        out.data_ptr(),
+        shape["row_elems"], shape["threads"], shape["smem_bytes"],
+        _vec(feats), out.data_ptr(),
         torch.cuda.current_stream(feats.device).cuda_stream)
     if err:
         raise RuntimeError(f"dot_interaction launch failed: cudaError {err}")
     launches["dot_interaction"] += 1
     return out
+
+
+def dot_interaction_backward(feats: torch.Tensor, grad: torch.Tensor
+                             ) -> torch.Tensor:
+    """``feats (B, F, d)``, ``grad (B, F(F-1)/2)`` in feats' dtype → ``dX
+    (B, F, d)``: the backward kernel for a CUDA tensor, the plain version
+    for a CPU one."""
+    if feats.device.type == "cpu":
+        return dot_interaction_backward_plain(feats, grad)
+    _check(feats)
+    b, f, d = feats.shape
+    if grad.shape != (b, f * (f - 1) // 2) or grad.dtype != feats.dtype:
+        raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} does not "
+                         f"match the output of feats {tuple(feats.shape)} "
+                         f"{feats.dtype}")
+    if grad.device != feats.device:
+        raise ValueError(f"grad is on {grad.device}, feats on "
+                         f"{feats.device}")
+    grad = grad.contiguous()
+    dx = torch.empty_like(feats)
+    if dx.numel() == 0:
+        return dx
+    if grad.numel() == 0:
+        return dx.zero_()
+    shape = backward_launch_shape(f, feats.element_size())
+    err = _lib().dot_interaction_backward(
+        feats.data_ptr(), grad.data_ptr(), _DTYPE[feats.dtype], b, f, d,
+        shape["rows"], shape["row_elems"], shape["threads"],
+        shape["smem_bytes"], _vec(feats), dx.data_ptr(),
+        torch.cuda.current_stream(feats.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"dot_interaction_backward launch failed: "
+                           f"cudaError {err}")
+    launches["dot_interaction_backward"] += 1
+    return dx
+
+
+class DotInteractionFn(torch.autograd.Function):
+    """The pairwise dots with the backward kernel as their gradient."""
+
+    @staticmethod
+    def forward(ctx, feats):
+        ctx.save_for_backward(feats)
+        return _forward(feats)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (feats,) = ctx.saved_tensors
+        return dot_interaction_backward(feats, grad)
+
+
+def dot_interaction(feats: torch.Tensor) -> torch.Tensor:
+    """``feats (B, F, d)`` f32/bf16/f16 → ``(B, F(F-1)/2)`` pairwise dots;
+    through :class:`DotInteractionFn` when autograd needs ``feats``'
+    gradient."""
+    if torch.is_grad_enabled() and feats.requires_grad:
+        return DotInteractionFn.apply(feats)
+    return _forward(feats)

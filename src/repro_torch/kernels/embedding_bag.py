@@ -11,6 +11,11 @@ the bags touch, the indices and the output. For a CPU tensor it runs
 Semantics (the TPU kernel's): ``out[b] = Σ_p table[idx[b, p]]`` in f32
 over ``0 <= idx < V``; a duplicate counts each time, a negative index is
 padding, and an index ``>= V`` adds nothing.
+
+Forward-only: the kernel has no backward, and no loss of the reference
+pools through it. On the card a table that requires a gradient while
+autograd is on raises, rather than returning a sum with no gradient; the
+CPU's plain version is differentiable.
 """
 from __future__ import annotations
 
@@ -63,6 +68,11 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"idx is on {idx.device}, table on {table.device}")
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("table and idx must be contiguous")
+    if torch.is_grad_enabled() and table.requires_grad:
+        raise RuntimeError("embedding_bag is forward-only on the card: the "
+                           "kernel has no backward, so a table that "
+                           "requires grad would get none; run it under "
+                           "torch.no_grad() or on a detached table")
     v, d = table.shape
     b, p = idx.shape
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)

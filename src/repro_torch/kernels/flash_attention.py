@@ -12,6 +12,15 @@ by operations: bf16/fp16 inputs run both products on the tensor cores
 keeps f32 precision); f32 inputs run f32 FMAs on the CUDA cores. For a
 CPU tensor it runs :func:`flash_attention_plain`; any other device
 raises.
+
+The backward (:func:`flash_attention_backward`, kernels in the same
+source) replaces no Pallas kernel: the reference differentiates its jnp
+path. From the forward's output and its row log-sum-exp ``lse (B, H, S)``
+f32 it recomputes P, takes ``Dvec = rowsum(dO∘O)`` and returns dQ, dK, dV
+in the inputs' dtype, f32 sums rounded once. :class:`FlashAttentionFn`
+joins the two for autograd: :func:`flash_attention` goes through it
+whenever autograd needs a gradient of q, k or v, and only then has the
+forward write ``lse``.
 """
 from __future__ import annotations
 
@@ -25,7 +34,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 
 # kernel launches since the last reset (kernels.ops.reset_launch_counts)
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "flash_attention_backward": 0}
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -34,8 +43,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 def _bind(lib) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [f32, ptr,
-                                                                  ptr]
+                                                                  ptr, ptr]
     lib.flash_attention.restype = i32
+    lib.flash_attention_backward.argtypes = ([ptr] * 6 + [i32] * 8 + [f32]
+                                             + [ptr] * 5)
+    lib.flash_attention_backward.restype = i32
 
 
 _lib = build.KernelLibrary("flash_attention", ["flash_attention.cu"], _bind)
@@ -54,25 +66,61 @@ def attention_mask(sq: int, sk: int, *, causal: bool, window: int,
     return mask
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
-    """Dense softmax attention in f32 (the reference's oracle form)."""
+def _grouped_scores(q, k, *, causal: bool, window: int):
+    """``(scores (B, KV, G, Sq, Sk), q (B, Sq, KV, G, D))``: the oracle's
+    scaled f32 scores, ``NEG_INF`` where masked, and q grouped by KV head,
+    in f32 and scaled."""
     b, sq, h, d = q.shape
     _, sk, n_kv, _ = k.shape
-    g = h // n_kv
-    qg = q.reshape(b, sq, n_kv, g, d).float() * (1.0 / math.sqrt(d))
+    qg = q.reshape(b, sq, n_kv, h // n_kv, d).float() * (1.0 / math.sqrt(d))
     s = torch.einsum("bqkgd,bjkd->bkgqj", qg, k.float())
     mask = attention_mask(sq, sk, causal=causal, window=window,
                           device=q.device)
-    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    return torch.where(mask, s, torch.full((), NEG_INF, device=q.device)), qg
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          return_lse: bool = False):
+    """Dense softmax attention in f32 (the reference's oracle form); with
+    ``return_lse`` also each row's log-sum-exp of its scaled, masked
+    scores, ``(B, H, S)`` f32."""
+    b, sq, h, d = q.shape
+    s, _ = _grouped_scores(q, k, causal=causal, window=window)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqj,bjkd->bkgqd", p, v.float())
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    return o
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """``q (B, S, H, D)``, ``k``/``v (B, S, KV, D)`` → ``(B, S, H, D)``."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+def flash_attention_backward_plain(q, k, v, o, lse, do, *,
+                                   causal: bool = True, window: int = 0):
+    """The backward's formulas in f32 eager torch, the kernel's oracle: P =
+    exp(scale·q·k − lse) (0 where masked), Dvec = rowsum(dO∘O), dS = P ∘
+    (dO·vᵀ − Dvec); dQ = scale·dS·k, dK = scale·dSᵀ·q, dV = Pᵀ·dO, each
+    KV head summing its G query heads → ``(dq, dk, dv)`` in the inputs'
+    dtype."""
+    b, sq, h, d = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    s, qg = _grouped_scores(q, k, causal=causal, window=window)
+    p = torch.exp(s - lse.float().reshape(b, n_kv, g, sq)[..., None])
+    dog = do.reshape(b, sq, n_kv, g, d).float()
+    dvec = (dog * o.reshape(b, sq, n_kv, g, d).float()).sum(-1)
+    dp = torch.einsum("bqkgd,bjkd->bkgqj", dog, v.float())
+    ds = p * (dp - dvec.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqj,bjkd->bqkgd", ds, k.float()) * (
+        1.0 / math.sqrt(d))
+    dk = torch.einsum("bkgqj,bqkgd->bjkd", ds, qg)
+    dv = torch.einsum("bkgqj,bqkgd->bjkd", p, dog)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _check(q, k, v, *more):
+    """Raises for what the kernels do not take → ``(B, S, H, KV, D)``;
+    ``more`` are tensors shaped and typed like q (o, dO)."""
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in _DTYPE:
@@ -92,21 +140,103 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"H={h} is not a multiple of KV={n_kv}")
     if b * h > 65535:
         raise ValueError(f"B·H={b * h} exceeds the grid's y limit")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for x in more:
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"o and dO must be shaped and typed like q, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    for name, x in [("q", q), ("k", k), ("v", v)] + [("o/dO", x)
+                                                      for x in more]:
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.element_size() == 2 and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+    return b, s, h, n_kv, d
+
+
+def _launch(q, k, v, causal: bool, window: int, with_lse: bool):
+    """The forward kernel → ``(out, lse or None)``; ``lse (B, H, S)`` f32
+    only when asked (the output is the same either way)."""
+    b, s, h, n_kv, d = _check(q, k, v)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     err = _lib().flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPE[q.dtype], b, s, h,
         n_kv, d, int(causal), int(window), 1.0 / math.sqrt(d),
-        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0):
+    """``(dq, dk, dv)`` of the attention that gave ``o`` and ``lse`` (B, H,
+    S) f32, for the output gradient ``do``: the backward kernel for a CUDA
+    tensor, :func:`flash_attention_backward_plain` for a CPU one."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, o, lse, do,
+                                              causal=causal, window=window)
+    b, s, h, n_kv, d = _check(q, k, v, o, do)
+    if (lse.shape != (b, h, s) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous ({b}, {h}, {s}) float32 "
+                         f"tensor on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    err = _lib().flash_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), _DTYPE[q.dtype], b, s, h, n_kv, d, int(causal),
+        int(window), 1.0 / math.sqrt(d), dvec.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_backward launch failed: "
+                           f"cudaError {err}")
+    launches["flash_attention_backward"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with the backward kernel as its gradient: the
+    forward keeps q, k, v, o and lse; the backward recomputes P from
+    them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+        else:
+            out, lse = _launch(q, k, v, causal, window, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, do.contiguous(), causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """``q (B, S, H, D)``, ``k``/``v (B, S, KV, D)`` → ``(B, S, H, D)``;
+    through :class:`FlashAttentionFn` when autograd needs a gradient of
+    q, k or v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return _launch(q, k, v, causal, window, False)[0]

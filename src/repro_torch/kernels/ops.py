@@ -10,8 +10,12 @@ own tiling, and the result does not depend on it.
 * ``fused_topk_score(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids,
   w_hat, *, k, dist_max, cand_scale=None)``: the gather path, local
   positions over a materialized ``(B, N, d)`` candidate copy;
-* ``flash_attention(q, k, v, *, causal=True, window=0)``;
-* ``dot_interaction(feats)``;
+* ``flash_attention(q, k, v, *, causal=True, window=0)``, and its
+  backward ``flash_attention_backward(q, k, v, o, lse, do, *, causal,
+  window)`` (no reference counterpart: the reference differentiates its
+  jnp path; ``flash_attention`` takes it through autograd);
+* ``dot_interaction(feats)``, and ``dot_interaction_backward(feats,
+  grad)`` likewise;
 * ``embedding_bag(table, idx)``;
 * ``fused_topk_score_routed`` and ``fused_topk_score_cluster_major``, the
   query engine's wrappers as they are. Unlike the reference's
@@ -22,7 +26,8 @@ own tiling, and the result does not depend on it.
 Each function runs its kernel's plain PyTorch version for a CPU tensor,
 launches its hand-written CUDA kernel for a CUDA tensor, and raises for
 any other device; there is no fallback. :func:`launch_counts` reads the
-kernels' launch counters, :func:`reset_launch_counts` zeroes them.
+kernels' launch counters (one key per kernel, the two backward kernels
+included), :func:`reset_launch_counts` zeroes them.
 """
 from __future__ import annotations
 
@@ -30,9 +35,15 @@ from repro_torch.kernels import dot_interaction as _di
 from repro_torch.kernels import embedding_bag as _eb
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_topk_score as _fts
-from repro_torch.kernels.dot_interaction import dot_interaction  # noqa: F401
+from repro_torch.kernels.dot_interaction import (  # noqa: F401
+    dot_interaction,
+    dot_interaction_backward,
+)
 from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention,
+    flash_attention_backward,
+)
 from repro_torch.kernels.fused_topk_score import (  # noqa: F401
     fused_topk_score,
     fused_topk_score_cluster_major,

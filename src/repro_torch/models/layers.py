@@ -17,8 +17,10 @@ norms), on the generator's device. Their streams cannot equal
 Full-sequence attention on a CUDA tensor launches the flash-attention
 twin (``kernels.flash_attention.flash_attention``, the entry point's
 ``kernels.ops.flash_attention``), the kernel the reference's TPU
-path runs for the same contract; on a CPU tensor it runs the reference's
-chunked online softmax. ``decode_attention`` and the loss are plain
+path runs for the same contract; under autograd it goes through
+``FlashAttentionFn``, whose gradient is the flash backward kernel. On a
+CPU tensor it runs the reference's chunked online softmax, which
+autograd differentiates. ``decode_attention`` and the loss are plain
 torch on every device, as the reference computes them in jnp.
 """
 from __future__ import annotations
@@ -196,8 +198,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *,
 
 
 def _flash(q, k, v, *, causal: bool, window: int):
-    """The flash-attention twin on the card; it raises for what it cannot
-    take (Sq != Sk among them), with no fallback."""
+    """The flash-attention twin on the card, through ``FlashAttentionFn``
+    when autograd needs a gradient (the backward kernel); it raises for
+    what it cannot take (Sq != Sk among them), with no fallback."""
     return flash_kernel.flash_attention(q.contiguous(), k.contiguous(),
                                         v.contiguous(), causal=causal,
                                         window=window)

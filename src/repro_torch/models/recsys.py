@@ -8,13 +8,17 @@ reference does. On the card two of the six hand-written kernels sit on
 this path:
 
 * ``dlrm_dot_interaction`` launches the dot-interaction twin
-  (``kernels.dot_interaction``) for every DLRM forward;
+  (``kernels.dot_interaction``) for every DLRM forward, and under
+  autograd its backward kernel for the gradient (``DotInteractionFn``):
+  it is the only way from the 26 tables to the loss;
 * ``embedding_bag`` launches the embedding-bag twin
-  (``kernels.embedding_bag``) for ``sum`` and ``mean`` bags.
+  (``kernels.embedding_bag``) for ``sum`` and ``mean`` bags. It is
+  forward-only: no loss of the reference pools through it, and on the
+  card a table that requires a gradient raises.
 
 On a CPU tensor each wrapper runs its plain version. Everything else is
-plain torch on every device, as the reference computes it in jnp. The
-losses are forward values.
+plain torch on every device, as the reference computes it in jnp, and
+differentiable: the losses train through ``launch.train``.
 """
 from __future__ import annotations
 
@@ -118,7 +122,13 @@ def embedding_bag(table, idx, offsets=None, *, segment_ids=None,
     its f32 sums come back in the table's dtype, as the reference's
     segment sum. Weighted bags (``weights``, one per entry of ``idx``)
     have no kernel — the reference's TPU kernel takes no weights — and
-    are a gather and an ``index_add_`` in the table's dtype."""
+    are a gather and an ``index_add_`` in the table's dtype.
+
+    Forward-only on the card: the bag kernel has no backward, so an
+    unweighted bag of a table that requires a gradient raises there
+    (under ``torch.no_grad`` or on a detached table it runs) rather than
+    return a value with no gradient. The CPU's plain version and the
+    weighted bags are differentiable."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode {mode!r} is not 'sum' or 'mean'")
     idx = torch.as_tensor(idx, device=table.device)
@@ -183,7 +193,8 @@ def dlrm_init(cfg, *, seed: int = 0, device="cuda"):
 def dlrm_dot_interaction(feats):
     """``feats (B, F, d)`` → the upper-triangle pairwise dots ``(B,
     F(F-1)/2)`` in ``np.triu_indices(F, 1)`` order: the dot-interaction
-    kernel (``kernels.dot_interaction``)."""
+    kernel (``kernels.dot_interaction``), through ``DotInteractionFn``
+    when autograd needs the gradient (its backward kernel)."""
     return dot_kernel.dot_interaction(feats.contiguous())
 
 

@@ -30,10 +30,14 @@ Activations run in ``cfg.compute_dtype`` (bf16 for ``list-dual-encoder``);
 attention scores and the softmax run in float32, as the reference's
 einsum attention does. No Pallas kernel sits on this path.
 
-The forward is differentiable. The reference's ``cfg.remat`` (activation
-rematerialisation) changes no value and is not ported: at the trainer's
-batch (64 queries, 320 objects, 16 tokens) no activation memory calls
-for it.
+The forward is differentiable. ``lm_forward`` honours the LM config's
+``cfg.remat`` as the reference's ``jax.checkpoint(nothing_saveable)``
+does: while autograd records, each block runs under
+``torch.utils.checkpoint`` (non-reentrant), which keeps only the block's
+input and recomputes the rest in the backward; the values and gradients
+are the same (bit for bit on the CPU). The encoder's ``remat`` is not
+ported (ROADMAP A 13): at the trainer's batch (64 queries, 320 objects,
+16 tokens) no activation memory calls for it.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import require_device
 from repro_torch.models import layers
@@ -346,13 +351,21 @@ def lm_forward(model: LM, tokens, *, collect_cache: bool = False,
     cache or None)``; the cache (one ``{"k", "v"}`` per layer) is
     allocated at ``cache_len`` for global layers. ``aux`` holds the MoE
     losses and ``drop_fraction``, each summed over the layers (the
-    reference's sum, not a mean), zero for a dense model."""
+    reference's sum, not a mean), zero for a dense model. With
+    ``cfg.remat`` and autograd recording, each block is checkpointed: its
+    activations are recomputed in the backward instead of kept."""
     cfg = model.cfg
     x = _embed(model, tokens)
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     caches, auxes = [], []
     for blk in model.blocks:
-        x, aux, cache = _block_full(blk, x, cfg, return_cache=collect_cache,
-                                    cache_len=cache_len)
+        if remat:
+            x, aux, cache = checkpoint(_block_full, blk, x, cfg,
+                                       use_reentrant=False)
+        else:
+            x, aux, cache = _block_full(blk, x, cfg,
+                                        return_cache=collect_cache,
+                                        cache_len=cache_len)
         caches.append(cache)
         auxes.append(aux)
     x = model.final_norm(x)

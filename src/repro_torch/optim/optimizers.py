@@ -10,7 +10,7 @@ reductions differ by shape)."""
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,10 +45,12 @@ def adamw_init(params: Sequence[torch.Tensor]) -> dict:
 def adamw_update(grads: Sequence[torch.Tensor], state: dict,
                  params: Sequence[torch.Tensor], lr: float, *,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1) -> dict:
+                 weight_decay: float = 0.1,
+                 decay: Optional[Sequence[bool]] = None) -> dict:
     """One AdamW step: ``m = b1·m + (1−b1)·g``, ``v = b2·v + (1−b2)·g²``,
     bias corrections ``1 − b^t`` in float32, ``p −= lr·(m̂/(√v̂ + eps) +
-    wd·p)`` with the decay on tensors of ``ndim ≥ 2`` only. Updates
+    wd·p)`` with the decay on the parameters ``decay`` marks (default:
+    those of ``ndim ≥ 2``, the reference's rule on its own leaves). Updates
     ``params`` and ``state`` in place; returns ``state``."""
     step = state["step"] + 1
     t = np.float32(step)
@@ -70,7 +72,8 @@ def adamw_update(grads: Sequence[torch.Tensor], state: dict,
     delta = torch._foreach_div(m, c1)
     torch._foreach_div_(delta, denom)
     del denom
-    decay = [i for i, p in enumerate(params) if p.ndim >= 2]
+    decay = [i for i, p in enumerate(params)
+             if (p.ndim >= 2 if decay is None else decay[i])]
     if decay:
         torch._foreach_add_([delta[i] for i in decay], torch._foreach_mul(
             [params[i].float() for i in decay], weight_decay))
@@ -109,43 +112,75 @@ def adafactor_init(params: Sequence[torch.Tensor]) -> dict:
     return {"step": 0, "v": [leaf(p) for p in params]}
 
 
+def _adafactor_u(p, g, v: dict, beta2: float, rest: float, *,
+                 update: bool) -> torch.Tensor:
+    """Adafactor's unclipped step ``u = g / √(v + eps)`` of one leaf,
+    with its second moment first moved to this step when ``update``."""
+    eps = ADAFACTOR_EPS
+    g32 = g.float()
+    if _factored(p.shape):
+        if update:
+            g2 = torch.square(g32) + eps
+            v["vr"] = beta2 * v["vr"] + rest * g2.mean(dim=-1)
+            v["vc"] = beta2 * v["vc"] + rest * g2.mean(dim=-2)
+            del g2
+        vr, vc = v["vr"], v["vc"]
+        r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
+        return g32 * torch.rsqrt(r[..., None] * vc[..., None, :] + eps)
+    if update:
+        v["v"] = beta2 * v["v"] + rest * (torch.square(g32) + eps)
+    return g32 * torch.rsqrt(v["v"] + eps)
+
+
 @torch.no_grad()
 def adafactor_update(grads: Sequence[torch.Tensor], state: dict,
                      params: Sequence[torch.Tensor], lr: float, *,
-                     weight_decay: float = 0.0) -> dict:
+                     weight_decay: float = 0.0,
+                     groups: Optional[Sequence] = None) -> dict:
     """One Adafactor step (β1 = 0): ``β2 = 1 − t^−ADAFACTOR_DECAY_POW``
     in float32; the second moment of ``g² + eps`` kept as row and column
     means for a factored leaf (its rank-1 reconstruction ``vr / mean(vr)
     ⊗ vc``), whole otherwise; ``u = g / √(v + eps)`` clipped to an RMS of
     at most ``ADAFACTOR_CLIP``; ``p −= lr·(u + wd·p)``, the decay on
     ``ndim ≥ 2`` only, computed in float32 and cast back to p's dtype.
-    Updates ``params`` and ``state`` in place; returns ``state``."""
-    eps = ADAFACTOR_EPS
+    ``groups`` (one key per parameter; default each its own) joins the
+    parameters whose RMS is taken together, as the reference takes it over
+    a leaf that stacks several layers: a group's ``u`` is computed, its
+    squares summed, and computed again to be applied. Updates ``params``
+    and ``state`` in place; returns ``state``."""
     step = state["step"] + 1
     b2 = np.float32(1.0) - np.power(np.float32(step),
                                     np.float32(-ADAFACTOR_DECAY_POW))
     beta2, rest = float(b2), float(np.float32(1.0) - b2)
-    for p, g, v in zip(params, grads, state["v"]):
-        g32 = g.float()
-        g2 = torch.square(g32) + eps
-        if _factored(p.shape):
-            vr = beta2 * v["vr"] + rest * g2.mean(dim=-1)
-            vc = beta2 * v["vc"] + rest * g2.mean(dim=-2)
-            del g2
-            r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
-            u = g32 * torch.rsqrt(r[..., None] * vc[..., None, :] + eps)
-            v["vr"], v["vc"] = vr, vc
-        else:
-            vv = beta2 * v["v"] + rest * g2
-            del g2
-            u = g32 * torch.rsqrt(vv + eps)
-            v["v"] = vv
-        del g32
-        rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+    members = {}
+    for i, key in enumerate(range(len(params)) if groups is None
+                            else groups):
+        members.setdefault(key, []).append(i)
+
+    def apply(i, u, rms):
+        p = params[i]
         u = u / torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
         if weight_decay and p.ndim >= 2:
             u = u + weight_decay * p.float()
         p.copy_(p.float() - lr * u)
+
+    for idx in members.values():
+        if len(idx) == 1:
+            i = idx[0]
+            u = _adafactor_u(params[i], grads[i], state["v"][i], beta2, rest,
+                             update=True)
+            apply(i, u, torch.sqrt(torch.mean(torch.square(u)) + 1e-12))
+            continue
+        total, n = 0.0, 0
+        for i in idx:
+            u = _adafactor_u(params[i], grads[i], state["v"][i], beta2, rest,
+                             update=True)
+            total = total + torch.sum(torch.square(u))
+            n += u.numel()
+        rms = torch.sqrt(total / n + 1e-12)
+        for i in idx:
+            apply(i, _adafactor_u(params[i], grads[i], state["v"][i], beta2,
+                                  rest, update=False), rms)
     state["step"] = step
     return state
 

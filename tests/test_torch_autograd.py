@@ -1,0 +1,346 @@
+"""Gradients through the port's kernel twins, on the CPU.
+
+The reference has no backward kernel: it differentiates its jnp path.
+So each plain backward of the port (``flash_attention_backward_plain``,
+``dot_interaction_backward_plain``, the oracles of the backward kernels)
+is held to ``jax.vjp`` of the reference's oracle
+(``repro.kernels.ref.flash_attention_ref`` / ``dot_interaction_ref``) on
+the same numpy inputs: in f32 at ``F32`` (the frameworks sum in other
+orders), in bf16 at ``BF16`` (each side rounds its f32 gradient once to
+bf16, so they may differ by an ulp). In bf16 the flash backward is given
+the forward's f32 output: the reference's softmax VJP reads no rounded
+output, while the kernels' Dvec = rowsum(dO∘O) reads the output they
+saved, whose rounding (2^-9 of O) moves a gradient near zero by up to a
+few 1e-3 — the cuda cases hold the kernels to the plain version on that
+same rounded output. ``FlashAttentionFn`` and ``DotInteractionFn`` —
+the autograd Functions the layers use — must give the plain backward's
+gradients, and torch autograd's of the plain forward at ``F32``. The plain
+forward's ``lse`` is held to a float64 log-sum-exp. ``lm_forward`` with
+``cfg.remat`` must give the same loss and gradients, bit for bit, as
+without. ``cuda``-marked cases hold the backward kernels to their plain
+versions on the card (one rounding of the f32 plain version in 16 bits,
+as chip_smoke phase 12 does) and skip here.
+"""
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.kernels.ref import dot_interaction_ref, flash_attention_ref
+from repro_torch import configs as port_configs
+from repro_torch.kernels import dot_interaction as di
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as tf
+
+from test_torch_common import ref_on_cpu
+
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=2 ** -7, atol=1e-4)
+# the 16-bit gate on the card: half an ulp of the f32 plain version, plus
+# 1e-4 of the tensor's largest magnitude for values near zero
+ONE_ROUNDING = {torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11,
+                torch.float32: 1e-5}
+GATE_ATOL = 1e-4
+
+# (B, S, H, KV, D, causal, window): MHA, GQA, a window, ragged S
+FLASH_CASES = [(2, 16, 4, 4, 16, True, 0), (1, 37, 4, 2, 16, True, 0),
+               (2, 24, 6, 2, 32, True, 5), (1, 19, 2, 1, 16, False, 0),
+               (1, 21, 4, 2, 16, False, 6)]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _flash_inputs(case, seed=0):
+    b, s, h, kv, d, _, _ = case
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=shape).astype(np.float32) for shape in
+            ((b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d))]
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_backward_plain_matches_reference_vjp(case, dtype):
+    causal, window = case[5], case[6]
+    q, k, v, do = _flash_inputs(case)
+    with ref_on_cpu():
+        args = [jnp.asarray(x, dtype) for x in (q, k, v)]
+        out, vjp = jax.vjp(lambda a, b, c: flash_attention_ref(
+            a, b, c, causal=causal, window=window), *args)
+        want = vjp(jnp.asarray(do, dtype))
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      window=window, return_lse=True)
+    np.testing.assert_allclose(_np(o), _np(out), **(F32 if dtype ==
+                                                    "float32" else BF16))
+    o32 = fa.flash_attention_plain(tq.float(), tk.float(), tv.float(),
+                                   causal=causal, window=window)
+    got = fa.flash_attention_backward_plain(tq, tk, tv, o32, lse, tdo,
+                                            causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt and tuple(g.shape) == w.shape
+        tol = F32 if dtype == "float32" else BF16
+        np.testing.assert_allclose(_np(g), _np(w), **tol, err_msg=name)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_fn_gradients_match_plain_backward(case):
+    """``flash_attention`` under autograd goes through FlashAttentionFn:
+    its gradients are the plain backward's, exactly, and torch autograd's
+    of the plain forward at ``F32``."""
+    causal, window = case[5], case[6]
+    q, k, v, do = (torch.from_numpy(x) for x in _flash_inputs(case, 1))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(out, leaves, do)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    assert torch.equal(out.detach(), o)
+    want = fa.flash_attention_backward_plain(q, k, v, o, lse, do,
+                                             causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(fa.flash_attention_plain(
+        *leaves, causal=causal, window=window), leaves, do)
+    for g, w in zip(got, auto):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **F32)
+
+
+def test_flash_without_grad_is_the_plain_forward():
+    q, k, v, _ = (torch.from_numpy(x) for x in _flash_inputs(FLASH_CASES[1]))
+    out = ops.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    assert torch.equal(out, fa.flash_attention_plain(q, k, v))
+    with torch.no_grad():
+        out = ops.flash_attention(q.requires_grad_(), k, v)
+    assert out.grad_fn is None
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_plain_lse(case):
+    """``lse`` (B, H, S) is each row's log Σ exp of its scaled, unmasked
+    scores, against float64 numpy."""
+    b, s, h, kv, d, causal, window = case
+    q, k, v, _ = _flash_inputs(case, 2)
+    _, lse = fa.flash_attention_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        window=window, return_lse=True)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (b, h, s)
+    g = h // kv
+    kh = np.repeat(k.astype(np.float64), g, axis=2)
+    sc = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kh) / math.sqrt(d)
+    pq, pk = np.arange(s)[:, None], np.arange(s)[None, :]
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= pq >= pk
+    if window:
+        mask &= pq - pk < window
+    sc = np.where(mask, sc, -np.inf)
+    mx = sc.max(-1, keepdims=True)
+    want = (mx + np.log(np.exp(sc - mx).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want, **F32)
+
+
+# ---------------------------------------------------------------------------
+# dot interaction
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,f,d", [(4, 27, 16), (3, 5, 8), (2, 2, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dot_backward_plain_matches_reference_vjp(b, f, d, dtype):
+    """In f32 at ``F32``. In bf16 the reference rounds twice: its oracle
+    casts feats to f32 once per operand of the Gram product, so jax's
+    VJP rounds each operand's part (``A = Gᵤ·X``, ``B = Gₗ·X``, the upper
+    and lower triangles) to bf16 and adds them in bf16, while the port
+    rounds ``Gsym·X`` once. So the port is held within one rounding of the
+    float64 gradient, and the reference within the three roundings of
+    ``A``, ``B`` and ``A + B``."""
+    rng = np.random.default_rng(f)
+    x = rng.normal(size=(b, f, d)).astype(np.float32)
+    g = rng.normal(size=(b, f * (f - 1) // 2)).astype(np.float32)
+    with ref_on_cpu():
+        _, vjp = jax.vjp(dot_interaction_ref, jnp.asarray(x, dtype))
+        (want,) = vjp(jnp.asarray(g, dtype))
+    tdt = getattr(torch, dtype)
+    tx, tg = torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt)
+    got = di.dot_interaction_backward_plain(tx, tg)
+    assert got.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), _np(want), **F32)
+        return
+    iu, ju = np.triu_indices(f, 1)
+    up = np.zeros((b, f, f))
+    up[:, iu, ju] = tg.double().numpy()
+    xd = tx.double().numpy()
+    a, bb = up @ xd, up.transpose(0, 2, 1) @ xd
+    exact = a + bb
+    half = 2 ** -8
+    assert (np.abs(_np(got) - exact) <= half * np.abs(exact) + 1e-30).all()
+    assert (np.abs(_np(got) - _np(want))
+            <= half * (np.abs(a) + np.abs(bb) + 2 * np.abs(exact))).all()
+
+
+def test_dot_fn_gradients_match_plain_backward():
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(6, 27, 12)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(6, 351)).astype(np.float32))
+    leaf = x.clone().requires_grad_()
+    out = ops.dot_interaction(leaf)
+    assert type(out.grad_fn).__name__ == "DotInteractionFnBackward"
+    (got,) = torch.autograd.grad(out, leaf, g)
+    assert torch.equal(got, di.dot_interaction_backward_plain(x, g))
+    leaf = x.clone().requires_grad_()
+    (auto,) = torch.autograd.grad(di.dot_interaction_plain(leaf), leaf, g)
+    np.testing.assert_allclose(got.numpy(), auto.numpy(), **F32)
+    assert ops.dot_interaction(x).grad_fn is None
+
+
+@pytest.mark.parametrize("f", [2, 5, 27, 40])
+@pytest.mark.parametrize("elem_size", [2, 4])
+def test_dot_backward_launch_shape(f, elem_size):
+    """The backward's stages are the forward's, plus a row's Fp² floats of
+    Gsym, within the block's shared memory."""
+    fwd = di.launch_shape(f, elem_size)
+    shape = di.backward_launch_shape(f, elem_size)
+    assert (shape["fp"], shape["chunk"], shape["row_elems"]) == (
+        fwd["fp"], fwd["chunk"], fwd["row_elems"])
+    assert shape["smem_bytes"] == shape["rows"] * (
+        di.STAGES * fwd["row_elems"] * elem_size + fwd["fp"] ** 2 * 4)
+    assert shape["smem_bytes"] <= di.SMEM_MAX
+    assert 32 <= shape["threads"] <= di.THREADS
+    assert shape["threads"] % 32 == 0
+
+
+# ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "gemma3-27b",
+                                  "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_remat_is_bit_equal(arch, compute_dtype):
+    """``cfg.remat`` checkpoints every block: loss, metrics and every
+    gradient bit for bit as without (the reference's
+    ``jax.checkpoint`` changes no value either)."""
+    cfg = dataclasses.replace(port_configs.reduced(
+        port_configs.get_config(arch)), compute_dtype=compute_dtype)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    out = {}
+    for remat in (False, True):
+        model = tf.lm_init(dataclasses.replace(cfg, remat=remat), seed=3,
+                           device="cpu")
+        loss, metrics = tf.lm_loss(model, {"tokens": tokens})
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[remat] = (loss, metrics, grads)
+    (l0, m0, g0), (l1, m1, g1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert len(g0) == len(g1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+
+
+def test_remat_leaves_inference_alone():
+    """Under ``no_grad`` (the serving paths) nothing is checkpointed."""
+    cfg = dataclasses.replace(port_configs.reduced(
+        port_configs.get_config("stablelm-1.6b")), remat=True)
+    model = tf.lm_init(cfg, seed=0, device="cpu")
+    tokens = np.arange(32, dtype=np.int32).reshape(2, 16)
+    with torch.no_grad():
+        x, _, _ = tf.lm_forward(model, tokens)
+        y, _, _ = tf.lm_forward(tf.lm_init(dataclasses.replace(
+            cfg, remat=False), seed=0, device="cpu"), tokens)
+    assert x.grad_fn is None and torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# On the card: each backward kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _one_rounding_excess(got, want, dtype):
+    """max |got − want| / (rel·|want| + GATE_ATOL·max|want|): ≤ 1 passes."""
+    a = GATE_ATOL * float(want.abs().max())
+    return float(((got.float() - want).abs()
+                  / (ONE_ROUNDING[dtype] * want.abs() + a)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES + [(2, 130, 8, 2, 64, True, 24),
+                                                (1, 200, 4, 4, 128, True, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_flash_backward_matches_plain(cuda_device, case, dtype):
+    causal, window = case[5], case[6]
+    q, k, v, do = (torch.from_numpy(x).to(cuda_device).to(dtype)
+                   for x in _flash_inputs(case, 3))
+    ops.reset_launch_counts()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_backward"] == 1
+    _, lse = fa._launch(q, k, v, causal, window, True)
+    want = fa.flash_attention_backward_plain(
+        q.float(), k.float(), v.float(), out.detach().float(), lse,
+        do.float(), causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype
+        assert _one_rounding_excess(g, w, dtype) <= 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,d", [(300, 27, 128), (17, 5, 12), (64, 27, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dot_backward_matches_plain(cuda_device, b, f, d, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(b, f, d, generator=g, device=cuda_device).to(dtype)
+    gr = torch.randn(b, f * (f - 1) // 2, generator=g,
+                     device=cuda_device).to(dtype)
+    ops.reset_launch_counts()
+    leaf = x.clone().requires_grad_()
+    (got,) = torch.autograd.grad(ops.dot_interaction(leaf), leaf, gr)
+    assert ops.launch_counts()["dot_interaction_backward"] == 1
+    want = di.dot_interaction_backward_plain(x, gr)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_refuses_a_table_that_needs_grad(cuda_device):
+    from repro_torch.models import recsys
+    table = torch.randn(50, 8, device=cuda_device, requires_grad=True)
+    idx = torch.arange(12, device=cuda_device)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        recsys.embedding_bag(table, idx, torch.tensor([0, 4, 9]), n_bags=3)
+    with torch.no_grad():
+        out = recsys.embedding_bag(table, idx, torch.tensor([0, 4, 9]),
+                                   n_bags=3)
+    assert out.shape == (3, 8)

@@ -364,7 +364,8 @@ def test_cpu_tensors_never_launch_and_counters_cover_every_kernel():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "routed": 0, "cluster_major": 0, "gather": 0, "flash_attention": 0,
-        "dot_interaction": 0, "embedding_bag": 0}
+        "flash_attention_backward": 0, "dot_interaction": 0,
+        "dot_interaction_backward": 0, "embedding_bag": 0}
     ops.dot_interaction(torch.ones(2, 3, 4))
     ops.embedding_bag(torch.ones(5, 4), torch.zeros(2, 3, dtype=torch.int32))
     ops.flash_attention(*(torch.ones(1, 8, 2, 16) for _ in range(3)))
