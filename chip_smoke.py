@@ -267,7 +267,9 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    dlrm-mlperf at full widths and B 65,536, tables capped at
    ``DLRM_TRAIN_MAX_ROWS``: one dot forward and backward launch a step,
    rows/s. (g) gatedgcn, xdeepfm, bert4rec and mind at full widths and
-   moonshot at full widths with 2 of 48 layers, a few steps each. (e)–(g)
+   the recsys models at their train_batch of 65,536 (``OTHER_TRAIN``:
+   microbatches where memory needs them), moonshot at full widths with 2
+   of 48 layers at 8 × 4,096, a few steps each. (e)–(g)
    run ``launch.train.main`` in process. The launches of (d)–(g) are the
    backward kernels' main-path counts (``train_launches`` on the forward
    rows). Phase 0's SASS check also wants tensor-core instructions in
@@ -282,9 +284,6 @@ stack's (``serving``), one of phase 8's (``tools``), one of phase 9's
 phase 10's and 11's paths and ``substrate_shapes``, and the two backward
 kernels with ``launches`` on phase 12's), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
-
-``--phase12`` runs phase 0 and phase 12 alone (its JSON, the backward
-kernels' rows and the last line).
 
 ``--compare`` times, on trees that share its wrappers: the gather scan on
 its full-width copies, the two engine scans on one chunk at two route
@@ -5949,12 +5948,25 @@ RESUME_LOSS_RTOL = 1e-3
 DLRM_TRAIN_MAX_ROWS = 2_000_000
 DLRM_TRAIN_ARGS = ["--arch", "dlrm-mlperf", "--full", "--batch", "65536",
                    "--steps", "4", "--log-every", "1"]
-# (g): the others at full widths, the trainer's default batch; moonshot
-# with MOE_TRAIN_LAYERS of its 48 layers
+# (g): the others at full widths, each with its flags for launch.train.
+# The recsys models at their train_batch (65,536 rows), in as many
+# microbatches as the card needs: xdeepfm's CIN outer products take 20 GB
+# a layer at 65,536 rows; bert4rec's softmax over 1,000,002 items takes
+# 80 MB a row, so 512 microbatches of 128 rows, one step (33.9 s on an
+# NVIDIA H100 80GB HBM3 at 700 W, its first step as long as its second);
+# mind's in-batch softmax is (B, B), 17 GB, and would change with
+# microbatches, so one. moonshot with MOE_TRAIN_LAYERS of its 48 layers at
+# the 4,096-token training sequence, as (d), in 4 microbatches. gatedgcn
+# on the trainer's full_graph_sm graph (it has no batch).
 MOE_TRAIN_LAYERS = 2
-OTHER_TRAIN = ("gatedgcn", "xdeepfm", "bert4rec", "mind",
-               "moonshot-v1-16b-a3b")
 OTHER_STEPS = 4
+OTHER_TRAIN = {
+    "gatedgcn": [],
+    "xdeepfm": ["--batch", "65536", "--microbatch", "4"],
+    "bert4rec": ["--batch", "65536", "--microbatch", "512", "--steps", "1"],
+    "mind": ["--batch", "65536"],
+    "moonshot-v1-16b-a3b": ["--batch", "8", "--seq-len", "4096",
+                            "--microbatch", "4"]}
 
 
 def bwd_excess(got, want, dtype):
@@ -6323,9 +6335,12 @@ def p12_stablelm(dev):
                split_ms_all=s["split_ms"], **_medians(s))
     tokens = b * seq
     pairs = causal_pairs(seq, 0) * b * cfg.n_heads
-    # 6·N·tokens for the dense products (forward + backward), and the
-    # attention's 4·d per unmasked pair three times over
-    rec["model_flops"] = 6 * s["n_params"] * tokens \
+    # 6·N·tokens for the dense products (forward + backward), N without the
+    # input embedding (a gather; an untied unembedding stays, a product),
+    # and the attention's 4·d per unmasked pair three times over
+    rec["n_matmul_params"] = s["n_params"] - (
+        0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    rec["model_flops"] = 6 * rec["n_matmul_params"] * tokens \
         + 3 * 4 * cfg.head_dim * pairs * cfg.n_layers
     rec["tokens_per_s"] = tokens / (rec["step_ms"] / 1e3)
     rec["flops_share"] = rec["model_flops"] / (rec["step_ms"] / 1e3) \
@@ -6425,27 +6440,37 @@ def p12_dlrm(dev):
 
 
 def p12_others(dev):
-    """(g) gatedgcn, xdeepfm, bert4rec and mind at full widths, moonshot
-    at full widths with ``MOE_TRAIN_LAYERS`` layers: a few steps each."""
+    """(g) gatedgcn, xdeepfm, bert4rec and mind at full widths, the recsys
+    models at their train_batch, moonshot at full widths with
+    ``MOE_TRAIN_LAYERS`` layers at 8 × 4,096: a few steps each, ms a step
+    and rows or tokens a second."""
     from repro_torch.launch import train
     rec = {}
-    for arch in OTHER_TRAIN:
+    for arch, extra in OTHER_TRAIN.items():
         edit = (lambda c: dataclasses.replace(c, n_layers=MOE_TRAIN_LAYERS)
                 ) if arch.startswith("moonshot") else (lambda c: c)
         argv = ["--arch", arch, "--full", "--steps", str(OTHER_STEPS),
-                "--log-every", "1"]
+                "--log-every", "1", *extra]
         with PatchedConfig(edit):
             text, wall = run_main(train.main, argv, f"(g) {arch}",
                                   "phase 12")
         s = train_summary(text, f"(g) {arch}")
         if not all(math.isfinite(x) for x in s["losses"]):
             raise AssertionError(f"phase 12 (g) {arch}: losses {s['losses']}")
-        rec[arch] = dict(losses=s["losses"], launches=s["launches"],
-                         peak_gb=s["peak_gb"], n_params=s["n_params"],
-                         wall_s=wall, **_medians(s))
+        r = rec[arch] = dict(argv=argv, losses=s["losses"],
+                             launches=s["launches"], peak_gb=s["peak_gb"],
+                             n_params=s["n_params"], wall_s=wall,
+                             **_medians(s))
+        if extra:
+            rows = flag(argv, "--batch") * (flag(argv, "--seq-len")
+                                            if "--seq-len" in argv else 1)
+            r["rows_per_s" if arch != "moonshot-v1-16b-a3b"
+              else "tokens_per_s"] = rows / (r["step_ms"] / 1e3)
     record("phase 12 (g) " + "; ".join(
         f"{a} {r['n_params'] / 1e6:.1f}M params {r['step_ms']:.1f} ms a step"
-        f" (peak {r['peak_gb']:.1f} GB)" for a, r in rec.items()))
+        + "".join(f", {r[k]:.0f} {k[:-6]}/s" for k in (
+            "rows_per_s", "tokens_per_s") if k in r)
+        + f" (peak {r['peak_gb']:.1f} GB)" for a, r in rec.items()))
     return rec
 
 
@@ -6623,23 +6648,6 @@ def backward_rows(p12):
          "shape": dot["shape"]}]
 
 
-def phase12_alone(dev) -> int:
-    """``--phase12``: phase 0's builds, then phase 12 only, its JSON and
-    the backward kernels' rows (for iterating on the trainer)."""
-    import torch
-    t0 = time.perf_counter()
-    p12 = phase12(dev)
-    p12["phase_s"] = time.perf_counter() - t0
-    log(f"phase 12 took {p12['phase_s']:.1f} s; peak device memory "
-        f"{p12['peak_gb']:.1f} GB; launches {p12['launches']}")
-    log(json.dumps({"train": p12}))
-    log(json.dumps({"kernels": backward_rows(p12)}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
-
-
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
@@ -6686,8 +6694,6 @@ def main() -> int:
     sass = flash_sass_check(infos["flash_attention"]["path"])
     log(f"phase 0: flash_attention SASS, tensor-core instructions per "
         f"16-bit instantiation (D 16..128): {sass}")
-    if "--phase12" in sys.argv[1:]:
-        return phase12_alone(dev)
 
     t0 = time.perf_counter()
     err1 = phase1(dev)

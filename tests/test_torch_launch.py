@@ -28,6 +28,7 @@
 A ``cuda``-marked case trains on the card and reads the launch counts.
 """
 import dataclasses
+import functools
 import io
 import json
 import time
@@ -85,17 +86,22 @@ def _cfgs(arch):
     return rcfg, pcfg
 
 
-def _family(arch):
-    """``(ref params, port params, ref loss, port loss, batch(step),
-    to_numpy(port params))`` of ``arch``'s reduced config."""
+@functools.lru_cache(maxsize=None)
+def _ref_family(arch):
+    """``(ref params, ref loss, batch(step), from_numpy, to_numpy)`` of
+    ``arch``'s reduced config, built once per arch and shared by the tests
+    (the reference's params are immutable; the batches depend on the step
+    alone). The params are initialised under one ``jax.jit`` and the loss
+    is jitted (not the molecule graph's, whose ``n_graphs`` is a Python
+    int), so each family compiles once."""
     rcfg, pcfg = _cfgs(arch)
     if arch in LMS:
         with ref_on_cpu():
-            params = ref_tf.lm_init(KEY, rcfg)
+            params = jax.jit(lambda k: ref_tf.lm_init(k, rcfg))(KEY)
         stream = RefLMStream(rcfg.vocab_size, seed=1)
-        return (params, convert.lm_from_numpy(np_tree(params), pcfg),
-                lambda p, b: ref_tf.lm_loss(p, b, rcfg), tf.lm_loss,
-                lambda s: stream.batch(s, 4, 32), convert.lm_to_numpy)
+        return (params, jax.jit(lambda p, b: ref_tf.lm_loss(p, b, rcfg)),
+                lambda s: stream.batch(s, 4, 32),
+                lambda t: convert.lm_from_numpy(t, pcfg), convert.lm_to_numpy)
     if arch.startswith("gatedgcn"):
         if arch.endswith("molecule"):
             g0 = ref_graph.molecule_batch(6, 30, 64, 16, seed=0)
@@ -104,16 +110,17 @@ def _family(arch):
             g0 = ref_graph.community_graph(300, 1200, 64, 7, seed=0)
             dims = (64, 7, 0)
         with ref_on_cpu():
-            params = ref_gnn.gnn_init(KEY, rcfg, *dims)
-        return (params, convert.gnn_from_numpy(np_tree(params), pcfg),
-                lambda p, b: ref_gnn.gnn_loss(p, b, rcfg), gnn.gnn_loss,
-                lambda s: g0, convert.gnn_to_numpy)
+            params = jax.jit(lambda k: ref_gnn.gnn_init(k, rcfg, *dims))(KEY)
+        loss = lambda p, b: ref_gnn.gnn_loss(p, b, rcfg)      # noqa: E731
+        return (params, loss if arch.endswith("molecule") else jax.jit(loss),
+                lambda s: g0, lambda t: convert.gnn_from_numpy(t, pcfg),
+                convert.gnn_to_numpy)
     init, loss = {"dlrm-mlperf": ("dlrm_init", "dlrm_loss"),
                   "xdeepfm": ("xdeepfm_init", "xdeepfm_loss"),
                   "bert4rec": ("bert4rec_init", "bert4rec_loss"),
                   "mind": ("mind_init", "mind_loss")}[arch]
     with ref_on_cpu():
-        params = getattr(ref_rs, init)(KEY, rcfg)
+        params = jax.jit(lambda k: getattr(ref_rs, init)(k, rcfg))(KEY)
     if arch == "dlrm-mlperf":
         ctr = CTRStream(pcfg.n_dense, pcfg.table_sizes, seed=1)
         batch = lambda s: ctr.batch(s, 16)                  # noqa: E731
@@ -128,11 +135,25 @@ def _family(arch):
     else:
         seq = SeqRecStream(pcfg.n_items, seed=1)
         batch = lambda s: seq.mind_batch(s, 8, pcfg.hist_len)  # noqa: E731
-    port_loss = getattr(rs, loss)
-    return (params, convert.recsys_from_numpy(np_tree(params)),
-            lambda p, b: getattr(ref_rs, loss)(p, b, rcfg),
-            lambda p, b: port_loss(p, b, pcfg), batch,
-            convert.recsys_to_numpy)
+    return (params, jax.jit(lambda p, b: getattr(ref_rs, loss)(p, b, rcfg)),
+            batch, convert.recsys_from_numpy, convert.recsys_to_numpy)
+
+
+def _family(arch):
+    """``(ref params, port params, ref loss, port loss, batch(step),
+    to_numpy(port params))`` of ``arch``'s reduced config: the port's
+    params are a fresh copy of the reference's."""
+    _, pcfg = _cfgs(arch)
+    params, ref_loss, batch, from_np, to_np = _ref_family(arch)
+    if arch in LMS:
+        port_loss = tf.lm_loss
+    elif arch.startswith("gatedgcn"):
+        port_loss = gnn.gnn_loss
+    else:
+        fn = getattr(rs, f"{pcfg.model}_loss")
+        port_loss = lambda p, b: fn(p, b, pcfg)             # noqa: E731
+    return (params, from_np(np_tree(params)), ref_loss, port_loss, batch,
+            to_np)
 
 
 def _ref_batch(b):
@@ -188,10 +209,9 @@ def _assert_params_close(got, want, tol, steps):
 def test_train_step_matches_reference(arch):
     rcfg, pcfg = _cfgs(arch)
     ref_params, port_params, ref_loss, port_loss, batch, to_np = _family(arch)
-    # the loss jitted, the step eager: XLA's fused global norm and
-    # update would differ from eager jnp (and the port) at ~5e-4
-    ref_step, ref_init = ref_steps._train_step(
-        ref_loss if arch.endswith("molecule") else jax.jit(ref_loss), rcfg)
+    # the loss jitted (_ref_family), the step eager: XLA's fused global
+    # norm and update would differ from eager jnp (and the port) at ~5e-4
+    ref_step, ref_init = ref_steps._train_step(ref_loss, rcfg)
     port_step, port_init = steps._train_step(port_loss, pcfg)
     with ref_on_cpu():
         ref_opt = ref_init(ref_params)
