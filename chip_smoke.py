@@ -10,8 +10,9 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    of ``src/repro_torch/kernels/csrc`` and the memory probes of
    ``probes/memory_rates.cu`` (one nvcc per source, sm_90a, side by side)
    and print each build's time and ptxas register/spill lines;
-   ``cuobjdump -sass`` of the flash library must show HMMA or HGMMA
-   (tensor-core) instructions in each bf16 and fp16 instantiation.
+   ``cuobjdump -sass`` of the flash library must show tensor-core
+   instructions in each bf16 and fp16 instantiation: HMMA or HGMMA in the
+   forward's, HGMMA (``wgmma``) in each of the backward's two kernels.
 1. Hold each kernel (routed, cluster-major) against its plain PyTorch
    version on the card: f32 / bf16 / int8 × unfiltered / filtered × cr 1, 2,
    at a small shape and at d = 768, at k = 20 and k > 32; then the chunked
@@ -244,8 +245,9 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    kernel against its plain version on the inputs widened to f32, within
    ``FLASH_BWD_REL`` (one rounding in 16 bits) + ``FLASH_BWD_ATOL`` of
    each tensor's largest magnitude: f32 / bf16 / fp16 over
-   ``FLASH_BWD_SMALL`` (causal, window, MHA and GQA, ragged S, D 64 and
-   128), then stablelm-1.6b's layer (8 × 4,096, 32 / 32 heads, D 64) and
+   ``FLASH_BWD_SMALL`` (causal, window, MHA and GQA up to 8 query heads a
+   KV head, ragged S across several 128-row tiles, a window straddling
+   tile boundaries, D 16 to 128), then stablelm-1.6b's layer (8 × 4,096, 32 / 32 heads, D 64) and
    gemma3-27b's local layer (2 × 8,192, window 1,024) in bf16; the
    forward's output bit-equal with and without lse; the kernel given lse
    + ``FLASH_BWD_FAULT`` must fail the gate; once through
@@ -285,10 +287,11 @@ phase 10's and 11's paths and ``substrate_shapes``, and the two backward
 kernels with ``launches`` on phase 12's), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
 
-``--compare`` times, on trees that share its wrappers: the gather scan on
-its full-width copies, the two engine scans on one chunk at two route
-skews, and the query wall of 4,096 queries against the int8 snapshot with
-and without a delta of 1,024 rows and 300 tombstones.
+``--compare`` times, on trees that share its wrappers: the flash and dot
+backward kernels at phase 12's shapes, the gather scan on its full-width
+copies, the two engine scans on one chunk at two route skews, and the
+query wall of 4,096 queries against the int8 snapshot with and without a
+delta of 1,024 rows and 300 tombstones.
 """
 from __future__ import annotations
 
@@ -1177,8 +1180,8 @@ def one_rounding_check(out, q, k, v, *, causal, window, what):
 
 def flash_sass_check(lib_path):
     """→ {function: tensor-core instruction count} for the 16-bit flash
-    instantiations in the built library; raises unless each of them has
-    HMMA or HGMMA instructions."""
+    instantiations in the built library; raises unless each forward one has
+    HMMA or HGMMA instructions and each backward one (``wgmma``) HGMMA."""
     import re
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1189,20 +1192,23 @@ def flash_sass_check(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
-        elif name and re.search(r"\bH(G)?MMA\b", line):
-            counts[name] += 1
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name:
+            m = re.search(r"\b(HG?MMA)\b", line)
+            if m:
+                counts[name][m.group(1)] += 1
     found = {}
     for tag, mangled in (("bfloat16", "13__nv_bfloat16"), ("float16", "6__half")):
-        for kern, n in (("flash_tc_kernel", 4), ("flash_bwd_dkdv_tc", 4),
-                        ("flash_bwd_dq_tc", 4)):
-            fns = {name: c for name, c in counts.items()
+        for kern, ops in (("flash_tc_kernel", ("HMMA", "HGMMA")),
+                          ("flash_bwd_dkdv_kernel", ("HGMMA",)),
+                          ("flash_bwd_dq_kernel", ("HGMMA",))):
+            fns = {name: sum(c[op] for op in ops)
+                   for name, c in counts.items()
                    if kern in name and mangled in name}
-            if len(fns) != n or min(fns.values()) == 0:
-                raise AssertionError(f"flash {kern} {tag}: tensor-core "
-                                     f"instructions per instantiation "
-                                     f"{fns}; want HMMA or HGMMA in all "
-                                     f"four head dims")
+            if len(fns) != 4 or min(fns.values()) == 0:
+                raise AssertionError(f"flash {kern} {tag}: {'/'.join(ops)} "
+                                     f"per instantiation {fns}; want them "
+                                     f"in all four head dims")
             key = tag if kern == "flash_tc_kernel" else f"{kern}/{tag}"
             found[key] = sorted(fns.values())
     return found
@@ -5907,12 +5913,20 @@ FLASH_BWD_REL = {"float32": 2e-5, "bfloat16": 2 ** -8, "float16": 2 ** -11}
 FLASH_BWD_ATOL = 1e-4
 FLASH_BWD_FAULT = 1e-2
 # (B, S, H, KV, D, causal, window): MHA and GQA, S not a multiple of the
-# tiles, windows, D 64 and 128, causal and not
+# tiles, windows, D 16 to 128, causal and not; the second row crosses
+# several of the kernels' 128-row blocks and 64-row tiles: ragged S (300,
+# 333), a window straddling tile boundaries (S 520, window 130), 8 query
+# heads a KV head, D 16 and 32
 FLASH_BWD_SMALL = [(2, 100, 4, 4, 64, True, 0), (1, 77, 4, 2, 64, True, 0),
                    (2, 130, 8, 2, 64, True, 24), (1, 200, 2, 2, 128, True, 0),
                    (1, 129, 4, 1, 128, True, 40),
                    (1, 64, 2, 2, 128, False, 0),
-                   (1, 90, 4, 2, 64, False, 17)]
+                   (1, 90, 4, 2, 64, False, 17),
+                   (1, 300, 4, 4, 64, True, 0), (1, 333, 2, 2, 128, True, 0),
+                   (1, 520, 4, 2, 64, True, 130),
+                   (1, 333, 16, 2, 64, True, 0), (1, 300, 4, 2, 16, True, 0),
+                   (1, 333, 4, 2, 32, True, 0), (1, 300, 4, 4, 16, False, 0),
+                   (1, 257, 4, 2, 32, False, 40)]
 # stablelm-1.6b's layer at the trainer's 8 × 4,096 and gemma3-27b's local
 # layer at 2 × 8,192 (window 1,024), bf16
 FLASH_BWD_MAIN = {"stablelm-1.6b": dict(b=8, s=4096, h=32, kv=32, d=64,
@@ -6103,20 +6117,11 @@ def p12_flash(dev):
     for name, c in FLASH_BWD_MAIN.items():
         b, s, h, kv, d, w = (c[x] for x in ("b", "s", "h", "kv", "d",
                                             "window"))
-        kw = dict(causal=True, window=w)
-        q = torch.randn(b, s, h, d, generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        k = torch.randn(b, s, kv, d, generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        v = torch.randn(b, s, kv, d, generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        do = torch.randn(b, s, h, d, generator=g, device=dev,
-                         dtype=torch.bfloat16)
+        q, k, v, do, kw = flash_bwd_main_inputs(g, dev, c)
         r, (o, lse) = flash_bwd_gate(q, k, v, do, kw, name)
         r["shape"] = [b, s, h, kv, d]
         r["window"] = w
-        r["ms"] = time_ms(lambda: fa.flash_attention_backward(
-            q, k, v, o, lse, do, **kw), reps=3)
+        r["ms"] = flash_bwd_ms(q, k, v, o, lse, do, kw)
         r["forward_lse_ms"] = time_ms(lambda: fa._launch(
             q, k, v, True, w, True), reps=3)
         torch.cuda.synchronize()
@@ -6145,6 +6150,46 @@ def p12_flash(dev):
     return rec
 
 
+def flash_bwd_main_inputs(g, dev, c):
+    """q, k, v, dO in bf16 from ``g`` and the mask's keywords of one
+    ``FLASH_BWD_MAIN`` shape."""
+    import torch
+    b, s, h, kv, d = (c[x] for x in ("b", "s", "h", "kv", "d"))
+    q, k, v, do = (torch.randn(b, s, n, d, generator=g, device=dev,
+                               dtype=torch.bfloat16) for n in (h, kv, kv, h))
+    return q, k, v, do, dict(causal=True, window=c["window"])
+
+
+def flash_bwd_ms(q, k, v, o, lse, do, kw):
+    """One flash backward launch's time (phase 12 (a) and ``--compare``)."""
+    from repro_torch.kernels import flash_attention as fa
+    return time_ms(lambda: fa.flash_attention_backward(
+        q, k, v, o, lse, do, **kw), reps=3)
+
+
+def dot_bwd_inputs(g, dev):
+    """X and the pair gradient at ``DOT_BWD`` from ``g``, and the
+    symmetric (B, F, F) matrix that one bmm multiplies X by."""
+    import torch
+    from repro_torch.kernels import dot_interaction as di
+    b, f, d = DOT_BWD["b"], DOT_BWD["f"], DOT_BWD["d"]
+    x = torch.randn(b, f, d, generator=g, device=dev)
+    gr = torch.randn(b, f * (f - 1) // 2, generator=g, device=dev)
+    iu, ju = di.triu_pairs(f, dev)
+    gsym = torch.zeros((b, f, f), device=dev)
+    gsym[:, iu, ju] = gr
+    return x, gr, gsym + gsym.transpose(1, 2)
+
+
+def dot_bwd_ms(x, gr, gsym):
+    """The dot backward's time and the bmm's, ``(ms, library_ms)``
+    (phase 12 (b) and ``--compare``)."""
+    import torch
+    from repro_torch.kernels import dot_interaction as di
+    return (time_ms(lambda: di.dot_interaction_backward(x, gr), reps=10),
+            time_ms(lambda: torch.bmm(gsym, x), reps=10))
+
+
 def p12_dot(dev):
     """(b) The dot-interaction backward at dlrm-mlperf's train_batch (B
     65,536, F 27, d 128, f32) against its plain version, timed beside its
@@ -6152,25 +6197,19 @@ def p12_dot(dev):
     import torch
     from repro_torch.kernels import dot_interaction as di
     b, f, d = DOT_BWD["b"], DOT_BWD["f"], DOT_BWD["d"]
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randn(b, f, d, generator=g, device=dev)
-    gr = torch.randn(b, f * (f - 1) // 2, generator=g, device=dev)
+    x, gr, gsym = dot_bwd_inputs(
+        torch.Generator(device=dev).manual_seed(SEED), dev)
     got = di.dot_interaction_backward(x, gr)
     want = di.dot_interaction_backward_plain(x, gr)
     err = (got - want).abs()
     if (err > DOT_TOL + DOT_TOL * want.abs()).any():
         raise AssertionError(f"phase 12 (b): dot backward differs from plain"
                              f" by {err.max().item()}")
-    iu, ju = di.triu_pairs(f, dev)
-    gsym = torch.zeros((b, f, f), device=dev)
-    gsym[:, iu, ju] = gr
-    gsym = gsym + gsym.transpose(1, 2)
-    rec = dict(shape=[b, f, d], err=float(err.max()),
-               ms=time_ms(lambda: di.dot_interaction_backward(x, gr),
-                          reps=10),
+    ms, library_ms = dot_bwd_ms(x, gr, gsym)
+    rec = dict(shape=[b, f, d], err=float(err.max()), ms=ms,
                plain_ms=time_ms(lambda: di.dot_interaction_backward_plain(
                    x, gr), reps=3),
-               library_ms=time_ms(lambda: torch.bmm(gsym, x), reps=10))
+               library_ms=library_ms)
     nbytes = (2 * x.numel() + gr.numel()) * 4
     rec.update(roof(nbytes, 2 * f * f * d * b, F32_FLOPS_PER_S))
     rec["x_bound"] = rec["ms"] / rec["bound_ms"]
@@ -6509,7 +6548,8 @@ def phase12(dev):
 
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
-    card (parent / change / change / parent). The gather scan on its
+    card (parent / change / change / parent). The backward kernels at
+    phase 12's shapes (``backward_turns``), the gather scan on its
     full-width copies, the routed and cluster-major kernels on one
     256-query chunk at the router and uniform skews, every tier, and the
     query walls with and without a delta (``delta_walls``). It calls
@@ -6520,6 +6560,7 @@ def compare(dev):
     from repro_torch.core import serving as serving_lib
     from repro_torch.core.snapshot import IndexSnapshot
     from repro_torch.kernels import fused_topk_score as fts
+    backward = backward_turns(dev)
     fi = full_width_index(dev)
     bufs, c = fi["bufs"], fi["cfg"].n_clusters
     w_hat = IndexSnapshot.from_parts(fi["cfg"], fi["rel"], fi["index"],
@@ -6533,7 +6574,7 @@ def compare(dev):
     ctx = dict(buf32=bufs["f32"], buf8=bufs["int8"], w_hat=w_hat,
                q_emb=q_emb, ql=ql, w=w, top_c=top_router)
     qa, cand, cl, ci, _, _ = gather_inputs(ctx)
-    out = {"gather": {}}
+    out = {"backward": backward, "gather": {}}
     for p, (ce, sc) in cand.items():
         rec = gather_times(qa, ce, sc, cl, ci, w_hat)
         out["gather"][p] = rec
@@ -6558,6 +6599,30 @@ def compare(dev):
             log(f"compare {skew} {p}: routed {rec['routed_ms']:.3f} ms, "
                 f"cluster_major {rec['cluster_major_ms']:.3f} ms")
     out["delta_walls_ms"] = delta_walls(dev, fi)
+    return out
+
+
+def backward_turns(dev, turns=3):
+    """For ``--compare``: the flash backward at ``FLASH_BWD_MAIN``'s shapes
+    and the dot backward at ``DOT_BWD`` beside bmm, each timed ``turns``
+    times by phase 12's helpers on seeded inputs."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, c in FLASH_BWD_MAIN.items():
+        q, k, v, do, kw = flash_bwd_main_inputs(g, dev, c)
+        o, lse = fa._launch(q, k, v, True, kw["window"], True)
+        out[name] = [flash_bwd_ms(q, k, v, o, lse, do, kw)
+                     for _ in range(turns)]
+        log(f"compare flash backward {name}: {out[name]} ms")
+        del q, k, v, do, o, lse
+    x, gr, gsym = dot_bwd_inputs(g, dev)
+    out["dot"], out["bmm"] = map(list, zip(*(dot_bwd_ms(x, gr, gsym)
+                                             for _ in range(turns))))
+    log(f"compare dot backward: {out['dot']} ms, bmm {out['bmm']} ms")
+    del x, gr, gsym
+    torch.cuda.empty_cache()
     return out
 
 

@@ -32,7 +32,8 @@
 //   d·sizeof(T) is not a multiple of 16 (or x is not 16-byte aligned) the
 //   stage is filled by plain loads and read one element at a time.
 // The launch shape (rows, threads, row_elems, shared bytes) comes from
-// kernels/dot_interaction.py::launch_shape.
+// kernels/dot_interaction.py::launch_shape. The backward, a kernel of its own
+// design (TMA bulk copies into a ring), is described where it is defined.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,7 +77,7 @@ __device__ __forceinline__ void load_vec(const T* p, float (&o)[16 / sizeof(T)])
 // `rows` batch rows × F features × one 128-byte chunk, rows row_elems apart, features DC
 // apart; rows at or past B are not copied. A thread's copies e = tid, tid + nthr, ... split
 // into (row rr, feature f, piece p) by counters that carry instead of dividing per copy.
-// One commit group per call. The forward and the backward stage X alike.
+// One commit group per call.
 template <typename T, bool VEC>
 __device__ __forceinline__ void stage_step(const T* __restrict__ x, T* dst, int s, int B, int F,
                                            int d, int rows, int n_chunks, int row_elems) {
@@ -216,85 +217,196 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[16 / sizeof(T)]
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// ---------------------------------------------------------------------------
 // The backward: dX[b] = Gsym[b]·X[b], Gsym[i][j] = Gsym[j][i] = g[b, pair(i, j)] for i < j,
-// zero on the diagonal. Every chunk of d is independent, so the block walks the forward's
-// (row group, chunk) steps over the same double-buffered stages of X (stage_step). At a
-// group's first step it expands the group's rows of g into Gsym (rows × Fp × Fp floats,
-// zero past F) in shared memory. An item is (row, 4-feature block, 16-byte piece of the
-// chunk): it sums Σ_j Gsym[i][j]·x[j][c] over j in order for its 4 features × 16 bytes in
-// f32 registers and rounds each once. Consecutive threads take consecutive pieces, so a
-// quarter-warp reads one 128-byte row of the stage and shares its Gsym entries.
+// zero on the diagonal.
+//
+// Bound by bytes (X read, dX written, g read), at 6.4 flops per byte of X in f32. A block
+// is persistent and walks units (row b, chunk of d): the whole row when Fp·d fits a stage
+// (27 × 128 f32 is 13.8 KB). One thread keeps a ring of `stages` units of X in flight with
+// TMA bulk copies (one per unit when the chunk is all of d, else one per feature), each
+// completing on the stage's mbarrier: about 40 KB ahead of the block's compute at F 27,
+// d 128. The next unit's g row is copied by cp.async (4-byte words) while this unit
+// computes, then expanded into Gsym (Fp × Fp floats, a pair table of (i, j) built once).
+// An item is (4-feature block, 16-byte piece of the chunk): it sums Σ_j Gsym[i][j]·x[j][c]
+// over j in order for its 4 features × 16 bytes in f32 registers (Gsym read 4 j at a time
+// as float4, one broadcast per warp) and rounds each once; consecutive threads take
+// consecutive pieces, so a warp reads and writes 512 contiguous bytes of a feature row.
+// Stage rows F..Fp-1 and Gsym's diagonal are zero, written once. Without vec (d·sizeof(T)
+// not a multiple of 16, or x unaligned) the threads copy each unit with plain loads.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// the backward's shared memory: the ring, Gsym, the staged g row, the pair table, barriers
+// (kernels/dot_interaction.py::backward_launch_shape computes the same)
+__host__ __device__ inline size_t backward_smem_bytes(int F, int chunk, int stages, int size) {
+  const int fp = (F + 3) / 4 * 4, n_pairs = F * (F - 1) / 2;
+  return align16(size_t(stages) * fp * chunk * size) + size_t(fp) * fp * 4 +
+         align16(size_t(n_pairs) * size + 4) + align16(size_t(n_pairs) * 4) + 8 * size_t(stages);
+}
+
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kMaxThreads)
 dot_interaction_backward_kernel(const T* __restrict__ x, const T* __restrict__ grad,
-                                T* __restrict__ dx, int B, int F, int d, int rows,
-                                int row_elems) {
-  constexpr int DC = 128 / sizeof(T);
-  constexpr int V = 16 / sizeof(T);
-  constexpr int W = VEC ? V : 1;               // elements of d per item
+                                T* __restrict__ dx, int B, int F, int d, int chunk, int stages) {
+  constexpr int W = VEC ? 16 / sizeof(T) : 1;  // elements of d per item
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const stages = reinterpret_cast<T*>(smem_raw);      // kStages × rows × row_elems
-  const int stage_elems = rows * row_elems;
   const int nb = (F + 3) / 4, fp = 4 * nb, n_pairs = F * (F - 1) / 2;
-  float* const gsym = reinterpret_cast<float*>(stages + kStages * stage_elems);  // rows×fp×fp
+  T* const ring = reinterpret_cast<T*>(smem_raw);                 // stages × fp × chunk
+  float* const gsym = reinterpret_cast<float*>(smem_raw + align16(size_t(stages) * fp * chunk *
+                                                                  sizeof(T)));  // fp × fp
+  uint32_t* const gword = reinterpret_cast<uint32_t*>(gsym + fp * fp);    // the next g row
+  int* const pairs = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(gword) +
+                                            align16(size_t(n_pairs) * sizeof(T) + 4));
+  uint64_t* const full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(pairs) +
+                                                     align16(size_t(n_pairs) * 4));
 
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int bx = blockIdx.x, gx = gridDim.x;
-  const int n_groups = (B + rows - 1) / rows, n_chunks = (d + DC - 1) / DC;
-  if (bx >= n_groups) return;
-  const int n_steps = ((n_groups - 1 - bx) / gx + 1) * n_chunks;
+  const int n_chunks = (d + chunk - 1) / chunk;
+  const long units = long(B) * n_chunks;
+  if (blockIdx.x >= units) return;
+  const int n_mine = int((units - 1 - blockIdx.x) / gridDim.x + 1);
+  auto unit_of = [&](int k, int& b, int& c0) {
+    const long u = blockIdx.x + long(k) * gridDim.x;
+    b = int(u / n_chunks);
+    c0 = int(u % n_chunks) * chunk;
+  };
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_steps) stage_step<T, VEC>(x, stages + s * stage_elems, s, B, F, d, rows, n_chunks,
-                                        row_elems);
-    else asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int e = tid; e < stages * (fp - F) * chunk; e += nthr) {
+    const int st = e / ((fp - F) * chunk), r = e % ((fp - F) * chunk);
+    ring[size_t(st) * fp * chunk + F * chunk + r] = from_f32<T>(0.f);
   }
-  for (int s = 0; s < n_steps; ++s) {
-    const int ahead = s + kStages - 1;
-    if (ahead < n_steps)
-      stage_step<T, VEC>(x, stages + (ahead % kStages) * stage_elems, ahead, B, F, d, rows,
-                         n_chunks, row_elems);
-    else asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const int b0 = (bx + (s / n_chunks) * gx) * rows;
-    if (s % n_chunks == 0) {                   // a new group: its rows of g → Gsym
-      for (int e = tid; e < rows * fp * fp; e += nthr) {
-        const int r = e / (fp * fp), i = (e / fp) % fp, j = e % fp, b = b0 + r;
-        float val = 0.f;
-        if (b < B && i < F && j < F && i != j) {
-          const int lo = min(i, j), hi = max(i, j);
-          val = to_f32(grad[size_t(b) * n_pairs + lo * F - lo * (lo + 1) / 2 + hi - lo - 1]);
-        }
-        gsym[e] = val;
-      }
+  for (int e = tid; e < fp * fp; e += nthr) gsym[e] = 0.f;
+  for (int i = tid; i < F; i += nthr)                          // row i's pairs (i, j > i)
+    for (int j = i + 1; j < F; ++j) pairs[i * F - i * (i + 1) / 2 + j - i - 1] = i << 16 | j;
+  if (VEC && tid == 0) {
+    for (int st = 0; st < stages; ++st)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_u32(full + st))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // unit k's X → stage k % stages (one thread), completing on its barrier
+  auto load_x = [&](int k) {
+    int b, c0;
+    unit_of(k, b, c0);
+    const int cn = min(chunk, d - c0), st = k % stages;
+    T* dst = ring + size_t(st) * fp * chunk;
+    const T* src = x + size_t(b) * F * d + c0;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(full + st)), "r"(uint32_t(F * cn * sizeof(T))) : "memory");
+    if (chunk == d) {
+      bulk_load(dst, src, F * cn * sizeof(T), full + st);
+    } else {
+      for (int f = 0; f < F; ++f)
+        bulk_load(dst + f * chunk, src + size_t(f) * d, cn * sizeof(T), full + st);
     }
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
-    __syncthreads();
-    const int c0 = (s % n_chunks) * DC, cn = min(DC, d - c0), pieces = cn / W;
-    const T* st = stages + (s % kStages) * stage_elems;
-    for (int item = tid; item < rows * nb * pieces; item += nthr) {
-      const int piece = item % pieces, ib = (item / pieces) % nb, r = item / pieces / nb;
-      const int b = b0 + r;
-      if (b >= B) continue;
-      const float* gr = gsym + (r * fp + 4 * ib) * fp;
-      const T* xr = st + r * row_elems + piece * W;
+  };
+  // unit k's g row → gword, as the 4-byte words that cover it (cp.async, one commit group);
+  // a 16-bit g of odd length ends in half a word, read alone with a 2-byte load
+  const size_t g_bytes = size_t(B) * n_pairs * sizeof(T);
+  auto stage_g = [&](int k) {
+    int b, c0;
+    unit_of(k, b, c0);
+    const size_t e0 = size_t(b) * n_pairs, w0 = e0 * sizeof(T) / 4;
+    const int n_words = int(((e0 + n_pairs) * sizeof(T) + 3) / 4 - w0);
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(grad) + w0;
+    for (int w = tid; w < n_words; w += nthr) {
+      if ((w0 + w + 1) * 4 <= g_bytes)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     :: "r"(smem_u32(gword + w)), "l"(src + w) : "memory");
+      else
+        gword[w] = *reinterpret_cast<const uint16_t*>(src + w);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  auto expand_g = [&](int k) {                                 // gword → Gsym (both halves)
+    int b, c0;
+    unit_of(k, b, c0);
+    const int off = int((size_t(b) * n_pairs) % (4 / sizeof(T)));
+    const T* gv = reinterpret_cast<const T*>(gword) + off;
+    for (int p = tid; p < n_pairs; p += nthr) {
+      const int ij = pairs[p], i = ij >> 16, j = ij & 0xffff;
+      const float val = to_f32(gv[p]);
+      gsym[i * fp + j] = val;
+      gsym[j * fp + i] = val;
+    }
+  };
+
+  __syncthreads();                                 // pads, Gsym zeros, pairs, barriers
+  if (VEC && tid == 0)
+    for (int k = 0; k < stages - 1 && k < n_mine; ++k) load_x(k);
+  stage_g(0);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  expand_g(0);
+  __syncthreads();
+
+  for (int k = 0; k < n_mine; ++k) {
+    int b, c0;
+    unit_of(k, b, c0);
+    const int cn = min(chunk, d - c0), st = k % stages;
+    T* const xs = ring + size_t(st) * fp * chunk;
+    if (VEC && tid == 0 && k + stages - 1 < n_mine) load_x(k + stages - 1);
+    if (k + 1 < n_mine) stage_g(k + 1);
+    if constexpr (VEC) {
+      mbar_wait(full + st, (k / stages) & 1);
+    } else {
+      for (int e = tid; e < F * cn; e += nthr) {
+        const int f = e / cn, c = e % cn;
+        xs[f * chunk + c] = x[(size_t(b) * F + f) * d + c0 + c];
+      }
+      __syncthreads();
+    }
+    const int pieces = (cn + W - 1) / W;
+    for (int item = tid; item < nb * pieces; item += nthr) {
+      const int piece = item % pieces, ib = item / pieces;
+      const float* gr = gsym + 4 * ib * fp;
+      const T* xr = xs + piece * W;
       float acc[4][W];
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
         for (int w = 0; w < W; ++w) acc[ii][w] = 0.f;
-      for (int j = 0; j < F; ++j) {
-        float xv[W];
-        if constexpr (VEC) {
-          load_vec<T>(xr + j * DC, xv);
-        } else {
-          xv[0] = to_f32(xr[j * DC]);
-        }
+      for (int j4 = 0; j4 < fp; j4 += 4) {
+        float4 g4[4];
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const float gv = gr[ii * fp + j];
+        for (int ii = 0; ii < 4; ++ii) g4[ii] = *reinterpret_cast<const float4*>(gr + ii * fp + j4);
 #pragma unroll
-          for (int w = 0; w < W; ++w) acc[ii][w] = fmaf(gv, xv[w], acc[ii][w]);
+        for (int jj = 0; jj < 4; ++jj) {
+          float xv[W];
+          if constexpr (VEC) {
+            load_vec<T>(xr + (j4 + jj) * chunk, xv);
+          } else {
+            xv[0] = to_f32(xr[(j4 + jj) * chunk]);
+          }
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            const float gv = jj == 0   ? g4[ii].x
+                             : jj == 1 ? g4[ii].y
+                             : jj == 2 ? g4[ii].z
+                                       : g4[ii].w;
+#pragma unroll
+            for (int w = 0; w < W; ++w) acc[ii][w] = fmaf(gv, xv[w], acc[ii][w]);
+          }
         }
       }
 #pragma unroll
@@ -309,7 +421,12 @@ dot_interaction_backward_kernel(const T* __restrict__ x, const T* __restrict__ g
         }
       }
     }
-    __syncthreads();                           // this stage and Gsym are free
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();                               // stage st and Gsym are free; g row landed
+    if (k + 1 < n_mine) {
+      expand_g(k + 1);
+      __syncthreads();
+    }
   }
 }
 
@@ -332,23 +449,24 @@ int launch(const void* x, void* out, int B, int F, int d, int rows, int row_elem
 }
 
 template <typename T>
-int launch_backward(const void* x, const void* grad, void* dx, int B, int F, int d, int rows,
-                    int row_elems, int threads, int smem, int vec, cudaStream_t stream) {
-  const int fp = (F + 3) / 4 * 4;
-  if (threads > kMaxThreads ||
-      size_t(smem) < size_t(kStages) * rows * row_elems * sizeof(T) + size_t(rows) * fp * fp * 4)
+int launch_backward(const void* x, const void* grad, void* dx, int B, int F, int d, int chunk,
+                    int stages, int threads, int smem, int vec, cudaStream_t stream) {
+  if (threads > kMaxThreads || stages < 2 || chunk < 1 || chunk > d ||
+      (vec && chunk != d && chunk % (16 / sizeof(T))) ||
+      size_t(smem) < backward_smem_bytes(F, chunk, stages, sizeof(T)))
     return int(cudaErrorInvalidValue);
   auto kern = vec ? dot_interaction_backward_kernel<T, true>
                   : dot_interaction_backward_kernel<T, false>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int occ = 0, dev = 0, n_sm = 0;
+  int occ = 0, dev = 0, n_sm = 0;              // grid: the blocks the card holds at once
   if (e || (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads, smem)) ||
       (e = cudaGetDevice(&dev)) ||
       (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)))
     return int(e);
-  const int grid = min((B + rows - 1) / rows, max(occ, 1) * n_sm);
+  const long units = long(B) * ((d + chunk - 1) / chunk);
+  const int grid = int(units < long(max(occ, 1)) * n_sm ? units : long(max(occ, 1)) * n_sm);
   kern<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(grad),
-                                        static_cast<T*>(dx), B, F, d, rows, row_elems);
+                                        static_cast<T*>(dx), B, F, d, chunk, stages);
   return int(cudaGetLastError());
 }
 
@@ -370,21 +488,21 @@ extern "C" int dot_interaction(const void* x, int dtype, int B, int F, int d, in
 }
 
 // The backward of dot_interaction: grad (B, F(F-1)/2) and x (B, F, d) in one dtype → dx
-// (B, F, d) in it. rows, row_elems, threads (≤ 256) and smem (2 stages + rows·Fp²·4 bytes)
-// from backward_launch_shape; vec as for the forward (x and dx 16-byte aligned).
+// (B, F, d) in it. chunk (elements of d a stage holds: d, or a multiple of 16 bytes with vec),
+// stages (≥ 2), threads (≤ 256) and smem (backward_smem_bytes) from backward_launch_shape;
+// vec as for the forward (x and dx 16-byte aligned).
 extern "C" int dot_interaction_backward(const void* x, const void* grad, int dtype, int B, int F,
-                                        int d, int rows, int row_elems, int threads, int smem,
+                                        int d, int chunk, int stages, int threads, int smem,
                                         int vec, void* dx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_backward<float>(x, grad, dx, B, F, d, rows, row_elems, threads, smem, vec, s);
+      return launch_backward<float>(x, grad, dx, B, F, d, chunk, stages, threads, smem, vec, s);
     case 1:
-      return launch_backward<__nv_bfloat16>(x, grad, dx, B, F, d, rows, row_elems, threads, smem,
+      return launch_backward<__nv_bfloat16>(x, grad, dx, B, F, d, chunk, stages, threads, smem,
                                             vec, s);
     case 2:
-      return launch_backward<__half>(x, grad, dx, B, F, d, rows, row_elems, threads, smem, vec,
-                                     s);
+      return launch_backward<__half>(x, grad, dx, B, F, d, chunk, stages, threads, smem, vec, s);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -15,41 +15,65 @@
 // `continue`), so the live tiles are one contiguous range.
 //
 // What bounds it on an H100: operations, 4·D flops per unmasked (q, k) pair
-// per head against a few bytes per pair. Two bodies:
+// per head against a few bytes per pair. Two forward bodies:
 //
 // * bf16 / fp16 (flash_tc_kernel): both products on the tensor cores with
-//   mma.sync.m16n8k16 (f32 accumulation). mma.sync and not wgmma: its
-//   register layouts are fixed and documented, so the S accumulator turns
-//   into P's A operand in registers with no shared-memory descriptors or
-//   swizzle modes to get right; wgmma would reach the full tensor rate and
-//   is the next step. A block of 4 warps owns 64 query rows of one head
-//   (16 rows per warp). Q is staged once, in K's second stage before that
-//   fills, and kept in registers as A fragments (ldmatrix); at D 128 a block
-//   takes 70 KB of shared memory and 210 registers a thread, so two blocks
-//   share an SM (three would spill). K and V tiles of 64 keys stream through
-//   a two-stage ring in shared memory filled by cp.async (zero-filled past
-//   S), so tile j+1 arrives while tile j computes. Rows are padded by 16
-//   bytes, so the 8 rows an ldmatrix reads fall in distinct banks. S = Q·Kᵀ reads
-//   K with ldmatrix (K's rows are Bᵀ's columns); the softmax scale is applied
-//   to S in f32 after the product (the reference scales q in f32, so a
-//   pre-scaled 16-bit Q would be a new rounding). The online softmax runs in
-//   the accumulator's own layout: a thread holds 2 rows × 16 keys of a tile
-//   and takes row max and sum with two quad shuffles; exp is __expf (ex2 of
-//   x·log2 e, a few ulp, far inside the output's one rounding). P stays at the
-//   reference's f32 precision: P_hi = round(P), P_lo = round(P - P_hi), both
-//   in the input's 16-bit type, and O += P_hi·V + P_lo·V (V through
-//   ldmatrix.trans), a residue of about 2^-16 of P. The split costs 1.5× the
-//   MMA work of a kernel that rounds P once, as SDPA does. Query tiles launch
-//   heaviest first under a causal mask (blockIdx.y counts down).
+//   mma.sync.m16n8k16 (f32 accumulation): its register layouts are fixed, so
+//   the S accumulator turns into P's A operand in registers. A block of 4
+//   warps owns 64 query rows of one head (16 rows per warp). Q is staged once,
+//   in K's second stage before that fills, and kept in registers as A
+//   fragments (ldmatrix); at D 128 a block takes 70 KB of shared memory and
+//   210 registers a thread, so two blocks share an SM. K and V tiles of 64
+//   keys stream through a two-stage cp.async ring (zero-filled past S), rows
+//   padded by 16 bytes so the 8 rows an ldmatrix reads fall in distinct
+//   banks. The softmax scale is applied to S in f32 after the product (the
+//   reference scales q in f32, so a pre-scaled 16-bit Q would be a new
+//   rounding). The online softmax runs in the accumulator's own layout (two
+//   quad shuffles a row); exp is __expf. P stays at the reference's f32
+//   precision: P_hi = round(P), P_lo = round(P - P_hi), both in the input's
+//   16-bit type, and O += P_hi·V + P_lo·V (V through ldmatrix.trans), a
+//   residue of about 2^-16 of P, at 1.5× the MMA work of rounding P once.
+//   Query tiles launch heaviest first under a causal mask.
 // * f32 (flash_f32_kernel): f32 FMAs on the CUDA cores (67 TFLOP/s peak);
-//   TF32 tensor cores would break the 2e-5 contract, and this body already
-//   beats SDPA's f32 path. A block owns 64 query rows and walks the 64-key
-//   tiles; Q (pre-scaled) and Kᵀ are staged transposed so a thread reads 4
-//   query rows and 4 keys as two float4 per step of d and keeps a 4×4 score
-//   tile; half-warps reduce the row max and sum with shuffles; P goes back to
-//   shared memory in Kᵀ's place; each thread accumulates 4 rows × D/16
-//   output columns.
+//   TF32 tensor cores would break the 2e-5 contract. A block owns 64 query
+//   rows and walks the 64-key tiles; Q (pre-scaled) and Kᵀ are staged
+//   transposed so a thread reads 4 query rows and 4 keys as two float4 per
+//   step of d and keeps a 4×4 score tile; P goes back to shared memory in
+//   Kᵀ's place; each thread accumulates 4 rows × D/16 output columns.
+//
+// The backward (flash_attention_backward) replaces no Pallas kernel: the
+// reference differentiates its jnp path. From the forward's o and row lse it
+// recomputes P = exp(scale·S − lse), takes Dvec = rowsum(dO∘O) and dS = P ∘
+// (dP − Dvec), and returns dQ = scale·dS·K, dK = scale·dSᵀ·Q, dV = Pᵀ·dO, f32
+// sums rounded once, no float atomics (every element summed in a fixed order):
+//
+// * bf16 / fp16: two kernels built on Hopper's TMA, mbarriers and wgmma, the
+//   same shape each: warpgroup 0 loads (one thread issues every TMA copy, then
+//   the warpgroup gives its registers up with setmaxnreg), warpgroups 1 and 2
+//   compute (240 registers a thread), 64 rows each. flash_bwd_dkdv_kernel owns
+//   128 keys of one KV head: K and V arrive once; Q, dO, lse·log2 e and Dvec
+//   tiles of 64 queries of every query head of the group stream through a
+//   3-stage ring (full / empty mbarriers), over the contiguous live range.
+//   Each warpgroup computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma m64n64k16, both
+//   operands from shared memory), Pᵀ = 2^(Sᵀ·scale·log2 e − lse·log2 e) with
+//   ex2.approx.ftz, dSᵀ, then dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ as A
+//   from registers (the accumulator's layout is the A fragment's) and dO, Q as
+//   B read MN-major (transposed) from the very tiles the first products read
+//   K-major. flash_bwd_dq_kernel owns 128 query rows of one head and streams
+//   the live 64-key K and V tiles (heaviest causal blocks first): S = Q·Kᵀ,
+//   dP = dO·Vᵀ, dQ += dS·K with K read MN-major. Tiles use the 128-byte
+//   swizzle (a D 64 row is one 128-byte atom, a D 128 row two column blocks);
+//   below D 64 the row's own width. A warpgroup skips a step none of its
+//   pairs can see. P and dS are split into a rounded part and a rounded
+//   residue (two 16-bit products each) as in the forward: rounded once, the
+//   16-bit gradients miss their one-rounding gate by 5–14× in bf16
+//   (measured). In all, 10 products of 2·D flops per unmasked pair where the
+//   bound counts 5: S and dP twice, dV, dK and dQ split. A row-dot kernel
+//   first writes Dvec and lse·log2 e in rows padded to a multiple of 4 (TMA
+//   boxes start 16-byte aligned).
+// * f32: the CUDA cores, 32-row tiles (flash_bwd_dkdv_f32, flash_bwd_dq_f32).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -58,6 +82,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
 // bf16 / fp16: tensor cores
@@ -489,49 +514,244 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
-// Dvec[b, h, s] = Σ_d dO[b, s, h, d]·O[b, s, h, d] in f32; one warp per (b, s, h) row
+// Dvec[b, h, s] = Σ_d dO[b, s, h, d]·O[b, s, h, d] in f32, rows S4 apart, the padding
+// s in [S, S4) written 0. With lse_copy,
+// also lse·log2 e written into that padded layout: the 16-bit kernels load both by TMA,
+// whose boxes start 16-byte aligned, and take P = 2^(S·scale·log2 e − lse·log2 e).
+// 16-bit rows: D/8 lanes a row, 16 bytes each; f32: a warp a row.
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_bwd_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                        float* __restrict__ dvec, int B, int S, int H, int D) {
-  const long r = (long(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (r >= long(B) * S * H) return;
-  const T* op = o + size_t(r) * D;
-  const T* gp = dout + size_t(r) * D;
+                        const float* __restrict__ lse, float* __restrict__ dvec,
+                        float* __restrict__ lse_copy, int B, int S, int H, int D, int S4) {
+  const int lpr = sizeof(T) == 2 ? D / 8 : 32;
+  const long rows = long(B) * S * H;
+  const long r = (long(blockIdx.x) * blockDim.x + threadIdx.x) / lpr;
+  const int part = threadIdx.x % lpr;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(op[c]), to_f32(gp[c]), acc);
+  if (r < rows) {
+    if constexpr (sizeof(T) == 2) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + size_t(r) * D + part * 8);
+      const uint4 g = *reinterpret_cast<const uint4*>(dout + size_t(r) * D + part * 8);
+      const T* av = reinterpret_cast<const T*>(&a);
+      const T* gv = reinterpret_cast<const T*>(&g);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
+      for (int i = 0; i < 8; ++i) acc = fmaf(to_f32(av[i]), to_f32(gv[i]), acc);
+    } else {
+      for (int c = part; c < D; c += 32) acc = fmaf(to_f32(o[size_t(r) * D + c]),
+                                                    to_f32(dout[size_t(r) * D + c]), acc);
+    }
+  }
+  for (int off = lpr / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && part == 0) {
     const int h = int(r % H), s = int((r / H) % S), b = int(r / (long(H) * S));
-    dvec[(size_t(b) * H + h) * S + s] = acc;
+    const size_t at = (size_t(b) * H + h) * S4 + s;
+    dvec[at] = acc;
+    if (lse_copy) lse_copy[at] = lse[(size_t(b) * H + h) * S + s] * kLog2e;
+    // the row's padding is read by the TMA boxes: zero, so that a masked P (0) times
+    // dP − Dvec stays 0 whatever the scratch held before
+    for (int p = S; s == S - 1 && p < S4; ++p) {
+      dvec[at + p - s] = 0.f;
+      if (lse_copy) lse_copy[at + p - s] = 0.f;
+    }
   }
 }
 
-// the inner tile of the 16-bit backward kernels: queries of a dK/dV step, keys of a dQ
-// step (32 at D 128 keeps the accumulators in registers)
-template <int D>
-__host__ __device__ constexpr int bwd_tile() { return D <= 64 ? 64 : 32; }
+// ---------------------------------------------------------------------------
+// Hopper building blocks of the 16-bit backward: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
 
-template <int D>
-constexpr size_t dkdv_smem_bytes() {   // K, V (64 rows); two stages of Q, dO; lse, Dvec
-  return size_t(2 * 64 + 4 * bwd_tile<D>()) * (D + 8) * 2 + size_t(4 * bwd_tile<D>()) * 4;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
-template <int D>
-constexpr size_t dq_smem_bytes() {     // Q, dO (64 rows); two stages of K, V
-  return size_t(2 * 64 + 4 * bwd_tile<D>()) * (D + 8) * 2;
+// arrive, and expect `bytes` more from the copies that complete on this phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-// N rows of D values from rows s0.. of src into dst (row stride D + 8), zeros past S
-template <typename T, int D, int N>
-__device__ __forceinline__ void stage_n(T* dst, const T* src, size_t stride, int s0, int S) {
-  constexpr int CPR = D / 8;
-  for (int e = threadIdx.x; e < N * CPR; e += TC_THREADS) {
-    const int r = e / CPR, c = (e % CPR) * 8, s = s0 + r;
-    const bool in = s < S;
-    cp_async16(dst + r * (D + 8) + c, in ? src + size_t(s) * stride + c : src, in ? 16 : 0);
+// one box of a tensor map → shared memory; its bytes complete on bar
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap& map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap& map, int c0,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2}], [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(&map)), "r"(c0),
+         "r"(smem_addr(bar)) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// 2^x, flushing subnormal results to 0 (one MUFU.EX2; P below 2^-126 adds nothing)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keeps the compiler from moving accesses of an accumulator across the asynchronous products
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and stride byte offsets,
+// swizzle mode (1: 128-byte rows, 2: 64-byte, 3: 32-byte)
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                              uint32_t mode) {
+  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | uint64_t((lbo >> 4) & 0x3FFF) << 16 |
+         uint64_t((sbo >> 4) & 0x3FFF) << 32 | uint64_t(mode) << 62;
+}
+
+#define FA_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define FA_R16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define FA_R32                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "  \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define FA_R64                                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "  \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "   \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "   \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define FA_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FA_D8(i) FA_D4(i), FA_D4(i + 4)
+#define FA_D16(i) FA_D8(i), FA_D8(i + 8)
+#define FA_D32(i) FA_D16(i), FA_D16(i + 16)
+#define FA_D64 FA_D32(0), FA_D32(32)
+#define FA_A "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
+#define FA_WGMMA(T, TY)                                                                      \
+  /* d (64×64, f32) += A·B, A (64×16) and B (16×64) read from shared memory, K-major */      \
+  __device__ __forceinline__ void wgmma_ss(T, float (&d)[32], uint64_t da, uint64_t db) {    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " FA_R32         \
+                 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                           \
+                 : FA_D32(0) : "l"(da), "l"(db), "r"(1));                                    \
+  }                                                                                          \
+  /* d (64×N, f32) += A·B, A (64×16) from registers, B (16×N) MN-major (transposed) */      \
+  __device__ __forceinline__ void wgmma_rs_t(T, float (&d)[8], const uint32_t (&a)[4],       \
+                                             uint64_t db) {                                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " FA_R8          \
+                 ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"                               \
+                 : FA_D8(0) : FA_A, "l"(db), "r"(1));                                        \
+  }                                                                                          \
+  __device__ __forceinline__ void wgmma_rs_t(T, float (&d)[16], const uint32_t (&a)[4],      \
+                                             uint64_t db) {                                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " FA_R16         \
+                 ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                             \
+                 : FA_D16(0) : FA_A, "l"(db), "r"(1));                                       \
+  }                                                                                          \
+  __device__ __forceinline__ void wgmma_rs_t(T, float (&d)[32], const uint32_t (&a)[4],      \
+                                             uint64_t db) {                                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " FA_R32         \
+                 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                             \
+                 : FA_D32(0) : FA_A, "l"(db), "r"(1));                                       \
+  }                                                                                          \
+  __device__ __forceinline__ void wgmma_rs_t(T, float (&d)[64], const uint32_t (&a)[4],      \
+                                             uint64_t db) {                                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " FA_R64        \
+                 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                             \
+                 : FA_D64 : FA_A, "l"(db), "r"(1));                                          \
   }
+FA_WGMMA(__nv_bfloat16, "bf16")
+FA_WGMMA(__half, "f16")
+#undef FA_WGMMA
+#undef FA_A
+#undef FA_D64
+#undef FA_D32
+#undef FA_D16
+#undef FA_D8
+#undef FA_D4
+#undef FA_R64
+#undef FA_R32
+#undef FA_R16
+#undef FA_R8
+
+// A 16-bit tile of rows × D in shared memory, as TMA writes it and wgmma reads it: D cut
+// into NH column blocks of SW bytes (the 128-byte swizzle from D 64 up, the row's own width
+// below), each block rows × SW bytes, swizzled in 8-row atoms.
+template <int D>
+struct BwdTile {
+  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int NH = D * 2 / SW;
+  static constexpr int KPB = SW / 32;             // 16-deep k-steps per column block
+  static constexpr uint32_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int BYTES64 = 64 * D * 2;      // a 64-row tile
+};
+
+// K-major operand (rows are M or N, D is the product's depth): 64 rows from row r0 of a
+// `rows`-row tile, k-step kk (16 values of D)
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int rows, int r0, int kk) {
+  using L = BwdTile<D>;
+  return gmma_desc(tile + ((kk / L::KPB) * rows + r0) * L::SW + (kk % L::KPB) * 32, 16,
+                   8 * L::SW, L::MODE);
+}
+// MN-major B (rows are the depth, D is N): k-step j (rows 16j..16j+15) of a `rows`-row
+// tile; N crosses column blocks `rows`·SW bytes apart
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int rows, int j) {
+  using L = BwdTile<D>;
+  return gmma_desc(tile + j * 16 * L::SW, rows * L::SW, 8 * L::SW, L::MODE);
+}
+
+constexpr int BWD_THREADS = 384;       // a producer warpgroup, two consumer warpgroups
+constexpr int BWD_STAGES = 3;          // the ring of streamed tiles
+constexpr int BWD_CONSUMERS = 256;       // arrivals that free a stage: every consumer thread
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {   // K, V (128 rows); per stage Q, dO (64 rows), lse, Dvec
+  return 1024 + 4 * size_t(BwdTile<D>::BYTES64) +
+         BWD_STAGES * (2 * size_t(BwdTile<D>::BYTES64) + 1024) + 128;
+}
+template <int D>
+constexpr size_t dq_smem_bytes() {     // Q, dO (128 rows); per stage K, V (64 rows)
+  return 1024 + 4 * size_t(BwdTile<D>::BYTES64) + BWD_STAGES * 2 * size_t(BwdTile<D>::BYTES64) +
+         128;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ bool visible(int pq, int pk, int S, int causal, int window) {
@@ -541,282 +761,394 @@ __device__ __forceinline__ bool visible(int pq, int pk, int S, int causal, int w
   return ok;
 }
 
-// dK, dV of 64 keys of one KV head (16 per warp): walks the G query heads of the head's
-// group and, per head, the live query tiles; sums stay in registers, so no atomics.
+// P's (or dS's) 64 × 64 f32 accumulator → the A operands of four 16-deep k-steps, each
+// value split into its rounded part and rounded residue (f32 precision)
+template <typename T>
+__device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split2<T>(x[8 * j + 2 * r], x[8 * j + 2 * r + 1], hi[j][r], lo[j][r]);
+}
+
+// dK, dV of 128 keys of one KV head: warpgroup 0 loads (one thread: K and V once by TMA,
+// then Q, dO, lse and Dvec of each (query head, query tile) step into a ring of stages);
+// warpgroups 1 and 2 own 64 keys each and keep their sums in registers (no atomics).
 template <typename T, int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dkdv_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, int S,
-                  int H, int KV, int causal, int window, float scale) {
-  constexpr int STR = D + 8, QT = bwd_tile<D>(), NT = QT / 8, KST = D / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);          // [64][STR]
-  T* vs = ks + 64 * STR;                           // [64][STR]
-  T* qs = vs + 64 * STR;                           // [2][QT][STR]
-  T* gs = qs + 2 * QT * STR;                       // [2][QT][STR]  dO
-  float* ls = reinterpret_cast<float*>(gs + 2 * QT * STR);   // [2][QT]  lse
-  float* dl = ls + 2 * QT;                                    // [2][QT]  Dvec
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tlse,
+                      const __grid_constant__ CUtensorMap tdvec, T* __restrict__ dk,
+                      T* __restrict__ dv, int S, int S4, int H, int KV, int causal,
+                      int window, float scale) {
+  using L = BwdTile<D>;
+  constexpr int T64 = L::BYTES64, STAGE = 2 * T64 + 1024;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* const ks = align1024(bwd_smem);  // [NH][128][SW]
+  unsigned char* const vs = ks + 2 * T64;         // [NH][128][SW]
+  unsigned char* const stages = vs + 2 * T64;     // per stage: Q, dO [NH][64][SW]; lse, Dvec [64]
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(stages + BWD_STAGES * STAGE);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + BWD_STAGES;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, G = H / KV;
-  const int k0 = blockIdx.y * 64;
-  const size_t q_stride = size_t(H) * D, kv_stride = size_t(KV) * D;
-  const T* kb = k + (size_t(b) * S * KV + kvh) * D;
-  const T* vb = v + (size_t(b) * S * KV + kvh) * D;
-
-  // live query tiles [i_lo, i_hi]: some row of the tile sees some key of the block
+  const int k0 = blockIdx.y * 128;
+  // live query tiles [i_lo, i_lo + n_i): some query of the tile sees some key of the block
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(S - 1, k0 + 64 - 2 + window) : S - 1;
-  const int i_lo = q_lo / QT, n_i = q_hi / QT - i_lo + 1, n_steps = G * n_i;
+  const int q_hi = window > 0 ? min(S - 1, k0 + 126 + window) : S - 1;
+  const int i_lo = q_lo / 64, n_i = q_hi / 64 - i_lo + 1, n_steps = G * n_i;
 
-  auto stage_step = [&](int step, int st) {        // (head step / n_i, tile i_lo + step % n_i)
-    const int h = kvh * G + step / n_i, s0 = (i_lo + step % n_i) * QT;
-    stage_n<T, D, QT>(qs + st * QT * STR, q + (size_t(b) * S * H + h) * D, q_stride, s0, S);
-    stage_n<T, D, QT>(gs + st * QT * STR, dout + (size_t(b) * S * H + h) * D, q_stride, s0, S);
-    for (int t = threadIdx.x; t < QT; t += TC_THREADS) {
-      const size_t at = (size_t(b) * H + h) * S + s0 + t;
-      ls[st * QT + t] = s0 + t < S ? lse[at] : 0.f;
-      dl[st * QT + t] = s0 + t < S ? dvec[at] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, BWD_CONSUMERS);
     }
-  };
-  stage_n<T, D, 64>(ks, kb, kv_stride, k0, S);
-  stage_n<T, D, 64>(vs, vb, kv_stride, k0, S);
-  stage_step(0, 0);
-  cp_async_commit();
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-  const int key0 = k0 + warp * 16 + g;             // this thread's keys: key0, key0 + 8
-
-  for (int step = 0; step < n_steps; ++step) {
-    const int st = step & 1;
-    if (step + 1 < n_steps) stage_step(step + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();
-    const T* qt = qs + st * QT * STR;
-    const T* gt = gs + st * QT * STR;
-    const float* lt = ls + st * QT;
-    const float* dt = dl + st * QT;
-    const int qi0 = (i_lo + step % n_i) * QT;
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: 16 keys × QT queries a warp; Q's and dO's rows are the
-    // B operands' columns (ldmatrix), K and V the A operands
-    float sc[NT][4], dp[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KST; ++kk) {
-      uint32_t kf[4], vf[4];
-      ldsm_x4(kf, ks + (warp * 16 + mr + (mi & 1) * 8) * STR + kk * 16 + (mi >> 1) * 8);
-      ldsm_x4(vf, vs + (warp * 16 + mr + (mi & 1) * 8) * STR + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bf[4];
-        ldsm_x4(bf, qt + (np * 16 + mr + (mi >> 1) * 8) * STR + kk * 16 + (mi & 1) * 8);
-        mma16816<T>(sc[2 * np], kf, bf[0], bf[1]);
-        mma16816<T>(sc[2 * np + 1], kf, bf[2], bf[3]);
-        ldsm_x4(bf, gt + (np * 16 + mr + (mi >> 1) * 8) * STR + kk * 16 + (mi & 1) * 8);
-        mma16816<T>(dp[2 * np], vf, bf[0], bf[1]);
-        mma16816<T>(dp[2 * np + 1], vf, bf[2], bf[3]);
-      }
-    }
-
-    // Pᵀ = exp(scale·Sᵀ − lse) (0 where masked), dSᵀ = Pᵀ ∘ (dPᵀ − Dvec)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cq = nt * 8 + 2 * t4 + (e & 1);
-        const float p = visible(qi0 + cq, key0 + (e >> 1) * 8, S, causal, window)
-                            ? __expf(sc[nt][e] * scale - lt[cq]) : 0.f;
-        sc[nt][e] = p;
-        dp[nt][e] = p * (dp[nt][e] - dt[cq]);
-      }
-
-    // dV += Pᵀ·dO, dK += dSᵀ·Q: Pᵀ and dSᵀ are A fragments in registers, each split
-    // into a rounded part and its rounded residue (f32 precision, as the forward's P);
-    // dO's and Q's B fragments come from ldmatrix.trans
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      uint32_t ph[4], pl[4], sh[4], sl[4];
-      split2<T>(sc[2 * j][0], sc[2 * j][1], ph[0], pl[0]);
-      split2<T>(sc[2 * j][2], sc[2 * j][3], ph[1], pl[1]);
-      split2<T>(sc[2 * j + 1][0], sc[2 * j + 1][1], ph[2], pl[2]);
-      split2<T>(sc[2 * j + 1][2], sc[2 * j + 1][3], ph[3], pl[3]);
-      split2<T>(dp[2 * j][0], dp[2 * j][1], sh[0], sl[0]);
-      split2<T>(dp[2 * j][2], dp[2 * j][3], sh[1], sl[1]);
-      split2<T>(dp[2 * j + 1][0], dp[2 * j + 1][1], sh[2], sl[2]);
-      split2<T>(dp[2 * j + 1][2], dp[2 * j + 1][3], sh[3], sl[3]);
-#pragma unroll
-      for (int di = 0; di < KST; ++di) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, gt + (j * 16 + mr + (mi & 1) * 8) * STR + di * 16 + (mi >> 1) * 8);
-        mma16816<T>(dva[2 * di], ph, bf[0], bf[1]);
-        mma16816<T>(dva[2 * di], pl, bf[0], bf[1]);
-        mma16816<T>(dva[2 * di + 1], ph, bf[2], bf[3]);
-        mma16816<T>(dva[2 * di + 1], pl, bf[2], bf[3]);
-        ldsm_x4_t(bf, qt + (j * 16 + mr + (mi & 1) * 8) * STR + di * 16 + (mi >> 1) * 8);
-        mma16816<T>(dka[2 * di], sh, bf[0], bf[1]);
-        mma16816<T>(dka[2 * di], sl, bf[0], bf[1]);
-        mma16816<T>(dka[2 * di + 1], sh, bf[2], bf[3]);
-        mma16816<T>(dka[2 * di + 1], sl, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();                   // this stage is free for step + 2
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  T* dkb = dk + (size_t(b) * S * KV + kvh) * D;
-  T* dvb = dv + (size_t(b) * S * KV + kvh) * D;
+  if (threadIdx.x < 128) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(kv_full, 4 * T64);
+      for (int hb = 0; hb < L::NH; ++hb)
+        for (int r = 0; r < 2; ++r) {
+          const int at = (hb * 128 + r * 64) * L::SW;
+          tma_load_4d(ks + at, tk, hb * L::SW / 2, kvh, k0 + r * 64, b, kv_full);
+          tma_load_4d(vs + at, tv, hb * L::SW / 2, kvh, k0 + r * 64, b, kv_full);
+        }
+      for (int step = 0; step < n_steps; ++step) {
+        const int st = step % BWD_STAGES;
+        mbar_wait(empty + st, ((step / BWD_STAGES) & 1) ^ 1);
+        const int h = kvh * G + step / n_i, s0 = (i_lo + step % n_i) * 64;
+        unsigned char* const sp = stages + st * STAGE;
+        mbar_arrive_tx(full + st, 2 * T64 + 512);
+        for (int hb = 0; hb < L::NH; ++hb) {
+          tma_load_4d(sp + hb * 64 * L::SW, tq, hb * L::SW / 2, h, s0, b, full + st);
+          tma_load_4d(sp + T64 + hb * 64 * L::SW, tdo, hb * L::SW / 2, h, s0, b, full + st);
+        }
+        const int at = (b * H + h) * S4 + s0;
+        tma_load_1d(sp + 2 * T64, tlse, at, full + st);
+        tma_load_1d(sp + 2 * T64 + 256, tdvec, at, full + st);
+      }
+    }
+  } else {
+    regs_inc<240>();
+    const int c = threadIdx.x / 128 - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float scale2 = scale * kLog2e;           // e^(x·scale − lse) = 2^(x·scale2 − lse·log2 e)
+    const int kw0 = k0 + 64 * c;                   // this warpgroup's keys
+    const int key0 = kw0 + warp * 16 + g;          // this thread's keys: key0, key0 + 8
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int s = key0 + rr * 8;
-    if (s >= S) continue;
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int step = 0; step < n_steps; ++step) {
+      const int st = step % BWD_STAGES;
+      const int q0 = (i_lo + step % n_i) * 64;
+      const unsigned char* const qs = stages + st * STAGE;
+      const unsigned char* const gs = qs + T64;
+      const float* const lt = reinterpret_cast<const float*>(qs + 2 * T64);
+      const float* const dt = lt + 64;
+      mbar_wait(full + st, (step / BWD_STAGES) & 1);
+      const bool dead = kw0 >= S || (causal && kw0 > q0 + 63) ||
+                        (window > 0 && q0 - (kw0 + 63) >= window);
+      if (!dead) {
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, 64 keys × 64 queries, both operands from the tiles
+        float sc[32], dp[32];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      const size_t at = size_t(s) * kv_stride + i * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(dkb + at) =
-          pack2(T(), dka[i][2 * rr] * scale, dka[i][2 * rr + 1] * scale, nullptr);
-      *reinterpret_cast<uint32_t*>(dvb + at) =
-          pack2(T(), dva[i][2 * rr], dva[i][2 * rr + 1], nullptr);
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        reg_fence(sc);
+        reg_fence(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss(T(), sc, desc_k<D>(ks, 128, 64 * c, kk), desc_k<D>(qs, 64, 0, kk));
+          wgmma_ss(T(), dp, desc_k<D>(vs, 128, 64 * c, kk), desc_k<D>(gs, 64, 0, kk));
+        }
+        wgmma_commit();
+        wgmma_wait();
+        reg_fence(sc);
+        reg_fence(dp);
+
+        // Pᵀ = exp(scale·Sᵀ − lse) (0 where masked), dSᵀ = Pᵀ ∘ (dPᵀ − Dvec); element i
+        // is key key0 + 8·((i >> 1) & 1), query q0 + 8·(i >> 2) + 2·t4 + (i & 1), whose
+        // lse·log2 e and Dvec are lv[u], dv_[u], u = 2·(i >> 2) + (i & 1)
+        float lv[16], dv_[16];
+#pragma unroll
+        for (int c8 = 0; c8 < 8; ++c8) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lt + c8 * 8 + 2 * t4);
+          const float2 d2 = *reinterpret_cast<const float2*>(dt + c8 * 8 + 2 * t4);
+          lv[2 * c8] = l2.x;
+          lv[2 * c8 + 1] = l2.y;
+          dv_[2 * c8] = d2.x;
+          dv_[2 * c8 + 1] = d2.y;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[i] = exp2_ftz(fmaf(sc[i], scale2, -lv[2 * (i >> 2) + (i & 1)]));
+        if (q0 + 63 >= S || kw0 + 63 >= S || (causal && kw0 + 63 > q0) ||
+            (window > 0 && q0 + 63 - kw0 >= window)) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[i] = visible(q0 + (i >> 2) * 8 + 2 * t4 + (i & 1), key0 + ((i >> 1) & 1) * 8, S,
+                            causal, window) ? sc[i] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dv_[2 * (i >> 2) + (i & 1)]);
+
+        // dV += Pᵀ·dO, dK += dSᵀ·Q: Pᵀ and dSᵀ as A from registers (split), dO and Q as
+        // MN-major B from the same tiles
+        uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+        split_a<T>(sc, ph, pl);
+        split_a<T>(dp, sh, sl);
+        reg_fence(dka);
+        reg_fence(dva);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wgmma_rs_t(T(), dva, ph[j], desc_mn<D>(gs, 64, j));
+          wgmma_rs_t(T(), dva, pl[j], desc_mn<D>(gs, 64, j));
+          wgmma_rs_t(T(), dka, sh[j], desc_mn<D>(qs, 64, j));
+          wgmma_rs_t(T(), dka, sl[j], desc_mn<D>(qs, 64, j));
+        }
+        wgmma_commit();
+        wgmma_wait();
+        reg_fence(dka);
+        reg_fence(dva);
+      }
+      mbar_arrive(empty + st);
+    }
+
+    const size_t kv_stride = size_t(KV) * D;
+    T* const dkb = dk + (size_t(b) * S * KV + kvh) * D;
+    T* const dvb = dv + (size_t(b) * S * KV + kvh) * D;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int s = key0 + rr * 8;
+      if (s >= S) continue;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const size_t at = size_t(s) * kv_stride + i * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(dkb + at) =
+            pack2(T(), dka[4 * i + 2 * rr] * scale, dka[4 * i + 2 * rr + 1] * scale, nullptr);
+        *reinterpret_cast<uint32_t*>(dvb + at) =
+            pack2(T(), dva[4 * i + 2 * rr], dva[4 * i + 2 * rr + 1], nullptr);
+      }
     }
   }
 }
 
-// dQ of 64 query rows of one head (16 per warp): walks the live key tiles
+// dQ of 128 query rows of one head: warpgroup 0 loads (Q and dO once, then the live K and V
+// tiles of 64 keys through the ring); warpgroups 1 and 2 own 64 rows each.
 template <typename T, int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dq_tc(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ dvec, T* __restrict__ dq, int S, int H, int KV,
-                int causal, int window, float scale) {
-  constexpr int STR = D + 8, KT = bwd_tile<D>(), NT = KT / 8, KST = D / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);          // [64][STR]
-  T* gs = qs + 64 * STR;                           // [64][STR]  dO
-  T* ks = gs + 64 * STR;                           // [2][KT][STR]
-  T* vs = ks + 2 * KT * STR;                       // [2][KT][STR]
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, const float* __restrict__ dvec,
+                    T* __restrict__ dq, int S, int S4, int H, int KV, int causal, int window,
+                    float scale) {
+  using L = BwdTile<D>;
+  constexpr int T64 = L::BYTES64, STAGE = 2 * T64;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  unsigned char* const qs = align1024(bwd_smem);  // [NH][128][SW]
+  unsigned char* const gs = qs + 2 * T64;         // [NH][128][SW]  dO
+  unsigned char* const stages = gs + 2 * T64;     // per stage: K, V [NH][64][SW]
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(stages + BWD_STAGES * STAGE);
+  uint64_t* const full = q_full + 1;
+  uint64_t* const empty = full + BWD_STAGES;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;      // heaviest causal tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;   // heaviest causal tiles first
   const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / (H / KV);
-  const size_t q_stride = size_t(H) * D, kv_stride = size_t(KV) * D;
-  const T* kb = k + (size_t(b) * S * KV + kvh) * D;
-  const T* vb = v + (size_t(b) * S * KV + kvh) * D;
-
-  int t_hi = (S - 1) / KT;             // live key tiles, the forward's predicate
-  if (causal) t_hi = min(t_hi, (q0 + 63) / KT);
+  int t_hi = (S - 1) / 64;             // live key tiles, the forward's predicate
+  if (causal) t_hi = min(t_hi, (q0 + 127) / 64);
   int t_lo = 0;
   if (window > 0) {
-    const int x = q0 - window - KT + 1;
-    if (x >= 0) t_lo = x / KT + 1;
+    const int x = q0 - window - 63;
+    if (x >= 0) t_lo = x / 64 + 1;
   }
+  const int n_steps = t_hi - t_lo + 1;
 
-  stage_n<T, D, 64>(qs, q + (size_t(b) * S * H + h) * D, q_stride, q0, S);
-  stage_n<T, D, 64>(gs, dout + (size_t(b) * S * H + h) * D, q_stride, q0, S);
-  stage_n<T, D, KT>(ks, kb, kv_stride, t_lo * KT, S);
-  stage_n<T, D, KT>(vs, vb, kv_stride, t_lo * KT, S);
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + g;             // this thread's rows: row0, row0 + 8
-  float lr[2], dr[2];
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int s = row0 + rr * 8;
-    const size_t at = (size_t(b) * H + h) * S + s;
-    lr[rr] = s < S ? lse[at] : 0.f;
-    dr[rr] = s < S ? dvec[at] : 0.f;
-  }
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
-
-  for (int it = t_lo; it <= t_hi; ++it) {
-    const int st = (it - t_lo) & 1;
-    if (it < t_hi) {
-      stage_n<T, D, KT>(ks + (st ^ 1) * KT * STR, kb, kv_stride, (it + 1) * KT, S);
-      stage_n<T, D, KT>(vs + (st ^ 1) * KT * STR, vb, kv_stride, (it + 1) * KT, S);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, BWD_CONSUMERS);
     }
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();
-    const T* kt = ks + st * KT * STR;
-    const T* vt = vs + st * KT * STR;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ: 16 rows × KT keys a warp
-    float sc[NT][4], dp[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KST; ++kk) {
-      uint32_t qf[4], gf[4];
-      ldsm_x4(qf, qs + (warp * 16 + mr + (mi & 1) * 8) * STR + kk * 16 + (mi >> 1) * 8);
-      ldsm_x4(gf, gs + (warp * 16 + mr + (mi & 1) * 8) * STR + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bf[4];
-        ldsm_x4(bf, kt + (np * 16 + mr + (mi >> 1) * 8) * STR + kk * 16 + (mi & 1) * 8);
-        mma16816<T>(sc[2 * np], qf, bf[0], bf[1]);
-        mma16816<T>(sc[2 * np + 1], qf, bf[2], bf[3]);
-        ldsm_x4(bf, vt + (np * 16 + mr + (mi >> 1) * 8) * STR + kk * 16 + (mi & 1) * 8);
-        mma16816<T>(dp[2 * np], gf, bf[0], bf[1]);
-        mma16816<T>(dp[2 * np + 1], gf, bf[2], bf[3]);
+  if (threadIdx.x < 128) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(q_full, 4 * T64);
+      for (int hb = 0; hb < L::NH; ++hb)
+        for (int r = 0; r < 2; ++r) {
+          const int at = (hb * 128 + r * 64) * L::SW;
+          tma_load_4d(qs + at, tq, hb * L::SW / 2, h, q0 + r * 64, b, q_full);
+          tma_load_4d(gs + at, tdo, hb * L::SW / 2, h, q0 + r * 64, b, q_full);
+        }
+      for (int step = 0; step < n_steps; ++step) {
+        const int st = step % BWD_STAGES;
+        mbar_wait(empty + st, ((step / BWD_STAGES) & 1) ^ 1);
+        const int kt0 = (t_lo + step) * 64;
+        unsigned char* const sp = stages + st * STAGE;
+        mbar_arrive_tx(full + st, 2 * T64);
+        for (int hb = 0; hb < L::NH; ++hb) {
+          tma_load_4d(sp + hb * 64 * L::SW, tk, hb * L::SW / 2, kvh, kt0, b, full + st);
+          tma_load_4d(sp + T64 + hb * 64 * L::SW, tv, hb * L::SW / 2, kvh, kt0, b, full + st);
+        }
       }
     }
-
-    // dS = P ∘ (dP − Dvec), P = exp(scale·S − lse)
-    const int kt0 = it * KT;
+  } else {
+    regs_inc<240>();
+    const int c = threadIdx.x / 128 - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float scale2 = scale * kLog2e;
+    const int qw0 = q0 + 64 * c;                   // this warpgroup's rows
+    const int row0 = qw0 + warp * 16 + g;          // this thread's rows: row0, row0 + 8
+    float lr[2], dr[2];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = visible(row0 + (e >> 1) * 8, kt0 + nt * 8 + 2 * t4 + (e & 1), S,
-                                causal, window)
-                            ? __expf(sc[nt][e] * scale - lr[e >> 1]) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - dr[e >> 1]);
-      }
-
-    // dQ += dS·K: dS split as in dK/dV, K's B fragments from ldmatrix.trans
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      uint32_t sh[4], sl[4];
-      split2<T>(dp[2 * j][0], dp[2 * j][1], sh[0], sl[0]);
-      split2<T>(dp[2 * j][2], dp[2 * j][3], sh[1], sl[1]);
-      split2<T>(dp[2 * j + 1][0], dp[2 * j + 1][1], sh[2], sl[2]);
-      split2<T>(dp[2 * j + 1][2], dp[2 * j + 1][3], sh[3], sl[3]);
-#pragma unroll
-      for (int di = 0; di < KST; ++di) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, kt + (j * 16 + mr + (mi & 1) * 8) * STR + di * 16 + (mi >> 1) * 8);
-        mma16816<T>(dqa[2 * di], sh, bf[0], bf[1]);
-        mma16816<T>(dqa[2 * di], sl, bf[0], bf[1]);
-        mma16816<T>(dqa[2 * di + 1], sh, bf[2], bf[3]);
-        mma16816<T>(dqa[2 * di + 1], sl, bf[2], bf[3]);
-      }
+    for (int rr = 0; rr < 2; ++rr) {
+      const int s = row0 + rr * 8;
+      lr[rr] = s < S ? lse[(size_t(b) * H + h) * S + s] * kLog2e : 0.f;
+      dr[rr] = s < S ? dvec[(size_t(b) * H + h) * S4 + s] : 0.f;
     }
-    __syncthreads();
-  }
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    mbar_wait(q_full, 0);
 
-  T* dqb = dq + (size_t(b) * S * H + h) * D;
+    for (int step = 0; step < n_steps; ++step) {
+      const int st = step % BWD_STAGES;
+      const int kt0 = (t_lo + step) * 64;
+      const unsigned char* const kt = stages + st * STAGE;
+      const unsigned char* const vt = kt + T64;
+      mbar_wait(full + st, (step / BWD_STAGES) & 1);
+      const bool dead = qw0 >= S || (causal && kt0 > qw0 + 63) ||
+                        (window > 0 && qw0 - (kt0 + 63) >= window);
+      if (!dead) {
+        // S = Q·Kᵀ and dP = dO·Vᵀ, 64 rows × 64 keys
+        float sc[32], dp[32];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int s = row0 + rr * 8;
-    if (s >= S) continue;
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        reg_fence(sc);
+        reg_fence(dp);
+        wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(dqb + size_t(s) * q_stride + i * 8 + 2 * t4) =
-          pack2(T(), dqa[i][2 * rr] * scale, dqa[i][2 * rr + 1] * scale, nullptr);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss(T(), sc, desc_k<D>(qs, 128, 64 * c, kk), desc_k<D>(kt, 64, 0, kk));
+          wgmma_ss(T(), dp, desc_k<D>(gs, 128, 64 * c, kk), desc_k<D>(vt, 64, 0, kk));
+        }
+        wgmma_commit();
+        wgmma_wait();
+        reg_fence(sc);
+        reg_fence(dp);
+
+        // dS = P ∘ (dP − Dvec), P = exp(scale·S − lse); element i is row row0 + 8·((i >> 1)
+        // & 1), key kt0 + 8·(i >> 2) + 2·t4 + (i & 1)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = exp2_ftz(fmaf(sc[i], scale2, -lr[(i >> 1) & 1]));
+        if (qw0 + 63 >= S || kt0 + 63 >= S || (causal && kt0 + 63 > qw0) ||
+            (window > 0 && qw0 + 63 - kt0 >= window)) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[i] = visible(row0 + ((i >> 1) & 1) * 8, kt0 + (i >> 2) * 8 + 2 * t4 + (i & 1), S,
+                            causal, window) ? sc[i] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dr[(i >> 1) & 1]);
+
+        // dQ += dS·K: dS as A from registers (split), K as MN-major B from its tile
+        uint32_t sh[4][4], sl[4][4];
+        split_a<T>(dp, sh, sl);
+        reg_fence(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wgmma_rs_t(T(), dqa, sh[j], desc_mn<D>(kt, 64, j));
+          wgmma_rs_t(T(), dqa, sl[j], desc_mn<D>(kt, 64, j));
+        }
+        wgmma_commit();
+        wgmma_wait();
+        reg_fence(dqa);
+      }
+      mbar_arrive(empty + st);
+    }
+
+    const size_t q_stride = size_t(H) * D;
+    T* const dqb = dq + (size_t(b) * S * H + h) * D;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int s = row0 + rr * 8;
+      if (s >= S) continue;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(dqb + size_t(s) * q_stride + i * 8 + 2 * t4) =
+            pack2(T(), dqa[4 * i + 2 * rr] * scale, dqa[4 * i + 2 * rr + 1] * scale, nullptr);
+    }
   }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link against the driver library)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+CUtensorMapDataType map_type(__nv_bfloat16) { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
+CUtensorMapDataType map_type(__half) { return CU_TENSOR_MAP_DATA_TYPE_FLOAT16; }
+
+// (B, S, heads, D) 16-bit → boxes of 64 rows × SW bytes of one head, swizzled as BwdTile
+template <typename T, int D>
+bool rows_map(CUtensorMap* m, const void* p, int B, int S, int heads) {
+  using L = BwdTile<D>;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(heads) * D * 2,
+                                 cuuint64_t(S) * heads * D * 2};
+  const cuuint32_t box[4] = {cuuint32_t(L::SW / 2), 1, 64, 1}, unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = L::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : L::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_tiled()(m, map_type(T()), 4, const_cast<void*>(p), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// n f32 values → boxes of 64 (zeros past n)
+bool vec_map(CUtensorMap* m, const void* p, size_t n) {
+  const cuuint64_t dims[1] = {cuuint64_t(n)}, strides[1] = {4};
+  const cuuint32_t box[1] = {64}, unit[1] = {1};
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(p), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // f32 backward on the CUDA cores: 32-row tiles, 256 threads; a thread computes 4 scores
@@ -1037,9 +1369,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
           *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(dout);
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(dvec);
-  const long rows = long(B) * S * H;
-  flash_bwd_rowdot_kernel<T><<<unsigned((rows * 32 + 255) / 256), 256, 0, stream>>>(
-      static_cast<const T*>(o), gt, df, B, S, H, D);
+  // 16-bit: Dvec and a copy of lse in rows of S4 (S rounded up to 4) for the TMA loads
+  const int S4 = sizeof(T) == 2 ? (S + 3) / 4 * 4 : S;
+  float* const lse4 = sizeof(T) == 2 ? df + size_t(B) * H * S4 : nullptr;
+  const long threads = long(B) * S * H * (sizeof(T) == 2 ? D / 8 : 32);
+  flash_bwd_rowdot_kernel<T><<<unsigned((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(o), gt, lf, df, lse4, B, S, H, D, S4);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   if constexpr (sizeof(T) == 4) {
@@ -1057,19 +1392,24 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
     flash_bwd_dq_f32<D><<<dim3(B * H, tiles), FB_THREADS, smem, stream>>>(
         qt, kt, vt, gt, lf, df, static_cast<float*>(dq), S, H, KV, causal, window, scale);
   } else {
+    CUtensorMap mq, mk, mv, mdo, ml, md;
+    if (!encode_tiled() || !rows_map<T, D>(&mq, q, B, S, H) || !rows_map<T, D>(&mk, k, B, S, KV) ||
+        !rows_map<T, D>(&mv, v, B, S, KV) || !rows_map<T, D>(&mdo, dout, B, S, H) ||
+        !vec_map(&ml, lse4, size_t(B) * H * S4) || !vec_map(&md, df, size_t(B) * H * S4))
+      return int(cudaErrorInvalidValue);
     constexpr size_t smem_kv = dkdv_smem_bytes<D>(), smem_q = dq_smem_bytes<D>();
-    if ((e = cudaFuncSetAttribute(flash_bwd_dkdv_tc<T, D>,
+    if ((e = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_kv))) ||
-        (e = cudaFuncSetAttribute(flash_bwd_dq_tc<T, D>,
+        (e = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_q))))
       return int(e);
-    const int tiles = (S + 63) / 64;
-    flash_bwd_dkdv_tc<T, D><<<dim3(B * KV, tiles), TC_THREADS, smem_kv, stream>>>(
-        qt, kt, vt, gt, lf, df, static_cast<T*>(dk), static_cast<T*>(dv), S, H, KV, causal,
-        window, scale);
+    const int blocks = (S + 127) / 128;
+    flash_bwd_dkdv_kernel<T, D><<<dim3(B * KV, blocks), BWD_THREADS, smem_kv, stream>>>(
+        mq, mk, mv, mdo, ml, md, static_cast<T*>(dk), static_cast<T*>(dv), S, S4, H, KV,
+        causal, window, scale);
     if ((e = cudaGetLastError())) return int(e);
-    flash_bwd_dq_tc<T, D><<<dim3(B * H, tiles), TC_THREADS, smem_q, stream>>>(
-        qt, kt, vt, gt, lf, df, static_cast<T*>(dq), S, H, KV, causal, window, scale);
+    flash_bwd_dq_kernel<T, D><<<dim3(B * H, blocks), BWD_THREADS, smem_q, stream>>>(
+        mq, mk, mv, mdo, lf, df, static_cast<T*>(dq), S, S4, H, KV, causal, window, scale);
   }
   return int(cudaGetLastError());
 }
@@ -1124,8 +1464,9 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, int 
 }
 
 // The backward: dq (B, S, H, D), dk and dv (B, S, KV, D) in the inputs' dtype from q, k,
-// v, the forward's o and lse (B, H, S) f32, and dout (like o); dvec is (B, H, S) f32
-// scratch. Same shapes, dtypes and alignment as flash_attention (o and dout too).
+// v, the forward's o and lse (B, H, S) f32, and dout (like o); dvec is f32 scratch of
+// 2·B·H·S4 values, S4 = S rounded up to a multiple of 4. Same shapes, dtypes and alignment
+// as flash_attention (o and dout too).
 extern "C" int flash_attention_backward(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
                                         int dtype, int B, int S, int H, int KV, int D,

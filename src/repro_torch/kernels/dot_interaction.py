@@ -14,8 +14,9 @@ The backward (:func:`dot_interaction_backward`, kernel
 ``dot_interaction_backward`` in the same source) replaces no Pallas
 kernel: the reference differentiates its jnp path. ``dX[b] =
 Gsym[b]·X[b]`` with ``Gsym`` the symmetric, zero-diagonal matrix of the
-pairs' gradients; it reads X through the forward's stages and is bound by
-the bytes of X, the gradient and dX. :class:`DotInteractionFn` joins the
+pairs' gradients; persistent blocks stream whole rows of X through a ring
+of TMA bulk copies (:func:`backward_launch_shape`), bound by the bytes of
+X, the gradient and dX. :class:`DotInteractionFn` joins the
 two for autograd, and :func:`dot_interaction` goes through it whenever
 autograd needs a gradient of ``feats``.
 """
@@ -35,6 +36,8 @@ THREADS = 256                    # the most threads a block runs (one tile each)
 STAGES = 2                       # the cp.async double buffer (kStages in the .cu)
 SMEM_MAX = 227 * 1024            # shared memory one block may have
 _SMEM_TARGET = 100 * 1024        # both stages; room for two blocks per SM
+BWD_STAGES = 4                   # the backward's TMA ring (units in flight)
+BWD_STAGE_BYTES = 16 * 1024      # one unit of X: a whole row up to this size
 
 
 def _bind(lib) -> None:
@@ -91,25 +94,32 @@ def launch_shape(f: int, elem_size: int) -> dict:
                 fp=fp, chunk=chunk, row_elems=row_elems, smem_bytes=smem)
 
 
-def backward_launch_shape(f: int, elem_size: int) -> dict:
-    """Rows per block, threads, stage layout and shared bytes of the
-    backward kernel for ``x (B, f, d)``: the forward's stages of ``rows``
-    batch rows (:func:`launch_shape`'s ``fp``, ``chunk`` and
-    ``row_elems``), plus each row's symmetric gradient matrix (``fp²``
-    floats). A block runs ``rows`` × ``fp / 4`` feature blocks × 8
-    16-byte pieces of a chunk as items over at most 256 threads."""
-    shape = launch_shape(f, elem_size)
-    fp, row_elems = shape["fp"], shape["row_elems"]
-    per_row = STAGES * row_elems * elem_size + fp * fp * 4
-    rows = max(1, min(8, _SMEM_TARGET // per_row))
-    smem = rows * per_row
+def backward_launch_shape(f: int, d: int, elem_size: int) -> dict:
+    """Stage layout, threads and shared bytes of the backward kernel for
+    ``x (B, f, d)``. A stage holds one unit: ``fp`` rows (f padded to a
+    multiple of 4, the padding zero) × ``chunk`` elements of d, all of d
+    when that fits ``BWD_STAGE_BYTES`` (else a multiple of 16 bytes);
+    ``BWD_STAGES`` of them form the TMA ring. Beside them: Gsym (``fp²``
+    floats), the next unit's gradient row staged as 4-byte words, a table
+    of the pairs' (i, j) and one mbarrier a stage
+    (``backward_smem_bytes`` in the .cu). A block runs one thread per
+    (4-feature block, 16-byte piece of the chunk), at most 256."""
+    fp = -(-f // 4) * 4
+    vec = 16 // elem_size
+    if fp * d * elem_size <= BWD_STAGE_BYTES:
+        chunk = d
+    else:
+        chunk = max(vec, BWD_STAGE_BYTES // (fp * elem_size) // vec * vec)
+    n_pairs = f * (f - 1) // 2
+    a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    smem = (a16(BWD_STAGES * fp * chunk * elem_size) + fp * fp * 4
+            + a16(n_pairs * elem_size + 4) + a16(n_pairs * 4) + 8 * BWD_STAGES)
     if smem > SMEM_MAX:
         raise ValueError(f"F={f}: {smem} bytes of shared memory exceed "
                          f"{SMEM_MAX}")
-    items = rows * (fp // 4) * 8
-    return dict(rows=rows, threads=min(THREADS, -(-items // 32) * 32),
-                fp=fp, chunk=shape["chunk"], row_elems=row_elems,
-                smem_bytes=smem)
+    items = (fp // 4) * -(-chunk // vec)
+    return dict(chunk=chunk, stages=BWD_STAGES, fp=fp,
+                threads=min(THREADS, -(-items // 32) * 32), smem_bytes=smem)
 
 
 def dot_interaction_plain(feats: torch.Tensor) -> torch.Tensor:
@@ -187,15 +197,17 @@ def dot_interaction_backward(feats: torch.Tensor, grad: torch.Tensor
         raise ValueError(f"grad is on {grad.device}, feats on "
                          f"{feats.device}")
     grad = grad.contiguous()
+    if grad.data_ptr() % 4:          # the kernel copies g in 4-byte words
+        grad = grad.clone()
     dx = torch.empty_like(feats)
     if dx.numel() == 0:
         return dx
     if grad.numel() == 0:
         return dx.zero_()
-    shape = backward_launch_shape(f, feats.element_size())
+    shape = backward_launch_shape(f, d, feats.element_size())
     err = _lib().dot_interaction_backward(
         feats.data_ptr(), grad.data_ptr(), _DTYPE[feats.dtype], b, f, d,
-        shape["rows"], shape["row_elems"], shape["threads"],
+        shape["chunk"], shape["stages"], shape["threads"],
         shape["smem_bytes"], _vec(feats), dx.data_ptr(),
         torch.cuda.current_stream(feats.device).cuda_stream)
     if err:

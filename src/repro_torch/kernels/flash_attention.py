@@ -17,7 +17,10 @@ The backward (:func:`flash_attention_backward`, kernels in the same
 source) replaces no Pallas kernel: the reference differentiates its jnp
 path. From the forward's output and its row log-sum-exp ``lse (B, H, S)``
 f32 it recomputes P, takes ``Dvec = rowsum(dO∘O)`` and returns dQ, dK, dV
-in the inputs' dtype, f32 sums rounded once. :class:`FlashAttentionFn`
+in the inputs' dtype, f32 sums rounded once; in 16 bits two kernels built
+on TMA, mbarriers and ``wgmma`` (a dK/dV pass over 128-key blocks and a dQ
+pass over 128-row blocks, P and dS split in two 16-bit parts), in f32 the
+CUDA cores. :class:`FlashAttentionFn`
 joins the two for autograd: :func:`flash_attention` goes through it
 whenever autograd needs a gradient of q, k or v, and only then has the
 forward write ``lse``.
@@ -151,7 +154,8 @@ def _check(q, k, v, *more):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.element_size() == 2 and x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async "
+                             f"and TMA)")
     return b, s, h, n_kv, d
 
 
@@ -191,7 +195,10 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
-    dvec = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # the kernels' scratch: Dvec and a copy of lse, rows padded to a multiple
+    # of 4 (16-byte aligned TMA boxes)
+    dvec = torch.empty(2 * b * h * (-(-s // 4) * 4), dtype=torch.float32,
+                       device=q.device)
     err = _lib().flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), _DTYPE[q.dtype], b, s, h, n_kv, d, int(causal),

@@ -48,10 +48,17 @@ ONE_ROUNDING = {torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11,
                 torch.float32: 1e-5}
 GATE_ATOL = 1e-4
 
-# (B, S, H, KV, D, causal, window): MHA, GQA, a window, ragged S
+# (B, S, H, KV, D, causal, window): MHA, GQA, a window, ragged S; the
+# second row crosses several of the backward kernels' 128-row blocks and
+# 64-row tiles: ragged S (300, 333), a window straddling tile boundaries,
+# 8 query heads a KV head, D 16 and 32
 FLASH_CASES = [(2, 16, 4, 4, 16, True, 0), (1, 37, 4, 2, 16, True, 0),
                (2, 24, 6, 2, 32, True, 5), (1, 19, 2, 1, 16, False, 0),
-               (1, 21, 4, 2, 16, False, 6)]
+               (1, 21, 4, 2, 16, False, 6),
+               (1, 300, 4, 4, 64, True, 0), (1, 333, 2, 2, 64, True, 0),
+               (1, 333, 4, 2, 64, True, 130), (1, 333, 16, 2, 64, True, 0),
+               (1, 300, 4, 2, 16, True, 0), (1, 333, 4, 2, 32, True, 0),
+               (1, 300, 4, 4, 16, False, 0), (1, 257, 4, 2, 32, False, 40)]
 
 
 def _np(x):
@@ -216,17 +223,34 @@ def test_dot_fn_gradients_match_plain_backward():
 @pytest.mark.parametrize("f", [2, 5, 27, 40])
 @pytest.mark.parametrize("elem_size", [2, 4])
 def test_dot_backward_launch_shape(f, elem_size):
-    """The backward's stages are the forward's, plus a row's Fp² floats of
-    Gsym, within the block's shared memory."""
-    fwd = di.launch_shape(f, elem_size)
-    shape = di.backward_launch_shape(f, elem_size)
-    assert (shape["fp"], shape["chunk"], shape["row_elems"]) == (
-        fwd["fp"], fwd["chunk"], fwd["row_elems"])
-    assert shape["smem_bytes"] == shape["rows"] * (
-        di.STAGES * fwd["row_elems"] * elem_size + fwd["fp"] ** 2 * 4)
-    assert shape["smem_bytes"] <= di.SMEM_MAX
-    assert 32 <= shape["threads"] <= di.THREADS
-    assert shape["threads"] % 32 == 0
+    """A stage holds one unit of X: Fp rows (the forward's padding) × all
+    of d when that fits ``BWD_STAGE_BYTES``, else the most 16-byte pieces
+    that do; the ring of stages, Gsym (Fp² floats), the staged gradient
+    row, the pair table and one barrier a stage fit the block's shared
+    memory; one thread per (4-feature block, piece), at most 256."""
+    fp = di.launch_shape(f, elem_size)["fp"]
+    vec = 16 // elem_size
+    n_pairs = f * (f - 1) // 2
+    for d in (3, 16, 128, 1024, 4096):
+        shape = di.backward_launch_shape(f, d, elem_size)
+        chunk = shape["chunk"]
+        assert shape["fp"] == fp and shape["stages"] == di.BWD_STAGES >= 2
+        if fp * d * elem_size <= di.BWD_STAGE_BYTES:
+            assert chunk == d
+        else:
+            assert chunk % vec == 0 and vec <= chunk < d
+            assert fp * chunk * elem_size <= di.BWD_STAGE_BYTES
+            assert fp * (chunk + vec) * elem_size > di.BWD_STAGE_BYTES
+        a16 = lambda n: -(-n // 16) * 16  # noqa: E731
+        assert shape["smem_bytes"] == (
+            a16(di.BWD_STAGES * fp * chunk * elem_size) + fp * fp * 4
+            + a16(n_pairs * elem_size + 4) + a16(n_pairs * 4)
+            + 8 * di.BWD_STAGES)
+        assert shape["smem_bytes"] <= di.SMEM_MAX
+        assert 32 <= shape["threads"] <= di.THREADS
+        assert shape["threads"] % 32 == 0
+        assert shape["threads"] == min(
+            di.THREADS, -(-(fp // 4) * -(-chunk // vec) // 32) * 32)
 
 
 # ---------------------------------------------------------------------------
@@ -295,7 +319,9 @@ def _one_rounding_excess(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES + [(2, 130, 8, 2, 64, True, 24),
-                                                (1, 200, 4, 4, 128, True, 0)])
+                                                (1, 200, 4, 4, 128, True, 0),
+                                                (1, 333, 2, 2, 128, True, 0),
+                                                (1, 520, 4, 2, 64, True, 130)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_cuda_flash_backward_matches_plain(cuda_device, case, dtype):
@@ -318,7 +344,41 @@ def test_cuda_flash_backward_matches_plain(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,f,d", [(300, 27, 128), (17, 5, 12), (64, 27, 130)])
+@pytest.mark.parametrize("case", [(1, 333, 2, 2, 64, True, 0),
+                                  (2, 301, 4, 2, 128, True, 0),
+                                  (1, 333, 4, 2, 32, False, 40)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_flash_backward_ignores_what_the_scratch_held(cuda_device, case,
+                                                           dtype):
+    """At a ragged S the 16-bit kernels read Dvec and lse in rows padded to a
+    multiple of 4: a NaN left in the caching allocator's block of that
+    size must not reach dK or dV."""
+    b, s, h, _, d, causal, window = case
+    q, k, v, do = (torch.from_numpy(x).to(cuda_device).to(dtype)
+                   for x in _flash_inputs(case, 5))
+    o, lse = fa._launch(q, k, v, causal, window, True)
+    want = fa.flash_attention_backward_plain(
+        q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+        causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the wrapper's scratch is 2·B·H·S4 f32, S4 = S rounded up to 4: 4 MiB of
+    # blocks of that size filled with NaN and freed, so the allocator's free
+    # blocks of the small pool that the scratch can come from hold NaN
+    n = 2 * b * h * (-(-s // 4) * 4)
+    dirty = [torch.full((n,), float("nan"), device=cuda_device)
+             for _ in range((4 << 20) // (4 * n))]
+    del dirty
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(g).all()), name
+        assert _one_rounding_excess(g, w, dtype) <= 1.0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,d", [(300, 27, 128), (17, 5, 12), (64, 27, 130),
+                                   (40, 27, 1024), (33, 40, 64), (7, 2, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_dot_backward_matches_plain(cuda_device, b, f, d, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(0)
