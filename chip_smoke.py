@@ -234,7 +234,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    (16 layers, d 70): ``minibatch_lg`` (a reddit-size graph, its CSR and a
    1,024-seed (15, 10) sample, generation, CSR, sampling and forward timed
    apart), ``ogb_products`` full batch with the edges cut to what fits
-   (every layer held against the CPU on its first 100,000 nodes) and a
+   (every layer held against the CPU on its first 50,000 nodes) and a
    128-graph ``molecule`` batch, each forward and loss against the CPU.
    (d) one ``adafactor_update`` of a (64, 2,048, 1,408) leaf in f32 and
    bf16 against the CPU. Phase 3 also reads ``max_memory_allocated``
@@ -276,12 +276,37 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    backward kernels' main-path counts (``train_launches`` on the forward
    rows). Phase 0's SASS check also wants tensor-core instructions in
    every 16-bit backward instantiation.
+13. The cell plans (``repro_torch.launch.steps``). (a) ``plan_cell`` for
+   all 44 registered cells on the abstract (16, 16) and (2, 16, 16)
+   meshes: 40 plans and 4 skips each, every argument a meta tensor, no
+   device memory allocated; the counts and walls. (b) LIST's four cells
+   through ``plan_cell`` on ``make_host_mesh()``, a world of one over
+   NCCL (a ``file://`` store, destroyed at the phase's end), the meta
+   arguments materialised from the seed and the parameters placed through
+   their specs' DTensor placements: ``contrastive_train`` with remat at
+   the plan's 4,096 × 64 (4 hard negatives), halved until one step fits
+   (no microbatches), ``DE_TRAIN_STEPS`` steps (ms a step, tokens/s, peak,
+   losses finite, parameters moved); ``encode_corpus`` at 16,384 × 64
+   (tokens/s, the time it implies for 2,849,754 objects, bit-equal to
+   ``encode_objects``); ``serve_queries`` (4,096 queries over seeded
+   (300, 14,336, 768) f32 buffers: the cluster-major kernel's launches
+   counted around it, ids against the dispatch path with
+   ``dispatch_scan_plain`` up to ties, dropped pairs); ``mine_negatives``
+   (1,024 queries over 2,849,754 seeded unit rows, window
+   180,000:181,000, against ``mine_negatives`` up to ties). (c) One
+   contrastive step at ``REMAT_BATCH`` with remat off and on: the loss
+   equal, every gradient equal (or within ``REMAT_GRAD_TOL``; the count
+   bit-equal reported), remat's peak lower. (d) On the same world: the
+   expert-parallel MoE bit-equal to the local path at moonshot's experts
+   (2 × 512 tokens; output, aux, gradients), ``compressed_psum`` of 4M
+   values bit-equal to its arithmetic.
 
 Prints a JSON line of phase 3's numbers, one of the write path's
 (``write_path``), one of the build's (``build``), one of the serving
 stack's (``serving``), one of phase 8's (``tools``), one of phase 9's
 (``sharded``), one of phase 10's (``substrate``), one of phase 11's
-(``moe_gnn``), one of phase 12's (``train``), one of per-kernel numbers
+(``moe_gnn``), one of phase 12's (``train``), one of phase 13's
+(``cell_plans``), one of per-kernel numbers
 (flash attention, dot interaction and embedding bag with ``launches`` on
 phase 10's and 11's paths and ``substrate_shapes``, and the two backward
 kernels with ``launches`` on phase 12's), then as its last line
@@ -5160,7 +5185,8 @@ GNN_LOSS_RTOL = 1e-4
 GNN_MEMORY_SHARE = 0.85          # ogb_products' edge cut
 OGB_TRIAL_EDGES = (4_000_000, 8_000_000)
 OGB_EDGE_STEP = 1_000_000        # the cut's edge count is a multiple of it
-OGB_SLICE = 100_000              # nodes held against the CPU, layer by layer
+OGB_SLICE = 50_000               # nodes held against the CPU, layer by
+                                 # layer (its host time bounds the slice)
 ADAFACTOR_SHAPE = (64, 2048, 1408)   # a moonshot expert stack
 ADAFACTOR_LR = 1e-2
 
@@ -6546,6 +6572,628 @@ def phase12(dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the cell plans on a torch mesh
+# ---------------------------------------------------------------------------
+
+DE_ARCH = "list-dual-encoder"
+DE_TRAIN_STEPS = 3               # contrastive steps at the batch that fits
+ENCODE_REPS = 3
+SERVE_REPS = 3
+MINE_BLOCK = 1024                # queries per mining call, halved on OOM
+REMAT_BATCH = 256                # (c): a batch both forms fit
+REMAT_GRAD_TOL = 1e-5            # (c): of max|g|, if the bits differ
+MOE_EP_TOKENS = (2, 512)         # (d): moonshot's expert shapes
+PSUM_ELEMENTS = 4 << 20
+PG_BACKEND = "nccl"              # the host mesh's process group
+
+
+def meta_leaves(tree):
+    """Every tensor of a plan's argument tree (modules' parameters,
+    dicts, lists)."""
+    import torch
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in meta_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in meta_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def p13_plans():
+    """(a) ``plan_cell`` for every registered cell on the abstract
+    production meshes: every argument on the meta device, the device's
+    allocation unchanged."""
+    import torch
+    import warnings
+    from repro_torch.configs import arch_ids, get_shapes
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    before = torch.cuda.memory_allocated()
+    out = {}
+    for multi_pod in (False, True):
+        mesh = mesh_lib.abstract_production_mesh(multi_pod=multi_pod)
+        t0 = time.perf_counter()
+        ok, skip, n_meta = 0, 0, 0
+        for arch in arch_ids():
+            for s in get_shapes(arch):
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    plan = steps.plan_cell(arch, s.name, mesh)
+                if plan.skip:
+                    skip += 1
+                    continue
+                leaves = meta_leaves(plan.args)
+                if not callable(plan.fn) or not leaves or not all(
+                        t.is_meta for t in leaves):
+                    raise AssertionError(f"phase 13 (a): {arch}/{s.name} "
+                                         f"plan has a non-meta argument")
+                ok += 1
+                n_meta += len(leaves)
+        name = "x".join(map(str, mesh.sizes))
+        out[name] = dict(ok=ok, skip=skip, meta_tensors=n_meta,
+                         s=time.perf_counter() - t0)
+        log(f"phase 13 (a): {name} mesh {mesh.axis_names}: {ok} plans OK, "
+            f"{skip} SKIP, {n_meta} meta tensors, "
+            f"{out[name]['s']:.2f} s")
+        if ok + skip != 44 or skip != 4:
+            raise AssertionError(f"phase 13 (a): {ok} OK + {skip} SKIP, "
+                                 f"want 40 + 4")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("phase 13 (a): planning allocated device memory")
+    return out
+
+
+def de_model(cfg, dev, seed):
+    """Seeded relevance model (drawn on the CPU, moved)."""
+    import torch
+    from repro_torch.core import relevance
+    return relevance.relevance_init(
+        cfg, torch.Generator().manual_seed(seed)).to(dev)
+
+
+def de_tokens(rng, shape, cfg, dev):
+    """Seeded tokens and masks of ``shape`` (rows of 8..max_len live)."""
+    import numpy as np
+    import torch
+    L = cfg.max_len
+    tok = rng.integers(1, cfg.vocab_size, shape + (L,)).astype(np.int32)
+    lens = rng.integers(8, L + 1, shape)
+    msk = np.arange(L) < lens[..., None]
+    tok[~msk] = 0
+    return torch.from_numpy(tok).to(dev), torch.from_numpy(msk).to(dev)
+
+
+def de_batch(cfg, b, nneg, dev, seed):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in (("q", (b,)), ("pos", (b,)), ("neg", (b, nneg))):
+        out[f"{name}_tokens"], out[f"{name}_mask"] = de_tokens(rng, shape,
+                                                               cfg, dev)
+        out[f"{name}_loc"] = torch.from_numpy(
+            rng.uniform(size=shape + (2,)).astype(np.float32)).to(dev)
+    return out
+
+
+def like_plan(args, real):
+    """Raise unless the materialised ``real`` has the meta ``args``'
+    shapes and dtypes, leaf for leaf."""
+    got, want = meta_leaves(real), meta_leaves(args)
+    if [(tuple(t.shape), t.dtype) for t in got] != [
+            (tuple(t.shape), t.dtype) for t in want]:
+        raise AssertionError("phase 13: materialised arguments differ from "
+                             "the plan's")
+
+
+def place_params(mesh, params, pspecs):
+    """Each parameter through its spec's DTensor placements on ``mesh``
+    (``sharding.leaf_specs``); on a world of one the local block is the
+    whole parameter, bit for bit. → parameters placed."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import sharding as sh
+    n = 0
+    for p, spec in sh.leaf_specs(params, pspecs):
+        dt = distribute_tensor(p.detach(), mesh,
+                               sh.placements(mesh, spec, tuple(p.shape)))
+        if not torch.equal(dt.to_local(), p.detach()):
+            raise AssertionError("phase 13: a placed parameter's local "
+                                 "block differs on a world of one")
+        n += 1
+    return n
+
+
+def p13_train(dev, mesh, cfg):
+    """contrastive_train with remat at the plan's batch, halved until one
+    step fits (no microbatches: the loss's in-batch negatives would
+    change), then DE_TRAIN_STEPS steps."""
+    import gc
+    import torch
+    from repro_torch.launch import steps
+    plan = steps.plan_cell(DE_ARCH, "contrastive_train", mesh)
+    params_m, opt_m, batch_m = plan.args
+    b_plan, nneg, L = batch_m["neg_tokens"].shape
+    rel = de_model(cfg, dev, SEED + 13)
+    like_plan(params_m, rel)
+    placed = place_params(mesh, rel, plan.in_shardings[0])
+    opt_state = plan_opt_init(plan, rel)
+    like_plan(opt_m, opt_state)
+    before = [p.detach().clone() for p in rel.parameters()]
+    b, tried = b_plan, []
+    losses, step_ms = [], []
+    while True:
+        batch = de_batch(cfg, b, nneg, dev, SEED + 14)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            _, opt_state, metrics = plan.fn(rel, opt_state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            break
+        except torch.OutOfMemoryError:  # a trial batch's step
+            pass
+        tried.append(dict(batch=b, peak_gb=torch.cuda.max_memory_allocated()
+                          / 1e9, error=f"OutOfMemoryError at batch {b}"))
+        log(f"phase 13 (b): contrastive_train does not fit at batch {b} "
+            f"({tried[-1]['peak_gb']:.1f} GB when it failed); halving")
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        b //= 2
+        if b < 1:
+            raise AssertionError("phase 13 (b): no batch fits")
+    for _ in range(DE_TRAIN_STEPS - 1):
+        t0 = time.perf_counter()
+        _, opt_state, metrics = plan.fn(rel, opt_state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = sum(not torch.equal(a, p.detach())
+                for a, p in zip(before, rel.parameters()))
+    if not all(math.isfinite(x) for x in losses) or moved == 0:
+        raise AssertionError(f"phase 13 (b): losses {losses}, "
+                             f"{moved} parameters moved")
+    tokens = b * L * (2 + nneg)
+    ms = median(step_ms[1:]) if len(step_ms) > 1 else step_ms[0]
+    rec = dict(plan_batch=b_plan, batch=b, cut=b != b_plan, tried=tried,
+               hard_negs=nneg, max_len=L, step_ms=step_ms, ms=ms,
+               tokens_per_step=tokens, tokens_per_s=tokens / ms * 1e3,
+               peak_gb=peak, losses=losses, params_moved=moved,
+               params_placed=placed, remat=cfg.remat)
+    record(f"phase 13 (b): contrastive_train at batch {b} (plan {b_plan}) "
+           f"× {L} tokens, {nneg} hard negatives, remat {cfg.remat}: steps "
+           f"{', '.join(f'{x:.1f}' for x in step_ms)} ms, "
+           f"{rec['tokens_per_s']:.0f} tokens/s, peak {peak:.1f} GB, "
+           f"losses {losses}, {moved} parameters moved")
+    del opt_state, batch
+    return rec, rel
+
+
+def plan_opt_init(plan, params):
+    """The optimizer state of ``params`` as the plan's step initialises it
+    (``steps._train_step``'s ``opt_init``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    return steps._train_step(None, get_config(plan.arch_id))[1](params)
+
+
+def p13_encode(dev, mesh, cfg, rel):
+    import numpy as np
+    import torch
+    from repro_torch.configs import SERVE_QUERIES
+    from repro_torch.core import relevance
+    from repro_torch.launch import steps
+    plan = steps.plan_cell(DE_ARCH, "encode_corpus", mesh)
+    params_m, tok_m, msk_m = plan.args
+    b, L = tok_m.shape
+    tok, msk = de_tokens(np.random.default_rng(SEED + 15), (b,), cfg, dev)
+    like_plan((params_m, tok_m, msk_m), (rel, tok, msk))
+    place_params(mesh, rel, plan.in_shardings[0])
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = time_ms(lambda: plan.fn(rel, tok, msk), reps=ENCODE_REPS)
+        got = plan.fn(rel, tok, msk)
+        want = relevance.encode_objects(rel, tok, msk)
+    if got.shape != (b, cfg.d_model) or not torch.isfinite(got).all() \
+            or not torch.equal(got, want):
+        raise AssertionError("phase 13 (b): encode_corpus differs from "
+                             "encode_objects on the same batch")
+    n = SERVE_QUERIES["n_objects"]
+    rec = dict(batch=b, max_len=L, ms=ms, tokens_per_s=b * L / ms * 1e3,
+               objects_per_s=b / ms * 1e3,
+               corpus_s=n / (b / ms * 1e3), corpus_objects=n,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    record(f"phase 13 (b): encode_corpus {b} × {L}: {ms:.1f} ms a batch, "
+           f"{rec['tokens_per_s']:.0f} tokens/s; {n} objects would take "
+           f"{rec['corpus_s']:.1f} s; bit-equal to encode_objects; peak "
+           f"{rec['peak_gb']:.1f} GB")
+    return rec
+
+
+def serve_buffers(dev, c, cap, d, n_obj, seed):
+    """``(emb (c, cap, d) f32 unit rows, loc, ids)``: ``n_obj`` objects
+    in a seeded random order, spread evenly over the ``c`` clusters' first
+    rows; the rest padding (ids −1, loc PAD_LOC, zero rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import index as index_lib
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(n_obj, generator=gd, device=dev).to(torch.int32)
+    sizes = np.full(c, n_obj // c)
+    sizes[:n_obj % c] += 1
+    emb = torch.zeros((c, cap, d), device=dev)
+    loc = torch.full((c, cap, 2), index_lib.PAD_LOC, device=dev)
+    ids = torch.full((c, cap), -1, dtype=torch.int32, device=dev)
+    start = 0
+    for ci, n in enumerate(sizes.tolist()):
+        emb[ci, :n] = torch.nn.functional.normalize(
+            torch.randn(n, d, generator=gd, device=dev), dim=-1)
+        loc[ci, :n] = torch.rand(n, 2, generator=gd, device=dev)
+        ids[ci, :n] = perm[start:start + n]
+        start += n
+    return emb, loc, ids
+
+
+def p13_serve(dev, mesh, cfg, rel):
+    """serve_queries: the plan's ``dispatch_query_kernel`` over seeded
+    buffers at the plan's (c, cap), against the dispatch path with the
+    plain scan (``dispatch_scan_plain``) on the same inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.core import index as index_lib
+    from repro_torch.core import relevance
+    from repro_torch.kernels import fused_topk_score as fts
+    from repro_torch.launch import steps
+    plan = steps.plan_cell(DE_ARCH, "serve_queries", mesh)
+    dims = get_shape(DE_ARCH, "serve_queries").dims
+    (params_m, index_m, w_hat_m, norm_m, emb_m, loc_m, ids_m, tok_m, msk_m,
+     qloc_m) = plan.args
+    c, cap, d = emb_m.shape
+    b = tok_m.shape[0]
+    index = index_lib.index_init(d, c, torch.Generator().manual_seed(
+        SEED + 16), hidden=cfg.index_mlp_hidden).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    emb, loc, ids = serve_buffers(dev, c, cap, d, dims["n_objects"],
+                                  SEED + 17)
+    norm = {"lo": torch.zeros(2, device=dev), "span": torch.ones(2,
+                                                                 device=dev)}
+    w_hat = rel.spatial["w_s"].detach()
+    rng = np.random.default_rng(SEED + 18)
+    tok, msk = de_tokens(rng, (b,), cfg, dev)
+    qloc = torch.from_numpy(rng.uniform(size=(b, 2)).astype(
+        np.float32)).to(dev)
+    args = (rel, index, w_hat, norm, emb, loc, ids, tok, msk, qloc)
+    like_plan(plan.args, args)
+    with torch.no_grad():
+        feats = index_lib.build_features(
+            relevance.encode_queries(rel, tok, msk), qloc, norm)
+        top_c, _ = index_lib.route_queries(index, feats,
+                                           cr=cfg.cluster_route)
+    loads = torch.bincount(top_c.reshape(-1).long(), minlength=c)
+    fts.reset_launch_counts()
+    ms = time_ms(lambda: plan.fn(*args), reps=SERVE_REPS)
+    got_ids, got_sc = plan.fn(*args)
+    torch.cuda.synchronize()
+    launches = dict(fts.launches)
+    calls = SERVE_REPS + 2              # time_ms's warm-up and reps, then one
+    if dev.type == "cuda" and (launches["cluster_major"] != calls
+                               or launches["routed"]):
+        raise AssertionError(f"phase 13 (b): {calls} serve calls made "
+                             f"launches {launches}")
+    want_ids, want_sc, dropped = plain_dispatch(args, dims, cfg)
+    got_ids, got_sc = got_ids.cpu().numpy(), got_sc.cpu().numpy()
+    want_ids, want_sc = want_ids.cpu().numpy(), want_sc.cpu().numpy()
+    # a query whose pair was dropped at the capacity is (−1, −inf) whole
+    live = np.isfinite(want_sc).all(axis=1)
+    if not (np.array_equal(np.isfinite(got_sc), np.isfinite(want_sc))
+            and (got_ids[~live] == -1).all()
+            and (want_ids[~live] == -1).all()):
+        raise AssertionError("phase 13 (b): serve_queries' dropped pairs "
+                             "differ from the plain scan's")
+    err = topk_match(got_ids[live], got_sc[live], want_ids[live],
+                     want_sc[live])
+    rec = dict(queries=b, c=c, cap=cap, k=dims["topk"],
+               cr=cfg.cluster_route, notes=plan.notes, ms=ms,
+               queries_dropped=int((~live).sum()),
+               distinct_clusters=int((loads > 0).sum()),
+               max_load=int(loads.max()),
+               qps=b / ms * 1e3, dropped_pairs=int(dropped),
+               max_abs_err_vs_plain=err, launches=launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               buffer_gb=emb.numel() * 4 / 1e9)
+    record(f"phase 13 (b): serve_queries {b} queries over ({c}, {cap}, "
+           f"{d}) f32 buffers ({plan.notes}): {ms:.2f} ms, "
+           f"{rec['qps']:.0f} q/s, {dropped} pairs dropped (the random "
+           f"router: {rec['distinct_clusters']} clusters routed, the "
+           f"largest {rec['max_load']} pairs), ids equal to "
+           f"the plain scan's up to ties (max |Δs| {err:.2e}), launches "
+           f"{launches}, peak {rec['peak_gb']:.1f} GB")
+    return rec
+
+
+def plain_dispatch(args, dims, cfg):
+    """The serve cell's dispatch path with ``dispatch_scan_plain`` in the
+    scan's place → ``(ids, scores, dropped pairs)``."""
+    from repro_torch.core import serving
+    real = serving.dispatch_scan
+    serving.dispatch_scan = serving.dispatch_scan_plain
+    try:
+        ids, sc, dropped = serving.dispatch_query_kernel(
+            *args, k=dims["topk"], cr=cfg.cluster_route, dist_max=1.4142,
+            capacity=serving.query_capacity(dims["query_batch"],
+                                            dims["n_clusters"],
+                                            cfg.cluster_route),
+            return_dropped=True)
+    finally:
+        serving.dispatch_scan = real
+    return ids, sc, dropped
+
+
+def window_match(rel, got, want, q_emb, q_loc, obj_emb, obj_loc):
+    """Raise unless each row's window ids equal, or differ only where the
+    scores tie (the same multiset of scores). → rows that differ."""
+    import torch
+    from repro_torch.core import relevance
+    rows = (got != want).any(dim=1).nonzero().reshape(-1).tolist()
+    for r in rows:
+        def sc(i):
+            return relevance.score_corpus(
+                rel, q_emb[r:r + 1], q_loc[r:r + 1], obj_emb[i],
+                obj_loc[i], dist_max=1.4142)[0]
+        a, b = torch.sort(sc(got[r])).values, torch.sort(sc(want[r])).values
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 13 (b): mining row {r} differs "
+                                 f"beyond ties")
+    return len(rows)
+
+
+def p13_mine(dev, mesh, cfg, rel):
+    """mine_negatives: the plan's ``mine_negatives_dense`` (shards = the
+    mesh's size) over the corpus in blocks of MINE_BLOCK queries (halved
+    on OOM), against ``mine_negatives`` on the same rows."""
+    import gc
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.core import pseudo_labels
+    from repro_torch.launch import steps
+    plan = steps.plan_cell(DE_ARCH, "mine_negatives", mesh)
+    dims = get_shape(DE_ARCH, "mine_negatives").dims
+    params_m, qe_m, ql_m, oe_m, ol_m = plan.args
+    b, d = qe_m.shape
+    n = oe_m.shape[0]
+    gd = torch.Generator(device=dev).manual_seed(SEED + 19)
+    unit = lambda m: torch.nn.functional.normalize(  # noqa: E731
+        torch.randn(m, d, generator=gd, device=dev), dim=-1)
+    q_emb, q_loc = unit(b), torch.rand(b, 2, generator=gd, device=dev)
+    obj_emb = torch.empty((n, d), device=dev)
+    for s in range(0, n, 1 << 18):
+        obj_emb[s:s + (1 << 18)] = unit(min(1 << 18, n - s))
+    obj_loc = torch.rand(n, 2, generator=gd, device=dev)
+    like_plan(plan.args, (rel, q_emb, q_loc, obj_emb, obj_loc))
+    block, tried = min(MINE_BLOCK, b), []
+    while True:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            outs = []
+            with torch.no_grad():
+                for s in range(0, b, block):
+                    outs.append(plan.fn(rel, q_emb[s:s + block],
+                                        q_loc[s:s + block], obj_emb,
+                                        obj_loc))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            break
+        except torch.OutOfMemoryError:  # a trial block's call
+            pass
+        tried.append(dict(block=block, peak_gb=torch.cuda.max_memory_allocated()
+                          / 1e9))
+        outs = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase 13 (b): mining does not fit {block} queries a call; "
+            f"halving")
+        block //= 2
+        if block < 1:
+            raise AssertionError("phase 13 (b): no mining block fits")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = torch.cat(outs)
+    del outs
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = pseudo_labels.mine_negatives(
+            rel, q_emb, q_loc, obj_emb, obj_loc, neg_start=dims["neg_start"],
+            neg_end=dims["neg_end"], dist_max=1.4142, batch_queries=block)
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        if got.shape != want.shape:
+            raise AssertionError(f"phase 13 (b): mined {tuple(got.shape)} "
+                                 f"against {tuple(want.shape)}")
+        tie_rows = window_match(rel, got, want, q_emb, q_loc, obj_emb,
+                                obj_loc)
+    rec = dict(queries=b, objects=n, window=(dims["neg_start"],
+                                             dims["neg_end"]),
+               block=block, cut=block != min(MINE_BLOCK, b), tried=tried,
+               shards=steps.all_size(mesh),
+               wall_s=wall, oracle_s=oracle_s, rows_differing_by_ties=tie_rows,
+               peak_gb=peak)
+    record(f"phase 13 (b): mine_negatives {b} queries × {n} objects, window "
+           f"{dims['neg_start']}:{dims['neg_end']}, {block} queries a call: "
+           f"{wall:.2f} s (mine_negatives {oracle_s:.2f} s), ids equal "
+           f"({tie_rows} rows differ by ties), peak {peak:.1f} GB")
+    return rec
+
+
+def p13_remat(dev, cfg):
+    """(c) One contrastive step's loss and gradients with remat off and on
+    at REMAT_BATCH, and each one's peak memory."""
+    import gc
+    import torch
+    from repro_torch.core import relevance
+    from repro_torch.launch import steps
+    out = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        rel = de_model(c, dev, SEED + 20)
+        batch = de_batch(c, REMAT_BATCH, 4, dev, SEED + 21)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _, grads = steps.loss_and_grads(
+            lambda p, bt: relevance.contrastive_loss(p, bt), rel, batch)
+        torch.cuda.synchronize()
+        out[remat] = (loss, grads,
+                      (torch.cuda.max_memory_allocated() - base) / 1e9)
+        del rel, batch
+    (l0, g0, p0), (l1, g1, p1) = out[False], out[True]
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+             zip(g0, g1)]
+    scale = [float(a.float().abs().max()) for a in g0]
+    equal = sum(torch.equal(a, b) for a, b in zip(g0, g1))
+    rec = dict(batch=REMAT_BATCH, loss_equal=bool(torch.equal(l0, l1)),
+               grads_equal=equal, grads=len(g0), max_grad_diff=max(diffs),
+               peak_gb_no_remat=p0, peak_gb_remat=p1)
+    record(f"phase 13 (c): remat at batch {REMAT_BATCH}: loss equal "
+           f"{rec['loss_equal']}, {equal}/{len(g0)} gradients bit-equal "
+           f"(largest difference {max(diffs):.3e}); peak above the "
+           f"resident {p0:.2f} GB without remat, {p1:.2f} GB with")
+    if not rec["loss_equal"] or any(
+            dd > REMAT_GRAD_TOL * max(s, 1e-30) for dd, s in
+            zip(diffs, scale)):
+        raise AssertionError("phase 13 (c): remat changed the loss or a "
+                             "gradient")
+    if not p1 < p0:
+        raise AssertionError("phase 13 (c): remat's peak is not lower")
+    return rec
+
+
+def p13_moe_psum(dev, mesh):
+    """(d) On the world of one: the expert-parallel MoE against the local
+    path at moonshot's expert shapes, and ``compressed_psum`` against its
+    arithmetic on PSUM_ELEMENTS values."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import torch_dtype
+    cfg = get_config("moonshot-v1-16b-a3b")
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    moe = moe_lib.moe_init(g, cfg.d_model, cfg.moe,
+                           dtype=torch_dtype(cfg.param_dtype))
+    b, s = MOE_EP_TOKENS
+    x = torch.randn(b, s, cfg.d_model, generator=g, device=dev).to(
+        torch_dtype(cfg.compute_dtype)).requires_grad_(True)
+    res = {}
+    # index_add and the gathers' backward add with atomics on the card:
+    # their deterministic forms, so that two runs can be held bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for path in ("local", "expert_parallel"):
+            if path == "local":
+                out, aux = moe_lib._moe_apply_local(moe, x, cfg.moe)
+            else:
+                with sh.axis_rules(sh.rules_for_mesh(mesh)):
+                    out, aux = moe_lib.moe_apply(moe, x, cfg.moe)
+            loss = out.float().square().mean() + 0.01 * aux["lb_loss"]
+            grads = torch.autograd.grad(loss, [moe.router, moe.w1, moe.w3,
+                                               moe.w2, x])
+            res[path] = (out.detach(),
+                         {k: v.detach() for k, v in aux.items()}, grads)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (o0, a0, g0), (o1, a1, g1) = res["local"], res["expert_parallel"]
+    moe_rec = dict(tokens=b * s, experts=cfg.moe.n_experts,
+                   top_k=cfg.moe.top_k, out_equal=bool(torch.equal(o0, o1)),
+                   aux_equal=all(torch.equal(a0[k], a1[k]) for k in a0),
+                   grads_equal=sum(torch.equal(a, c) for a, c in zip(g0, g1)),
+                   drop_fraction=float(a1["drop_fraction"]))
+    if not (moe_rec["out_equal"] and moe_rec["aux_equal"]
+            and moe_rec["grads_equal"] == 5):
+        raise AssertionError(f"phase 13 (d): expert-parallel MoE {moe_rec}")
+    gr = torch.randn(PSUM_ELEMENTS, generator=g, device=dev)
+    group = mesh.get_group("data")
+    got = comp.compressed_psum(gr, group)
+    q, sc, n = comp.quantize_int8(gr)
+    want = comp.dequantize_int8(q.to(torch.int32).float() / 1.0, sc / 1.0,
+                                n, gr.shape)
+    ms = time_ms(lambda: comp.compressed_psum(gr, group))
+    err = float((got - gr).abs().max())
+    psum_rec = dict(elements=PSUM_ELEMENTS, bit_equal=bool(torch.equal(
+        got, want)), max_err_vs_g=err, bound=float(gr.abs().max()) / 100,
+        ms=ms)
+    if not psum_rec["bit_equal"] or not err < psum_rec["bound"]:
+        raise AssertionError(f"phase 13 (d): compressed_psum {psum_rec}")
+    record(f"phase 13 (d): moonshot experts ({cfg.moe.n_experts}, top "
+           f"{cfg.moe.top_k}) at {b} × {s} tokens: expert-parallel path "
+           f"bit-equal to the local one (output, aux, 5 gradients); "
+           f"compressed_psum of {PSUM_ELEMENTS} values bit-equal to its "
+           f"arithmetic, max |Δ| {err:.3e} < {psum_rec['bound']:.3e}, "
+           f"{ms:.3f} ms")
+    return dict(moe=moe_rec, psum=psum_rec)
+
+
+def phase13(dev):
+    """The cell plans: (a) every cell planned on the abstract production
+    meshes; (b) LIST's four cells executed through ``plan_cell`` on the
+    host mesh (a world of one over PG_BACKEND, a ``file://`` store,
+    destroyed at the end); (c) the encoder's remat off and on; (d) the
+    expert-parallel MoE and ``compressed_psum`` on that world."""
+    import gc
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    rec = dict(card=CARD)
+    t0 = time.perf_counter()
+    rec["plans"] = p13_plans()
+    cfg = get_config(DE_ARCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group(PG_BACKEND, init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = mesh_lib.make_host_mesh(device_type=dev.type)
+            rec["mesh"] = dict(axis_names=list(mesh_lib.axis_names(mesh)),
+                               sizes=mesh_lib.axis_sizes(mesh),
+                               backend=PG_BACKEND)
+            t1 = time.perf_counter()
+            rec["contrastive_train"], rel = p13_train(dev, mesh, cfg)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["encode_corpus"] = p13_encode(dev, mesh, cfg, rel)
+            rec["serve_queries"] = p13_serve(dev, mesh, cfg, rel)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["mine_negatives"] = p13_mine(dev, mesh, cfg, rel)
+            rec["cells_s"] = time.perf_counter() - t1
+            del rel
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["remat"] = p13_remat(dev, cfg)
+            rec["moe_psum"] = p13_moe_psum(dev, mesh)
+        finally:
+            dist.destroy_process_group()
+    rec["launches"] = rec["serve_queries"]["launches"]
+    rec["peak_gb"] = max(rec[k]["peak_gb"] for k in (
+        "contrastive_train", "encode_corpus", "serve_queries",
+        "mine_negatives"))
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
     card (parent / change / change / parent). The backward kernels at
@@ -6826,6 +7474,13 @@ def main() -> int:
     p12["phase_s"] = time.perf_counter() - t0
     log(f"phase 12 took {p12['phase_s']:.1f} s; peak device memory "
         f"{p12['peak_gb']:.1f} GB; launches {p12['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 13: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        f"allocated before the cell plans")
+    p13 = phase13(dev)
+    log(f"phase 13 took {p13['phase_s']:.1f} s; peak device memory "
+        f"{p13['peak_gb']:.1f} GB; launches {p13['launches']}")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -6855,6 +7510,7 @@ def main() -> int:
             "cli_launches": p8["cli"]["launches"][name],
             "dispatch_launches": p8["dispatch"]["launches"][name],
             "sharded_launches": p9["launches"][name],
+            "cell_plan_launches": p13["launches"][name],
             "shape": {"queries": p3["batch"], "cr": p3["cr"], "k": p3["k"],
                       "precision": "f32", "skew": "router",
                       "distinct_clusters": p3["distinct_clusters"]},
@@ -6968,6 +7624,7 @@ def main() -> int:
     log(json.dumps({"substrate": p10}))
     log(json.dumps({"moe_gnn": p11}))
     log(json.dumps({"train": p12}))
+    log(json.dumps({"cell_plans": p13}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

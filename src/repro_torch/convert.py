@@ -10,6 +10,9 @@ KV, D)} or None}`` against one ``{"k", "v"}`` per layer), and
 MIND keep the reference's pytrees, tensors as leaves), and
 ``gnn_from_numpy`` / ``gnn_to_numpy`` (GatedGCN: the stacked ``blocks``
 unstacked into one :class:`GatedGCNLayer` per layer and restacked).
+:func:`param_tree` gives any of these models the reference's layout with
+tensor leaves (meta ones for a model built on the meta device: the cell
+plans' shape trees).
 
 ``rel_params`` / ``index_params`` are the nested dicts and lists the JAX
 package trains and saves (``relevance.relevance_init``,
@@ -73,7 +76,8 @@ def encoder_from_numpy(p, cfg) -> Encoder:
         n_heads=cfg.n_heads) for i in range(n_layers)]
     return Encoder(_t(p["embed"]), _t(p["pos_embed"]), blocks,
                    _norm(p["final_ln"], eps), _dense(p["cls"]),
-                   compute_dtype=cfg.compute_dtype)
+                   compute_dtype=cfg.compute_dtype,
+                   remat=getattr(cfg, "remat", False))
 
 
 def relevance_from_numpy(rel_params, cfg) -> RelevanceModel:
@@ -120,9 +124,10 @@ def _norm_tree(m: LayerNorm, leaf) -> dict:
     return {"scale": leaf(m.scale), "bias": leaf(m.bias)}
 
 
-def encoder_to_tree(enc: Encoder, leaf=_data) -> dict:
-    """The reference's encoder pytree of ``enc``, blocks stacked; each
-    leaf is ``leaf(parameter)`` (the tensor itself by default)."""
+def encoder_to_tree(enc: Encoder, leaf=_data, stack=torch.stack) -> dict:
+    """The reference's encoder pytree of ``enc``, blocks stacked by
+    ``stack``; each leaf is ``leaf(parameter)`` (the tensor itself by
+    default)."""
     blocks = [{"ln1": _norm_tree(b.ln1, leaf), "ln2": _norm_tree(b.ln2, leaf),
                "attn": {n: _dense_tree(getattr(b, n), leaf)
                         for n in ("wq", "wk", "wv", "wo")},
@@ -130,20 +135,21 @@ def encoder_to_tree(enc: Encoder, leaf=_data) -> dict:
                        "w2": _dense_tree(b.w2, leaf)}}
               for b in enc.blocks]
     return {"embed": leaf(enc.embed), "pos_embed": leaf(enc.pos_embed),
-            "blocks": _stack(blocks),
+            "blocks": _stack(blocks, stack),
             "final_ln": _norm_tree(enc.final_ln, leaf),
             "cls": _dense_tree(enc.cls, leaf)}
 
 
-def relevance_to_tree(rel: RelevanceModel, leaf=_data) -> dict:
+def relevance_to_tree(rel: RelevanceModel, leaf=_data,
+                      stack=torch.stack) -> dict:
     """``rel_params`` in the reference's layout, leaves ``leaf(p)``
     (``grad_or_zeros`` gives the gradient pytree)."""
-    rp = {"q_enc": encoder_to_tree(rel.q_enc, leaf),
+    rp = {"q_enc": encoder_to_tree(rel.q_enc, leaf, stack),
           "weight_mlp": [_dense_tree(m, leaf) for m in rel.weight_mlp.layers],
           "fixed_w": leaf(rel.fixed_w),
           "spatial": {k: leaf(v) for k, v in rel.spatial.items()}}
     if rel.o_enc is not None:
-        rp["o_enc"] = encoder_to_tree(rel.o_enc, leaf)
+        rp["o_enc"] = encoder_to_tree(rel.o_enc, leaf, stack)
     return rp
 
 
@@ -195,10 +201,10 @@ def random_params(cfg, *, n_clusters: int, generator: torch.Generator,
     return relevance_to_tree(rel, detach), index_to_tree(index, detach)
 
 
-def _stack(trees):
+def _stack(trees, stack=torch.stack):
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+        return {k: _stack([t[k] for t in trees], stack) for k in trees[0]}
+    return stack(trees)
 
 
 # ---------------------------------------------------------------------------
@@ -248,37 +254,42 @@ def lm_from_numpy(params, cfg) -> LM:
               None if cfg.tie_embeddings else _t(params["unembed"]))
 
 
-def lm_to_numpy(model: LM):
-    """The inverse of :func:`lm_from_numpy`: the reference's pytree of
-    ``model`` on the host — blocks restacked to ``periods`` ``(n_periods,
-    period, ...)`` and ``rem`` ``(len(rem), ...)`` — with numpy leaves
-    (bfloat16 ones stay CPU tensors)."""
+def lm_to_tree(model: LM, leaf=_data, stack=torch.stack) -> dict:
+    """The reference's ``lm_init`` pytree of ``model``, blocks restacked
+    by ``stack`` to ``periods`` ``(n_periods, period, ...)`` and ``rem``
+    ``(len(rem), ...)``; each leaf is ``leaf(parameter)``."""
     cfg = model.cfg
     n, period, rem = scan_structure(cfg)
 
     def block(b: LMBlock):
-        out = {"ln1": {"scale": b.ln1.scale.data},
-               "ln2": {"scale": b.ln2.scale.data},
-               "attn": {k: _dense_tree(getattr(b, k), _data)
+        out = {"ln1": {"scale": leaf(b.ln1.scale)},
+               "ln2": {"scale": leaf(b.ln2.scale)},
+               "attn": {k: _dense_tree(getattr(b, k), leaf)
                         for k in ("wq", "wk", "wv", "wo")}}
         if b.moe is not None:
-            out["moe"] = {k: getattr(b.moe, k).data
+            out["moe"] = {k: leaf(getattr(b.moe, k))
                           for k in ("router", "w1", "w3", "w2")}
         else:
-            out["mlp"] = {k: _dense_tree(getattr(b, k), _data)
+            out["mlp"] = {k: _dense_tree(getattr(b, k), leaf)
                           for k in ("w1", "w3", "w2")}
         return out
     trees = [block(b) for b in model.blocks]
     plen = len(period)
-    out = {"embed": model.embed.data,
-           "periods": _stack([_stack(trees[i * plen:(i + 1) * plen])
-                              for i in range(n)]),
-           "final_norm": {"scale": model.final_norm.scale.data}}
+    out = {"embed": leaf(model.embed),
+           "periods": _stack([_stack(trees[i * plen:(i + 1) * plen], stack)
+                              for i in range(n)], stack),
+           "final_norm": {"scale": leaf(model.final_norm.scale)}}
     if rem:
-        out["rem"] = _stack(trees[n * plen:])
+        out["rem"] = _stack(trees[n * plen:], stack)
     if not cfg.tie_embeddings:
-        out["unembed"] = model.unembed.data
-    return to_numpy(out)
+        out["unembed"] = leaf(model.unembed)
+    return out
+
+
+def lm_to_numpy(model: LM):
+    """The inverse of :func:`lm_from_numpy`: :func:`lm_to_tree` on the
+    host with numpy leaves (bfloat16 ones stay CPU tensors)."""
+    return to_numpy(lm_to_tree(model))
 
 
 def _kind_slots(cfg):
@@ -303,10 +314,10 @@ def cache_from_numpy(cache, cfg) -> list:
             for where, kind, at in _kind_slots(cfg)]
 
 
-def cache_to_numpy(cache, cfg):
-    """The inverse of :func:`cache_from_numpy`: the reference's layout
-    (``"rem"`` None without a remainder), numpy leaves on the host
-    (bfloat16 ones stay CPU tensors)."""
+def cache_to_tree(cache, cfg):
+    """The port's per-layer KV cache in the reference's layout (``"rem"``
+    None without a remainder), the per-layer tensors stacked (a meta
+    cache stacks to meta tensors)."""
     n, period, rem = scan_structure(cfg)
     slots = _kind_slots(cfg)
     out = {"main": {}, "rem": {} if rem else None}
@@ -319,7 +330,13 @@ def cache_to_numpy(cache, cfg):
         out["rem"][kind] = {kv: torch.stack(
             [c[kv] for c, (w, k, _) in zip(cache, slots)
              if w == "rem" and k == kind]) for kv in ("k", "v")}
-    return to_numpy(out)
+    return out
+
+
+def cache_to_numpy(cache, cfg):
+    """The inverse of :func:`cache_from_numpy`: :func:`cache_to_tree`
+    with numpy leaves on the host (bfloat16 ones stay CPU tensors)."""
+    return to_numpy(cache_to_tree(cache, cfg))
 
 
 def _tensors(tree):
@@ -361,14 +378,48 @@ def gnn_from_numpy(params, cfg) -> GNN:
                gnn_layers, _dense(params["readout"]))
 
 
+def gnn_to_tree(model: GNN, leaf=_data, stack=torch.stack) -> dict:
+    """The reference's ``gnn_init`` pytree of ``model``, the layers
+    restacked by ``stack`` under ``blocks``; leaves ``leaf(parameter)``."""
+    trees = [{**{k: _dense_tree(getattr(m, k), leaf) for k in _GNN_DENSE},
+              "ln_h": _norm_tree(m.ln_h, leaf),
+              "ln_e": _norm_tree(m.ln_e, leaf)} for m in model.layers]
+    return {"node_in": _dense_tree(model.node_in, leaf),
+            "edge_in": _dense_tree(model.edge_in, leaf),
+            "blocks": _stack(trees, stack),
+            "readout": _dense_tree(model.readout, leaf)}
+
+
 def gnn_to_numpy(model: GNN):
-    """The inverse of :func:`gnn_from_numpy`: the reference's pytree of
-    ``model`` on the host, the layers restacked under ``blocks``, numpy
-    leaves (bfloat16 ones stay CPU tensors)."""
-    trees = [{**{k: _dense_tree(getattr(m, k), _data) for k in _GNN_DENSE},
-              "ln_h": _norm_tree(m.ln_h, _data),
-              "ln_e": _norm_tree(m.ln_e, _data)} for m in model.layers]
-    return to_numpy({"node_in": _dense_tree(model.node_in, _data),
-                     "edge_in": _dense_tree(model.edge_in, _data),
-                     "blocks": _stack(trees),
-                     "readout": _dense_tree(model.readout, _data)})
+    """The inverse of :func:`gnn_from_numpy`: :func:`gnn_to_tree` on the
+    host with numpy leaves (bfloat16 ones stay CPU tensors)."""
+    return to_numpy(gnn_to_tree(model))
+
+
+def _map_leaves(tree, leaf):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_leaves(v, leaf) for v in tree]
+    return None if tree is None else leaf(tree)
+
+
+def param_tree(params, leaf=_data, stack=torch.stack):
+    """Any of the port's parameter sets in the reference's layout, leaves
+    ``leaf(parameter)``, stacked layers by ``stack``: a
+    :class:`RelevanceModel`, :class:`ClusterIndex`, :class:`LM` or
+    :class:`GNN`, or a recsys dict (its own layout). On meta parameters
+    the result is a tree of meta tensors: the reference's
+    ``jax.eval_shape`` of its init."""
+    if isinstance(params, RelevanceModel):
+        return relevance_to_tree(params, leaf, stack)
+    if isinstance(params, ClusterIndex):
+        return index_to_tree(params, leaf)
+    if isinstance(params, LM):
+        return lm_to_tree(params, leaf, stack)
+    if isinstance(params, GNN):
+        return gnn_to_tree(params, leaf, stack)
+    if isinstance(params, dict):
+        return _map_leaves(params, leaf)
+    raise TypeError(f"param_tree: no reference layout for "
+                    f"{type(params).__name__}")

@@ -8,13 +8,15 @@ def require_device(device="cuda") -> torch.device:
     """``device`` as a ``torch.device`` (a CUDA device with its index);
     raises when it names CUDA and no CUDA device is present. The entry
     points default to ``"cuda"`` and never fall back to the CPU on their
-    own: pass ``device="cpu"``."""
+    own: pass ``device="cpu"``. ``meta`` is accepted too: a module
+    initialised there has shapes and dtypes and no storage (the cell
+    plans' shape path)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

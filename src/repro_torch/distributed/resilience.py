@@ -9,17 +9,18 @@
   EWMA of scan times, the consecutive failures, UP → SUSPECT → DOWN.
 - :class:`ShardUnavailable` is the sharded engine's total-loss error,
   re-exported by ``repro_torch.api``.
+- :class:`ElasticPlanner` picks the largest valid mesh
+  (:class:`MeshPlan`) for a trainer fleet's surviving pods.
 - :func:`watchdog_step` runs one training step against a wall-clock
   deadline (``launch.train``).
 
-The reference's ``ElasticPlanner`` plans a trainer fleet's mesh and is
-not ported yet (ROADMAP A 12.6b). Host-side Python; ``watchdog_step``
-waits for the card its step ran on.
+Host-side Python; ``watchdog_step`` waits for the card its step ran on.
 """
 from __future__ import annotations
 
 import time
 from collections import defaultdict, deque
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 
@@ -170,6 +171,47 @@ class ShardHealth:
 
 
 __all__ = ["StragglerMonitor", "ShardHealth", "ShardUnavailable"]
+
+
+@dataclass
+class MeshPlan:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    n_chips: int
+    reason: str = ""
+
+
+class ElasticPlanner:
+    """Choose the largest valid (data, model) mesh for the surviving
+    chips.
+
+    The model axis is ``min(tp_divisor, 16)`` (``tp_divisor``: the heads /
+    d_ff / vocab GCD); the pod count must keep ``global_batch`` divisible.
+    Pods are atomic: losing any chip in a pod drops the pod."""
+
+    def __init__(self, *, chips_per_pod: int = 256, tp_divisor: int = 16,
+                 global_batch: int = 256):
+        self.chips_per_pod = chips_per_pod
+        self.tp_divisor = tp_divisor
+        self.global_batch = global_batch
+
+    def plan(self, healthy_pods: int) -> Optional[MeshPlan]:
+        if healthy_pods <= 0:
+            return None
+        tp = min(self.tp_divisor, 16)
+        per_pod_data = self.chips_per_pod // tp
+        if healthy_pods == 1:
+            return MeshPlan((per_pod_data, tp), ("data", "model"),
+                            self.chips_per_pod, "single pod")
+        if self.global_batch % healthy_pods != 0:
+            # drop to the largest pod count that divides the batch
+            while healthy_pods > 1 and self.global_batch % healthy_pods:
+                healthy_pods -= 1
+            return self.plan(healthy_pods)
+        return MeshPlan((healthy_pods, per_pod_data, tp),
+                        ("pod", "data", "model"),
+                        healthy_pods * self.chips_per_pod,
+                        f"{healthy_pods} pods")
 
 
 def _first_tensor(tree):

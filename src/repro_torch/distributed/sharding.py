@@ -1,5 +1,28 @@
-"""Cluster-axis sharding of the packed cluster buffers (reference:
-``repro.distributed.sharding``, its cluster half).
+"""Logical→physical sharding rules and the cluster-axis sharding of the
+packed cluster buffers (reference: ``repro.distributed.sharding``).
+
+**The training half.** Models and plans name *logical* axes ("dp", "tp",
+"cluster", "all"); :func:`axis_rules` binds them to a mesh's physical
+axes (:func:`rules_for_mesh`):
+
+  single-pod (16,16) ("data","model")        : dp=("data",)        tp=("model",)
+  multi-pod  (2,16,16) ("pod","data","model"): dp=("pod","data")   tp=("model",)
+
+A *spec* is a tuple with one entry per tensor dim: ``None``, an axis
+name, or a tuple of axis names (the dim split over several axes, the
+first the major one), the content of the reference's ``PartitionSpec``
+(a one-name tuple is written as the name, an empty one as ``None``, as
+``PartitionSpec`` normalises them). :func:`param_specs` matches the rule
+tables against the reference's parameter paths (``convert.param_tree``
+gives a port model that layout, stacked layers and all);
+:func:`leaf_specs` hands each port parameter its spec with the stacked
+dims dropped; :func:`named_shardings` turns specs into DTensor placements
+on a mesh (``Shard(d)`` on every mesh dim a tensor dim is split over);
+:func:`opt_state_specs` gives the optimizer state's. Outside a binding
+:func:`logical_spec` is ``None``; :func:`constrain` is a no-op, so model
+code is mesh-agnostic.
+
+**The cluster half.**
 
 Mesh-sharded serving splits the resident cluster buffers along their
 cluster axis: each shard holds whole clusters, and the query engine
@@ -18,19 +41,21 @@ shard. :func:`cluster_mesh` takes the first ``n`` cards of a CUDA host
 Several logical shards on one card come only from an explicit device
 list, ``ClusterMesh((cuda:0,) * n)``: nothing puts two shards on one card
 unasked, and :attr:`ClusterShards.devices` records where each part is.
-
-The training-parameter half of the reference module (logical specs,
-``constrain``, parameter and optimizer shardings) is not ported here.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import re
+import threading
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import index as index_lib
+from repro_torch.launch.mesh import axis_names, axis_sizes
 
 # the axis name cluster buffers partition along
 CLUSTER_AXIS = "cluster"
@@ -66,6 +91,14 @@ class ClusterMesh:
     @property
     def n_shards(self) -> int:
         return len(self.devices)
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return (self.axis_name,)
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis_name: self.n_shards}
 
 
 def cluster_mesh(n_shards: int, *, device="cuda",
@@ -228,6 +261,305 @@ def shard_cluster_buffers(buffers: dict, mesh, *, assignment=None,
                          parts=parts, devices=mesh.devices)
 
 
+# ---------------------------------------------------------------------------
+# The training half: logical axis rules, parameter and optimizer specs
+# ---------------------------------------------------------------------------
+
+_STATE = threading.local()
+
+
+def current_rules() -> Optional[dict]:
+    return getattr(_STATE, "rules", None)
+
+
+@contextlib.contextmanager
+def axis_rules(rules: dict):
+    """Bind ``rules`` (``{"dp": ("pod", "data"), "tp": ("model",), ...}``)
+    for the block, restoring the previous binding after it."""
+    prev = current_rules()
+    _STATE.rules = rules
+    try:
+        yield
+    finally:
+        _STATE.rules = prev
+
+
+def rules_for_mesh(mesh) -> dict:
+    """The logical axes of ``mesh`` (an ``AbstractMesh``, a
+    ``DeviceMesh`` or a :class:`ClusterMesh`): dp = its "pod" and "data"
+    axes, tp = "model", cluster = :data:`CLUSTER_AXIS`, all = every axis;
+    ``_sizes`` the axes' sizes and ``_mesh`` the mesh itself."""
+    names = axis_names(mesh)
+    return {"dp": tuple(n for n in names if n in ("pod", "data")),
+            "tp": tuple(n for n in names if n == "model"),
+            "cluster": tuple(n for n in names if n == CLUSTER_AXIS),
+            "all": names, "_sizes": axis_sizes(mesh), "_mesh": mesh}
+
+
+def _spec_entry(entry):
+    """One spec entry as ``PartitionSpec`` holds it: a one-name tuple
+    becomes the name, an empty tuple ``None``."""
+    if isinstance(entry, (tuple, list)):
+        entry = tuple(entry)
+        if not entry:
+            return None
+        return entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+class Spec(tuple):
+    """A spec: one entry per tensor dim (a tuple, so it compares equal to
+    the plain tuple of its entries; its own type marks it as a leaf of a
+    spec tree, whose nodes are dicts and lists)."""
+
+
+def spec(*entries) -> Spec:
+    """A spec of ``entries``, each normalised by :func:`_spec_entry`."""
+    return Spec(_spec_entry(e) for e in entries)
+
+
+def logical_spec(*logical) -> Optional[Spec]:
+    """The spec of logical axis names under the bound rules (``None``
+    outside a binding; an unknown name maps to no axis)."""
+    rules = current_rules()
+    if rules is None:
+        return None
+    return spec(*(None if ax is None else rules.get(ax, ())
+                  for ax in logical))
+
+
+def constrain(x, *logical):
+    """The reference's sharding constraint on logical axes: ``x`` itself.
+    Outside a binding it is a no-op there too; under one, the port's
+    model code runs on each rank's local block, whose layout the caller
+    chose."""
+    return x
+
+
+# (regex on the joined path, trailing logical axes). Shapes may carry
+# leading stacked-layer dims; rules give the trailing dims' specs and the
+# leading ones are padded with None.
+LM_PARAM_RULES = (
+    (r"embed$", ("tp", "dp")),                 # (V, d) vocab-parallel + fsdp
+    (r"unembed$", ("dp", "tp")),               # (d, V)
+    (r"attn/wq/w$", ("dp", "tp")),             # (d, H·Dh)
+    (r"attn/wk/w$", ("dp", "tp")),
+    (r"attn/wv/w$", ("dp", "tp")),
+    (r"attn/wo/w$", ("tp", "dp")),             # (H·Dh, d)
+    (r"attn/w[qkv]/b$", ("tp",)),
+    (r"attn/wo/b$", ("dp",)),
+    (r"moe/router$", (None, None)),            # small, replicated
+    (r"moe/w1$", ("tp", "dp", None)),          # (E, d, f): EP + fsdp
+    (r"moe/w3$", ("tp", "dp", None)),
+    (r"moe/w2$", ("tp", None, "dp")),          # (E, f, d)
+    (r"mlp/w1/w$", ("dp", "tp")),              # (d, f)
+    (r"mlp/w3/w$", ("dp", "tp")),
+    (r"mlp/w2/w$", ("tp", "dp")),              # (f, d)
+    (r"mlp/w./b$", (None,)),
+    (r"(ln|norm)", (None,)),                   # norms replicated
+    (r"pos_embed$", (None, "dp")),
+    (r".*", (None,)),                          # fallback: replicate
+)
+
+REC_PARAM_RULES = (
+    (r"tables?(/\d+)?$", ("tp", None)),        # big embedding tables row-sharded
+    (r"item_embed$", ("tp", None)),
+    (r".*", (None,)),
+)
+
+GNN_PARAM_RULES = (
+    (r".*", (None,)),                          # GatedGCN params are tiny
+)
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a tree of dicts and lists (a dict's keys
+    and a list's indices make the path; ``None`` is an empty subtree, as
+    in jax), the tree's structure kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, path + (i,))
+                for i, v in enumerate(tree)]
+    return None if tree is None else fn(path, tree)
+
+
+def path_str(path) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def _axes_size(entry, sizes) -> int:
+    if entry is None:
+        return 1
+    n = 1
+    for name in (entry if isinstance(entry, tuple) else (entry,)):
+        n *= sizes.get(name, 1)
+    return n
+
+
+def _dropped(where, i, want, shape, size):
+    warnings.warn(
+        f"dropping sharding {want!r} on dim {i} of {where} (shape "
+        f"{tuple(shape)}): {shape[i]} is not divisible by the mesh axes' "
+        f"size {size}; the dim will be REPLICATED", UserWarning,
+        stacklevel=3)
+
+
+def param_specs(params_shape, rules_table):
+    """The spec tree of a parameter tree in the reference's layout
+    (anything with ``.shape`` as leaves: meta tensors from
+    ``convert.param_tree``), under the bound rules: the first rule whose
+    pattern the leaf's path matches gives its trailing dims' logical
+    axes. A dim the mesh axes do not divide is replicated, with a
+    warning. Leaves are ``None`` outside a binding."""
+    sizes = (current_rules() or {}).get("_sizes", {})
+
+    def one(path, leaf):
+        ps = path_str(path)
+        ndim = len(leaf.shape)
+        for pat, logical in rules_table:
+            if re.search(pat, ps):
+                logical = tuple(logical[:ndim])
+                sp = logical_spec(*((None,) * (ndim - len(logical))
+                                    + logical))
+                if sp is None:
+                    return None
+                padded = sp + (None,) * (ndim - len(sp))
+                fixed = []
+                for i, e in enumerate(padded):
+                    size = _axes_size(e, sizes)
+                    if leaf.shape[i] % size:
+                        _dropped(f"param_specs: {ps!r}", i, e, leaf.shape,
+                                 size)
+                        e = None
+                    fixed.append(e)
+                return Spec(fixed)
+        return logical_spec(*((None,) * ndim))
+
+    return tree_map_with_path(one, params_shape)
+
+
+class _Stacked(tuple):
+    """A stack of layers' leaves, as ``convert.param_tree`` builds it with
+    ``stack=_Stacked``."""
+
+
+def _lookup(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def leaf_specs(params, spec_tree) -> list:
+    """``[(parameter, spec)]`` for every parameter of the port model (or
+    recsys dict) ``params``, in the reference's tree order: the spec of
+    its reference leaf (``spec_tree``, from :func:`param_specs` on
+    ``convert.param_tree(params)``) with the stacked-layer dims dropped."""
+    from repro_torch import convert
+    tree = convert.param_tree(params, leaf=lambda p: p, stack=_Stacked)
+    out = []
+
+    def walk(node, path, stacked):
+        if isinstance(node, _Stacked):
+            for x in node:
+                walk(x, path, stacked + 1)
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,), stacked)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, path + (i,), stacked)
+        elif node is not None:
+            sp = _lookup(spec_tree, path)
+            out.append((node, None if sp is None else Spec(sp[stacked:])))
+
+    walk(tree, (), 0)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh and its DTensor placements (one per mesh axis)."""
+    mesh: object
+    spec: tuple
+    placements: tuple
+
+
+def placements(mesh, sp, shape=None) -> tuple:
+    """The DTensor placements of spec ``sp`` on ``mesh``: ``Replicate()``
+    on every mesh axis, ``Shard(d)`` on each axis that tensor dim ``d`` is
+    split over (several axes: major to minor in mesh order, as JAX splits
+    a dim over a tuple of axes). With ``shape``, a dim the axes do not
+    divide stays replicated, with a warning: never an uneven split."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
+    out = [Replicate()] * len(names)
+    for d, e in enumerate(sp or ()):
+        if e is None:
+            continue
+        axes = e if isinstance(e, tuple) else (e,)
+        if shape is not None and shape[d] % _axes_size(e, sizes):
+            _dropped("named_shardings", d, e, shape, _axes_size(e, sizes))
+            continue
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {e!r}: the axes must come in the "
+                             f"mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def named_shardings(mesh, spec_tree, shapes=None):
+    """Each spec of ``spec_tree`` (dicts and lists of specs; a leaf is a
+    tuple, ``None`` = replicated) as a :class:`NamedSharding` on
+    ``mesh``; ``shapes``, a tree of the same structure, lets
+    :func:`placements` guard divisibility."""
+    def walk(sp, shp):
+        if sp is None or isinstance(sp, tuple):
+            sp = Spec(() if sp is None else sp)
+            return NamedSharding(mesh, sp, placements(
+                mesh, sp, None if shp is None else tuple(shp.shape)))
+        if isinstance(sp, dict):
+            return {k: walk(v, None if shp is None else shp[k])
+                    for k, v in sp.items()}
+        return [walk(v, None if shp is None else shp[i])
+                for i, v in enumerate(sp)]
+    return walk(spec_tree, shapes)
+
+
+def opt_state_specs(params_shapes, params_specs, optimizer: str):
+    """The optimizer state's spec tree, mirroring the parameters' (the
+    reference's layout): adamw's ``m`` / ``v`` shard as the parameter;
+    adafactor's ``vr`` drops the last dim of the parameter's spec, ``vc``
+    the second to last (a factored leaf), ``v`` keeps it (otherwise)."""
+    if optimizer == "adamw":
+        return {"step": Spec(), "m": params_specs, "v": params_specs}
+    if optimizer == "adafactor":
+        def leaf(p, s):
+            shape = p.shape
+            if not (len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1):
+                return {"v": s}
+            if s is None or len(s) < 2:
+                return {"vr": None, "vc": None}
+            return {"vr": Spec(s[:-1]), "vc": Spec(s[:-2] + s[-1:])}
+
+        def walk(p, s):
+            if isinstance(p, dict):
+                return {k: walk(p[k], s[k]) for k in p}
+            if isinstance(p, (list, tuple)):
+                return [walk(a, b) for a, b in zip(p, s)]
+            return None if p is None else leaf(p, s)
+        return {"step": Spec(), "v": walk(params_shapes, params_specs)}
+    raise ValueError(optimizer)
+
+
 __all__ = ["CLUSTER_AXIS", "CLUSTER_BUFFER_KEYS", "PART_FILLS",
            "ClusterMesh", "ClusterShards", "cluster_mesh",
-           "as_cluster_mesh", "shard_part", "shard_cluster_buffers"]
+           "as_cluster_mesh", "shard_part", "shard_cluster_buffers",
+           "current_rules", "axis_rules", "rules_for_mesh", "Spec", "spec",
+           "logical_spec", "constrain", "LM_PARAM_RULES", "REC_PARAM_RULES",
+           "GNN_PARAM_RULES", "param_specs", "leaf_specs", "NamedSharding",
+           "placements", "named_shardings", "opt_state_specs"]

@@ -104,7 +104,7 @@ def gnn_init(cfg, d_in: int, n_classes: int, d_edge_in: int = 0, *,
     seeded with ``seed``: node_in, edge_in, then per layer A, B, C, U, V,
     then the readout."""
     dev = require_device(device)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = layers.make_generator(seed, dev)
     d = cfg.d_hidden
 
     def dense(i, o):

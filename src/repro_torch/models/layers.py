@@ -25,20 +25,54 @@ torch on every device, as the reference computes them in jnp.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from repro_torch.device import require_device
 from repro_torch.kernels import flash_attention as flash_kernel
 
 NEG_INF = -1e30
 
 
+class MetaGenerator(torch.Generator):
+    """A generator on the ``meta`` device. The initializers draw on their
+    generator's device, so given this one they build every tensor's shape
+    and dtype, allocate nothing and draw nothing: the shape path of the
+    cell plans (``launch.steps``), where a full kimi-k2 tree must not
+    touch memory."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``, or a
+    :class:`MetaGenerator` when ``device`` is ``meta``."""
+    dev = require_device(device)
+    if dev.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@contextlib.contextmanager
+def meta_init():
+    """``with meta_init() as g``: a :class:`MetaGenerator`, with ``meta``
+    the default device, so an initializer given ``g`` builds its module's
+    shapes only, the factories that name no device included."""
+    with torch.device("meta"):
+        yield MetaGenerator()
+
+
 def normal(generator: torch.Generator, shape, scale: float) -> torch.Tensor:
     """``N(0, 1) · scale`` of ``shape``, float32, from ``generator``, on
-    the generator's device."""
+    the generator's device (a :class:`MetaGenerator`: shape only)."""
+    if isinstance(generator, MetaGenerator):
+        return torch.empty(*shape, device="meta")
     x = torch.randn(*shape, generator=generator, device=generator.device)
     return x.mul_(scale)
 

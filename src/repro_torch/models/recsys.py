@@ -27,7 +27,6 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.device import require_device
 from repro_torch.kernels import dot_interaction as dot_kernel
 from repro_torch.kernels import embedding_bag as bag_kernel
 from repro_torch.models import layers
@@ -64,7 +63,7 @@ def _norm_init(d, *, dtype, device):
 
 
 def _generator(seed, device):
-    return torch.Generator(device=require_device(device)).manual_seed(seed)
+    return layers.make_generator(seed, device)
 
 
 def _gelu(x):

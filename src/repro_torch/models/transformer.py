@@ -30,14 +30,14 @@ Activations run in ``cfg.compute_dtype`` (bf16 for ``list-dual-encoder``);
 attention scores and the softmax run in float32, as the reference's
 einsum attention does. No Pallas kernel sits on this path.
 
-The forward is differentiable. ``lm_forward`` honours the LM config's
-``cfg.remat`` as the reference's ``jax.checkpoint(nothing_saveable)``
-does: while autograd records, each block runs under
-``torch.utils.checkpoint`` (non-reentrant), which keeps only the block's
-input and recomputes the rest in the backward; the values and gradients
-are the same (bit for bit on the CPU). The encoder's ``remat`` is not
-ported (ROADMAP A 13): at the trainer's batch (64 queries, 320 objects,
-16 tokens) no activation memory calls for it.
+The forward is differentiable. ``lm_forward`` and :class:`Encoder` honour
+the config's ``cfg.remat`` as the reference's
+``jax.checkpoint(nothing_saveable)`` does (``_maybe_remat``, used by both
+the LM's scan and ``encoder_forward``): while autograd records, each
+block runs under ``torch.utils.checkpoint`` (non-reentrant), which keeps
+only the block's input and recomputes the rest in the backward; the
+values and gradients are the same (bit for bit on the CPU). Under
+``torch.no_grad`` (serving, encoding a corpus) nothing is checkpointed.
 """
 from __future__ import annotations
 
@@ -88,11 +88,14 @@ class EncoderBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    """``forward(tokens (B, L) int, mask (B, L) bool) -> (B, d) float32``."""
+    """``forward(tokens (B, L) int, mask (B, L) bool) -> (B, d) float32``.
+    With ``remat`` (the config's ``cfg.remat``) and autograd recording,
+    each block is checkpointed: its activations are recomputed in the
+    backward instead of kept."""
 
     def __init__(self, embed: torch.Tensor, pos_embed: torch.Tensor,
                  blocks: Sequence[EncoderBlock], final_ln: LayerNorm,
-                 cls: Dense, *, compute_dtype: str):
+                 cls: Dense, *, compute_dtype: str, remat: bool = False):
         super().__init__()
         self.embed = nn.Parameter(embed)
         self.pos_embed = nn.Parameter(pos_embed)
@@ -100,14 +103,17 @@ class Encoder(nn.Module):
         self.final_ln = final_ln
         self.cls = cls
         self.compute_dtype = torch_dtype(compute_dtype)
+        self.remat = bool(remat)
 
     def forward(self, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         l = tokens.shape[1]
         cdt = self.compute_dtype
         x = (self.embed[tokens.long()].to(cdt)
              + self.pos_embed[:l].to(cdt)[None])
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, mask)
+            x = (checkpoint(blk, x, mask, use_reentrant=False) if remat
+                 else blk(x, mask))
         x = self.final_ln(x)
         return torch.tanh(self.cls(x[:, 0])).float()
 
@@ -136,7 +142,8 @@ def encoder_init(cfg, generator: torch.Generator) -> Encoder:
     cls = layers.dense_init(generator, d, d, bias=True)
     enc = Encoder(embed, pos_embed, blocks,
                   layers.norm_init(d, kind="layer", eps=eps), cls,
-                  compute_dtype=cfg.compute_dtype)
+                  compute_dtype=cfg.compute_dtype,
+                  remat=getattr(cfg, "remat", False))
     return enc.to(dtype)
 
 
@@ -255,7 +262,7 @@ def lm_init(cfg, *, seed: int = 0, device="cuda") -> LM:
     then the unembedding. The MoE's router stays float32."""
     dev = require_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-    g = torch.Generator(device=dev).manual_seed(seed)
+    g = layers.make_generator(seed, dev)
     d = cfg.d_model
     embed = layers.normal(g, (cfg.vocab_size, d),
                           1.0 / math.sqrt(d)).to(dtype)

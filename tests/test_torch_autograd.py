@@ -284,6 +284,69 @@ def test_remat_is_bit_equal(arch, compute_dtype):
         assert torch.equal(a, b)
 
 
+def _de_batch(cfg, b=4, nneg=2, seed=0):
+    r = np.random.default_rng(seed)
+    L = cfg.max_len
+
+    def toks(*shape):
+        t = torch.from_numpy(r.integers(1, cfg.vocab_size, shape + (L,))
+                             .astype(np.int32))
+        m = torch.from_numpy(np.arange(L) < r.integers(2, L + 1, shape)
+                             [..., None])
+        return t, m
+
+    def loc(*shape):
+        return torch.from_numpy(r.random(shape + (2,)).astype(np.float32))
+    q, qm = toks(b)
+    p, pm = toks(b)
+    n, nm = toks(b, nneg)
+    return {"q_tokens": q, "q_mask": qm, "q_loc": loc(b),
+            "pos_tokens": p, "pos_mask": pm, "pos_loc": loc(b),
+            "neg_tokens": n, "neg_mask": nm, "neg_loc": loc(b, nneg)}
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_encoder_remat_is_bit_equal(compute_dtype):
+    """The reduced ``list-dual-encoder``'s contrastive loss, metrics and
+    every gradient bit for bit with and without ``cfg.remat`` (the
+    reference's ``encoder_forward`` under ``_maybe_remat``); the towers
+    learn ``remat`` from the config, through ``relevance_init`` and
+    ``convert``."""
+    from repro_torch import convert
+    from repro_torch.core import relevance as port_relevance
+    cfg = dataclasses.replace(port_configs.reduced(
+        port_configs.get_config("list-dual-encoder")),
+        compute_dtype=compute_dtype)
+    batch = _de_batch(cfg)
+    out = {}
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        rel = port_relevance.relevance_init(c, torch.Generator().manual_seed(3))
+        assert rel.q_enc.remat is remat and rel.o_enc.remat is remat
+        tree = convert.relevance_to_tree(rel, lambda p: p.detach())
+        assert convert.relevance_from_numpy(tree, c).o_enc.remat is remat
+        kept = []
+
+        def pack(t):
+            kept.append(t.numel() * t.element_size())
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, metrics = port_relevance.contrastive_loss(rel, batch)
+        grads = torch.autograd.grad(loss, list(rel.parameters()),
+                                    allow_unused=True)
+        out[remat] = (loss, metrics, grads, sum(kept))
+    (l0, m0, g0, k0), (l1, m1, g1, k1) = out[False], out[True]
+    # the blocks' activations are not kept under remat
+    assert k1 < k0 / 2
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert len(g0) == len(g1)
+    for a, b in zip(g0, g1):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a, b)
+    assert sum(g is not None and bool(g.abs().sum() > 0) for g in g1) > 30
+
+
 def test_remat_leaves_inference_alone():
     """Under ``no_grad`` (the serving paths) nothing is checkpointed."""
     cfg = dataclasses.replace(port_configs.reduced(
