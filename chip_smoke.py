@@ -300,13 +300,29 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    expert-parallel MoE bit-equal to the local path at moonshot's experts
    (2 × 512 tokens; output, aux, gradients), ``compressed_psum`` of 4M
    values bit-equal to its arithmetic.
+14. The dry-run and its analysis (``repro_torch.launch.dryrun``,
+   ``repro_torch.analysis``). (a) Every cell counted on meta tensors on
+   the abstract (16, 16) and (2, 16, 16) meshes (``DRYRUN_JOBS`` worker
+   processes, no GPU visible to them): 40 OK and 4 SKIP a mesh, no device
+   memory allocated. (b) LIST's four cells counted at phase 13's executed
+   sizes (``contrastive_train`` at the batch that fitted, ``mine_negatives``
+   per call of the block that fitted) on a (1, 1) mesh: each cell's FLOP
+   share, its count over phase 13's measured seconds times the peak of its
+   dtype (bf16 for the encoder's cells, f32 for mining). (c) Each kernel
+   row's declared ``work()`` at the shapes of phases 3, 4 and 12 equal, as
+   integers, to the bytes and FLOPs those phases' bounds counted. (d)
+   ``analysis.op_top`` on one ``serve_queries`` call and one
+   ``contrastive_train`` step at batch 256 under ``torch.profiler``: every
+   twin launched appears under its name with as many launches as
+   ``ops.launch_counts()`` gained.
 
 Prints a JSON line of phase 3's numbers, one of the write path's
 (``write_path``), one of the build's (``build``), one of the serving
 stack's (``serving``), one of phase 8's (``tools``), one of phase 9's
 (``sharded``), one of phase 10's (``substrate``), one of phase 11's
 (``moe_gnn``), one of phase 12's (``train``), one of phase 13's
-(``cell_plans``), one of per-kernel numbers
+(``cell_plans``), one of phase 14's (``dryrun``), one of per-kernel
+numbers
 (flash attention, dot interaction and embedding bag with ``launches`` on
 phase 10's and 11's paths and ``substrate_shapes``, and the two backward
 kernels with ``launches`` on phase 12's), then as its last line
@@ -332,9 +348,18 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
 
-# published H100 SXM peaks (NVIDIA data sheet), for the bound
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12          # CUDA cores: the kernels run f32 FMAs
+# the H100's peaks and the bound of a launch, defined once in
+# repro_torch/analysis/roofline.py; bound by bind_bounds() once the
+# checkout's src/ is on the path
+HBM_BYTES_PER_S = F32_FLOPS_PER_S = BF16_FLOPS_PER_S = roof = None
+
+
+def bind_bounds():
+    global HBM_BYTES_PER_S, F32_FLOPS_PER_S, BF16_FLOPS_PER_S, roof
+    from repro_torch.analysis import roofline as rl
+    HBM_BYTES_PER_S, F32_FLOPS_PER_S = rl.HBM_BYTES_PER_S, rl.F32_FLOPS_PER_S
+    BF16_FLOPS_PER_S, roof = rl.BF16_FLOPS_PER_S, rl.roof
+
 
 # kernel vs plain: f32 sums in another order over d ≤ 768 terms
 ATOL, RTOL = 1e-4, 1e-5
@@ -1112,7 +1137,6 @@ def phase3(dev):
 # Phase 4: the kernel entry point (repro_torch.kernels.ops) at full width
 # ---------------------------------------------------------------------------
 
-BF16_FLOPS_PER_S = 989e12        # tensor cores, dense
 # published widths, from the reference's configs (src/repro/configs/):
 # qwen2_7b.py, a local (sliding-window) layer of gemma3_27b.py, and
 # dlrm_mlperf.py (26 sparse features + the bottom MLP's output; its second
@@ -1140,14 +1164,6 @@ EBAG_TOL = 1e-4
 def median(xs):
     xs = sorted(xs)
     return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
-
-
-def roof(nbytes, flops, peak):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = flops / peak * 1e3
-    return dict(bound_ms=max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations",
-                bytes=int(nbytes), flops=int(flops))
 
 
 def gather_case(g, dev, *, b, n, d, precision, k, t=100, pad_from=None,
@@ -1695,6 +1711,7 @@ def phase4(dev, ctx):
         rec.update(roof(rows * DLRM["d"] * 4 + idx.numel() * 4
                         + b * DLRM["d"] * 4, int(valid.numel()) * DLRM["d"],
                         F32_FLOPS_PER_S), batch=b, rows_touched=rows,
+                   valid_indices=int(valid.numel()),
                    library_err=lib_err)
         # every (bag, index) pair reads its row, from L2 (the table stays
         # there): those bytes over the best L2 read rate this run shows --
@@ -7194,6 +7211,193 @@ def phase13(dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dry-run and its analysis (launch/dryrun.py, analysis/)
+# ---------------------------------------------------------------------------
+
+DRYRUN_JOBS = 7                  # (a)'s worker processes (8 host cores)
+DRYRUN_WANT = {"16x16": dict(OK=40, SKIP=4, FAIL=0),
+               "2x16x16": dict(OK=40, SKIP=4, FAIL=0)}
+PROFILE_BATCH = 256              # (d): the LIST cells profiled
+PROFILE_CELLS = ("serve_queries", "contrastive_train")
+PROFILE_TOP = 12
+TIER_DTYPES = {"f32": "float32", "bf16": "bfloat16", "int8": "int8"}
+
+
+def p14_dryrun():
+    """(a) Every cell counted on both abstract production meshes."""
+    import torch
+    from repro_torch.launch import dryrun
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    results = dryrun.run(dryrun.all_cells(), [False, True], jobs=DRYRUN_JOBS,
+                         verbose=False)
+    secs = time.perf_counter() - t0
+    counts = dryrun.summary(results)
+    for name, c in counts.items():
+        log(f"phase 14 (a): {name}: {c['OK']} OK, {c['SKIP']} SKIP, "
+            f"{c['FAIL']} FAIL")
+    for r in results:
+        if r["status"] == "FAIL":
+            log(f"phase 14 (a): FAIL [{r['mesh']}] {r['arch']} × "
+                f"{r['shape']}: {r['error']}")
+    if counts != DRYRUN_WANT:
+        raise AssertionError(f"phase 14 (a): {counts}, want {DRYRUN_WANT}")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("phase 14 (a): the dry-run allocated device "
+                             "memory")
+    log(f"phase 14 (a): {len(results)} records in {secs:.1f} s with "
+        f"{DRYRUN_JOBS} workers, no device memory allocated")
+    cells = [[r["arch"], r["shape"], r["mesh"], r["flops_per_chip"],
+              r["bytes_per_chip"], r["collectives"].get("total", 0.0),
+              r["roofline"]["bottleneck"]]
+             for r in results if r["status"] == "OK"]
+    return dict(meshes=counts, s=secs, jobs=DRYRUN_JOBS, cells=cells)
+
+
+def p14_flop_share(p13):
+    """(b) LIST's four cells counted at phase 13's executed sizes on a
+    (1, 1) mesh; each one's FLOPs over phase 13's seconds × the peak of
+    its dtype."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AbstractMesh
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    tr, en, sv, mn = (p13[k] for k in ("contrastive_train", "encode_corpus",
+                                       "serve_queries", "mine_negatives"))
+    calls = -(-mn["queries"] // mn["block"])
+    runs = {"contrastive_train": (dict(global_batch=tr["batch"]),
+                                  tr["ms"] / 1e3, "bf16"),
+            "encode_corpus": (dict(global_batch=en["batch"]),
+                              en["ms"] / 1e3, "bf16"),
+            "serve_queries": (dict(query_batch=sv["queries"]),
+                              sv["ms"] / 1e3, "bf16"),
+            "mine_negatives": (dict(query_batch=mn["block"]),
+                               mn["wall_s"] / calls, "f32")}
+    peaks = {"bf16": BF16_FLOPS_PER_S, "f32": F32_FLOPS_PER_S}
+    out = {}
+    for cell, (dims, secs, dt) in runs.items():
+        rec = dryrun.run_cell(DE_ARCH, cell, mesh=mesh, dims=dims,
+                              verbose=False)
+        if rec["status"] != "OK":
+            raise AssertionError(f"phase 14 (b): {cell}: {rec.get('error')}")
+        share = rec["flops"] / (secs * peaks[dt])
+        out[cell] = dict(dims=dims, flops=rec["flops"], bytes=rec["bytes"],
+                         s=secs, peak=dt, flop_share=share,
+                         kernels=rec["kernels"])
+        record(f"phase 14 (b): {cell} at {dims}: {rec['flops']:.4e} FLOPs "
+               f"(dry-run) in {secs * 1e3:.1f} ms (phase 13) = "
+               f"{rec['flops'] / secs / 1e12:.1f} TFLOP/s, FLOP share "
+               f"{share:.4f} of the {dt} peak")
+    return out
+
+
+def p14_work(p3, p4, p12, shapes):
+    """(c) Each kernel row's ``work()`` at the shapes of phases 3, 4 and 12
+    against the bytes and FLOPs their bounds counted, as integers."""
+    import torch
+    from repro_torch.kernels import dot_interaction as di
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_topk_score as fts
+    _, cap, d = shapes["scan"]
+    rows = []
+    router = p3["report"]["router"]
+    for tier in TIERS:
+        bd = router[tier]["bound"]
+        rows.append((f"routed / cluster_major (phase 3, router, {tier})",
+                     fts.scan_work(p3["batch"], d, p3["k"], cap=cap,
+                                   distinct=router["U"],
+                                   live_rows=bd["live_rows"],
+                                   pairs=bd["pairs_scored"],
+                                   dtype=getattr(torch, TIER_DTYPES[tier])),
+                     bd))
+    rep = p4["report"]
+    for tier, rec in rep["gather"]["shapes"].items():
+        rows.append((f"gather (phase 4, {tier})",
+                     fts.gather_work(N_GATHER, shapes["n_cand"], d, 20,
+                                     t=shapes["t"],
+                                     dtype=getattr(torch, TIER_DTYPES[tier]),
+                                     live=rec["live_rows"]), rec))
+    for key, rec in rep["flash_attention"]["shapes"].items():
+        name, dt = key.split("/")
+        c = FLASH_CFGS[name]
+        rows.append((f"flash_attention (phase 4, {key})",
+                     fa.work(1, FLASH_S, c["h"], c["kv"], c["d"],
+                             causal=True, window=c["window"],
+                             dtype=getattr(torch, dt)), rec))
+    for key, rec in rep["dot_interaction"]["shapes"].items():
+        rows.append((f"dot_interaction (phase 4, {key})",
+                     di.work(rec["batch"], DLRM["f"], DLRM["d"]), rec))
+    for key, rec in rep["embedding_bag"]["shapes"].items():
+        rows.append((f"embedding_bag (phase 4, {key})",
+                     eb.work(DLRM["vocab"], DLRM["d"], rec["batch"],
+                             DLRM["bag"], rows_touched=rec["rows_touched"],
+                             valid=rec["valid_indices"]), rec))
+    for key, rec in p12["flash"]["main"].items():
+        b, s, h, kv, dh = rec["shape"]
+        rows.append((f"flash_attention_backward (phase 12, {key})",
+                     fa.backward_work(b, s, h, kv, dh, causal=True,
+                                      window=rec["window"],
+                                      dtype=torch.bfloat16), rec))
+    b, f, dd = p12["dot"]["shape"]
+    rows.append(("dot_interaction_backward (phase 12)",
+                 di.backward_work(b, f, dd), p12["dot"]))
+    out, bad = {}, []
+    for what, (flops, nbytes), rec in rows:
+        same = (int(flops) == rec["flops"] and int(nbytes) == rec["bytes"])
+        out[what] = dict(flops=int(flops), bytes=int(nbytes), equal=same)
+        if not same:
+            bad.append(f"{what}: work() ({flops}, {nbytes}) against the "
+                       f"bound's ({rec['flops']}, {rec['bytes']})")
+    log(f"phase 14 (c): {len(rows) - len(bad)} of {len(rows)} kernel rows' "
+        f"work() equal the bytes and FLOPs their phase's bound counted")
+    if bad:
+        raise AssertionError("phase 14 (c): " + "; ".join(bad))
+    return out
+
+
+def p14_profiles(dev):
+    """(d) ``op_top`` on the card: one call of each ``PROFILE_CELLS`` cell
+    at ``PROFILE_BATCH`` under ``torch.profiler``; each twin launched in
+    the profiled call appears under its name, launch for launch."""
+    import gc
+    import torch
+    from repro_torch.analysis import op_top
+    out = {}
+    for cell in PROFILE_CELLS:
+        r = op_top.profile(DE_ARCH, cell, device=dev.type,
+                           batch=PROFILE_BATCH, top=PROFILE_TOP)
+        for line in op_top.report(r).splitlines():
+            log(f"phase 14 (d) {line}")
+        traced = {k: v["launches"] for k, v in r["twins"].items()}
+        if traced != r["launches"]:
+            raise AssertionError(f"phase 14 (d): {cell}: the profile shows "
+                                 f"twins {traced}, the launch counters "
+                                 f"gained {r['launches']}")
+        out[cell] = {k: r[k] for k in ("batch", "device_ms", "top",
+                                        "writers", "twins", "launches")}
+        record(f"phase 14 (d): {cell} at batch {r['batch']}: "
+               f"{r['device_ms']:.3f} ms of device time; twins {traced}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase14(dev, p3, p4, p12, p13, shapes):
+    """The dry-run and its analysis: (a)–(d) of the module docstring."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rec = dict(card=CARD)
+    rec["dryrun"] = p14_dryrun()
+    rec["flop_share"] = p14_flop_share(p13)
+    rec["work_check"] = p14_work(p3, p4, p12, shapes)
+    rec["profiles"] = p14_profiles(dev)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
     card (parent / change / change / parent). The backward kernels at
@@ -7372,6 +7576,7 @@ def main() -> int:
               "run needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    bind_bounds()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7419,7 +7624,13 @@ def main() -> int:
     log(f"phase 3 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p3['peak_gb']:.1f} GB")
     t0 = time.perf_counter()
-    p4 = phase4(dev, p3.pop("ctx"))
+    ctx = p3.pop("ctx")
+    # what phase 14 (c) declares the kernels' work at
+    scan = tuple(ctx["buf32"]["emb"].shape)
+    work_shapes = dict(scan=scan, t=ctx["w_hat"].numel(),
+                       n_cand=ctx["top_c"].shape[1] * scan[1])
+    p4 = phase4(dev, ctx)
+    del ctx
     log(f"phase 4 took {time.perf_counter() - t0:.1f} s; peak device memory "
         f"{p4['peak_gb']:.1f} GB")
     t0 = time.perf_counter()
@@ -7481,6 +7692,11 @@ def main() -> int:
     p13 = phase13(dev)
     log(f"phase 13 took {p13['phase_s']:.1f} s; peak device memory "
         f"{p13['peak_gb']:.1f} GB; launches {p13['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p14 = phase14(dev, p3, p4, p12, p13, work_shapes)
+    log(f"phase 14 took {p14['phase_s']:.1f} s; peak device memory "
+        f"{p14['peak_gb']:.1f} GB")
 
     src = "src/repro_torch/kernels/csrc/fused_topk_score.cu"
     replaces = {"routed": "src/repro/kernels/fused_topk_score.py:314",
@@ -7625,6 +7841,7 @@ def main() -> int:
     log(json.dumps({"moe_gnn": p11}))
     log(json.dumps({"train": p12}))
     log(json.dumps({"cell_plans": p13}))
+    log(json.dumps({"dryrun": p14}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -78,8 +78,10 @@ def dispatch_slots(top_c: torch.Tensor, *, n_clusters: int, capacity: int):
     spare = n_clusters * capacity                  # where dropped pairs go
     slot = torch.where(keep, sorted_c.long() * capacity + pos,
                        torch.full_like(pos, spare))
+    # one static-shaped write of every pair: the dropped ones all land on
+    # the spare slot, which is cut off (the reference's static dispatch)
     origin = torch.full((spare + 1,), n, dtype=torch.int32, device=dev)
-    origin[slot[keep]] = sort_idx[keep].to(torch.int32)
+    origin.scatter_(0, slot, sort_idx.to(torch.int32))
     n_dropped = (~keep).sum().to(torch.int32)
     return origin[:-1].reshape(n_clusters, capacity), n_dropped
 
@@ -232,9 +234,10 @@ def dispatch_scan(q_emb, q_loc, w_st, origin, buf_emb, buf_loc, buf_ids,
     """Steps 3–4 of the dispatch path on the tensors' device: per-pair
     lists ``(scores (B·cr, k), ids (B·cr, k) int32)``, ``(-inf, -1)`` for
     a dropped pair. CPU tensors take :func:`dispatch_scan_plain`, CUDA
-    tensors :func:`dispatch_scan_cluster_major` (the kernel)."""
-    fn = (dispatch_scan_cluster_major if q_emb.device.type == "cuda"
-          else dispatch_scan_plain)
+    tensors :func:`dispatch_scan_cluster_major` (the kernel; on ``meta``
+    tensors its meta path)."""
+    fn = (dispatch_scan_cluster_major
+          if q_emb.device.type in ("cuda", "meta") else dispatch_scan_plain)
     return fn(q_emb, q_loc, w_st, origin, buf_emb, buf_loc, buf_ids, w_hat,
               k=k, cr=cr, dist_max=dist_max, buf_scale=buf_scale)
 

@@ -19,6 +19,11 @@ of TMA bulk copies (:func:`backward_launch_shape`), bound by the bytes of
 X, the gradient and dX. :class:`DotInteractionFn` joins the
 two for autograd, and :func:`dot_interaction` goes through it whenever
 autograd needs a gradient of ``feats``.
+
+:func:`work` and :func:`backward_work` declare each kernel's FLOPs and
+bytes; for a ``meta`` tensor the wrappers launch nothing, return outputs
+of the kernel's shapes on ``meta`` and record that work
+(``kernels.meta``).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta
 
 # kernel launches since the last reset (kernels.ops.reset_launch_counts)
 launches = {"dot_interaction": 0, "dot_interaction_backward": 0}
@@ -122,6 +128,22 @@ def backward_launch_shape(f: int, d: int, elem_size: int) -> dict:
                 threads=min(THREADS, -(-items // 32) * 32), smem_bytes=smem)
 
 
+def work(b: int, f: int, d: int, *, dtype=torch.float32):
+    """``(flops, bytes)`` of one forward launch on ``feats (b, f, d)``: 2·d
+    FLOPs per pair i < j; feats read once, the pairs written once."""
+    n_pairs = f * (f - 1) // 2
+    return 2 * d * b * n_pairs, (b * f * d + b * n_pairs) * meta.itemsize(
+        dtype)
+
+
+def backward_work(b: int, f: int, d: int, *, dtype=torch.float32):
+    """``(flops, bytes)`` of one backward launch: ``Gsym·X``, 2·f·f·d FLOPs
+    a row; X and the pairs' gradient read once, dX written once."""
+    n_pairs = f * (f - 1) // 2
+    return 2 * f * f * d * b, (2 * b * f * d + b * n_pairs) * meta.itemsize(
+        dtype)
+
+
 def dot_interaction_plain(feats: torch.Tensor) -> torch.Tensor:
     """The Gram matrix X·Xᵀ in f32, its upper triangle, in feats' dtype."""
     x = feats.float()
@@ -144,7 +166,9 @@ def dot_interaction_backward_plain(feats: torch.Tensor, grad: torch.Tensor
 
 
 def _check(feats: torch.Tensor) -> None:
-    if feats.device.type != "cuda":
+    """Raises for what the kernels do not take; a ``meta`` tensor passes
+    the same checks."""
+    if feats.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {feats.device}")
     if feats.dtype not in _DTYPE:
         raise TypeError(f"feats dtype {feats.dtype} not in {list(_DTYPE)}")
@@ -169,11 +193,15 @@ def _forward(feats: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     shape = launch_shape(f, feats.element_size())
-    err = _lib().dot_interaction(
-        feats.data_ptr(), _DTYPE[feats.dtype], b, f, d, shape["rows"],
-        shape["row_elems"], shape["threads"], shape["smem_bytes"],
-        _vec(feats), out.data_ptr(),
-        torch.cuda.current_stream(feats.device).cuda_stream)
+    if feats.device.type == "meta":
+        meta.record("dot_interaction", work(b, f, d, dtype=feats.dtype))
+        return out
+    with meta.launch_range("dot_interaction"):
+        err = _lib().dot_interaction(
+            feats.data_ptr(), _DTYPE[feats.dtype], b, f, d, shape["rows"],
+            shape["row_elems"], shape["threads"], shape["smem_bytes"],
+            _vec(feats), out.data_ptr(),
+            torch.cuda.current_stream(feats.device).cuda_stream)
     if err:
         raise RuntimeError(f"dot_interaction launch failed: cudaError {err}")
     launches["dot_interaction"] += 1
@@ -184,7 +212,8 @@ def dot_interaction_backward(feats: torch.Tensor, grad: torch.Tensor
                              ) -> torch.Tensor:
     """``feats (B, F, d)``, ``grad (B, F(F-1)/2)`` in feats' dtype → ``dX
     (B, F, d)``: the backward kernel for a CUDA tensor, the plain version
-    for a CPU one."""
+    for a CPU one, the meta path (:func:`backward_work` recorded) for a
+    meta one."""
     if feats.device.type == "cpu":
         return dot_interaction_backward_plain(feats, grad)
     _check(feats)
@@ -205,11 +234,16 @@ def dot_interaction_backward(feats: torch.Tensor, grad: torch.Tensor
     if grad.numel() == 0:
         return dx.zero_()
     shape = backward_launch_shape(f, d, feats.element_size())
-    err = _lib().dot_interaction_backward(
-        feats.data_ptr(), grad.data_ptr(), _DTYPE[feats.dtype], b, f, d,
-        shape["chunk"], shape["stages"], shape["threads"],
-        shape["smem_bytes"], _vec(feats), dx.data_ptr(),
-        torch.cuda.current_stream(feats.device).cuda_stream)
+    if feats.device.type == "meta":
+        meta.record("dot_interaction_backward",
+                    backward_work(b, f, d, dtype=feats.dtype))
+        return dx
+    with meta.launch_range("dot_interaction_backward"):
+        err = _lib().dot_interaction_backward(
+            feats.data_ptr(), grad.data_ptr(), _DTYPE[feats.dtype], b, f, d,
+            shape["chunk"], shape["stages"], shape["threads"],
+            shape["smem_bytes"], _vec(feats), dx.data_ptr(),
+            torch.cuda.current_stream(feats.device).cuda_stream)
     if err:
         raise RuntimeError(f"dot_interaction_backward launch failed: "
                            f"cudaError {err}")

@@ -16,6 +16,11 @@ Forward-only: the kernel has no backward, and no loss of the reference
 pools through it. On the card a table that requires a gradient while
 autograd is on raises, rather than returning a sum with no gradient; the
 CPU's plain version is differentiable.
+
+:func:`work` declares the kernel's FLOPs and bytes; for a ``meta`` tensor
+:func:`embedding_bag` launches nothing, returns the ``(B, d)`` f32 output
+on ``meta`` and records that work (``kernels.meta``), with every index
+counted valid and distinct up to V rows (a meta tensor holds no indices).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta
 
 # kernel launches since the last reset (kernels.ops.reset_launch_counts)
 launches = {"embedding_bag": 0}
@@ -41,6 +47,19 @@ def _bind(lib) -> None:
 _lib = build.KernelLibrary("embedding_bag", ["embedding_bag.cu"], _bind)
 
 
+def work(v: int, d: int, b: int, p: int, *, dtype=torch.float32,
+         rows_touched=None, valid=None):
+    """``(flops, bytes)`` of one launch on ``table (v, d)``, ``idx (b,
+    p)``: d FLOPs per valid index; each distinct row touched read once
+    (``rows_touched``, from HBM: the rest come from L2), the indices read
+    and the f32 sums written once. ``valid`` and ``rows_touched`` are the
+    data's counts; left out, every index counts valid and distinct up to
+    ``v`` rows."""
+    valid = b * p if valid is None else valid
+    rows = min(v, valid) if rows_touched is None else rows_touched
+    return valid * d, rows * d * meta.itemsize(dtype) + b * p * 4 + b * d * 4
+
+
 def embedding_bag_plain(table: torch.Tensor, idx: torch.Tensor
                         ) -> torch.Tensor:
     """Gather every bag's rows and sum the valid ones in f32."""
@@ -56,7 +75,7 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     → pooled sums ``(B, d)`` f32."""
     if table.device.type == "cpu":
         return embedding_bag_plain(table, idx)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {table.device}")
     if table.dtype not in _DTYPE:
         raise TypeError(f"table dtype {table.dtype} not in {list(_DTYPE)}")
@@ -78,12 +97,16 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
         return out
+    if table.device.type == "meta":
+        meta.record("embedding_bag", work(v, d, b, p, dtype=table.dtype))
+        return out
     vec = int((d * table.element_size()) % 16 == 0
               and table.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    err = _lib().embedding_bag(
-        table.data_ptr(), _DTYPE[table.dtype], idx.data_ptr(), b, p, v, d,
-        vec, out.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream)
+    with meta.launch_range("embedding_bag"):
+        err = _lib().embedding_bag(
+            table.data_ptr(), _DTYPE[table.dtype], idx.data_ptr(), b, p, v,
+            d, vec, out.data_ptr(),
+            torch.cuda.current_stream(table.device).cuda_stream)
     if err:
         raise RuntimeError(f"embedding_bag launch failed: cudaError {err}")
     launches["embedding_bag"] += 1

@@ -24,6 +24,11 @@ CUDA cores. :class:`FlashAttentionFn`
 joins the two for autograd: :func:`flash_attention` goes through it
 whenever autograd needs a gradient of q, k or v, and only then has the
 forward write ``lse``.
+
+:func:`work` and :func:`backward_work` declare each kernel's FLOPs and
+bytes; for a ``meta`` tensor the wrappers launch nothing, return outputs
+of the kernel's shapes on ``meta`` and record that work
+(``kernels.meta``), the backward's too when a gradient flows.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import meta
 
 NEG_INF = -1e30
 
@@ -67,6 +73,42 @@ def attention_mask(sq: int, sk: int, *, causal: bool, window: int,
     if window > 0:
         mask &= (pos_q - pos_k) < window
     return mask
+
+
+def visible_pairs(s: int, *, causal: bool, window: int) -> int:
+    """The (query, key) pairs of one head that :func:`attention_mask`
+    lets through at ``S = s``: the pairs the kernels compute (they skip
+    the tiles no query row sees)."""
+    if causal:
+        if not window or window >= s:
+            return s * (s + 1) // 2
+        return window * (window + 1) // 2 + (s - window) * window
+    if not window or window >= s:
+        return s * s
+    return s * s - (s - window) * (s - window + 1) // 2
+
+
+def work(b: int, s: int, h: int, kv: int, d: int, *, causal: bool = True,
+         window: int = 0, dtype=torch.bfloat16, with_lse: bool = False):
+    """``(flops, bytes)`` of one forward launch on ``q (b, s, h, d)``,
+    ``k``/``v (b, s, kv, d)``: 4·d FLOPs (q·kᵀ and p·v) per visible pair
+    (:func:`visible_pairs`) and head; q, k, v read once, the output
+    written once, and ``lse`` (f32) when it is asked for."""
+    pairs = visible_pairs(s, causal=causal, window=window) * h * b
+    nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * meta.itemsize(dtype)
+    return 4 * d * pairs, nbytes + (b * h * s * 4 if with_lse else 0)
+
+
+def backward_work(b: int, s: int, h: int, kv: int, d: int, *,
+                  causal: bool = True, window: int = 0,
+                  dtype=torch.bfloat16):
+    """``(flops, bytes)`` of one backward launch: 10·d FLOPs per visible
+    pair and head (five products: S again, dP, dV, dK, dQ); q, o, dO read
+    and dQ written, k, v read and dK, dV written, ``lse`` read, each
+    once."""
+    pairs = visible_pairs(s, causal=causal, window=window) * h * b
+    nbytes = (4 * b * s * h * d + 4 * b * s * kv * d) * meta.itemsize(dtype)
+    return 10 * d * pairs, nbytes + b * h * s * 4
 
 
 def _grouped_scores(q, k, *, causal: bool, window: int):
@@ -123,8 +165,9 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *,
 
 def _check(q, k, v, *more):
     """Raises for what the kernels do not take → ``(B, S, H, KV, D)``;
-    ``more`` are tensors shaped and typed like q (o, dO)."""
-    if q.device.type != "cuda":
+    ``more`` are tensors shaped and typed like q (o, dO). A ``meta``
+    tensor passes the same checks."""
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in _DTYPE:
         raise TypeError(f"q dtype {q.dtype} not in {list(_DTYPE)}")
@@ -168,11 +211,17 @@ def _launch(q, k, v, causal: bool, window: int, with_lse: bool):
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
-    err = _lib().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPE[q.dtype], b, s, h,
-        n_kv, d, int(causal), int(window), 1.0 / math.sqrt(d),
-        out.data_ptr(), None if lse is None else lse.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    if q.device.type == "meta":
+        meta.record("flash_attention", work(
+            b, s, h, n_kv, d, causal=causal, window=window, dtype=q.dtype,
+            with_lse=with_lse))
+        return out, lse
+    with meta.launch_range("flash_attention"):
+        err = _lib().flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPE[q.dtype], b, s,
+            h, n_kv, d, int(causal), int(window), 1.0 / math.sqrt(d),
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches["flash_attention"] += 1
@@ -183,7 +232,8 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0):
     """``(dq, dk, dv)`` of the attention that gave ``o`` and ``lse`` (B, H,
     S) f32, for the output gradient ``do``: the backward kernel for a CUDA
-    tensor, :func:`flash_attention_backward_plain` for a CPU one."""
+    tensor, :func:`flash_attention_backward_plain` for a CPU one, the meta
+    path (:func:`backward_work` recorded) for a meta one."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do,
                                               causal=causal, window=window)
@@ -195,16 +245,21 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
+    if q.device.type == "meta":
+        meta.record("flash_attention_backward", backward_work(
+            b, s, h, n_kv, d, causal=causal, window=window, dtype=q.dtype))
+        return dq, dk, dv
     # the kernels' scratch: Dvec and a copy of lse, rows padded to a multiple
     # of 4 (16-byte aligned TMA boxes)
     dvec = torch.empty(2 * b * h * (-(-s // 4) * 4), dtype=torch.float32,
                        device=q.device)
-    err = _lib().flash_attention_backward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), _DTYPE[q.dtype], b, s, h, n_kv, d, int(causal),
-        int(window), 1.0 / math.sqrt(d), dvec.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with meta.launch_range("flash_attention_backward"):
+        err = _lib().flash_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), _DTYPE[q.dtype], b, s, h, n_kv, d,
+            int(causal), int(window), 1.0 / math.sqrt(d), dvec.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_backward launch failed: "
                            f"cudaError {err}")

@@ -42,6 +42,12 @@ item shrinking as ``k`` grows (``K_MAX`` is the largest ``k``).
 
 Each wrapper sends a CPU tensor to the plain version and launches the
 kernel for a CUDA tensor (or raises); ``launches`` counts kernel launches.
+:func:`scan_work` (the routed and cluster-major scans) and
+:func:`gather_work` declare the kernels' FLOPs and bytes; for ``meta``
+tensors the wrappers launch nothing, return outputs of the kernel's
+shapes on ``meta`` and record that work (``kernels.meta``), counting
+every routed cluster distinct and full (a meta tensor holds no routes
+or ids).
 Scores follow the reference's contract: ``NEG_INF`` (-1e30) with id -1
 past the last valid candidate, and equal scores rank in scan order (route,
 then row), the tie rule of ``jax.lax.top_k``. The gather path returns
@@ -59,6 +65,7 @@ from repro_torch.core import serving as serving_lib
 from repro_torch.core import spatial as sp
 from repro_torch.core.index import topk_stable
 from repro_torch.kernels import build
+from repro_torch.kernels import meta
 
 NEG_INF = -1e30
 
@@ -473,6 +480,47 @@ def gather_partials_plain(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids,
 
 
 # ---------------------------------------------------------------------------
+# Declared work
+# ---------------------------------------------------------------------------
+
+
+def scan_work(b: int, d: int, k: int, *, cap: int, distinct: int,
+              live_rows: int, pairs: int, dtype=torch.float32,
+              filtered: bool = False):
+    """``(flops, bytes)`` of one routed or cluster-major scan of ``b``
+    queries over buffers of capacity ``cap`` and width ``d`` in ``dtype``
+    (int8 rows are dequantized, once per row): every input byte read once
+    (the queries; the ids of the ``distinct`` routed clusters; the
+    embedding, location and scale of their ``live_rows`` rows; their
+    attributes and the queries' filters when ``filtered``) and the ``(b,
+    k)`` lists written once; 2·d FLOPs per scored (query, live row)
+    ``pairs`` plus d per live row for the dequant."""
+    dequant = dtype == torch.int8
+    row_bytes = d * meta.itemsize(dtype) + 8 + (4 if dequant else 0)
+    nbytes = (b * (d * 4 + 16) + distinct * cap * 4 + live_rows * row_bytes
+              + b * k * 8)
+    if filtered:
+        nbytes += live_rows * 12 + b * 16
+    return pairs * d * 2 + (live_rows * d if dequant else 0), nbytes
+
+
+def gather_work(b: int, n: int, d: int, k: int, *, t: int,
+                dtype=torch.float32, live=None):
+    """``(flops, bytes)`` of one gather-path launch over ``(b, n, d)``
+    candidates in ``dtype`` with a ``t``-step ``w_hat``: the ``live``
+    candidates' rows read once (all ``b·n`` when not given), every
+    candidate's location, id (and int8 scale) once, the queries and
+    ``w_hat`` once, the ``(b, k)`` lists written once; 2·d FLOPs per live
+    candidate plus d for an int8 row's dequant."""
+    live = b * n if live is None else live
+    dequant = dtype == torch.int8
+    per_cand = 12 + (4 if dequant else 0)       # loc, id (and scale)
+    nbytes = (live * d * meta.itemsize(dtype) + b * n * per_cand
+              + b * (d * 4 + 16) + t * 4 + b * k * 8)
+    return live * 2 * d + (live * d if dequant else 0), nbytes
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -561,7 +609,7 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
                                  buf_ids, w_hat, k=k, dist_max=dist_max,
                                  buf_scale=buf_scale, buf_attrs=buf_attrs,
                                  q_filt=q_filt)
-    if q_emb.device.type != "cuda":
+    if q_emb.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q_emb.device}")
     dev = q_emb.device
     c, cap, d = _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale,
@@ -585,16 +633,25 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
     _check_grid(n_groups * ent * shape["n_chunks"], n_lists, cr * cap)
     work = torch.empty(n_groups * (2 + ent + ent * slots) + 2,
                        dtype=torch.int32, device=dev)
+    if dev.type == "meta":
+        distinct = min(b * cr, c)
+        meta.record("routed", scan_work(
+            b, d, k, cap=cap, distinct=distinct, live_rows=distinct * cap,
+            pairs=b * cr * cap, dtype=buf_emb.dtype,
+            filtered=buf_attrs is not None))
+        return out_s, out_i
     part_key = torch.empty((b * n_lists, k), dtype=torch.int64, device=dev)
     part_id = torch.empty((b * n_lists, k), dtype=torch.int32, device=dev)
-    err = _lib().fts_routed(
-        _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(top_c), _ptr(buf_emb),
-        _EMB_KIND[buf_emb.dtype], _ptr(buf_scale), _ptr(buf_loc),
-        _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt), _ptr(w_hat),
-        int(buf_attrs is not None), b, cr, c, cap, d, w_hat.shape[0], k,
-        float(dist_max), shape["chunk_rows"], slots, shape["smem_bytes"],
-        _ptr(work), _ptr(part_key), _ptr(part_id),
-        _ptr(out_s), _ptr(out_i), torch.cuda.current_stream(dev).cuda_stream)
+    with meta.launch_range("routed"):
+        err = _lib().fts_routed(
+            _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(top_c),
+            _ptr(buf_emb), _EMB_KIND[buf_emb.dtype], _ptr(buf_scale),
+            _ptr(buf_loc), _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt),
+            _ptr(w_hat), int(buf_attrs is not None), b, cr, c, cap, d,
+            w_hat.shape[0], k, float(dist_max), shape["chunk_rows"], slots,
+            shape["smem_bytes"], _ptr(work), _ptr(part_key), _ptr(part_id),
+            _ptr(out_s), _ptr(out_i),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fts_routed launch failed: cudaError {err}")
     launches["routed"] += 1
@@ -627,7 +684,7 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
             q_emb, q_loc, w_st, u, roster, buf_emb, buf_loc, buf_ids, w_hat,
             k=k, dist_max=dist_max, cr=cr, buf_scale=buf_scale,
             buf_attrs=buf_attrs, q_filt=q_filt)
-    if q_emb.device.type != "cuda":
+    if q_emb.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q_emb.device}")
     dev = q_emb.device
     c, cap, d = _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale,
@@ -650,20 +707,27 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
     shape = launch_shape(cap=cap, k=k, elem_size=buf_emb.element_size())
     n_chunks, slots = shape["n_chunks"], shape["slots"]
     _check_grid(u_max * -(-qcap // slots) * n_chunks, n_chunks, cap)
+    if dev.type == "meta":
+        meta.record("cluster_major", scan_work(
+            b, d, k, cap=cap, distinct=u_max, live_rows=u_max * cap,
+            pairs=min(n_total, u_max * qcap) * cap, dtype=buf_emb.dtype,
+            filtered=buf_attrs is not None))
+        return out_s, out_i
     work = torch.empty(2 * u_max + 2, dtype=torch.int32, device=dev)
     part_key = torch.empty((n_total * n_chunks, k), dtype=torch.int64,
                            device=dev)
     part_id = torch.empty((n_total * n_chunks, k), dtype=torch.int32,
                           device=dev)
-    err = _lib().fts_cluster_major(
-        _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(u), _ptr(roster),
-        _ptr(buf_emb), _EMB_KIND[buf_emb.dtype], _ptr(buf_scale),
-        _ptr(buf_loc), _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt),
-        _ptr(w_hat), int(buf_attrs is not None), u_max, qcap, cr, n_total,
-        c, cap, d, w_hat.shape[0], k, float(dist_max), shape["chunk_rows"],
-        slots, shape["smem_bytes"], _ptr(work), _ptr(part_key),
-        _ptr(part_id), _ptr(out_s), _ptr(out_i),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with meta.launch_range("cluster_major"):
+        err = _lib().fts_cluster_major(
+            _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(u), _ptr(roster),
+            _ptr(buf_emb), _EMB_KIND[buf_emb.dtype], _ptr(buf_scale),
+            _ptr(buf_loc), _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt),
+            _ptr(w_hat), int(buf_attrs is not None), u_max, qcap, cr,
+            n_total, c, cap, d, w_hat.shape[0], k, float(dist_max),
+            shape["chunk_rows"], slots, shape["smem_bytes"], _ptr(work),
+            _ptr(part_key), _ptr(part_id), _ptr(out_s), _ptr(out_i),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fts_cluster_major launch failed: cudaError {err}")
     launches["cluster_major"] += 1
@@ -691,7 +755,7 @@ def fused_topk_score(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids, w_hat,
         return gather_topk_plain(q_emb, q_loc, w_st, cand_emb, cand_loc,
                                  cand_ids, w_hat, k=k, dist_max=dist_max,
                                  cand_scale=cand_scale)
-    if q_emb.device.type != "cuda":
+    if q_emb.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q_emb.device}")
     dev = q_emb.device
     if cand_emb.dtype not in _EMB_KIND:
@@ -727,15 +791,20 @@ def fused_topk_score(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids, w_hat,
         return out_s, out_i
     n_chunks = shape["n_chunks"]
     _check_grid(b * n_chunks, n_chunks, n)
+    if dev.type == "meta":
+        meta.record("gather", gather_work(b, n, d, k, t=w_hat.shape[0],
+                                          dtype=cand_emb.dtype))
+        return out_s, out_i
     work = torch.empty(1, dtype=torch.int32, device=dev)
     part_key = torch.empty((b * n_chunks, k), dtype=torch.int64, device=dev)
-    err = _lib().fts_gather(
-        _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(cand_emb),
-        _EMB_KIND[cand_emb.dtype], _ptr(cand_scale), _ptr(cand_loc),
-        _ptr(cand_ids), _ptr(w_hat), b, n, d, w_hat.shape[0], k,
-        float(dist_max), shape["chunk_rows"], shape["smem_bytes"],
-        _ptr(work), _ptr(part_key), _ptr(out_s), _ptr(out_i),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with meta.launch_range("gather"):
+        err = _lib().fts_gather(
+            _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(cand_emb),
+            _EMB_KIND[cand_emb.dtype], _ptr(cand_scale), _ptr(cand_loc),
+            _ptr(cand_ids), _ptr(w_hat), b, n, d, w_hat.shape[0], k,
+            float(dist_max), shape["chunk_rows"], shape["smem_bytes"],
+            _ptr(work), _ptr(part_key), _ptr(out_s), _ptr(out_i),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fts_gather launch failed: cudaError {err}")
     launches["gather"] += 1

@@ -24,8 +24,11 @@ own tiling, and the result does not depend on it.
   itself and takes ``cr``.
 
 Each function runs its kernel's plain PyTorch version for a CPU tensor,
-launches its hand-written CUDA kernel for a CUDA tensor, and raises for
-any other device; there is no fallback. :func:`launch_counts` reads the
+launches its hand-written CUDA kernel for a CUDA tensor, takes the meta
+path for a ``meta`` tensor (outputs of the kernel's shapes on ``meta``,
+its declared ``work()`` recorded to the active ``kernels.meta``
+counter; nothing runs), and raises for any other device; there is no
+fallback. :func:`launch_counts` reads the
 kernels' launch counters (one key per kernel, the two backward kernels
 included), :func:`reset_launch_counts` zeroes them.
 """

@@ -746,10 +746,16 @@ def plan_dual_encoder(arch_id: str, shape, mesh) -> CellPlan:
 # ---------------------------------------------------------------------------
 
 
-def plan_cell(arch_id: str, shape_name: str, mesh) -> CellPlan:
+def plan_cell(arch_id: str, shape_name: str, mesh, *,
+              dims: Optional[dict] = None) -> CellPlan:
+    """The plan of one (arch × shape) cell on ``mesh``; ``dims`` replaces
+    entries of the shape's dims (a batch cut to what one card runs, say),
+    the rest of the plan built as for the registered shape."""
     from repro_torch.configs import get_config, get_shape
     cfg = get_config(arch_id)
     shape = get_shape(arch_id, shape_name)
+    if dims:
+        shape = dataclasses.replace(shape, dims={**shape.dims, **dims})
     if shape.skip:
         return CellPlan(arch_id, shape_name, None, (), (), skip=shape.skip)
     fam = cfg.family

@@ -248,9 +248,11 @@ def attention_full(q, k, v, *, causal: bool = True, window: int = 0,
 
     On a CUDA tensor it launches the flash twin, whose own tiling stands
     in for ``chunk``; explicit ``positions_q`` / ``positions_k`` (the
-    reference's oracle knobs) raise there. On a CPU tensor it runs the
-    reference's chunked online softmax over ``chunk`` keys at a time."""
-    if q.device.type == "cuda":
+    reference's oracle knobs) raise there. A ``meta`` tensor takes the
+    twin's meta path (shapes and its declared work, nothing run). On a
+    CPU tensor it runs the reference's chunked online softmax over
+    ``chunk`` keys at a time."""
+    if q.device.type in ("cuda", "meta"):
         if positions_q is not None or positions_k is not None:
             raise ValueError("the flash kernel takes the positions 0..S-1 "
                              "only; explicit positions_q / positions_k run "
@@ -311,15 +313,16 @@ def attention_local_banded(q, k, v, *, window: int, block=None):
     before), the same function as ``attention_full`` with the window.
 
     On a CUDA tensor it launches the flash twin with the window (the
-    kernel skips the key tiles no row of a query tile can see, the band).
-    On a CPU tensor it runs the reference's banded blocks."""
+    kernel skips the key tiles no row of a query tile can see, the band),
+    and a ``meta`` tensor the twin's meta path. On a CPU tensor it runs
+    the reference's banded blocks."""
     b, s, h, d = q.shape
     block = block or window
     if block < window or s % block:
         raise ValueError(f"banded attention needs block >= window and S % "
                          f"block == 0 (S {s}, block {block}, window "
                          f"{window})")
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         return _flash(q, k, v, causal=True, window=window)
     if q.device.type != "cpu":
         raise ValueError(f"no attention for device {q.device}")

@@ -373,23 +373,28 @@ def test_cpu_tensors_never_launch_and_counters_cover_every_kernel():
 
 
 def test_other_devices_raise():
-    meta = torch.device("meta")
+    """A device with neither a plain version nor a kernel raises: the lazy
+    tensor device here. (A meta tensor takes the kernels' meta path,
+    held in tests/test_torch_dryrun.py.)"""
+    import torch._lazy.ts_backend
+    torch._lazy.ts_backend.init()
+    other = torch.device("lazy")
     with pytest.raises(ValueError, match="no kernel"):
-        ops.dot_interaction(torch.ones(2, 3, 4, device=meta))
+        ops.dot_interaction(torch.ones(2, 3, 4, device=other))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.embedding_bag(torch.ones(5, 4, device=meta),
-                          torch.zeros(2, 3, dtype=torch.int32, device=meta))
+        ops.embedding_bag(torch.ones(5, 4, device=other),
+                          torch.zeros(2, 3, dtype=torch.int32, device=other))
     with pytest.raises(ValueError, match="no kernel"):
-        ops.flash_attention(*(torch.ones(1, 8, 2, 16, device=meta)
+        ops.flash_attention(*(torch.ones(1, 8, 2, 16, device=other)
                               for _ in range(3)))
-    x = torch.ones(2, 4, 16, device=meta)
+    x = torch.ones(2, 4, 16, device=other)
     with pytest.raises(ValueError, match="no kernel"):
-        ops.fused_topk_score(torch.ones(2, 16, device=meta),
-                             torch.ones(2, 2, device=meta),
-                             torch.ones(2, 2, device=meta), x,
-                             torch.ones(2, 4, 2, device=meta),
-                             torch.ones(2, 4, dtype=torch.int32, device=meta),
-                             torch.ones(5, device=meta), k=2, dist_max=1.0)
+        ops.fused_topk_score(torch.ones(2, 16, device=other),
+                             torch.ones(2, 2, device=other),
+                             torch.ones(2, 2, device=other), x,
+                             torch.ones(2, 4, 2, device=other),
+                             torch.ones(2, 4, dtype=torch.int32, device=other),
+                             torch.ones(5, device=other), k=2, dist_max=1.0)
 
 
 # ---------------------------------------------------------------------------
