@@ -10,9 +10,10 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    of ``src/repro_torch/kernels/csrc`` and the memory probes of
    ``probes/memory_rates.cu`` (one nvcc per source, sm_90a, side by side)
    and print each build's time and ptxas register/spill lines;
-   ``cuobjdump -sass`` of the flash library must show tensor-core
-   instructions in each bf16 and fp16 instantiation: HMMA or HGMMA in the
-   forward's, HGMMA (``wgmma``) in each of the backward's two kernels.
+   ``cuobjdump -sass`` of the flash library must show HGMMA (``wgmma``)
+   in each bf16 and fp16 instantiation of the forward
+   (``flash_fwd_kernel``) and of the backward's two kernels, and no
+   ``flash_tc_kernel`` (the forward's old ``mma.sync`` body).
 1. Hold each kernel (routed, cluster-major) against its plain PyTorch
    version on the card: f32 / bf16 / int8 × unfiltered / filtered × cr 1, 2,
    at a small shape and at d = 768, at k = 20 and k > 32; then the chunked
@@ -60,7 +61,9 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    Flash attention in bf16 and fp16 must also stay within one rounding of
    the plain version on the inputs widened to f32 (``FLASH_ONE_ROUNDING``),
    at every small shape and both main shapes; SDPA's distance under the
-   same rule is printed for the record. Dot interaction and bmm + triangle
+   same rule is printed for the record. The flash library's forward launch
+   (``flash_forward_shape``) must equal ``forward_launch_shape``'s, the
+   mirror the CPU tests check. Dot interaction and bmm + triangle
    are timed in turns over several rounds, and the medians kept. The
    card's L2 and HBM read rates are measured (``memory_rates``, a
    streaming probe), and embedding bag gets an L2 bound: its gathered row
@@ -143,7 +146,9 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    ``repro_torch.launch.serve.main`` in process, at the reference CLI's
    flags with 131,072 objects, 4,096 queries, c 16 (n / 10k), cr 2, int8,
    16,384 Zipf(1.05) requests closed loop at concurrency 64 and 32 churn
-   rounds with the WAL (``CLI_ARGS``; the CLI's model is its own 4L / d 64);
+   rounds with the WAL (``CLI_ARGS``; the CLI's model is its own 4L / d 64),
+   its training cut from the CLI's default 300 + 600 steps to 100 + 200
+   for the script's time (``CLI_TRAIN_ARGS``);
    then a restart on the same directories that loads the snapshot, replays
    the WAL and runs an open loop at half the first run's QPS. Build s,
    recall@10, QPS and p50 / p95 / p99 are read from its report. (b) The
@@ -160,7 +165,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    count beside LIST's at cr 2; ``kmeans`` on the card held step by step
    against ``kmeans_step`` on a CPU copy. (d) ``python -m repro_torch.api``
    and (e) the four ``examples/torch_*.py`` as subprocesses side by side
-   (the training example at ``--full``, 20 steps, then resumed to 30): each
+   (the training example at ``--full``, 10 steps, then resumed to 15): each
    must exit 0, the server and the engine must agree. The launch counters
    are zeroed around (a) and around (b).
 
@@ -328,8 +333,9 @@ phase 10's and 11's paths and ``substrate_shapes``, and the two backward
 kernels with ``launches`` on phase 12's), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
 
-``--compare`` times, on trees that share its wrappers: the flash and dot
-backward kernels at phase 12's shapes, the gather scan on its full-width
+``--compare`` times, on trees that share its wrappers: the 16-bit flash
+forward at the model layers of phases 10–12 beside SDPA, the flash and
+dot backward kernels at phase 12's shapes, the gather scan on its full-width
 copies, the two engine scans on one chunk at two route skews, and the
 query wall of 4,096 queries against the int8 snapshot with and without a
 delta of 1,024 rows and 300 tombstones.
@@ -1221,8 +1227,10 @@ def one_rounding_check(out, q, k, v, *, causal, window, what):
 
 def flash_sass_check(lib_path):
     """→ {function: tensor-core instruction count} for the 16-bit flash
-    instantiations in the built library; raises unless each forward one has
-    HMMA or HGMMA instructions and each backward one (``wgmma``) HGMMA."""
+    instantiations in the built library; raises unless each of the
+    forward's (``flash_fwd_kernel``) and the backward's two kernels' has
+    HGMMA (``wgmma``) instructions, or if the old ``mma.sync`` forward
+    (``flash_tc_kernel``) is still there."""
     import re
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1233,25 +1241,23 @@ def flash_sass_check(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"HMMA": 0, "HGMMA": 0}
-        elif name:
-            m = re.search(r"\b(HG?MMA)\b", line)
-            if m:
-                counts[name][m.group(1)] += 1
+            counts[name] = 0
+        elif name and re.search(r"\bHGMMA\b", line):
+            counts[name] += 1
+    old = [name for name in counts if "flash_tc_kernel" in name]
+    if old:
+        raise AssertionError(f"the mma.sync forward is still built: {old}")
     found = {}
     for tag, mangled in (("bfloat16", "13__nv_bfloat16"), ("float16", "6__half")):
-        for kern, ops in (("flash_tc_kernel", ("HMMA", "HGMMA")),
-                          ("flash_bwd_dkdv_kernel", ("HGMMA",)),
-                          ("flash_bwd_dq_kernel", ("HGMMA",))):
-            fns = {name: sum(c[op] for op in ops)
-                   for name, c in counts.items()
+        for kern in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                     "flash_bwd_dq_kernel"):
+            fns = {name: c for name, c in counts.items()
                    if kern in name and mangled in name}
             if len(fns) != 4 or min(fns.values()) == 0:
-                raise AssertionError(f"flash {kern} {tag}: {'/'.join(ops)} "
-                                     f"per instantiation {fns}; want them "
-                                     f"in all four head dims")
-            key = tag if kern == "flash_tc_kernel" else f"{kern}/{tag}"
-            found[key] = sorted(fns.values())
+                raise AssertionError(f"flash {kern} {tag}: HGMMA per "
+                                     f"instantiation {fns}; want them in "
+                                     f"all four head dims")
+            found[f"{kern}/{tag}"] = sorted(fns.values())
     return found
 
 
@@ -1306,7 +1312,12 @@ def phase4_checks(dev):
                 (1, 64, 2, 2, 32, False, 0), (1, 130, 4, 4, 128, False, 0),
                 (1, 300, 8, 2, 128, True, 100), (1, 520, 4, 2, 128, True, 1),
                 (2, 100, 7, 1, 64, True, 0), (1, 333, 7, 7, 16, True, 1),
-                (1, 190, 14, 2, 32, False, 50)):
+                (1, 190, 14, 2, 32, False, 50),
+                # the 16-bit body's 128-row, 128-key tiles: S on either
+                # side of them, a window one key under a tile, GQA 8
+                (1, 127, 8, 1, 128, True, 0), (2, 129, 4, 4, 64, True, 127),
+                (1, 255, 16, 2, 128, False, 0), (1, 257, 8, 1, 32, True, 128),
+                (1, 385, 4, 2, 128, True, 129), (1, 1, 2, 1, 64, True, 0)):
             q = torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
             k = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
             v = torch.randn(b, s, kv, d, generator=g, device=dev).to(dtype)
@@ -1324,6 +1335,15 @@ def phase4_checks(dev):
                                    window=window, what=f"flash {dt} {case}")
             err["flash_attention"] = max(err["flash_attention"], e)
             n_cases["flash_attention"] += 1
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in fa.HEAD_DIMS:          # the library's launch = the mirror
+            sh = fa.forward_launch_shape(d, dtype)
+            got = fa.kernel_forward_shape(d, dtype)
+            if got != (sh.rows, sh.key_tile, sh.stages, sh.threads,
+                       sh.smem_bytes):
+                raise AssertionError(f"flash forward {dtype} D {d}: the "
+                                     f"library's launch {got} is not "
+                                     f"forward_launch_shape's {sh}")
     for dtype, shapes in ((torch.float32, ((128, 27, 16), (256, 27, 128),
                                            (64, 8, 8), (32, 5, 6),
                                            (70, 2, 128), (70, 3, 36),
@@ -3369,6 +3389,9 @@ def phase7(dev, wctx, trained, tq):
 CLI_ARGS = ["--objects", "131072", "--queries", "4096", "--clusters", "16",
             "--cr", "2", "--precision", "int8", "--skew", "1.05",
             "--concurrency", "64"]
+# phase 8 (a) cuts the CLI's training from its defaults (300 + 600 steps)
+# for the script's time
+CLI_TRAIN_ARGS = ["--train-steps", "100", "--index-steps", "200"]
 CLI_REQUESTS = 16_384            # the closed-loop run, with churn
 CLI_CHURN = 32
 CLI_OPEN_RATE = 0.5              # of the first run's QPS
@@ -3393,7 +3416,7 @@ EXAMPLES = {"quickstart": ["examples/torch_quickstart.py"],
             "serve_queries": ["examples/torch_serve_queries.py"],
             "incremental_index": ["examples/torch_incremental_index.py"]}
 TRAIN_EXAMPLE = ["examples/torch_train_dual_encoder.py", "--full"]
-TRAIN_STEPS = (20, 30)
+TRAIN_STEPS = (10, 15)
 SUBPROCESS_TIMEOUT = 600
 
 
@@ -3463,7 +3486,8 @@ def p8_cli(dev, tmp):
     from repro_torch import api
     from repro_torch.kernels import fused_topk_score as fts
     from repro_torch.launch import serve as cli
-    base = CLI_ARGS + ["--snapshot-dir", os.path.join(tmp, "snap"),
+    base = CLI_ARGS + CLI_TRAIN_ARGS + [
+        "--snapshot-dir", os.path.join(tmp, "snap"),
                        "--wal-dir", os.path.join(tmp, "wal")]
     build_s = []
     build = api.build
@@ -3501,8 +3525,8 @@ def p8_cli(dev, tmp):
                              f"or replayed {replayed} WAL records")
     if not launches["routed"] and not launches["cluster_major"]:
         raise AssertionError("phase 8 (a): the CLI launched no scan kernel")
-    rec = dict(args=CLI_ARGS, requests=CLI_REQUESTS, churn=CLI_CHURN,
-               build_s=build_s[0], first=dict(rep1, wall_s=wall1),
+    rec = dict(args=CLI_ARGS + CLI_TRAIN_ARGS, requests=CLI_REQUESTS,
+               churn=CLI_CHURN, build_s=build_s[0], first=dict(rep1, wall_s=wall1),
                restart=dict(rep2, wall_s=wall2, open_qps=rate,
                             requests=CLI_OPEN_REQUESTS,
                             wal_records_replayed=replayed),
@@ -7398,21 +7422,89 @@ def phase14(dev, p3, p4, p12, p13, shapes):
     return rec
 
 
+# --compare's 16-bit forward shapes (PERF.md §6 row 4), bf16, causal:
+# (b, s, h, kv, d, window, with_lse) of phase 10's qwen2-7b and gemma3-27b
+# layers, phase 11's moonshot and kimi layers and phase 12's stablelm-1.6b
+# forward (the trainer's, writing lse)
+FWD_COMPARE = {"qwen2-7b/1x32768": (1, 32_768, 28, 4, 128, 0, False),
+               "qwen2-7b/8x4096": (8, 4096, 28, 4, 128, 0, False),
+               "gemma3-27b-global/2x8192": (2, 8192, 32, 16, 128, 0, False),
+               "gemma3-27b-local/2x8192": (2, 8192, 32, 16, 128, 1024, False),
+               "moonshot-v1-16b-a3b/8x4096": (8, 4096, 16, 16, 128, 0, False),
+               "kimi-k2-1t-a32b/2x4096": (2, 4096, 64, 8, 128, 0, False),
+               "stablelm-1.6b/8x4096/lse": (8, 4096, 32, 32, 64, 0, True)}
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
-    card (parent / change / change / parent). The backward kernels at
-    phase 12's shapes (``backward_turns``), the gather scan on its
-    full-width copies, the routed and cluster-major kernels on one
-    256-query chunk at the router and uniform skews, every tier, and the
-    query walls with and without a delta (``delta_walls``). It calls
-    only wrappers whose signatures the older tree shares, so a checkout of
-    the parent with this script copied in runs it too."""
+    card (parent / change / change / parent). The 16-bit flash forward at
+    ``FWD_COMPARE``'s shapes beside SDPA (``forward_turns``), the backward
+    kernels at phase 12's shapes (``backward_turns``), then the scans
+    (``scan_turns``): the gather scan on its full-width copies, the routed
+    and cluster-major kernels on one 256-query chunk at the router and
+    uniform skews, every tier, and the query walls with and without a
+    delta (``delta_walls``). It calls only wrappers whose signatures the
+    older tree shares, so a checkout of the parent with this script copied
+    in runs it too."""
+    return {"forward": forward_turns(dev), "backward": backward_turns(dev),
+            **scan_turns(dev)}
+
+
+def forward_turns(dev, turns=2, reps=10):
+    """For ``--compare``: the 16-bit flash forward at ``FWD_COMPARE``'s
+    shapes on seeded bf16 inputs, timed ``turns`` times each (CUDA events
+    over ``reps`` launches), each turn beside SDPA on the same inputs (K/V
+    expanded to the query heads outside the timing, the window's mask
+    where there is one), with the bound of ``flash_attention.work``. It
+    calls only ``ops.flash_attention`` and ``flash_attention._launch`` with
+    lse, which older trees share."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    out = {}
+    for name, (b, s, h, kv, d, w, with_lse) in FWD_COMPARE.items():
+        q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev,
+                               dtype=torch.bfloat16) for n in (h, kv, kv))
+        if with_lse:
+            run = lambda: fa._launch(q, k, v, True, w, True)  # noqa: E731
+        else:
+            run = lambda: kops.flash_attention(  # noqa: E731
+                q, k, v, causal=True, window=w)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+                  for x in (k, v))
+        mask = (fa.attention_mask(s, s, causal=True, window=w, device=dev)
+                if w else None)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None)
+        rec = dict(shape=[b, s, h, kv, d], window=w, with_lse=with_lse,
+                   ms=[], library_ms=[])
+        for _ in range(turns):
+            rec["ms"].append(time_ms(run, reps=reps))
+            rec["library_ms"].append(time_ms(lib, reps=reps))
+        flops, nbytes = fa.work(b, s, h, kv, d, causal=True, window=w,
+                                dtype=torch.bfloat16, with_lse=with_lse)
+        rec.update(roof(nbytes, flops, BF16_FLOPS_PER_S))
+        rec["x_bound"] = min(rec["ms"]) / rec["bound_ms"]
+        rec["x_library"] = min(rec["ms"]) / min(rec["library_ms"])
+        out[name] = rec
+        log(f"compare flash forward {name}: {rec['ms']} ms (bound "
+            f"{rec['bound_ms']:.3f}, ×{rec['x_bound']:.2f}), SDPA "
+            f"{rec['library_ms']} ms")
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def scan_turns(dev):
+    """For ``--compare``: the scans (see ``compare``)."""
     import torch
     from repro_torch.core import engine as engine_lib
     from repro_torch.core import serving as serving_lib
     from repro_torch.core.snapshot import IndexSnapshot
     from repro_torch.kernels import fused_topk_score as fts
-    backward = backward_turns(dev)
     fi = full_width_index(dev)
     bufs, c = fi["bufs"], fi["cfg"].n_clusters
     w_hat = IndexSnapshot.from_parts(fi["cfg"], fi["rel"], fi["index"],
@@ -7426,7 +7518,7 @@ def compare(dev):
     ctx = dict(buf32=bufs["f32"], buf8=bufs["int8"], w_hat=w_hat,
                q_emb=q_emb, ql=ql, w=w, top_c=top_router)
     qa, cand, cl, ci, _, _ = gather_inputs(ctx)
-    out = {"backward": backward, "gather": {}}
+    out = {"gather": {}}
     for p, (ce, sc) in cand.items():
         rec = gather_times(qa, ce, sc, cl, ci, w_hat)
         out["gather"][p] = rec

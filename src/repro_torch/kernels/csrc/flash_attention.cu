@@ -4,42 +4,60 @@
 // k, v (B, S, KV, D) in one float dtype → o (B, S, H, D) in that dtype. Head h
 // reads KV head h / (H / KV) (GQA). Masks: key position < S; causal: pos_q >=
 // pos_k; window > 0: pos_q - pos_k < window. Arithmetic is the Pallas kernel's,
-// in f32: s = scale·(q·k) (the f32 body scales q first, as the reference
-// does), m_new = max(m, rowmax s), p = exp(s - m_new), corr =
+// in f32: s = scale·(q·k), m_new = max(m, rowmax s), p = exp(s - m_new), corr =
 // exp(m - m_new), l = l·corr + Σp, acc = acc·corr + p·v, o = acc / max(l,
 // 1e-30), rounded once to q's dtype. Masked scores are the finite -1e30, never
-// -inf: a row whose first live tile is fully masked for it takes p = exp(0) = 1
-// on those slots until its first real key makes corr = exp(-1e30 - m) = 0 and
-// wipes them, where -inf would give NaN. A key tile is skipped only where no
-// row of the block can see it (the reference's causal `break` and window
-// `continue`), so the live tiles are one contiguous range.
+// -inf. A key tile is skipped only where no row of the block can see it (the
+// reference's causal `break` and window `continue`), so the live tiles are one
+// contiguous range.
 //
 // What bounds it on an H100: operations, 4·D flops per unmasked (q, k) pair
 // per head against a few bytes per pair. Two forward bodies:
 //
-// * bf16 / fp16 (flash_tc_kernel): both products on the tensor cores with
-//   mma.sync.m16n8k16 (f32 accumulation): its register layouts are fixed, so
-//   the S accumulator turns into P's A operand in registers. A block of 4
-//   warps owns 64 query rows of one head (16 rows per warp). Q is staged once,
-//   in K's second stage before that fills, and kept in registers as A
-//   fragments (ldmatrix); at D 128 a block takes 70 KB of shared memory and
-//   210 registers a thread, so two blocks share an SM. K and V tiles of 64
-//   keys stream through a two-stage cp.async ring (zero-filled past S), rows
-//   padded by 16 bytes so the 8 rows an ldmatrix reads fall in distinct
-//   banks. The softmax scale is applied to S in f32 after the product (the
-//   reference scales q in f32, so a pre-scaled 16-bit Q would be a new
-//   rounding). The online softmax runs in the accumulator's own layout (two
-//   quad shuffles a row); exp is __expf. P stays at the reference's f32
-//   precision: P_hi = round(P), P_lo = round(P - P_hi), both in the input's
-//   16-bit type, and O += P_hi·V + P_lo·V (V through ldmatrix.trans), a
-//   residue of about 2^-16 of P, at 1.5× the MMA work of rounding P once.
-//   Query tiles launch heaviest first under a causal mask.
-// * f32 (flash_f32_kernel): f32 FMAs on the CUDA cores (67 TFLOP/s peak);
-//   TF32 tensor cores would break the 2e-5 contract. A block owns 64 query
-//   rows and walks the 64-key tiles; Q (pre-scaled) and Kᵀ are staged
-//   transposed so a thread reads 4 query rows and 4 keys as two float4 per
-//   step of d and keeps a 4×4 score tile; P goes back to shared memory in
-//   Kᵀ's place; each thread accumulates 4 rows × D/16 output columns.
+// * bf16 / fp16 (flash_fwd_kernel): Hopper's TMA, mbarriers and wgmma, warp
+//   specialised. A block owns 128 query rows of one head: warpgroup 0 loads
+//   (one thread issues every TMA copy, then the warpgroup gives its registers
+//   up with setmaxnreg), warpgroups 1 and 2 compute 64 rows each with 240
+//   registers a thread. Q arrives once; the live key tiles of 128 keys (K and
+//   V) stream through a ring of full / empty mbarriers, 3 stages at D 128
+//   (224 KB of shared memory with Q) and 4 below; TMA fills zeros past S.
+//   Tiles use the 128-byte swizzle from D 64 up (a D 128 row in two column
+//   blocks), below D 64 the row's own width. S = Q·Kᵀ is a wgmma m64n128k16
+//   per 16 of D with both operands in shared memory. The online softmax runs
+//   in the accumulator's own layout (two quad shuffles a row), in base 2: p =
+//   2^(scale·log2e·s − scale·log2e·m), one FFMA and one ex2.approx each; a
+//   row that has seen only masked keys keeps m = -1e30 and takes p = 0 on
+//   them, where the reference takes p = 1 and wipes it at its first real key
+//   (corr = 0): both leave l and acc at that key's terms. The mask is tested
+//   only on tiles that cross S, the diagonal or the window's edge for some
+//   row of the block. P stays at the reference's f32 precision: P_hi =
+//   round(P), P_lo = round(P − P_hi), both 16-bit, go back as wgmma's A
+//   operand from registers (the accumulator's layout is the A fragment's),
+//   and O += P_hi·V + P_lo·V with V read MN-major from the very tile that
+//   arrived: 3 products of 2·D flops per pair where the bound counts 2, so
+//   the floor is 1.5× the bound at the full wgmma rate (SDPA rounds P once
+//   and sits 14× over the one-rounding gate, so its time is out of reach).
+//   Overlap: each warpgroup issues S(j) and P(j−1)·V(j−1) together and runs
+//   softmax(j) under its own P(j−1)·V(j−1); the two warpgroups also
+//   ping-pong on two named barriers (each issues its products only after the
+//   other issued its own), so one's softmax runs under the other's products.
+//   Every branch between a wgmma and its wait depends on the block alone: one
+//   that differed between the warpgroups made ptxas serialise the wgmmas
+//   (C7518), 9–20% slower on an H100. O stays in f32 registers and is
+//   rounded once at the end; lse (m·scale + log l) is written when asked.
+//   Blocks launch heaviest causal tile first across a chunk of heads (whole
+//   KV groups whose K and V fit in 24 MB, chosen by the wrapper:
+//   flash_attention.py ForwardLaunch.chunk), chunk after chunk, so K and V are
+//   read from HBM about once: 132 blocks of as many heads evicted them from
+//   the 50 MB L2 and made a multi-head layer re-read them (moonshot, 16 KV
+//   heads: −15% on an H100).
+// * f32 (flash_f32_kernel): f32 FMAs on the CUDA cores (67 TFLOP/s peak):
+//   TF32 tensor cores would break the 2e-5 contract, and wgmma has no full
+//   f32 input. A block owns 64 query rows and walks the 64-key tiles; Q
+//   (pre-scaled, as the reference scales q) and Kᵀ are staged transposed so
+//   a thread reads 4 query rows and 4 keys as two float4 per step of d and
+//   keeps a 4×4 score tile; P goes back to shared memory in Kᵀ's place; each
+//   thread accumulates 4 rows × D/16 output columns.
 //
 // The backward (flash_attention_backward) replaces no Pallas kernel: the
 // reference differentiates its jnp path. From the forward's o and row lse it
@@ -85,64 +103,11 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// bf16 / fp16: tensor cores
+// Helpers of the 16-bit kernels
 // ---------------------------------------------------------------------------
-
-constexpr int TC_BQ = 64;              // query rows per block (16 per warp)
-constexpr int TC_BK = 64;              // keys per tile
-constexpr int TC_THREADS = 128;
-
-template <int D>
-constexpr size_t tc_smem_bytes() {     // two stages of K and V, 16-bit (Q borrows one)
-  return size_t(4 * TC_BK) * (D + 8) * 2;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared, asynchronous; src_bytes 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_1() {   // all but the newest group done
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// c (16×8, f32) += a (16×16) · b (16×8), a row-major, b column-major
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4],
-                                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(float (&c)[4], const uint32_t (&a)[4],
-                                                 uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // (x, y) → a pair of 16-bit values, x in the low half, rounded to nearest
@@ -174,173 +139,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// 64 rows of D values from rows s0.. of src (row stride `stride`) into dst
-// (row stride D + 8), zeros for rows at or past S; one commit group per call
-// site, issued by all 128 threads.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, size_t stride, int s0, int S) {
-  constexpr int CPR = D / 8;           // 16-byte pieces per row
-  for (int e = threadIdx.x; e < 64 * CPR; e += TC_THREADS) {
-    const int r = e / CPR, c = (e % CPR) * 8, s = s0 + r;
-    const bool in = s < S;
-    cp_async16(dst + r * (D + 8) + c, in ? src + size_t(s) * stride + c : src, in ? 16 : 0);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, int causal,
-                int window, float scale) {
-  constexpr int STR = D + 8;           // shared row stride (elements)
-  constexpr int KST = D / 16;          // k-steps of Q·Kᵀ, d-pairs of P·V
-  constexpr int NT = TC_BK / 8;        // 8-key score tiles per warp row slab
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);          // [2][64][STR]
-  T* vs = ks + 2 * TC_BK * STR;                    // [2][64][STR]
-  T* qs = ks + TC_BK * STR;                        // [64][STR], in K's stage 1 until read
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;          // mma fragment row / column pair
-  const int mi = lane >> 3, mr = lane & 7;         // ldmatrix matrix / row of this lane
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;   // heaviest causal tiles first
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int kvh = h / (H / KV);
-  const size_t q_stride = size_t(H) * D, kv_stride = size_t(KV) * D;
-  const T* qb = q + (size_t(b) * S * H + h) * D;
-  const T* kb = k + (size_t(b) * S * KV + kvh) * D;
-  const T* vb = v + (size_t(b) * S * KV + kvh) * D;
-
-  // live key tiles [t_lo, t_hi]: the reference's block predicate
-  int t_hi = (S - 1) / TC_BK;
-  if (causal) t_hi = min(t_hi, (q0 + TC_BQ - 1) / TC_BK);
-  int t_lo = 0;
-  if (window > 0) {
-    const int x = q0 - window - TC_BK + 1;         // live iff k0 > x
-    if (x >= 0) t_lo = x / TC_BK + 1;
-  }
-
-  stage_rows<T, D>(qs, qb, q_stride, q0, S);
-  stage_rows<T, D>(ks, kb, kv_stride, t_lo * TC_BK, S);
-  stage_rows<T, D>(vs, vb, kv_stride, t_lo * TC_BK, S);
-  cp_async_commit();
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-  uint32_t qf[KST][4];                             // Q as A fragments, for every tile
-#pragma unroll
-  for (int kk = 0; kk < KST; ++kk)
-    ldsm_x4(qf[kk], qs + (warp * 16 + mr + (mi & 1) * 8) * STR + kk * 16 + (mi >> 1) * 8);
-  __syncthreads();                                 // K's stage 1 is free for tile t_lo + 1
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int row0 = q0 + warp * 16 + g;             // this thread's rows: row0, row0 + 8
-
-  for (int it = t_lo; it <= t_hi; ++it) {
-    const int st = (it - t_lo) & 1;
-    if (it < t_hi) {                               // tile it+1 into the other stage
-      stage_rows<T, D>(ks + (st ^ 1) * TC_BK * STR, kb, kv_stride, (it + 1) * TC_BK, S);
-      stage_rows<T, D>(vs + (st ^ 1) * TC_BK * STR, vb, kv_stride, (it + 1) * TC_BK, S);
-    }
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();
-    const T* kt = ks + st * TC_BK * STR;
-    const T* vt = vs + st * TC_BK * STR;
-
-    // S = Q·Kᵀ: per 16 keys, one ldmatrix.x4 gives two 8-key B fragments
-    float sc[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-#pragma unroll
-      for (int kk = 0; kk < KST; ++kk) {
-        uint32_t bf[4];
-        ldsm_x4(bf, kt + (np * 16 + mr + (mi >> 1) * 8) * STR + kk * 16 + (mi & 1) * 8);
-        mma16816<T>(sc[2 * np], qf[kk], bf[0], bf[1]);
-        mma16816<T>(sc[2 * np + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
-
-    // scale, mask, online softmax in the accumulator's layout
-    const int k0 = it * TC_BK;
-    const bool edge = k0 + TC_BK > S || (causal && k0 + TC_BK - 1 > q0) ||
-                      (window > 0 && q0 + TC_BQ - 1 - k0 >= window);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float s = sc[nt][e] * scale;
-        if (edge) {
-          const int pq = row0 + (e >> 1) * 8, pk = k0 + nt * 8 + 2 * t4 + (e & 1);
-          bool ok = pk < S;
-          if (causal) ok = ok && pq >= pk;
-          if (window > 0) ok = ok && pq - pk < window;
-          s = ok ? s : kNegInf;
-        }
-        sc[nt][e] = s;
-      }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mx = fmaxf(mx, fmaxf(sc[nt][2 * rr], sc[nt][2 * rr + 1]));
-      const float m_new = fmaxf(m[rr], quad_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        sc[nt][2 * rr] = __expf(sc[nt][2 * rr] - m_new);
-        sc[nt][2 * rr + 1] = __expf(sc[nt][2 * rr + 1] - m_new);
-        sum += sc[nt][2 * rr] + sc[nt][2 * rr + 1];
-      }
-      const float corr = __expf(m[rr] - m_new);
-      l[rr] = l[rr] * corr + quad_sum(sum);
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        acc[i][2 * rr] *= corr;
-        acc[i][2 * rr + 1] *= corr;
-      }
-      m[rr] = m_new;
-    }
-
-    // O += P_hi·V + P_lo·V: the score fragments of keys 16j..16j+15 are the
-    // A fragment of P; V's B fragments come from ldmatrix.trans
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-      uint32_t ph[4], pl[4];
-      split2<T>(sc[2 * j][0], sc[2 * j][1], ph[0], pl[0]);
-      split2<T>(sc[2 * j][2], sc[2 * j][3], ph[1], pl[1]);
-      split2<T>(sc[2 * j + 1][0], sc[2 * j + 1][1], ph[2], pl[2]);
-      split2<T>(sc[2 * j + 1][2], sc[2 * j + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dp = 0; dp < KST; ++dp) {
-        uint32_t bf[4];
-        ldsm_x4_t(bf, vt + (j * 16 + mr + (mi & 1) * 8) * STR + dp * 16 + (mi >> 1) * 8);
-        mma16816<T>(acc[2 * dp], ph, bf[0], bf[1]);
-        mma16816<T>(acc[2 * dp], pl, bf[0], bf[1]);
-        mma16816<T>(acc[2 * dp + 1], ph, bf[2], bf[3]);
-        mma16816<T>(acc[2 * dp + 1], pl, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();                   // this stage is free for tile it+2
-  }
-
-  T* ob = o + (size_t(b) * S * H + h) * D;
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int s = row0 + rr * 8;
-    if (s >= S) continue;
-    const float li = fmaxf(l[rr], 1e-30f);
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(ob + size_t(s) * q_stride + i * 8 + 2 * t4) =
-          pack2(T(), acc[i][2 * rr] / li, acc[i][2 * rr + 1] / li, nullptr);
-    if (lse && t4 == 0) lse[(size_t(b) * H + h) * S + s] = m[rr] + logf(li);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
@@ -558,7 +356,7 @@ flash_bwd_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper building blocks of the 16-bit backward: mbarriers, TMA, wgmma
+// Hopper building blocks of the 16-bit kernels: mbarriers, TMA, named barriers, wgmma
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -609,6 +407,16 @@ __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
+// named barrier `id` over the two consumer warpgroups (256 threads): wait, or arrive where
+// pred is nonzero (a predicate, not a branch)
+__device__ __forceinline__ void bar_sync256(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive256(int id, int pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p bar.arrive %0, 256;\n}\n"
+               :: "r"(id), "r"(pred) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -617,6 +425,9 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {   // all but the newest group done
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // 2^x, flushing subnormal results to 0 (one MUFU.EX2; P below 2^-126 adds nothing)
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -630,6 +441,14 @@ template <int N>
 __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// keeps an A operand in its registers until the products that read it are waited for
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r]) :: "memory");
 }
 
 // wgmma's shared-memory matrix descriptor: start address, leading and stride byte offsets,
@@ -657,12 +476,21 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint3
 #define FA_D64 FA_D32(0), FA_D32(32)
 #define FA_A "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
 #define FA_WGMMA(T, TY)                                                                      \
-  /* d (64×64, f32) += A·B, A (64×16) and B (16×64) read from shared memory, K-major */      \
-  __device__ __forceinline__ void wgmma_ss(T, float (&d)[32], uint64_t da, uint64_t db) {    \
+  /* d (64×N, f32) = A·B + (acc ? d : 0), A (64×16) and B (16×N) read from shared memory, */ \
+  /* K-major */                                                                              \
+  __device__ __forceinline__ void wgmma_ss(T, float (&d)[32], uint64_t da, uint64_t db,      \
+                                           int acc) {                                        \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                \
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " FA_R32         \
                  ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                           \
-                 : FA_D32(0) : "l"(da), "l"(db), "r"(1));                                    \
+                 : FA_D32(0) : "l"(da), "l"(db), "r"(acc));                                  \
+  }                                                                                          \
+  __device__ __forceinline__ void wgmma_ss(T, float (&d)[64], uint64_t da, uint64_t db,      \
+                                           int acc) {                                        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " FA_R64        \
+                 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                                           \
+                 : FA_D64 : "l"(da), "l"(db), "r"(acc));                                     \
   }                                                                                          \
   /* d (64×N, f32) += A·B, A (64×16) from registers, B (16×N) MN-major (transposed) */      \
   __device__ __forceinline__ void wgmma_rs_t(T, float (&d)[8], const uint32_t (&a)[4],       \
@@ -711,7 +539,7 @@ FA_WGMMA(__half, "f16")
 // into NH column blocks of SW bytes (the 128-byte swizzle from D 64 up, the row's own width
 // below), each block rows × SW bytes, swizzled in 8-row atoms.
 template <int D>
-struct BwdTile {
+struct Tile16 {
   static constexpr int SW = D * 2 < 128 ? D * 2 : 128;
   static constexpr int NH = D * 2 / SW;
   static constexpr int KPB = SW / 32;             // 16-deep k-steps per column block
@@ -723,7 +551,7 @@ struct BwdTile {
 // `rows`-row tile, k-step kk (16 values of D)
 template <int D>
 __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int rows, int r0, int kk) {
-  using L = BwdTile<D>;
+  using L = Tile16<D>;
   return gmma_desc(tile + ((kk / L::KPB) * rows + r0) * L::SW + (kk % L::KPB) * 32, 16,
                    8 * L::SW, L::MODE);
 }
@@ -731,7 +559,7 @@ __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int rows, 
 // tile; N crosses column blocks `rows`·SW bytes apart
 template <int D>
 __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int rows, int j) {
-  using L = BwdTile<D>;
+  using L = Tile16<D>;
   return gmma_desc(tile + j * 16 * L::SW, rows * L::SW, 8 * L::SW, L::MODE);
 }
 
@@ -741,12 +569,12 @@ constexpr int BWD_CONSUMERS = 256;       // arrivals that free a stage: every co
 
 template <int D>
 constexpr size_t dkdv_smem_bytes() {   // K, V (128 rows); per stage Q, dO (64 rows), lse, Dvec
-  return 1024 + 4 * size_t(BwdTile<D>::BYTES64) +
-         BWD_STAGES * (2 * size_t(BwdTile<D>::BYTES64) + 1024) + 128;
+  return 1024 + 4 * size_t(Tile16<D>::BYTES64) +
+         BWD_STAGES * (2 * size_t(Tile16<D>::BYTES64) + 1024) + 128;
 }
 template <int D>
 constexpr size_t dq_smem_bytes() {     // Q, dO (128 rows); per stage K, V (64 rows)
-  return 1024 + 4 * size_t(BwdTile<D>::BYTES64) + BWD_STAGES * 2 * size_t(BwdTile<D>::BYTES64) +
+  return 1024 + 4 * size_t(Tile16<D>::BYTES64) + BWD_STAGES * 2 * size_t(Tile16<D>::BYTES64) +
          128;
 }
 
@@ -761,16 +589,225 @@ __device__ __forceinline__ bool visible(int pq, int pk, int S, int causal, int w
   return ok;
 }
 
-// P's (or dS's) 64 × 64 f32 accumulator → the A operands of four 16-deep k-steps, each
+// P's (or dS's) 64 × N f32 accumulator → the A operands of N/16 16-deep k-steps, each
 // value split into its rounded part and rounded residue (f32 precision)
-template <typename T>
-__device__ __forceinline__ void split_a(const float (&x)[32], uint32_t (&hi)[4][4],
-                                        uint32_t (&lo)[4][4]) {
+template <typename T, int N>
+__device__ __forceinline__ void split_a(const float (&x)[N], uint32_t (&hi)[N / 8][4],
+                                        uint32_t (&lo)[N / 8][4]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       split2<T>(x[8 * j + 2 * r], x[8 * j + 2 * r + 1], hi[j][r], lo[j][r]);
+}
+
+// The 16-bit forward: 128 query rows of one head a block, key tiles of 128 streamed through
+// a ring of fwd_stages<D>() stages. Its shared memory: Q [NH][128][SW], then per stage K and
+// V [NH][128][SW] each, then the barriers, from a 1024-byte aligned start.
+constexpr int FWD_THREADS = 384;       // a producer warpgroup, two consumer warpgroups
+constexpr int FWD_BQ = 128;            // query rows per block, 64 per consumer warpgroup
+constexpr int FWD_BK = 128;            // keys per tile
+
+template <int D>
+__host__ __device__ constexpr int fwd_stages() { return D == 128 ? 3 : 4; }
+
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return 1024 + size_t(FWD_BQ) * D * 2 + fwd_stages<D>() * 2 * size_t(FWD_BK) * D * 2 + 128;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int KV, int causal, int window,
+                 float scale, int BH, int chunk) {
+  using L = Tile16<D>;
+  constexpr int STAGES = fwd_stages<D>();
+  constexpr int TILE = FWD_BK * D * 2;            // one K or V tile's bytes
+  constexpr int NS = FWD_BK / 2;                  // scores a thread holds per tile
+  extern __shared__ __align__(1024) unsigned char fwd_smem[];
+  unsigned char* const qs = align1024(fwd_smem);  // [NH][128][SW]
+  unsigned char* const stages = qs + FWD_BQ * D * 2;   // per stage: K, V [NH][128][SW]
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(stages + STAGES * 2 * TILE);
+  uint64_t* const full = q_full + 1;
+  uint64_t* const empty = full + STAGES;
+
+  // blocks launch in order of blockIdx.x: the heads in chunks of `chunk` (the wrapper's
+  // ForwardLaunch.chunk: whole KV groups whose K and V stay in the L2, so they are read
+  // from HBM about once), each chunk's query tiles heaviest causal tile first, across its
+  // heads; ForwardLaunch.blocks lists the same order
+  const int tiles = (S + FWD_BQ - 1) / FWD_BQ;
+  const int c0 = blockIdx.x / (chunk * tiles) * chunk;   // the chunk's first head
+  const int nh = min(chunk, BH - c0), r = blockIdx.x - c0 * tiles;
+  const int bh = c0 + r % nh, q0 = (tiles - 1 - r / nh) * FWD_BQ;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  // live key tiles [t_lo, t_hi]: those some row of the block sees (the reference's causal
+  // `break` and window `continue`), one contiguous range
+  int t_hi = (S - 1) / FWD_BK;
+  if (causal) t_hi = min(t_hi, (q0 + FWD_BQ - 1) / FWD_BK);
+  int t_lo = 0;
+  if (window > 0) {
+    const int x = q0 - window - FWD_BK + 1;       // live iff k0 > x
+    if (x >= 0) t_lo = x / FWD_BK + 1;
+  }
+  const int n_steps = t_hi - t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(q_full, FWD_BQ * D * 2);
+      for (int hb = 0; hb < L::NH; ++hb)
+        tma_load_4d(qs + hb * FWD_BQ * L::SW, tq, hb * L::SW / 2, h, q0, b, q_full);
+      for (int step = 0; step < n_steps; ++step) {
+        const int st = step % STAGES;
+        mbar_wait(empty + st, ((step / STAGES) & 1) ^ 1);
+        const int k0 = (t_lo + step) * FWD_BK;
+        unsigned char* const sp = stages + st * 2 * TILE;
+        mbar_arrive_tx(full + st, 2 * TILE);
+        for (int hb = 0; hb < L::NH; ++hb) {
+          tma_load_4d(sp + hb * FWD_BK * L::SW, tk, hb * L::SW / 2, kvh, k0, b, full + st);
+          tma_load_4d(sp + TILE + hb * FWD_BK * L::SW, tv, hb * L::SW / 2, kvh, k0, b, full + st);
+        }
+      }
+    }
+  } else {
+    regs_inc<240>();
+    const int c = threadIdx.x / 128 - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float scale2 = scale * kLog2e;          // e^(scale·x) = 2^(scale2·x)
+    const int row0 = q0 + 64 * c + warp * 16 + g;   // this thread's rows: row0, row0 + 8
+    float oa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oa[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m: the row's largest raw q·k
+    float corr[2];                                 // O's factor before the next P·V
+    uint32_t ph[NS / 8][4], pl[NS / 8][4];         // the last tile's P, split
+    float sc[NS];
+
+    // S(step) = Q·Kᵀ into sc; its group is committed
+    auto issue_s = [&](int step) {
+      const unsigned char* const kt = stages + (step % STAGES) * 2 * TILE;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(T(), sc, desc_k<D>(qs, FWD_BQ, 64 * c, kk), desc_k<D>(kt, FWD_BK, 0, kk), kk);
+      wgmma_commit();
+    };
+    // O = O·corr + P_hi·V + P_lo·V of tile `step`: P as A from registers, V as MN-major B
+    // from its tile; its group is committed
+    auto issue_pv = [&](int step) {
+      const unsigned char* const vt = stages + (step % STAGES) * 2 * TILE + TILE;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oa[i] *= corr[(i >> 1) & 1];
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+        wgmma_rs_t(T(), oa, ph[j], desc_mn<D>(vt, FWD_BK, j));
+        wgmma_rs_t(T(), oa, pl[j], desc_mn<D>(vt, FWD_BK, j));
+      }
+      wgmma_commit();
+    };
+    // the mask, then the online softmax of S(step) in base 2: p = 2^(scale2·s −
+    // scale2·m_new) in sc, l rescaled and summed, corr for O. Element i is row row0 +
+    // 8·((i >> 1) & 1), key k0 + 8·(i >> 2) + 2·t4 + (i & 1). A row that has seen only
+    // masked keys keeps m = -1e30 and takes p = 0 on them (its sums stay 0); the
+    // reference's p = 1 there is wiped by its first real key (corr = 0), so both agree.
+    auto softmax = [&](int step) {
+      const int k0 = (t_lo + step) * FWD_BK;
+      // only on tiles that cross S, the diagonal or the window's edge for some row of the
+      // block: a branch on the block's values (one that differed between the warpgroups
+      // would make ptxas serialise the wgmmas)
+      if (k0 + FWD_BK > S || (causal && k0 + FWD_BK - 1 > q0) ||
+          (window > 0 && q0 + FWD_BQ - 1 - k0 >= window)) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          sc[i] = visible(row0 + ((i >> 1) & 1) * 8, k0 + (i >> 2) * 8 + 2 * t4 + (i & 1), S,
+                          causal, window) ? sc[i] : kNegInf;
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = m[rr];
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * rr], sc[4 * j + 2 * rr + 1]));
+        mx = quad_max(mx);
+        corr[rr] = exp2_ftz((m[rr] - mx) * scale2);
+        const float neg = mx == kNegInf ? 0.f : -mx * scale2;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * rr + e;
+            sc[i] = exp2_ftz(fmaf(sc[i], scale2, neg));
+            sum += sc[i];
+          }
+        l[rr] = l[rr] * corr[rr] + quad_sum(sum);
+        m[rr] = mx;
+      }
+    };
+
+    // Step j issues S(j) and P(j−1)·V(j−1) together, between the ping-pong barriers
+    // (warpgroup c waits on named barrier 1 + c, then frees the other's: one's softmax
+    // runs under the other's products, warpgroup 0 first), then runs softmax(j) under its
+    // own P(j−1)·V(j−1). The barriers stay balanced: warpgroup 1 skips its last arrive.
+    bar_arrive256(1, c == 1);
+    mbar_wait(q_full, 0);
+    mbar_wait(full, 0);
+    bar_sync256(1 + c);
+    wgmma_fence();
+    issue_s(0);
+    bar_arrive256(2 - c, c == 0 || n_steps > 1);
+    wgmma_wait();
+    reg_fence(sc);
+    softmax(0);
+    split_a<T>(sc, ph, pl);
+    for (int step = 1; step < n_steps; ++step) {
+      mbar_wait(full + step % STAGES, (step / STAGES) & 1);
+      bar_sync256(1 + c);
+      wgmma_fence();
+      issue_s(step);
+      issue_pv(step - 1);
+      bar_arrive256(2 - c, c == 0 || step + 1 < n_steps);
+      wgmma_wait1();
+      reg_fence(sc);
+      softmax(step);
+      wgmma_wait();
+      reg_fence(oa);
+      reg_fence(ph);
+      reg_fence(pl);
+      mbar_arrive(empty + (step - 1) % STAGES);
+      split_a<T>(sc, ph, pl);
+    }
+    issue_pv(n_steps - 1);
+    wgmma_wait();
+    reg_fence(oa);
+    mbar_arrive(empty + (n_steps - 1) % STAGES);
+
+    const size_t q_stride = size_t(H) * D;
+    T* const ob = o + (size_t(b) * S * H + h) * D;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int s = row0 + rr * 8;
+      if (s >= S) continue;
+      const float li = fmaxf(l[rr], 1e-30f);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(ob + size_t(s) * q_stride + i * 8 + 2 * t4) =
+            pack2(T(), oa[4 * i + 2 * rr] / li, oa[4 * i + 2 * rr + 1] / li, nullptr);
+      if (lse && t4 == 0) lse[(size_t(b) * H + h) * S + s] = m[rr] * scale + logf(li);
+    }
+  }
 }
 
 // dK, dV of 128 keys of one KV head: warpgroup 0 loads (one thread: K and V once by TMA,
@@ -786,7 +823,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdvec, T* __restrict__ dk,
                       T* __restrict__ dv, int S, int S4, int H, int KV, int causal,
                       int window, float scale) {
-  using L = BwdTile<D>;
+  using L = Tile16<D>;
   constexpr int T64 = L::BYTES64, STAGE = 2 * T64 + 1024;
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
   unsigned char* const ks = align1024(bwd_smem);  // [NH][128][SW]
@@ -870,8 +907,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          wgmma_ss(T(), sc, desc_k<D>(ks, 128, 64 * c, kk), desc_k<D>(qs, 64, 0, kk));
-          wgmma_ss(T(), dp, desc_k<D>(vs, 128, 64 * c, kk), desc_k<D>(gs, 64, 0, kk));
+          wgmma_ss(T(), sc, desc_k<D>(ks, 128, 64 * c, kk), desc_k<D>(qs, 64, 0, kk), 1);
+          wgmma_ss(T(), dp, desc_k<D>(vs, 128, 64 * c, kk), desc_k<D>(gs, 64, 0, kk), 1);
         }
         wgmma_commit();
         wgmma_wait();
@@ -955,7 +992,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const float* __restrict__ lse, const float* __restrict__ dvec,
                     T* __restrict__ dq, int S, int S4, int H, int KV, int causal, int window,
                     float scale) {
-  using L = BwdTile<D>;
+  using L = Tile16<D>;
   constexpr int T64 = L::BYTES64, STAGE = 2 * T64;
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
   unsigned char* const qs = align1024(bwd_smem);  // [NH][128][SW]
@@ -1045,8 +1082,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          wgmma_ss(T(), sc, desc_k<D>(qs, 128, 64 * c, kk), desc_k<D>(kt, 64, 0, kk));
-          wgmma_ss(T(), dp, desc_k<D>(gs, 128, 64 * c, kk), desc_k<D>(vt, 64, 0, kk));
+          wgmma_ss(T(), sc, desc_k<D>(qs, 128, 64 * c, kk), desc_k<D>(kt, 64, 0, kk), 1);
+          wgmma_ss(T(), dp, desc_k<D>(gs, 128, 64 * c, kk), desc_k<D>(vt, 64, 0, kk), 1);
         }
         wgmma_commit();
         wgmma_wait();
@@ -1125,14 +1162,16 @@ EncodeTiledFn encode_tiled() {
 CUtensorMapDataType map_type(__nv_bfloat16) { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
 CUtensorMapDataType map_type(__half) { return CU_TENSOR_MAP_DATA_TYPE_FLOAT16; }
 
-// (B, S, heads, D) 16-bit → boxes of 64 rows × SW bytes of one head, swizzled as BwdTile
+// (B, S, heads, D) 16-bit → boxes of `rows` rows × SW bytes of one head, swizzled as Tile16;
+// rows past S read as zeros
 template <typename T, int D>
-bool rows_map(CUtensorMap* m, const void* p, int B, int S, int heads) {
-  using L = BwdTile<D>;
+bool rows_map(CUtensorMap* m, const void* p, int B, int S, int heads, int rows) {
+  using L = Tile16<D>;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(heads) * D * 2,
                                  cuuint64_t(S) * heads * D * 2};
-  const cuuint32_t box[4] = {cuuint32_t(L::SW / 2), 1, 64, 1}, unit[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(L::SW / 2), 1, cuuint32_t(rows), 1},
+                   unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz = L::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : L::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                : CU_TENSOR_MAP_SWIZZLE_32B;
@@ -1336,7 +1375,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
-           int KV, int causal, int window, float scale, cudaStream_t stream) {
+           int KV, int causal, int window, int chunk, float scale, cudaStream_t stream) {
   float* lse_f = static_cast<float*>(lse);
   if constexpr (sizeof(T) == 4) {
     constexpr size_t smem = f32_smem_bytes<D>();
@@ -1349,14 +1388,17 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
         static_cast<const float*>(v), static_cast<float*>(o), lse_f, S, H, KV, causal, window,
         scale);
   } else {
-    constexpr size_t smem = tc_smem_bytes<D>();
-    cudaError_t e = cudaFuncSetAttribute(flash_tc_kernel<T, D>,
+    CUtensorMap mq, mk, mv;
+    if (chunk < 1 || chunk > B * H || !encode_tiled() || !rows_map<T, D>(&mq, q, B, S, H, FWD_BQ) ||
+        !rows_map<T, D>(&mk, k, B, S, KV, FWD_BK) || !rows_map<T, D>(&mv, v, B, S, KV, FWD_BK))
+      return int(cudaErrorInvalidValue);
+    constexpr size_t smem = fwd_smem_bytes<D>();
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
-    const dim3 grid(B * H, (S + TC_BQ - 1) / TC_BQ);
-    flash_tc_kernel<T, D><<<grid, TC_THREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), lse_f, S, H, KV, causal, window, scale);
+    const unsigned blocks = unsigned(B) * H * ((S + FWD_BQ - 1) / FWD_BQ);
+    flash_fwd_kernel<T, D><<<blocks, FWD_THREADS, smem, stream>>>(
+        mq, mk, mv, static_cast<T*>(o), lse_f, S, H, KV, causal, window, scale, B * H, chunk);
   }
   return int(cudaGetLastError());
 }
@@ -1393,8 +1435,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
         qt, kt, vt, gt, lf, df, static_cast<float*>(dq), S, H, KV, causal, window, scale);
   } else {
     CUtensorMap mq, mk, mv, mdo, ml, md;
-    if (!encode_tiled() || !rows_map<T, D>(&mq, q, B, S, H) || !rows_map<T, D>(&mk, k, B, S, KV) ||
-        !rows_map<T, D>(&mv, v, B, S, KV) || !rows_map<T, D>(&mdo, dout, B, S, H) ||
+    if (!encode_tiled() || !rows_map<T, D>(&mq, q, B, S, H, 64) ||
+        !rows_map<T, D>(&mk, k, B, S, KV, 64) || !rows_map<T, D>(&mv, v, B, S, KV, 64) ||
+        !rows_map<T, D>(&mdo, dout, B, S, H, 64) ||
         !vec_map(&ml, lse4, size_t(B) * H * S4) || !vec_map(&md, df, size_t(B) * H * S4))
       return int(cudaErrorInvalidValue);
     constexpr size_t smem_kv = dkdv_smem_bytes<D>(), smem_q = dq_smem_bytes<D>();
@@ -1416,12 +1459,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 template <typename T>
 int by_dim(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
-           int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
+           int KV, int D, int causal, int window, int chunk, float scale, cudaStream_t stream) {
+#define FLASH_FWD(DD) launch<T, DD>(q, k, v, o, lse, B, S, H, KV, causal, window, chunk, scale, stream)
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
+    case 16: return FLASH_FWD(16);
+    case 32: return FLASH_FWD(32);
+    case 64: return FLASH_FWD(64);
+    case 128: return FLASH_FWD(128);
+#undef FLASH_FWD
   }
   return int(cudaErrorInvalidValue);
 }
@@ -1450,15 +1495,44 @@ int bwd_by_dim(const void* q, const void* k, const void* v, const void* o, const
 // D in {16, 32, 64, 128}; H a multiple of KV; B·H at most 65,535; for the
 // 16-bit dtypes q, k and v 16-byte aligned. lse: null, or (B, H, S) f32 that
 // receives each row's log-sum-exp of its scaled scores, m + log(max(l, 1e-30)).
+// chunk: the 16-bit body's query heads a chunk of its launch order, 1..B·H (flash_attention.py
+// ForwardLaunch.chunk); the f32 body ignores it
 extern "C" int flash_attention(const void* q, const void* k, const void* v, int dtype, int B,
-                               int S, int H, int KV, int D, int causal, int window,
+                               int S, int H, int KV, int D, int causal, int window, int chunk,
                                float scale, void* o, void* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return by_dim<float>(q, k, v, o, lse, B, S, H, KV, D, causal, window, scale, s);
+    case 0:
+      return by_dim<float>(q, k, v, o, lse, B, S, H, KV, D, causal, window, chunk, scale, s);
     case 1:
-      return by_dim<__nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, D, causal, window, scale, s);
-    case 2: return by_dim<__half>(q, k, v, o, lse, B, S, H, KV, D, causal, window, scale, s);
+      return by_dim<__nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, D, causal, window, chunk,
+                                   scale, s);
+    case 2:
+      return by_dim<__half>(q, k, v, o, lse, B, S, H, KV, D, causal, window, chunk, scale, s);
+  }
+  return int(cudaErrorInvalidValue);
+}
+
+// The forward's launch shape for dtype and D, as flash_attention.py's forward_launch_shape
+// mirrors it: out[0..4] = query rows a block, keys a tile, ring stages (0: the f32 body has
+// no ring), threads a block, dynamic shared memory bytes. Returns 0, or an error for another D or dtype.
+extern "C" int flash_forward_shape(int dtype, int D, int* out) {
+  switch (D) {
+#define FLASH_SHAPE(DD)                                                                    \
+  case DD:                                                                                 \
+    if (dtype == 0) {                                                                      \
+      out[0] = BQ, out[1] = BK, out[2] = 0, out[3] = kThreads;                             \
+      out[4] = int(f32_smem_bytes<DD>());                                                  \
+    } else {                                                                               \
+      out[0] = FWD_BQ, out[1] = FWD_BK, out[2] = fwd_stages<DD>(), out[3] = FWD_THREADS;   \
+      out[4] = int(fwd_smem_bytes<DD>());                                                  \
+    }                                                                                      \
+    return dtype >= 0 && dtype <= 2 ? 0 : int(cudaErrorInvalidValue);
+    FLASH_SHAPE(16)
+    FLASH_SHAPE(32)
+    FLASH_SHAPE(64)
+    FLASH_SHAPE(128)
+#undef FLASH_SHAPE
   }
   return int(cudaErrorInvalidValue);
 }

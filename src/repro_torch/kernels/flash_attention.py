@@ -7,11 +7,12 @@ kernel ``repro/kernels/flash_attention.py::flash_attention`` with the
 same contract: ``q (B, S, H, D)``, ``k``/``v (B, S, KV, D)``, head ``h``
 reads KV head ``h // (H // KV)``, f32 accumulation, output in q's dtype,
 masked scores at the finite ``NEG_INF`` and ``l`` floored at 1e-30. Bound
-by operations: bf16/fp16 inputs run both products on the tensor cores
-(``mma.sync``, f32 accumulation, P split into two 16-bit parts so P·V
-keeps f32 precision); f32 inputs run f32 FMAs on the CUDA cores. For a
-CPU tensor it runs :func:`flash_attention_plain`; any other device
-raises.
+by operations: bf16/fp16 inputs run a Hopper kernel (TMA loads by a
+producer warpgroup, ``wgmma`` products in two consumer warpgroups that
+ping-pong, f32 accumulation, P split into two 16-bit parts so P·V keeps
+f32 precision); f32 inputs run f32 FMAs on the CUDA cores.
+:func:`forward_launch_shape` mirrors each body's launch. For a CPU tensor
+it runs :func:`flash_attention_plain`; any other device raises.
 
 The backward (:func:`flash_attention_backward`, kernels in the same
 source) replaces no Pallas kernel: the reference differentiates its jnp
@@ -33,6 +34,8 @@ of the kernel's shapes on ``meta`` and record that work
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -51,15 +54,104 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 def _bind(lib) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention.argtypes = [ptr, ptr, ptr] + [i32] * 8 + [f32, ptr,
+    lib.flash_attention.argtypes = [ptr, ptr, ptr] + [i32] * 9 + [f32, ptr,
                                                                   ptr, ptr]
     lib.flash_attention.restype = i32
     lib.flash_attention_backward.argtypes = ([ptr] * 6 + [i32] * 8 + [f32]
                                              + [ptr] * 5)
     lib.flash_attention_backward.restype = i32
+    lib.flash_forward_shape.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.flash_forward_shape.restype = i32
 
 
 _lib = build.KernelLibrary("flash_attention", ["flash_attention.cu"], _bind)
+
+
+# the 16-bit forward's ring of K and V tiles, by head dim (flash_attention.cu
+# fwd_stages): three 64 KB stages at D 128, four below
+_FWD_STAGES = {16: 4, 32: 4, 64: 4, 128: 3}
+SMEM_LIMIT = 232_448             # dynamic shared memory a block may use (227 KB)
+FWD_CHUNK_BYTES = 24 << 20       # K and V of a chunk of heads, kept in the L2
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardLaunch:
+    """One forward body's launch, as ``flash_attention.cu`` makes it:
+    ``rows`` query rows of one head a block over key tiles of ``key_tile``,
+    a ring of ``stages`` K/V stages (0 for the f32 body), ``threads`` a
+    block, ``smem_bytes`` of dynamic shared memory. The 16-bit grid is one
+    dimension: the heads in chunks (:meth:`chunk`), each chunk's query
+    tiles heaviest first across its heads; the f32 grid is ``(tiles,
+    B·H)``."""
+    dtype: torch.dtype
+    d: int
+    rows: int
+    key_tile: int
+    stages: int
+    threads: int
+    smem_bytes: int
+
+    def chunk(self, b: int, s: int, h: int, kv: int) -> int:
+        """Query heads a chunk of the 16-bit launch order, which
+        :func:`_launch` passes to the kernel: the KV groups whose K and V
+        fit in ``FWD_CHUNK_BYTES`` (at least one), at most B·H."""
+        groups = max(1, FWD_CHUNK_BYTES // (s * self.d * 2 * 2))
+        return min(groups * (h // kv), b * h)
+
+    def blocks(self, b: int, s: int, h: int, kv: int):
+        """``(batch, head, first query row)`` of every block, in launch
+        order (the linear block index; x first in the f32 body's grid)."""
+        tiles = -(-s // self.rows)
+        if self.dtype == torch.float32:
+            return [(y // h, y % h, x * self.rows) for y in range(b * h)
+                    for x in range(tiles)]
+        chunk, out = self.chunk(b, s, h, kv), []
+        for c0 in range(0, b * h, chunk):
+            nh = min(chunk, b * h - c0)
+            for r in range(nh * tiles):
+                bh = c0 + r % nh
+                out.append((bh // h, bh % h, (tiles - 1 - r // nh) * self.rows))
+        return out
+
+    def key_tiles(self, q0: int, s: int, *, causal: bool, window: int):
+        """The block's live key tiles ``range(t_lo, t_hi + 1)``: those some
+        of its rows may see."""
+        t_hi = (s - 1) // self.key_tile
+        if causal:
+            t_hi = min(t_hi, (q0 + self.rows - 1) // self.key_tile)
+        t_lo = 0
+        if window > 0:
+            x = q0 - window - self.key_tile + 1
+            if x >= 0:
+                t_lo = x // self.key_tile + 1
+        return range(t_lo, t_hi + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def forward_launch_shape(d: int, dtype) -> ForwardLaunch:
+    """The forward kernel's launch for head dim ``d`` and ``dtype``, a
+    mirror of ``flash_attention.cu`` (``flash_forward_shape`` there gives
+    its rows, key tile, stages, threads and shared memory)."""
+    if d not in HEAD_DIMS or dtype not in _DTYPE:
+        raise ValueError(f"no forward body for D={d}, {dtype}")
+    if dtype == torch.float32:       # f32_smem_bytes: Qᵀ, Kᵀ (or Pᵀ), V
+        pad = 64 + 4
+        smem = (d * pad + max(d, 64) * pad + 64 * (d + 4)) * 4
+        return ForwardLaunch(dtype, d, 64, 64, 0, 256, smem)
+    stages = _FWD_STAGES[d]
+    # fwd_smem_bytes: alignment slack, Q (128 rows), the ring, the barriers
+    smem = 1024 + 128 * d * 2 + stages * 2 * 128 * d * 2 + 128
+    return ForwardLaunch(dtype, d, 128, 128, stages, 384, smem)
+
+
+def kernel_forward_shape(d: int, dtype):
+    """``flash_forward_shape`` of the built library (needs the card's
+    toolkit) → ``(rows, key_tile, stages, threads, smem_bytes)``."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().flash_forward_shape(_DTYPE[dtype], d, out)
+    if err:
+        raise RuntimeError(f"flash_forward_shape failed: cudaError {err}")
+    return tuple(out)
 
 
 def attention_mask(sq: int, sk: int, *, causal: bool, window: int,
@@ -197,8 +289,8 @@ def _check(q, k, v, *more):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.element_size() == 2 and x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (cp.async "
-                             f"and TMA)")
+            raise ValueError(f"{name} must be 16-byte aligned (TMA "
+                             f"loads)")
     return b, s, h, n_kv, d
 
 
@@ -216,10 +308,11 @@ def _launch(q, k, v, causal: bool, window: int, with_lse: bool):
             b, s, h, n_kv, d, causal=causal, window=window, dtype=q.dtype,
             with_lse=with_lse))
         return out, lse
+    chunk = forward_launch_shape(d, q.dtype).chunk(b, s, h, n_kv)
     with meta.launch_range("flash_attention"):
         err = _lib().flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPE[q.dtype], b, s,
-            h, n_kv, d, int(causal), int(window), 1.0 / math.sqrt(d),
+            h, n_kv, d, int(causal), int(window), chunk, 1.0 / math.sqrt(d),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -12,8 +12,8 @@ bf16, dot interaction 1e-5, embedding bag 1e-4.
 The CUDA kernels themselves are compared with the plain versions on the
 card (``@pytest.mark.cuda``, skipped without one); flash attention in 16
 bits is also held within one rounding of the plain version in f32. The
-dot-interaction kernel's tiling and launch shape are plain Python, tested
-here.
+dot-interaction kernel's tiling and launch shape, and the flash forward's
+launch shape, are plain Python, tested here.
 """
 import inspect
 
@@ -216,6 +216,69 @@ def test_flash_matches_layers_oracle():
                                   window=window)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_forward_launch_shape(d, dtype):
+    """The 16-bit forward's launch (``forward_launch_shape``, the mirror of
+    flash_attention.cu): its shared memory fits the 227 KB a block may
+    have; every (batch, head, query tile) has exactly one block; the heads
+    go in chunks of whole KV groups whose K and V fit the chunk's share of
+    the L2 (or one group), each chunk's blocks together and, under a causal
+    mask, heaviest first (live key tiles never grow within a chunk); and
+    each block's live key tiles hold every key its rows see, none that no
+    row sees."""
+    from repro_torch.kernels import flash_attention as fa
+    sh = fa.forward_launch_shape(d, dtype)
+    assert sh.smem_bytes <= fa.SMEM_LIMIT == 232_448
+    assert sh.stages >= 2 and sh.threads == 384 and sh.rows == 128
+    assert sh.smem_bytes == (1024 + sh.rows * d * 2
+                             + sh.stages * 2 * sh.key_tile * d * 2 + 128)
+    for b, s, h, kv, causal, window in [
+            (2, 333, 7, 7, True, 0), (1, 129, 8, 1, False, 0),
+            (3, 257, 2, 1, True, 127), (1, 513, 4, 2, True, 1),
+            (1, 640, 3, 3, False, 200),
+            # K and V of a KV head past the chunk's bytes: a chunk a group
+            (2, 65_536 * 128 // d + 1, 4, 2, True, 0)]:
+        order = sh.blocks(b, s, h, kv)
+        tiles = -(-s // sh.rows)
+        assert sorted((bb, hh, q0 // sh.rows) for bb, hh, q0 in order) == [
+            (bb, hh, t) for bb in range(b) for hh in range(h)
+            for t in range(tiles)]
+        chunk = sh.chunk(b, s, h, kv)
+        assert chunk == b * h or chunk % (h // kv) == 0
+        assert (chunk == h // kv
+                or chunk // (h // kv) * s * d * 4 <= fa.FWD_CHUNK_BYTES)
+        for c0 in range(0, b * h, chunk):
+            part = order[c0 * tiles:(c0 + min(chunk, b * h - c0)) * tiles]
+            assert {bb * h + hh for bb, hh, _ in part} == set(
+                range(c0, min(c0 + chunk, b * h)))
+            if causal:
+                q0s = [q0 for _, _, q0 in part]
+                assert q0s == sorted(q0s, reverse=True)
+        if s > 1000:
+            continue
+        mask = fa.attention_mask(s, s, causal=causal, window=window)
+        t_of = torch.arange(s) // sh.key_tile
+        for _, _, q0 in order:
+            kt = sh.key_tiles(q0, s, causal=causal, window=window)
+            seen = mask[q0:q0 + sh.rows].any(0)
+            assert list(kt) == sorted(set(t_of[seen].tolist()))
+
+
+def test_flash_forward_launch_shape_f32():
+    """The f32 body: 64-row blocks, no ring, its grid (tiles, B·H)."""
+    from repro_torch.kernels import flash_attention as fa
+    for d in fa.HEAD_DIMS:
+        sh = fa.forward_launch_shape(d, torch.float32)
+        assert (sh.rows, sh.key_tile, sh.stages, sh.threads) == (64, 64, 0,
+                                                                 256)
+        assert sh.smem_bytes <= fa.SMEM_LIMIT
+        order = sh.blocks(2, 130, 3, 1)
+        assert order[3 * 5 + 2] == (1, 2, 128) and len(set(order)) == 18
+    with pytest.raises(ValueError):
+        fa.forward_launch_shape(48, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -442,28 +505,49 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, tol):
     """The kernel against the plain version on the same inputs (f32 2e-5,
     16-bit 2e-2 absolute), and in 16 bits within one rounding of the plain
     version on the inputs widened to f32: |o - plain_f32| ≤ rel·|plain_f32|
-    + 1e-4, rel half a unit in the last place. The shapes cut the 64-row,
-    64-key tiles at S not a multiple of 64, D 16 to 128, H/KV 1 and 7 and
-    windows down to 1."""
+    + 1e-4, rel half a unit in the last place. The shapes cut the f32
+    body's 64-row, 64-key tiles and the 16-bit body's 128-row, 128-key
+    tiles at S on either side of them (127, 129, 255, 257, 333), D 16 to
+    128, H/KV 1, 7 and 8, windows of 1 and of one key under a tile, causal
+    and not. The forward writing lse gives the same output, and its lse
+    matches the plain version's (same tolerance)."""
     from repro_torch.kernels import flash_attention as fa
     for b, s, h, kv, d, causal, window in [
             (2, 200, 4, 2, 32, True, 0), (1, 256, 8, 2, 64, True, 100),
             (1, 130, 4, 4, 128, False, 0), (2, 77, 7, 1, 16, True, 0),
             (1, 191, 7, 7, 128, True, 1), (1, 321, 14, 2, 32, False, 40),
-            (1, 64, 2, 2, 64, True, 1), (2, 129, 7, 1, 128, True, 65)]:
+            (1, 64, 2, 2, 64, True, 1), (2, 129, 7, 1, 128, True, 65),
+            (1, 127, 8, 1, 64, True, 0), (1, 129, 7, 1, 32, False, 0),
+            (1, 255, 4, 2, 128, True, 127), (1, 257, 8, 1, 128, True, 1),
+            (2, 333, 7, 1, 16, True, 0), (1, 333, 4, 4, 64, False, 127),
+            (1, 257, 16, 2, 128, False, 0)]:
         q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in
                    _qkv(np.random.default_rng(6), b, s, h, kv, d))
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window)
+        want, want_lse = fa.flash_attention_plain(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        with_lse, lse = fa._launch(q, k, v, causal, window, True)
         torch.cuda.synchronize()
         assert got.dtype == dtype
         assert (got.float() - want.float()).abs().max().item() < tol
+        assert torch.equal(with_lse, got)
+        assert (lse - want_lse).abs().max().item() < tol
         if dtype != torch.float32:
             exact = fa.flash_attention_plain(q.float(), k.float(), v.float(),
                                              causal=causal, window=window)
             bound = ONE_ROUNDING[dtype] * exact.abs() + 1e-4
             assert ((got.float() - exact).abs() <= bound).all()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_forward_shape_is_the_mirror(cuda_device):
+    """The built library's launch shape equals ``forward_launch_shape``."""
+    from repro_torch.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in fa.HEAD_DIMS:
+            sh = fa.forward_launch_shape(d, dtype)
+            assert fa.kernel_forward_shape(d, dtype) == (
+                sh.rows, sh.key_tile, sh.stages, sh.threads, sh.smem_bytes)
 
 
 @pytest.mark.cuda
