@@ -13,17 +13,23 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    ``cuobjdump -sass`` of the flash library must show HGMMA (``wgmma``)
    in each bf16 and fp16 instantiation of the forward
    (``flash_fwd_kernel``) and of the backward's two kernels, and no
-   ``flash_tc_kernel`` (the forward's old ``mma.sync`` body).
+   ``flash_tc_kernel`` (the forward's old ``mma.sync`` body); that of the
+   scan library must show HGMMA and a TMA load (UTMALDG) in every
+   instantiation of the engine scans' ``engine_scan_kernel`` (3 tiers ×
+   filtered or not × 3 slot widths), and none of the earlier CUDA-core
+   ``routed_kernel`` / ``cluster_major_kernel``; the scan library's own
+   shared-memory layout (``fts_scan_smem``) must equal
+   ``fused_topk_score.scan_smem`` at every launch shape of a grid.
 1. Hold each kernel (routed, cluster-major) against its plain PyTorch
    version on the card: f32 / bf16 / int8 × unfiltered / filtered × cr 1, 2,
    at a small shape and at d = 768, at k = 20 and k > 32; then the chunked
    designs' edge cases in every tier, filtered and not (``random_case``
    with ``edge``): caps over several row chunks with exact integer scores
    tied across tile and chunk boundaries (ids must equal the plain
-   version's), 32 pairs on one cluster (two slot groups), all-padding
-   chunks, k above a chunk's live rows, a filter passing fewer than k
-   rows; d 16 and d 1024; k 300 and 1024 (fewer query slots per item);
-   the routed kernel at cr 17 and cr = c = 24.
+   version's), 32 and 48 pairs on one cluster (one and two slot groups of
+   32), all-padding chunks, k above a chunk's live rows, a filter passing
+   fewer than k rows; d 16 and d 1024; k 300 and 1024 (fewer query slots
+   per item); the routed kernel at cr 17 and cr = c = 24.
 2. Serve small snapshots built in memory from a seed through
    ``repro_torch.api.Searcher`` on the ``cuda``, ``cuda-cm`` and ``auto``
    backends against the ``dense`` backend on a CPU copy: every tier, a
@@ -336,9 +342,9 @@ kernels with ``launches`` on phase 12's), then as its last line
 ``--compare`` times, on trees that share its wrappers: the 16-bit flash
 forward at the model layers of phases 10–12 beside SDPA, the flash and
 dot backward kernels at phase 12's shapes, the gather scan on its full-width
-copies, the two engine scans on one chunk at two route skews, and the
-query wall of 4,096 queries against the int8 snapshot with and without a
-delta of 1,024 rows and 300 tombstones.
+copies, the two engine scans on one chunk at four route skews and the
+int8 full fan-out, and the query wall of 4,096 queries against the int8
+snapshot with and without a delta of 1,024 rows and 300 tombstones.
 """
 from __future__ import annotations
 
@@ -433,8 +439,9 @@ def time_ms(fn, reps=5, warmup=1):
 # ---------------------------------------------------------------------------
 
 
-# rows on either side of the tiled scans' boundaries: tiles of 256, routed
-# chunks of 1024, cluster-major chunks of 2048 (fused_topk_score.launch_shape)
+# rows on either side of the scans' boundaries: the engine scans' 64-row
+# tiles and 1024-row chunks (fused_topk_score.launch_shape), the gather's
+# 256-row tiles
 BOUNDARY_ROWS = (255, 256, 1023, 1024, 2047, 2048)
 
 
@@ -553,13 +560,16 @@ def phase1(dev):
               dict(precision="bf16", filtered=True, cr=1, c=4, cap=64, d=32,
                    b=8, k=60)]
     # the chunked designs' edge cases (random_case(edge=True)): caps over
-    # several chunks with ties at their boundaries, 32 pairs a cluster (two
-    # slot groups), all-padding chunks, k above a chunk's live rows, a
-    # filter passing fewer than k rows; and d 16 and d 1024
+    # several chunks with ties at their boundaries, 32 and 48 pairs a
+    # cluster (one and two slot groups), all-padding chunks, k above a
+    # chunk's live rows, a filter passing fewer than k rows; and d 16 and
+    # d 1024
     for precision in ("f32", "bf16", "int8"):
         for filtered in (False, True):
             cases += [dict(precision=precision, filtered=filtered, cr=2, c=4,
                            cap=2600, d=64, b=64, k=40, edge=True),
+                      dict(precision=precision, filtered=filtered, cr=2, c=4,
+                           cap=2600, d=768, b=96, k=20, edge=True),
                       dict(precision=precision, filtered=filtered, cr=2, c=4,
                            cap=2600, d=64, b=64, k=5, edge=True),
                       dict(precision=precision, filtered=filtered, cr=2, c=6,
@@ -735,7 +745,9 @@ def bound(ids_buf, top_c, u, *, d, elem_bytes, k, b, dequant):
     once (queries; ids of the distinct routed clusters; emb, loc and
     scales of their live rows), outputs written once; 2·d flops per (query,
     live row) pair, plus d per live row for the int8 dequant (once per
-    row, not per pair), at the f32 peak."""
+    row, not per pair), what ``fused_topk_score.scan_work`` declares, at
+    the bf16 tensor-core peak: the engine scans run their products there
+    (``wgmma``), whatever the rows' stored type."""
     import torch
     live = (ids_buf[u.long()] >= 0).sum(dim=1)                 # per cluster
     live_rows = int(live.sum())
@@ -744,11 +756,7 @@ def bound(ids_buf, top_c, u, *, d, elem_bytes, k, b, dequant):
     nbytes = (b * (d * 4 + 16) + int(u.numel()) * ids_buf.shape[1] * 4
               + live_rows * row_bytes + b * k * 8)
     flops = pairs * d * 2 + (live_rows * d if dequant else 0)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, flops=flops, live_rows=live_rows,
+    return dict(roof(nbytes, flops, BF16_FLOPS_PER_S), live_rows=live_rows,
                 pairs_scored=pairs)
 
 
@@ -759,15 +767,20 @@ ZIPF_S = 1.05                    # the reference's benchmarks/bench_kernels.py:5
 
 def skew_routes(skew, top_router, *, c, seed):
     """``(B, cr)`` int32 routes of one chunk under a route skew: the random
-    router's own (``router``), or per query ``cr`` distinct clusters drawn
+    router's own (``router``), per query ``cr`` distinct clusters drawn
     uniformly (``uniform``) or with probability ∝ rank^-1.05 over a seeded
     permutation of the clusters (``zipf1.05``), from numpy seeded by
-    ``seed``."""
+    ``seed``; or every query to the router's ``cr`` most loaded clusters
+    (``two`` at cr 2: a stand-in for phase 6's trained routes, U = 2)."""
     import numpy as np
     import torch
     if skew == "router":
         return top_router
     b, cr = top_router.shape
+    if skew == "two":
+        loads = torch.bincount(top_router.reshape(-1).long(), minlength=c)
+        hot = torch.topk(loads, cr).indices.to(torch.int32)
+        return hot.expand(b, cr).contiguous()
     rng = np.random.default_rng(seed)
     p = None
     if skew == "zipf1.05":
@@ -1096,7 +1109,7 @@ def phase3(dev):
     fan_rec = dict(queries=N_FAN, cr=c, err=e_fan, bound=bd_fan,
                    **{f"{b_name}_ms": fan[b_name]["ms"] for b_name in fan})
     log(f"phase 3 full fan-out int8: {N_FAN} queries at cr = c = {c} "
-        f"({c * fts.launch_shape(cap=buf8['capacity'], k=k, elem_size=1)['n_chunks']}"
+        f"({c * fts.launch_shape(cap=buf8['capacity'], d=d, k=k, elem_size=1)['n_chunks']}"
         f" partial lists a query); cuda {fan['cuda']['ms']:.3f} ms "
         f"({fan['cuda']['ms'] / bd_fan['bound_ms']:.2f}x bound), cuda-cm "
         f"{fan['cuda-cm']['ms']:.3f} ms "
@@ -1259,6 +1272,59 @@ def flash_sass_check(lib_path):
                                      f"all four head dims")
             found[f"{kern}/{tag}"] = sorted(fns.values())
     return found
+
+
+def scan_sass_check(lib_path):
+    """→ {instantiation: (HGMMA, UTMALDG) counts} for the engine scans in
+    the built scan library; raises unless each of the 18
+    ``engine_scan_kernel`` instantiations has both, or if the earlier
+    CUDA-core ``routed_kernel`` / ``cluster_major_kernel`` is built."""
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = [0, 0]
+        elif name and re.search(r"\bHGMMA\b", line):
+            counts[name][0] += 1
+        elif name and re.search(r"\bUTMALDG\b", line):
+            counts[name][1] += 1
+    old = [n for n in counts if re.search(r"(routed|cluster_major)_kernel", n)]
+    if old:
+        raise AssertionError(f"the CUDA-core engine scans are still built: "
+                             f"{old}")
+    scans = {n: tuple(c) for n, c in counts.items()
+             if "engine_scan_kernel" in n}
+    if len(scans) != 18 or min(min(c) for c in scans.values()) == 0:
+        raise AssertionError(f"engine_scan_kernel (HGMMA, UTMALDG) per "
+                             f"instantiation {scans}; want both in all 18")
+    return sorted(scans.values())
+
+
+def scan_layout_check():
+    """→ the number of launch shapes compared: for each shape
+    ``fused_topk_score.launch_shape`` picks over a grid of width, k and
+    tier, the scan library's own shared-memory layout (``fts_scan_smem``)
+    equals the wrapper's mirror (``scan_smem``); raises on a difference."""
+    from repro_torch.kernels import fused_topk_score as fts
+    lib, n = fts._lib(), 0
+    for d in (16, 64, 128, 768, 1024):
+        for k in (1, 20, 84, 300, 1024, fts.K_MAX):
+            for elem in (1, 2, 4):
+                sh = fts.launch_shape(cap=19072, d=d, k=k, elem_size=elem)
+                got = lib.fts_scan_smem(d, k, elem, sh["slots"], sh["stages"],
+                                        sh["wgs"])
+                if got != sh["smem_bytes"]:
+                    raise AssertionError(f"scan layout d {d} k {k} elem "
+                                         f"{elem}: library {got} B, mirror "
+                                         f"{sh['smem_bytes']} B")
+                n += 1
+    return n
 
 
 def phase4_checks(dev):
@@ -7435,17 +7501,22 @@ FWD_COMPARE = {"qwen2-7b/1x32768": (1, 32_768, 28, 4, 128, 0, False),
                "stablelm-1.6b/8x4096/lse": (8, 4096, 32, 32, 64, 0, True)}
 
 
+# --compare's route skews of the engine scans (``two``: the stand-in for
+# phase 6's trained routes, U = 2)
+COMPARE_SKEWS = ("router", "uniform", "zipf1.05", "two")
+
+
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
     card (parent / change / change / parent). The 16-bit flash forward at
     ``FWD_COMPARE``'s shapes beside SDPA (``forward_turns``), the backward
     kernels at phase 12's shapes (``backward_turns``), then the scans
     (``scan_turns``): the gather scan on its full-width copies, the routed
-    and cluster-major kernels on one 256-query chunk at the router and
-    uniform skews, every tier, and the query walls with and without a
-    delta (``delta_walls``). It calls only wrappers whose signatures the
-    older tree shares, so a checkout of the parent with this script copied
-    in runs it too."""
+    and cluster-major kernels on one 256-query chunk at ``COMPARE_SKEWS``,
+    every tier, both at the int8 full fan-out, and the query walls with
+    and without a delta (``delta_walls``). It calls only wrappers whose
+    signatures the older tree shares, so a checkout of the parent with
+    this script copied in runs it too."""
     return {"forward": forward_turns(dev), "backward": backward_turns(dev),
             **scan_turns(dev)}
 
@@ -7526,7 +7597,7 @@ def scan_turns(dev):
             f"bound {rec['bound_ms']:.3f} ms), plain {rec['plain_ms']:.3f} ms")
     del cand, cl, ci
     torch.cuda.empty_cache()
-    for skew in ("router", "uniform"):
+    for skew in COMPARE_SKEWS:
         top_c = skew_routes(skew, top_router, c=c, seed=SEED + 10)
         u, roster, _ = serving_lib.cluster_major_plan(top_c, n_clusters=c)
         for p, buf in bufs.items():
@@ -7535,13 +7606,35 @@ def scan_turns(dev):
             bargs = (buf["emb"], buf["loc"], buf["ids"], w_hat)
             rec = dict(
                 routed_ms=time_ms(lambda: fts.fused_topk_score_routed(
-                    q_emb, ql, w, top_c, *bargs, **kw)),
+                    q_emb, ql, w, top_c, *bargs, **kw), reps=10),
                 cluster_major_ms=time_ms(
                     lambda: fts.fused_topk_score_cluster_major(
-                        q_emb, ql, w, u, roster, *bargs, cr=2, **kw)))
+                        q_emb, ql, w, u, roster, *bargs, cr=2, **kw),
+                    reps=10))
             out[f"{skew}/{p}"] = rec
             log(f"compare {skew} {p}: routed {rec['routed_ms']:.3f} ms, "
                 f"cluster_major {rec['cluster_major_ms']:.3f} ms")
+    # the int8 full fan-out (cr = c): both kernels, and both query paths
+    # (plan and fold included), as phase 3 times them
+    fq = [x[:N_FAN] for x in chunk]
+    qe_f, w_f, top_all = engine_lib.make_prefix_fn(cr=c)(
+        fi["rel"], fi["index"], fi["norm"], *fq)
+    u, roster, _ = serving_lib.cluster_major_plan(top_all, n_clusters=c)
+    buf8 = bufs["int8"]
+    kw = dict(k=20, dist_max=1.4142, buf_scale=buf8["scale"])
+    bargs = (buf8["emb"], buf8["loc"], buf8["ids"], w_hat)
+    fan = dict(
+        routed_ms=time_ms(lambda: fts.fused_topk_score_routed(
+            qe_f, fq[2], w_f, top_all, *bargs, **kw), reps=3),
+        cluster_major_ms=time_ms(lambda: fts.fused_topk_score_cluster_major(
+            qe_f, fq[2], w_f, u, roster, *bargs, cr=c, **kw), reps=3),
+        **{f"path_{b}_ms": time_ms(lambda b=b: engine_lib._routed_topk(
+            qe_f, fq[2], w_f, top_all, buf8, w_hat, k=20, backend=b,
+            dist_max=1.4142, precision="int8"), reps=3)
+           for b in ("cuda", "cuda-cm")})
+    out["full_fan_out/int8"] = fan
+    log(f"compare full fan-out int8 ({N_FAN} queries, cr = c = {c}): "
+        f"{fan}")
     out["delta_walls_ms"] = delta_walls(dev, fi)
     return out
 
@@ -7704,6 +7797,11 @@ def main() -> int:
     sass = flash_sass_check(infos["flash_attention"]["path"])
     log(f"phase 0: flash_attention SASS, tensor-core instructions per "
         f"16-bit instantiation (D 16..128): {sass}")
+    sass = scan_sass_check(infos["fused_topk_score"]["path"])
+    log(f"phase 0: fused_topk_score SASS, (HGMMA, UTMALDG) per "
+        f"engine_scan_kernel instantiation: {sass}")
+    log(f"phase 0: the engine scans' shared-memory layout equals "
+        f"launch_shape's mirror at {scan_layout_check()} launch shapes")
 
     t0 = time.perf_counter()
     err1 = phase1(dev)

@@ -5,19 +5,19 @@ each with its plain PyTorch version beside it:
 
 * :func:`fused_topk_score_routed` replaces the Pallas kernel
   ``repro/kernels/fused_topk_score.py::fused_topk_score_routed`` (the
-  reference engine's ``pallas`` backend). Query-major and plan-free:
-  work items of (row chunk, group of ``16 / cr`` queries, distinct
-  cluster among the group's routes), built on the device from ``top_c``
-  alone (:func:`routed_items`) and walked chunk-major by persistent
-  blocks; an item reads its cluster chunk once for the group's pairs
-  routed to it, and the chunk partials are merged by key into ``(B, k)``.
-  Plain version: :func:`routed_topk_plain` (gather + one stable top-k).
+  reference engine's ``pallas`` backend). Plan-free: inside the launch,
+  a counting sort on the device orders the batch's (query, route) pairs
+  by cluster (:func:`routed_rows`), and work items are (cluster, row
+  chunk, group of up to 16 of its pairs) (:func:`routed_items`), so a
+  cluster chunk is read once per slot group, not once per query group.
+  Each pair keeps its scan positions ``route·cap + row``; the chunk
+  partials are merged by key into ``(B, k)``. Plain version:
+  :func:`routed_topk_plain` (gather + one stable top-k).
 * :func:`fused_topk_score_cluster_major` replaces
-  ``fused_topk_score_cluster_major`` (the ``pallas-cm`` backend). Work
-  items of (distinct routed cluster, 16 roster slots, row chunk), built on
-  the device from the plan (:func:`cluster_major_items` is the same
-  arithmetic) and walked by persistent blocks: one chunk is read once for
-  all 16 slots, and a hot cluster spreads over many blocks. It writes one
+  ``fused_topk_score_cluster_major`` (the ``pallas-cm`` backend). The
+  same kernel, its items (distinct routed cluster, row chunk, slot group)
+  built on the device from the host plan's roster
+  (:func:`cluster_major_items` is the same arithmetic). It writes one
   partial top-k list per (query, route) pair, which
   ``engine.merge_cluster_major`` folds per query. Plain version:
   :func:`cluster_major_partials_plain`.
@@ -25,20 +25,25 @@ each with its plain PyTorch version beside it:
   ``fused_topk_score`` (``repro.kernels.ops.fused_topk_score``; no engine
   backend calls it). The caller materializes a per-query candidate copy
   ``(B, N, d)``: B "clusters" of capacity N, query b routed to cluster b
-  alone. Work items of (query, row chunk) with one slot, walked by the
-  same persistent blocks; the chunk partials are merged by key into local
-  positions in ``[0, N)``. Plain version: :func:`gather_topk_plain`
-  (:func:`gather_partials_plain` is the chunk arithmetic).
+  alone. A tiled scan: work items of (query, row chunk) with one slot,
+  rows through a cp.async ring onto the CUDA cores; the chunk partials
+  are merged by key into local positions in ``[0, N)``. Plain
+  version: :func:`gather_topk_plain` (:func:`gather_partials_plain` is
+  the chunk arithmetic).
 
 What bounds all three on an H100 is the bytes of the scanned embedding
-rows. All three are one tiled scan: rows staged in their stored type
-through a cp.async ring (tiles that are all padding are skipped by id
-before a row is fetched), a register tile of (query, row) pairs per
-thread, each chunk's top k kept behind a threshold, and the chunk
-partials merged by key (:func:`merge_partials_plain` is the plain
-version of that merge). See the CUDA source for the design and its
-numerics; :func:`launch_shape` sizes the launches, its query slots per
-item shrinking as ``k`` grows (``K_MAX`` is the largest ``k``).
+rows. The engine scans stream a cluster chunk's live 64-row tiles by TMA
+(tiles that are all padding are never fetched) and compute the (row,
+slot) products with ``wgmma`` on the tensor cores: the queries split
+once into three bf16 terms (:func:`query_terms`, :func:`split_terms`),
+f32 rows into three as well, int8 rows widened exactly
+(:func:`scan_dots_plain` is that arithmetic on the CPU). Each chunk's top k is kept behind a
+threshold, and the chunk partials merged by key
+(:func:`merge_partials_plain` is the plain version of that merge). See
+the CUDA source for the design and its numerics; :func:`launch_shape`
+sizes the engine scans' launches (slots per item shrinking as ``k``
+grows, ``K_MAX`` the largest ``k``), :func:`gather_launch_shape` the
+gather's.
 
 Each wrapper sends a CPU tensor to the plain version and launches the
 kernel for a CUDA tensor (or raises); ``launches`` counts kernel launches.
@@ -72,20 +77,34 @@ NEG_INF = -1e30
 # the widest embedding the kernels are held against their plain versions at
 D_MAX = 1024
 
-# the tiled scans: kTile ... in csrc/fused_topk_score.cu
-TILE_ROWS = 256                  # rows per tile: one row per thread
-CHUNK_BYTES = 128                # bytes of each row one ring stage holds
-STAGES = 2                       # the cp.async ring
-GROUP = 16                       # the most query slots of a work item
-SLOT_COUNTS = (16, 8, 4, 2, 1)   # the register tile's instantiations
-CAND_CAP = TILE_ROWS // 2        # candidates a slot takes per half tile
-CHUNK_ROWS = 1024                # rows per work item
 SMEM_MAX = 232_448               # shared memory one block may have (227 KB)
 SMEM_TWO_PER_SM = 115_712        # the most two blocks of an SM may each have
 MERGE_WARPS = 4                  # kMergeWarps: output rows per merge block
 # partial lists per output row the merge takes: its list heads (one int
 # each, per warp) fill at most SMEM_MAX
 MERGE_LISTS_MAX = SMEM_MAX // (MERGE_WARPS * 4)
+
+# the gather scan (its tiled CUDA-core body): kTile ... in csrc/fused_topk_score.cu
+TILE_ROWS = 256                  # rows per tile: one row per thread
+CHUNK_BYTES = 128                # bytes of each row one ring stage holds
+STAGES = 2                       # the cp.async ring
+GATHER_FIELDS = 16               # kGroup: per-slot fields of its layout
+CAND_CAP = TILE_ROWS // 2        # candidates the slot takes per half tile
+CHUNK_ROWS = 1024                # rows per work item
+
+# the engine scans (routed, cluster-major): kScanTile ... in the CUDA source
+SCAN_TILE = 64                   # object rows per wgmma tile (M)
+STAGE_BYTES = 128                # bytes of a row per TMA stage (one box row)
+SCAN_CHUNK = 1024                # rows per work item
+SLOT_COUNTS = (32, 16, 8, 4, 2, 1)   # query slots per item, widest first
+RING_MAX = 8                     # a warpgroup's TMA ring: at most,
+RING_MIN = 6                     # at least while a slot count fits,
+RING_FLOOR = 2                   # and where none fits RING_MIN
+WARPGROUPS = (2, 1)              # consumer warpgroups of a block, most first
+SLOT_MAX = 32                    # kSlotMax
+FIELD_BYTES = 2560               # kFieldBytes: the per-slot fields
+ITEM_RECORD = 16 + 4 * SLOT_MAX   # an item record: descriptor, slot pairs
+Q_TERMS = 3                      # bf16 terms of a query or an f32 row (hi + mid + lo)
 
 # kernel launches since the last reset, by kernel
 launches = {"routed": 0, "cluster_major": 0, "gather": 0}
@@ -102,12 +121,15 @@ def _bind(lib) -> None:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     lib.fts_routed.argtypes = ([ptr] * 5 + [i32] + [ptr] * 6 + [i32] * 8
-                               + [f32, i32, i32, i64] + [ptr] * 6)
+                               + [f32] + [i32] * 4 + [i64, ptr, i32]
+                               + [ptr] * 6)
     lib.fts_routed.restype = i32
     lib.fts_cluster_major.argtypes = ([ptr] * 6 + [i32] + [ptr] * 6
-                                      + [i32] * 10 + [f32, i32, i32, i64]
-                                      + [ptr] * 6)
+                                      + [i32] * 10 + [f32] + [i32] * 4
+                                      + [i64, ptr, i32] + [ptr] * 6)
     lib.fts_cluster_major.restype = i32
+    lib.fts_scan_smem.argtypes = [i32] * 6
+    lib.fts_scan_smem.restype = i64
     lib.fts_gather.argtypes = ([ptr] * 4 + [i32] + [ptr] * 4 + [i32] * 5
                                + [f32, i32, i64] + [ptr] * 5)
     lib.fts_gather.restype = i32
@@ -252,9 +274,9 @@ def cluster_major_partials_plain(q_emb, q_loc, w_st, u, roster, buf_emb,
 # ---------------------------------------------------------------------------
 
 
-def _tile_smem(chunk_rows: int, k: int, elem_size: int, slots: int) -> int:
-    """Shared bytes of one block of the tiled scan with ``slots`` query
-    slots per item: ``tile_smem`` in the CUDA source, field by field."""
+def _tile_smem(chunk_rows: int, k: int, elem_size: int, slots: int = 1) -> int:
+    """Shared bytes of one block of the gather's tiled scan: ``tile_smem``
+    in the CUDA source, field by field."""
     a16 = lambda x: -(-x // 16) * 16  # noqa: E731
     kce = CHUNK_BYTES // elem_size
     stage = a16(TILE_ROWS * CHUNK_BYTES + slots * kce * 4)
@@ -262,121 +284,231 @@ def _tile_smem(chunk_rows: int, k: int, elem_size: int, slots: int) -> int:
             + a16((chunk_rows // TILE_ROWS + 1) * 4)
             + slots * CAND_CAP * 8             # candidate buffers
             + 2 * slots * k * 8                # double-buffered lists
-            + GROUP * (8 + 8 + 16 + 16 + 5 * 4))  # per-slot fields
+            + GATHER_FIELDS * (8 + 8 + 16 + 16 + 5 * 4))  # per-slot fields
 
 
-# the largest k of the tiled scans: one slot's lists at a full chunk of
-# int8 rows (the widest stage of query floats) fill SMEM_MAX
-K_MAX = (SMEM_MAX - _tile_smem(CHUNK_ROWS, 0, 1, 1)) // (2 * 8)
+# the largest k of the scans: one slot's lists at a full chunk of int8 rows
+# (the widest stage of query floats) fill a gather block's SMEM_MAX; the
+# engine scans serve it too (launch_shape)
+K_MAX = (SMEM_MAX - _tile_smem(CHUNK_ROWS, 0, 1)) // (2 * 8)
 
 
-def slots_for_k(k: int, elem_size: int) -> int:
-    """Query slots per work item at ``k``: 16 while a block with a full
-    chunk fits two to an SM, then the largest of 8, 4, 2 that does, else
-    1 (one block per SM, up to :data:`K_MAX`)."""
-    for g in SLOT_COUNTS[:-1]:
-        if _tile_smem(CHUNK_ROWS, k, elem_size, g) <= SMEM_TWO_PER_SM:
-            return g
-    return 1
-
-
-def launch_shape(*, cap: int, k: int, elem_size: int,
-                 slots: Optional[int] = None) -> dict:
-    """The launch of a tiled scan over buffers of capacity ``cap``: rows
-    per chunk (a multiple of the 256-row tile, at most the buffer's),
-    chunks per cluster, query slots per item (:func:`slots_for_k` unless
-    given; the gather scan takes 1), shared bytes per block, the blocks an
-    SM holds (two at the main path's k of 20) and the most partial lists
-    per output row the merge takes. d does not enter: rows stream through
-    the ring 128 bytes at a time. Raises for k outside [1, K_MAX]."""
+def _check_k(k: int) -> None:
     if not 1 <= k <= K_MAX:
-        raise ValueError(f"k={k} outside the tiled scans' range [1, {K_MAX}]: "
+        raise ValueError(f"k={k} outside the scans' range [1, {K_MAX}]: "
                          f"one slot's sorted lists must fit shared memory")
-    slots = slots_for_k(k, elem_size) if slots is None else slots
+
+
+def gather_launch_shape(*, cap: int, k: int, elem_size: int) -> dict:
+    """The gather scan's launch over copies of ``cap`` candidates: rows
+    per chunk (a multiple of the 256-row tile, at most the copy's),
+    chunks, shared bytes per block, the blocks an SM holds and the most
+    partial lists per output row the merge takes. d does not enter: rows
+    stream through the ring 128 bytes at a time. Raises for k outside
+    [1, K_MAX]."""
+    _check_k(k)
     chunk = min(CHUNK_ROWS, -(-cap // TILE_ROWS) * TILE_ROWS)
-    smem = _tile_smem(chunk, k, elem_size, slots)
-    return dict(chunk_rows=chunk, n_chunks=-(-cap // chunk), slots=slots,
+    smem = _tile_smem(chunk, k, elem_size)
+    return dict(chunk_rows=chunk, n_chunks=-(-cap // chunk), slots=1,
                 smem_bytes=smem,
                 blocks_per_sm=2 if smem <= SMEM_TWO_PER_SM else 1,
                 merge_lists_max=MERGE_LISTS_MAX)
 
 
-def routed_groups(b: int, cr: int, slots: int = GROUP) -> tuple:
-    """The routed kernel's query groups: ``(queries per group, groups)``.
-    A group of ``qg = max(1, slots // cr)`` queries holds at most
-    ``max(slots, cr)`` (query, route) pairs; its items hold at most
-    ``slots`` of them."""
-    if cr < 1:
-        raise ValueError(f"cr={cr} must be at least 1")
-    qg = max(1, slots // cr)
-    return qg, -(-b // qg)
+def stage_elems(elem_size: int) -> int:
+    """Row elements one TMA stage (128 bytes) holds."""
+    return STAGE_BYTES // elem_size
 
 
-def routed_items(top_c, slots: int = GROUP):
-    """The routed kernel's work items, as ``routed_groups_kernel`` builds
-    them on the device from ``top_c (B, cr)`` alone: per query group, its
-    entries in order of opening, each a routed cluster with at most
-    ``slots`` of the group's pairs (``q·cr + r``) routed to it: a pair
-    joins the first entry of its cluster with a free slot, or opens one.
-    Returns ``(groups, offsets)``: ``groups[g]`` a list of ``(cluster,
-    [pairs])``, ``offsets`` the exclusive prefix sum of the entry counts
-    (``offsets[-1]`` items per chunk). Item ``ch·offsets[-1] + offsets[g]
-    + dd`` is (chunk ``ch``, group ``g``, entry ``dd``): chunk-major
-    across the batch."""
-    b, cr = top_c.shape
-    qg, n_groups = routed_groups(b, cr, slots)
-    flat = top_c.reshape(-1).tolist()
-    groups = []
-    for g in range(n_groups):
-        entries = []
-        for p in range(g * qg * cr, min(b * cr, (g + 1) * qg * cr)):
-            for cl, pairs in entries:
-                if cl == flat[p] and len(pairs) < slots:
-                    pairs.append(p)
-                    break
-            else:
-                entries.append((flat[p], [p]))
-        groups.append(entries)
-    offsets = [0]
-    for items in groups:
-        offsets.append(offsets[-1] + len(items))
-    return groups, offsets
+def b_blocks(d: int, elem_size: int) -> int:
+    """64-wide blocks of the wgmma B operand's depth: the row's stages
+    (``ceil(d·elem / 128)`` of ``stage_elems``), zero past d."""
+    nk = -(-d * elem_size // STAGE_BYTES)
+    return -(-nk * stage_elems(elem_size) // 64)
 
 
-def routed_item(item: int, groups, offsets):
-    """Item number → ``(chunk, cluster, pairs)``, by the kernel's arithmetic."""
-    per_chunk = offsets[-1]
-    ch, rem = divmod(item, per_chunk)
-    g = max(i for i in range(len(groups)) if offsets[i] <= rem)
-    cluster, pairs = groups[g][rem - offsets[g]]
-    return ch, cluster, pairs
+def scan_smem(d: int, k: int, elem_size: int, slots: int, stages: int,
+              wgs: int = 2) -> int:
+    """Shared bytes of one engine-scan block with ``wgs`` consumer
+    warpgroups: ``scan_smem`` in the CUDA source, field by field. A ring
+    of ``stages`` TMA boxes (64 rows × 128 bytes) per warpgroup, B
+    (``b_blocks`` × 3N rows × 128 bytes: the three query terms of N
+    slots, N = ``slots`` rounded up to 8), per warpgroup the
+    double-buffered lists (``slots`` × k keys), the candidate buffers
+    (``slots`` × 64 keys) and the per-slot fields, the item queue (two
+    item records), the mbarriers, and 1024 bytes to align the rings."""
+    n = max(8, slots)
+    return (1024 + wgs * stages * SCAN_TILE * STAGE_BYTES
+            + Q_TERMS * b_blocks(d, elem_size) * n * 128
+            + wgs * (2 * slots * k * 8 + slots * SCAN_TILE * 8 + FIELD_BYTES)
+            + 2 * ITEM_RECORD + (2 * wgs * stages + 4) * 8)
+
+
+def launch_shape(*, cap: int, d: int, k: int, elem_size: int) -> dict:
+    """The engine scans' launch over buffers of capacity ``cap`` and width
+    ``d``: rows per chunk (a multiple of the 64-row tile, at most the
+    buffer's), chunks per cluster, 64-row tiles per chunk, query slots per
+    item and the wgmma's N (slots rounded up to 8; the product takes 3N
+    columns), consumer warpgroups, each warpgroup's ring of TMA stages,
+    shared bytes per block, the query terms' width and the merge's list
+    cap (each item writes one partial list per slot and warpgroup).
+
+    Two warpgroups with the most slots that fit a ring of RING_MIN stages
+    each (16 slots, 7 stages at the main path's d 768 and k 20; 32 slots
+    at narrow rows); else one warpgroup; where nothing fits RING_MIN (k
+    in the thousands), one warpgroup, the most slots, the fewest stages
+    down to RING_FLOOR. Stages: as many as fit, up to RING_MAX. Raises
+    for k outside [1, K_MAX]."""
+    _check_k(k)
+
+    def fits(wgs, slots, stages):
+        return scan_smem(d, k, elem_size, slots, stages, wgs) <= SMEM_MAX
+
+    order = ([(w, g, RING_MIN) for w in WARPGROUPS for g in SLOT_COUNTS]
+             + [(1, g, st) for st in range(RING_MIN - 1, RING_FLOOR - 1, -1)
+                for g in SLOT_COUNTS])
+    pick = next(((w, g) for w, g, st in order if fits(w, g, st)), None)
+    if pick is None:
+        raise ValueError(f"k={k} at d={d}: no engine-scan layout fits "
+                         f"{SMEM_MAX} bytes")
+    wgs, slots = pick
+    stages = max(st for st in range(RING_FLOOR, RING_MAX + 1)
+                 if fits(wgs, slots, st))
+    chunk = min(SCAN_CHUNK, -(-cap // SCAN_TILE) * SCAN_TILE)
+    return dict(chunk_rows=chunk, n_chunks=-(-cap // chunk),
+                tiles=chunk // SCAN_TILE, slots=slots, n=max(8, slots),
+                wgs=wgs, stages=stages,
+                smem_bytes=scan_smem(d, k, elem_size, slots, stages, wgs),
+                kb=b_blocks(d, elem_size), merge_lists_max=MERGE_LISTS_MAX)
+
+
+def stage_perm(elem_size: int) -> torch.Tensor:
+    """``stage_perm`` of the CUDA source for a stage of ``stage_elems``
+    elements: the element each logical k index of the products reads. The
+    identity for bf16 rows (wgmma reads them from shared memory); for A in
+    registers (f32, int8) logical index ``16s + k`` reads element
+    ``E/4·((k % 8) // 2) + 4s + 2·(k // 8) + k % 2``, so a thread's A
+    values of a stage are E/4 contiguous elements of each of its rows."""
+    e = stage_elems(elem_size)
+    li = torch.arange(e)
+    if elem_size == 2:
+        return li
+    s, kq = li // 16, li % 16
+    return (e // 4) * ((kq % 8) // 2) + 4 * s + 2 * (kq // 8) + kq % 2
+
+
+def split_terms(x: torch.Tensor, n: int) -> list:
+    """``x`` (f32) as ``n`` bf16 terms, each the rounded residue of the
+    ones before (``x_hi = RN(x)``, ``x_mid = RN(x − x_hi)``, ...): the
+    kernel's split of a query and of an f32 row (3 terms each). Each
+    difference is exact in f32 and bf16 keeps 8 significant bits, so what
+    is left after n terms is at most ``2^(-8n)·|x|``."""
+    terms, r = [], x.float()
+    for _ in range(n):
+        t = r.to(torch.bfloat16)
+        terms.append(t)
+        r = r - t.float()
+    return terms
+
+
+def query_terms(q: torch.Tensor, elem_size: int) -> torch.Tensor:
+    """``split_q_kernel``'s output: ``q (B, d)`` f32 → ``(B, 3, 64·kb)``
+    bf16 terms, each row's logical k index ``stage·E + i`` holding element
+    ``stage·E + stage_perm[i]`` (zero past d)."""
+    b, d = q.shape
+    width = 64 * b_blocks(d, elem_size)
+    e = stage_elems(elem_size)
+    li = torch.arange(width)
+    src = (li // e) * e + stage_perm(elem_size).to(li.device)[li % e]
+    x = torch.where(src < d, q.float()[:, src.clamp(max=d - 1)],
+                    torch.zeros((), device=q.device))
+    return torch.stack(split_terms(x, Q_TERMS), dim=1)
+
+
+def scan_dots_plain(q: torch.Tensor, emb: torch.Tensor, scale=None):
+    """The engine scans' products by the kernel's arithmetic: ``q (..., B,
+    d)`` f32 against rows ``emb (..., n, d)`` → ``(..., B, n)`` f32. The
+    query as three bf16 terms, each its own column of the product; f32
+    rows as three bf16 terms too (int8 and bf16 rows are exact in bf16),
+    each against every query term; each product exact in f32, summed in f32
+    per query term, the terms then added as (hi + mid) + lo; int8 rows
+    times their ``scale (..., n)`` after the sum. Only the order of the
+    sums within a term differs from the tensor cores'."""
+    rt = (split_terms(emb, Q_TERMS) if emb.dtype == torch.float32
+          else [emb.float().to(torch.bfloat16)])
+    cols = [sum(t.float() @ r.float().transpose(-1, -2) for r in rt)
+            for t in split_terms(q, Q_TERMS)]
+    acc = (cols[0] + cols[1]) + cols[2]
+    return acc if scale is None else acc * scale[..., None, :]
+
+
+def routed_rows(top_c, *, c: int):
+    """The routed scan's counting sort, as its device kernels build it:
+    row ``r < c`` holds the (query, route) pairs ``p = q·cr + route``
+    routed to cluster r, row c the routes to no cluster. Returns
+    ``(count (c+1,), start (c+2,), order (B·cr,))`` int64, the pairs of
+    row r at ``order[start[r]:start[r] + count[r]]`` (ascending here; the
+    kernel's scatter may place them in any order: a pair's partial lists
+    depend on its own scores alone)."""
+    flat = top_c.reshape(-1).long()
+    rows = torch.where((flat >= 0) & (flat < c), flat,
+                       torch.full_like(flat, c))
+    count = torch.bincount(rows, minlength=c + 1)
+    start = torch.zeros(c + 2, dtype=torch.int64)
+    start[1:] = torch.cumsum(count, 0)
+    return count, start, torch.argsort(rows, stable=True)
+
+
+def scan_items(groups, *, n_chunks: int):
+    """Item offsets of a roster of ``groups[i]`` slot groups per row:
+    row i takes ``groups[i]·n_chunks`` items from ``offsets[i]``,
+    chunk-major (item ``offsets[i] + ch·groups[i] + g``). ``offsets``
+    (rows + 1,) int64; ``offsets[-1]`` is the item count."""
+    groups = torch.as_tensor(groups, dtype=torch.int64)
+    offsets = torch.zeros(groups.numel() + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(groups * n_chunks, 0)
+    return offsets
+
+
+def scan_item(item: int, groups, offsets):
+    """Item number → ``(row i, slot group g, chunk ch)``, by the kernel's
+    binary search over ``offsets``."""
+    i = int(torch.searchsorted(offsets, torch.tensor(item), right=True)) - 1
+    local = item - int(offsets[i])
+    return i, local % int(groups[i]), local // int(groups[i])
+
+
+def routed_items(top_c, *, c: int, n_chunks: int, slots: int = SLOT_MAX):
+    """The routed scan's work items, by its device arithmetic: per row of
+    :func:`routed_rows`, ``ceil(count / slots)`` slot groups of its pairs
+    in order. Returns a list of ``(cluster or -1, chunk, [pairs])`` in
+    item order (-1: the routes to no cluster, whose partials are
+    empty)."""
+    count, start, order = routed_rows(top_c, c=c)
+    groups = (count + slots - 1) // slots
+    offsets = scan_items(groups, n_chunks=n_chunks)
+    items = []
+    for item in range(int(offsets[-1])):
+        i, g, ch = scan_item(item, groups, offsets)
+        lo = int(start[i]) + g * slots
+        hi = min(int(start[i] + count[i]), lo + slots)
+        items.append((i if i < c else -1, ch, order[lo:hi].tolist()))
+    return items
 
 
 def cluster_major_items(roster, *, n_total: int, n_chunks: int,
-                        slots: int = GROUP):
-    """The cluster-major kernel's work items, as its two plan kernels
-    build them on the device: distinct cluster ``i`` has ``groups[i] =
-    ceil((last live slot + 1) / slots)`` slot groups and ``n_chunks``
-    row chunks, numbered from ``offsets[i]`` chunk-major (item
-    ``offsets[i] + ch·groups[i] + g``). Returns ``(groups (u_max,),
-    offsets (u_max + 1,))`` int64; ``offsets[-1]`` is the item count."""
+                        slots: int = SLOT_MAX):
+    """The cluster-major scan's work items, as its two plan kernels
+    build them on the device: roster row ``i`` has ``groups[i] =
+    ceil((last live slot + 1) / slots)`` slot groups and ``n_chunks`` row
+    chunks (:func:`scan_items`). Returns ``(groups (u_max,), offsets
+    (u_max + 1,))`` int64; ``offsets[-1]`` is the item count."""
     live = (roster >= 0) & (roster < n_total)
     slot = torch.arange(roster.shape[1], device=roster.device)
     last = torch.where(live, slot, torch.full_like(slot, -1)).amax(dim=1) \
         if roster.shape[1] else torch.full((roster.shape[0],), -1)
     groups = (last.long() + slots) // slots
-    offsets = torch.zeros(roster.shape[0] + 1, dtype=torch.int64,
-                          device=roster.device)
-    offsets[1:] = torch.cumsum(groups * n_chunks, 0)
-    return groups, offsets
-
-
-def cluster_major_item(item: int, groups, offsets):
-    """Item number → ``(cluster slot i, slot group g, chunk ch)``, by the
-    kernel's binary search over ``offsets``."""
-    i = int(torch.searchsorted(offsets, torch.tensor(item), right=True)) - 1
-    local = item - int(offsets[i])
-    return i, local % int(groups[i]), local // int(groups[i])
+    return groups, scan_items(groups.cpu(), n_chunks=n_chunks)
 
 
 def chunk_partials_plain(st, ids, *, k: int, chunk_rows: int, pos0=None):
@@ -568,12 +700,13 @@ def _check_buffers(buf_emb, buf_loc, buf_ids, buf_scale, buf_attrs, w_hat,
     return c, cap, d
 
 
-def _check_grid(items: int, n_lists: int, positions: int):
-    """Limits of the tiled scans: work items and scan positions fit 31
-    bits, and the merge's list heads its shared memory."""
-    if items >= 2 ** 31 or positions >= 2 ** 31:
+def _check_grid(items: int, n_lists: int, positions: int, rows: int = 0):
+    """Limits of the scans: work items, scan positions and the buffers'
+    rows (the TMA row coordinate) fit 31 bits, and the merge's list heads
+    its shared memory."""
+    if max(items, positions, rows) >= 2 ** 31:
         raise ValueError(f"{items} work items / {positions} scan positions "
-                         f"exceed the kernels' 31-bit indices")
+                         f"/ {rows} rows exceed the kernels' 31-bit indices")
     if n_lists > MERGE_LISTS_MAX:
         raise ValueError(f"{n_lists} partial lists per output row exceed "
                          f"the merge's {MERGE_LISTS_MAX}")
@@ -590,13 +723,14 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
     int32)`` over each query's ``top_c (B, cr)`` clusters.
 
     Replaces ``repro/kernels/fused_topk_score.py::fused_topk_score_routed``.
-    Bound by the bytes of the routed rows: a work item (row chunk, query
-    group, distinct cluster of the group's routes; :func:`routed_items`)
-    stages the cluster's chunk once, in its stored type, for the group's
-    pairs routed to it, and widens the rows in registers; a merge kernel
-    folds the chunk partials by key (:func:`launch_shape`,
-    :func:`routed_partials_plain`). Any ``cr``: above the item's slots a
-    query group is one query, one item per cluster of its routes.
+    Bound by the bytes of the routed clusters' rows: the launch sorts the
+    batch's pairs by cluster on the device (no host plan, no sync), and a
+    work item (cluster, row chunk, up to 16 of its pairs;
+    :func:`routed_items`) streams the chunk's live tiles once by TMA for
+    all its pairs, the products on the tensor cores; a merge kernel folds
+    the chunk partials by key (:func:`launch_shape`,
+    :func:`routed_partials_plain`). Any ``cr``, routes to no cluster
+    included (their lists are empty).
 
     ``q_emb (B, d)`` f32; ``q_loc``/``w_st (B, 2)`` f32; ``buf_emb (c,
     cap, d)`` f32, bf16, or int8 with ``buf_scale (c, cap)``; ``buf_loc
@@ -625,14 +759,11 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_s, out_i
-    shape = launch_shape(cap=cap, k=k, elem_size=buf_emb.element_size())
-    slots = shape["slots"]
-    n_lists = cr * shape["n_chunks"]
-    n_groups = routed_groups(b, cr, slots)[1]
-    ent = max(slots, cr)                 # entries a query group may open
-    _check_grid(n_groups * ent * shape["n_chunks"], n_lists, cr * cap)
-    work = torch.empty(n_groups * (2 + ent + ent * slots) + 2,
-                       dtype=torch.int32, device=dev)
+    shape = launch_shape(cap=cap, d=d, k=k, elem_size=buf_emb.element_size())
+    slots, n_chunks, wgs = shape["slots"], shape["n_chunks"], shape["wgs"]
+    n_lists = cr * n_chunks * wgs
+    _check_grid((-(-b * cr // slots) + c + 1) * n_chunks, n_lists, cr * cap,
+                c * cap)
     if dev.type == "meta":
         distinct = min(b * cr, c)
         meta.record("routed", scan_work(
@@ -640,6 +771,15 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
             pairs=b * cr * cap, dtype=buf_emb.dtype,
             filtered=buf_attrs is not None))
         return out_s, out_i
+    # the counting sort's counts, starts, fill, slot groups, item offsets,
+    # work counter and sorted pairs, then the item records; the queries'
+    # bf16 terms
+    max_items = (-(-b * cr // slots) + c + 1) * n_chunks
+    work = torch.empty(5 * (c + 1) + 6 + b * cr
+                       + ITEM_RECORD // 4 * max_items,
+                       dtype=torch.int32, device=dev)
+    qsplit = torch.empty((b, Q_TERMS, 64 * shape["kb"]), dtype=torch.int16,
+                         device=dev)
     part_key = torch.empty((b * n_lists, k), dtype=torch.int64, device=dev)
     part_id = torch.empty((b * n_lists, k), dtype=torch.int32, device=dev)
     with meta.launch_range("routed"):
@@ -649,9 +789,9 @@ def fused_topk_score_routed(q_emb, q_loc, w_st, top_c, buf_emb, buf_loc,
             _ptr(buf_loc), _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt),
             _ptr(w_hat), int(buf_attrs is not None), b, cr, c, cap, d,
             w_hat.shape[0], k, float(dist_max), shape["chunk_rows"], slots,
-            shape["smem_bytes"], _ptr(work), _ptr(part_key), _ptr(part_id),
-            _ptr(out_s), _ptr(out_i),
-            torch.cuda.current_stream(dev).cuda_stream)
+            shape["stages"], wgs, shape["smem_bytes"], _ptr(work), max_items,
+            _ptr(qsplit), _ptr(part_key), _ptr(part_id), _ptr(out_s),
+            _ptr(out_i), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fts_routed launch failed: cudaError {err}")
     launches["routed"] += 1
@@ -667,8 +807,9 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
     Replaces ``repro/kernels/fused_topk_score.py::
     fused_topk_score_cluster_major``. Bound by the bytes of the distinct
     routed clusters' rows: a work item (:func:`cluster_major_items`)
-    stages one chunk of a cluster's live rows once for up to 16 roster
-    slots; the chunk partials are merged by key.
+    streams one chunk of a cluster's live rows once by TMA for up to 16
+    roster slots (:func:`launch_shape`), the products on the tensor
+    cores; the chunk partials are merged by key.
 
     ``u (u_max,)`` / ``roster (u_max, qcap)`` int32 from
     ``serving.cluster_major_plan`` (``B·cr`` marks an empty slot), which
@@ -704,29 +845,35 @@ def fused_topk_score_cluster_major(q_emb, q_loc, w_st, u, roster, buf_emb,
     out_i = torch.empty((n_total, k), dtype=torch.int32, device=dev)
     if n_total == 0 or u_max == 0 or qcap == 0:
         return out_s, out_i
-    shape = launch_shape(cap=cap, k=k, elem_size=buf_emb.element_size())
-    n_chunks, slots = shape["n_chunks"], shape["slots"]
-    _check_grid(u_max * -(-qcap // slots) * n_chunks, n_chunks, cap)
+    shape = launch_shape(cap=cap, d=d, k=k, elem_size=buf_emb.element_size())
+    n_chunks, slots, wgs = shape["n_chunks"], shape["slots"], shape["wgs"]
+    max_items = u_max * -(-qcap // slots) * n_chunks
+    _check_grid(max_items, n_chunks * wgs, cap, c * cap)
     if dev.type == "meta":
         meta.record("cluster_major", scan_work(
             b, d, k, cap=cap, distinct=u_max, live_rows=u_max * cap,
             pairs=min(n_total, u_max * qcap) * cap, dtype=buf_emb.dtype,
             filtered=buf_attrs is not None))
         return out_s, out_i
-    work = torch.empty(2 * u_max + 2, dtype=torch.int32, device=dev)
-    part_key = torch.empty((n_total * n_chunks, k), dtype=torch.int64,
+    # slot groups, item offsets, work counter, then the item records
+    work = torch.empty(2 * u_max + 5 + ITEM_RECORD // 4 * max_items,
+                       dtype=torch.int32, device=dev)
+    qsplit = torch.empty((b, Q_TERMS, 64 * shape["kb"]), dtype=torch.int16,
+                         device=dev)
+    part_key = torch.empty((n_total * n_chunks * wgs, k), dtype=torch.int64,
                            device=dev)
-    part_id = torch.empty((n_total * n_chunks, k), dtype=torch.int32,
+    part_id = torch.empty((n_total * n_chunks * wgs, k), dtype=torch.int32,
                           device=dev)
     with meta.launch_range("cluster_major"):
         err = _lib().fts_cluster_major(
             _ptr(q_emb), _ptr(q_loc), _ptr(w_st), _ptr(u), _ptr(roster),
             _ptr(buf_emb), _EMB_KIND[buf_emb.dtype], _ptr(buf_scale),
             _ptr(buf_loc), _ptr(buf_ids), _ptr(buf_attrs), _ptr(q_filt),
-            _ptr(w_hat), int(buf_attrs is not None), u_max, qcap, cr,
-            n_total, c, cap, d, w_hat.shape[0], k, float(dist_max),
-            shape["chunk_rows"], slots, shape["smem_bytes"], _ptr(work),
-            _ptr(part_key), _ptr(part_id), _ptr(out_s), _ptr(out_i),
+            _ptr(w_hat), int(buf_attrs is not None), b, u_max, qcap, cr, c,
+            cap, d, w_hat.shape[0], k, float(dist_max), shape["chunk_rows"],
+            slots, shape["stages"], wgs, shape["smem_bytes"], _ptr(work),
+            max_items, _ptr(qsplit), _ptr(part_key), _ptr(part_id),
+            _ptr(out_s), _ptr(out_i),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fts_cluster_major launch failed: cudaError {err}")
@@ -783,8 +930,8 @@ def fused_topk_score(q_emb, q_loc, w_st, cand_emb, cand_loc, cand_ids, w_hat,
     if n == 0:                          # no candidates: every slot empty
         return (torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev),
                 torch.full((b, k), -1, dtype=torch.int32, device=dev))
-    shape = launch_shape(cap=n, k=k, elem_size=cand_emb.element_size(),
-                         slots=1)
+    shape = gather_launch_shape(cap=n, k=k,
+                                elem_size=cand_emb.element_size())
     out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:

@@ -171,20 +171,114 @@ def test_wrappers_reject_half_a_filter():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("elem_size", [1, 2, 4], ids=["int8", "bf16", "f32"])
+ELEM_SIZES = dict(int8=1, bf16=2, f32=4)
+
+
+@pytest.mark.parametrize("elem_size", list(ELEM_SIZES.values()),
+                         ids=list(ELEM_SIZES))
 def test_launch_shape_fits_shared_memory(elem_size):
+    """The engine scans' layout fits a block's 227 KB at every capacity,
+    width and k up to K_MAX; chunks tile the buffer in 64-row tiles."""
     for cap in (16, 64, 640, 2600, 19072, 100_000):
-        for k in (1, 20, 84, 255, fts.K_MAX):
-            shape = fts.launch_shape(cap=cap, k=k, elem_size=elem_size)
-            assert shape["smem_bytes"] <= fts.SMEM_MAX == 227 * 1024
-            assert shape["chunk_rows"] % fts.TILE_ROWS == 0
-            # the chunks tile the buffer: the last one starts inside it
-            assert (shape["n_chunks"] - 1) * shape["chunk_rows"] < cap
-            assert shape["n_chunks"] * shape["chunk_rows"] >= cap
-    # at the main path's k two blocks share an SM
-    shape = fts.launch_shape(cap=19072, k=20, elem_size=elem_size)
-    assert shape["blocks_per_sm"] == 2
-    assert shape["smem_bytes"] <= fts.SMEM_TWO_PER_SM
+        for d in (16, 64, 768, fts.D_MAX):
+            for k in (1, 20, 84, 255, fts.K_MAX):
+                sh = fts.launch_shape(cap=cap, d=d, k=k, elem_size=elem_size)
+                assert sh["smem_bytes"] <= fts.SMEM_MAX == 227 * 1024
+                assert sh["smem_bytes"] == fts.scan_smem(
+                    d, k, elem_size, sh["slots"], sh["stages"], sh["wgs"])
+                assert sh["wgs"] in fts.WARPGROUPS
+                assert sh["chunk_rows"] % fts.SCAN_TILE == 0
+                assert sh["tiles"] * fts.SCAN_TILE == sh["chunk_rows"] <= 1024
+                assert (sh["n_chunks"] - 1) * sh["chunk_rows"] < cap
+                assert sh["n_chunks"] * sh["chunk_rows"] >= cap
+                assert sh["n"] == max(8, sh["slots"]) and sh["n"] % 8 == 0
+    # the main path (d 768, k 20): two warpgroups, 16 slots an item, rings
+    # of 7 stages; narrow rows take 32 slots
+    sh = fts.launch_shape(cap=19072, d=768, k=20, elem_size=elem_size)
+    assert (sh["wgs"], sh["slots"], sh["stages"], sh["n_chunks"]) == (
+        2, 16, 7, 19)
+    sh = fts.launch_shape(cap=19072, d=64, k=20, elem_size=elem_size)
+    assert (sh["wgs"], sh["slots"], sh["n"], sh["stages"]) == (2, 32, 32, 8)
+
+
+def _k_with_slots(slots, elem_size):
+    """``(d, k)``: the smallest k at which launch_shape takes ``slots``
+    slots at d 768, or else at d 64."""
+    for d in (768, 64):
+        for k in range(1, fts.K_MAX + 1):
+            if fts.launch_shape(cap=19072, d=d, k=k,
+                                elem_size=elem_size)["slots"] == slots:
+                return d, k
+    raise AssertionError(f"no k gives {slots} slots")
+
+
+@pytest.mark.parametrize("slots", fts.SLOT_COUNTS)
+@pytest.mark.parametrize("elem_size", list(ELEM_SIZES.values()),
+                         ids=list(ELEM_SIZES))
+def test_launch_shape_fits_at_every_slot_count(elem_size, slots):
+    """Every slot count is taken for some k (at d 768, or d 64 for 32
+    slots), its layout fits 227 KB with rings of at least RING_MIN
+    stages (fewer only for the single slot of the largest k) and as deep
+    as fits up to RING_MAX, and the next wider one does not fit there
+    with as many warpgroups."""
+    d, k = _k_with_slots(slots, elem_size)
+    sh = fts.launch_shape(cap=19072, d=d, k=k, elem_size=elem_size)
+    w = sh["wgs"]
+    assert sh["smem_bytes"] <= fts.SMEM_MAX
+    assert sh["stages"] >= fts.RING_MIN or (slots, w) == (1, 1)
+    assert (sh["stages"] == fts.RING_MAX or fts.scan_smem(
+        d, k, elem_size, slots, sh["stages"] + 1, w) > fts.SMEM_MAX)
+    if slots < fts.SLOT_MAX:
+        wider = fts.SLOT_COUNTS[fts.SLOT_COUNTS.index(slots) - 1]
+        assert fts.scan_smem(d, k, elem_size, wider, fts.RING_MIN,
+                             w) > fts.SMEM_MAX
+
+
+@pytest.mark.parametrize("elem_size", list(ELEM_SIZES.values()),
+                         ids=list(ELEM_SIZES))
+def test_launch_shape_slots_follow_k(elem_size):
+    """Slots per item shrink as k grows (32, 16, 8, 4, 2, 1; a single
+    warpgroup where two no longer fit) and the rings stay at least
+    RING_MIN deep until one warpgroup with one slot is left; K_MAX is
+    served at the widest row (d 1024) and k outside [1, K_MAX] raises."""
+    for d in (64, 768, fts.D_MAX):
+        prev = 2 * fts.SLOT_MAX
+        for k in list(range(1, fts.K_MAX, 97)) + [fts.K_MAX]:
+            sh = fts.launch_shape(cap=19072, d=d, k=k, elem_size=elem_size)
+            # the lists a block keeps (warpgroups × slots) shrink with k
+            assert sh["slots"] in fts.SLOT_COUNTS
+            assert sh["wgs"] * sh["slots"] <= prev
+            assert fts.RING_FLOOR <= sh["stages"] <= fts.RING_MAX
+            if sh["stages"] < fts.RING_MIN:
+                assert sh["wgs"] == 1 and all(
+                    fts.scan_smem(d, k, elem_size, g, fts.RING_MIN,
+                                  w) > fts.SMEM_MAX
+                    for g in fts.SLOT_COUNTS for w in fts.WARPGROUPS)
+            prev = sh["wgs"] * sh["slots"]
+    assert fts.K_MAX == 9978
+    for bad in (0, fts.K_MAX + 1):
+        with pytest.raises(ValueError, match=str(fts.K_MAX)):
+            fts.launch_shape(cap=19072, d=768, k=bad, elem_size=elem_size)
+
+
+@pytest.mark.parametrize("elem_size", list(ELEM_SIZES.values()),
+                         ids=list(ELEM_SIZES))
+def test_gather_launch_shape(elem_size):
+    """The gather scan keeps its tiled layout: 256-row tiles, chunks
+    of at most 1024 rows, one slot; K_MAX is the k whose lists fill its
+    block at a full chunk of int8 rows."""
+    for cap in (16, 640, 2600, 19072):
+        for k in (1, 20, 300, fts.K_MAX):
+            sh = fts.gather_launch_shape(cap=cap, k=k, elem_size=elem_size)
+            assert sh["smem_bytes"] == fts._tile_smem(sh["chunk_rows"], k,
+                                                      elem_size)
+            assert sh["smem_bytes"] <= fts.SMEM_MAX
+            assert sh["chunk_rows"] % fts.TILE_ROWS == 0
+            assert (sh["n_chunks"] - 1) * sh["chunk_rows"] < cap
+    assert (fts._tile_smem(fts.CHUNK_ROWS, fts.K_MAX, 1) <= fts.SMEM_MAX
+            < fts._tile_smem(fts.CHUNK_ROWS, fts.K_MAX + 1, 1))
+    with pytest.raises(ValueError, match=str(fts.K_MAX)):
+        fts.gather_launch_shape(cap=100, k=fts.K_MAX + 1, elem_size=elem_size)
 
 
 def _rosters():
@@ -218,12 +312,12 @@ def test_cluster_major_items_cover_every_pair_row_once(roster_name):
     n_chunks = -(-cap // chunk)
     live = ((roster >= 0) & (roster < n_total)).numpy()
     covered = np.unique(roster.numpy()[live])
-    for g_slots in (fts.GROUP, 4):            # 4: the slots of a larger k
+    for g_slots in (16, 4):                    # 4: the slots of a larger k
         groups, offsets = fts.cluster_major_items(
             roster, n_total=n_total, n_chunks=n_chunks, slots=g_slots)
         seen = np.zeros((n_total, cap), np.int64)
         for item in range(int(offsets[-1])):
-            i, g, ch = fts.cluster_major_item(item, groups, offsets)
+            i, g, ch = fts.scan_item(item, groups, offsets)
             slots = roster[i, g * g_slots:(g + 1) * g_slots].numpy()
             pairs = slots[(slots >= 0) & (slots < n_total)]
             seen[pairs, ch * chunk:min(cap, (ch + 1) * chunk)] += 1
@@ -237,96 +331,204 @@ def test_cluster_major_items_cover_every_pair_row_once(roster_name):
         assert covered.size == n_total
 
 
-@pytest.mark.parametrize("cr", [1, 2, 3, 16, 17, 20])
+@pytest.mark.parametrize("cr", [1, 2, 3, 16, 17, 20, "c"])
 @pytest.mark.parametrize("routes", ["skewed", "uniform", "zipf"])
 def test_routed_items_cover_every_pair_row_once(routes, cr):
-    """cr 1–16 fill an item with a group of 16 // cr queries; past 16 a
-    group is one query and an item one cluster of its routes."""
+    """The device counting sort's items: every (pair, row) exactly once,
+    one cluster and at most SLOT_MAX pairs an item, the slot groups of a
+    cluster chunk side by side (chunk-major within a cluster), and each
+    cluster read once per slot group, whatever cr (up to c = 50)."""
     base = _rosters()[routes][2]
+    c = 50
+    if cr == "c":
+        cr = c
     if cr <= 2:
         top_c = base[:, :cr]
     elif cr == 3:                             # distinct routes
-        top_c = torch.stack([base[:, 0], (base[:, 0] + 1) % 50,
-                             (base[:, 0] + 7) % 50], dim=1)
+        top_c = torch.stack([base[:, 0], (base[:, 0] + 1) % c,
+                             (base[:, 0] + 7) % c], dim=1)
     else:                                     # 7·j mod 50: distinct for j < 50
-        top_c = ((base[:, :1] + 7 * torch.arange(cr)) % 50).to(torch.int32)
+        top_c = ((base[:, :1] + 7 * torch.arange(cr)) % c).to(torch.int32)
     b = top_c.shape[0]
     cap, chunk = 700, 256
     n_chunks = -(-cap // chunk)
-    groups, offsets = fts.routed_items(top_c)
-    qg, n_groups = fts.routed_groups(b, cr)
-    assert len(groups) == n_groups and qg * cr <= max(fts.GROUP, cr)
-    assert max(len(g) for g in groups) <= max(fts.GROUP, cr)
+    items = fts.routed_items(top_c, c=c, n_chunks=n_chunks)
+    flat = top_c.reshape(-1)
     seen = np.zeros((b * cr, cap), np.int64)
-    for item in range(offsets[-1] * n_chunks):
-        ch, cluster, pairs = fts.routed_item(item, groups, offsets)
-        assert 1 <= len(pairs) <= fts.GROUP
-        # one cluster per item, one query group per item
-        assert all(int(top_c.reshape(-1)[p]) == cluster for p in pairs)
-        assert len({p // (qg * cr) for p in pairs}) == 1
+    reads = {}
+    for cluster, ch, pairs in items:
+        assert 1 <= len(pairs) <= fts.SLOT_MAX
+        assert all(int(flat[p]) == cluster for p in pairs)
         seen[pairs, ch * chunk:min(cap, (ch + 1) * chunk)] += 1
+        reads[(cluster, ch)] = reads.get((cluster, ch), 0) + 1
     assert (seen == 1).all()
-    # chunk-major: every item of chunk 0 comes before any of chunk 1
-    assert [fts.routed_item(i, groups, offsets)[0]
-            for i in range(offsets[-1] * n_chunks)] == sorted(
-        i // offsets[-1] for i in range(offsets[-1] * n_chunks))
+    loads = torch.bincount(flat.long(), minlength=c)
+    for (cluster, ch), n in reads.items():
+        assert n == -(-int(loads[cluster]) // fts.SLOT_MAX)
+    # within a cluster, its items run chunk-major
+    order = [(cl, ch) for cl, ch, _ in items]
+    for cl in set(x for x, _ in order):
+        chs = [ch for x, ch in order if x == cl]
+        assert chs == sorted(chs)
 
 
-def test_routed_items_split_a_cluster_past_the_slots():
-    """Pairs of one group on one cluster beyond the item's slots open a
-    second entry of that cluster (routes of a query need not be distinct
-    for the kernel)."""
-    top_c = torch.full((2, 20), 3, dtype=torch.int32)
-    top_c[1, ::2] = 5
-    groups, offsets = fts.routed_items(top_c)
-    assert [[(cl, len(p)) for cl, p in g] for g in groups] == [
-        [(3, 16), (3, 4)], [(5, 10), (3, 10)]]
-    assert offsets == [0, 2, 4]
-    groups, _ = fts.routed_items(top_c, slots=4)
-    assert [len(p) for _, p in groups[0]] == [4] * 5
-
-
-@pytest.mark.parametrize("elem_size", [1, 2, 4], ids=["int8", "bf16", "f32"])
-def test_launch_shape_slots_follow_k(elem_size):
-    """Slots per item by k: 16 while a full chunk's block fits two to an
-    SM, then 8, 4, 2, and 1 (one block an SM) up to K_MAX, the largest k
-    whose one-slot lists fit a block's shared memory."""
-    prev = fts.GROUP
-    for k in list(range(1, fts.K_MAX, 13)) + [fts.K_MAX]:
-        shape = fts.launch_shape(cap=19072, k=k, elem_size=elem_size)
-        g = shape["slots"]
-        assert g in fts.SLOT_COUNTS and g <= prev
-        prev = g
-        full = fts._tile_smem(fts.CHUNK_ROWS, k, elem_size, g)
-        assert shape["smem_bytes"] == full <= fts.SMEM_MAX
-        if g > 1:
-            assert full <= fts.SMEM_TWO_PER_SM
-        if g < fts.GROUP:
-            assert fts._tile_smem(fts.CHUNK_ROWS, k, elem_size,
-                                  2 * g) > fts.SMEM_TWO_PER_SM
-    assert fts.launch_shape(cap=19072, k=20, elem_size=elem_size)[
-        "slots"] == fts.GROUP
-    assert fts.launch_shape(cap=100, k=7, elem_size=elem_size,
-                            slots=1)["slots"] == 1
-    assert (fts._tile_smem(fts.CHUNK_ROWS, fts.K_MAX, 1, 1) <= fts.SMEM_MAX
-            < fts._tile_smem(fts.CHUNK_ROWS, fts.K_MAX + 1, 1, 1))
-    assert fts.K_MAX >= 1024
-    for bad in (0, fts.K_MAX + 1):
-        with pytest.raises(ValueError, match=str(fts.K_MAX)):
-            fts.launch_shape(cap=19072, k=bad, elem_size=elem_size)
+def test_routed_items_route_strays_and_split_hot_clusters():
+    """Routes to no cluster (< 0 or >= c) form the last row, whose items
+    have cluster -1 (empty partials); a cluster holding more pairs than
+    the widest slot group takes ceil(load / 32) groups per chunk."""
+    c = 5
+    top_c = torch.full((40, 2), 3, dtype=torch.int32)
+    top_c[::4, 1] = -1
+    top_c[1::4, 1] = c
+    count, start, order = fts.routed_rows(top_c, c=c)
+    assert count.tolist() == [0, 0, 0, 60, 0, 20]
+    assert start.tolist() == [0, 0, 0, 0, 60, 60, 80]
+    assert order[:60].tolist() == [p for p in range(80)
+                                   if int(top_c.reshape(-1)[p]) == 3]
+    items = fts.routed_items(top_c, c=c, n_chunks=2)
+    assert [(cl, ch, len(p)) for cl, ch, p in items] == [
+        (3, 0, 32), (3, 0, 28), (3, 1, 32), (3, 1, 28),
+        (-1, 0, 20), (-1, 1, 20)]
+    groups, offsets = fts.cluster_major_items(
+        torch.tensor([[0, 1, 9, 9], [9, 9, 9, 9]]), n_total=9, n_chunks=3,
+        slots=fts.SLOT_MAX)
+    assert groups.tolist() == [1, 0] and offsets.tolist() == [0, 3, 3]
 
 
 def test_merge_list_cap_admits_full_fan_out():
     """The merge takes as many partial lists per output row as its list
     heads fit in shared memory: at least cr = c = 300 routes × 19 chunks
     of phase 3's full-width index."""
-    shape = fts.launch_shape(cap=19072, k=20, elem_size=1)
+    shape = fts.launch_shape(cap=19072, d=768, k=20, elem_size=1)
     cap_lists = shape["merge_lists_max"]
     assert cap_lists == fts.SMEM_MAX // (fts.MERGE_WARPS * 4)
     assert 300 * shape["n_chunks"] == 5700 <= cap_lists
-    fts._check_grid(1, 300 * shape["n_chunks"], 300 * 19072)
+    fts._check_grid(1, 300 * shape["n_chunks"], 300 * 19072, 300 * 19072)
     with pytest.raises(ValueError, match="merge"):
         fts._check_grid(1, cap_lists + 1, 1)
+    with pytest.raises(ValueError, match="31-bit"):
+        fts._check_grid(1, 1, 1, 2 ** 31)
+
+
+def _query_cases():
+    rng = np.random.default_rng(41)
+    return {"normal": rng.normal(size=(6, 768)),
+            "unit": rng.normal(size=(6, 768)) / np.sqrt(768),
+            "wide": rng.normal(size=(6, 768)) * 10.0 ** rng.integers(
+                -30, 30, (6, 768)),
+            "integers": rng.integers(-3, 4, (6, 768))}
+
+
+@pytest.mark.parametrize("case", ["normal", "unit", "wide", "integers"])
+def test_query_split_residual(case):
+    """q = q_hi + q_mid + q_lo + r with |r| <= 2^-24 |q| (each term the
+    rounded residue of the last, bf16 keeping 8 significant bits; f32 rows
+    are split alike); two terms leave at most 2^-16 |q|; small integers
+    are one term."""
+    q = torch.from_numpy(_query_cases()[case].astype(np.float32))
+    for n, bound in ((3, 2.0 ** -24), (2, 2.0 ** -16)):
+        terms = fts.split_terms(q, n)
+        assert all(t.dtype == torch.bfloat16 for t in terms)
+        total = sum(t.double() for t in terms)
+        r = (q.double() - total).abs()
+        assert (r <= bound * q.double().abs()).all()
+        # each term is the rounding of what the earlier ones left
+        left = q.double()
+        for t in terms:
+            assert torch.equal(t, left.float().to(torch.bfloat16))
+            left = left - t.double()
+    if case == "integers":
+        hi, mid, lo = fts.split_terms(q, 3)
+        assert torch.equal(hi.float(), q) and not mid.any() and not lo.any()
+
+
+@pytest.mark.parametrize("elem_size", list(ELEM_SIZES.values()),
+                         ids=list(ELEM_SIZES))
+def test_query_terms_follow_the_fragment_order(elem_size):
+    """``query_terms`` (the split kernel's output) holds each query's
+    terms in the products' k order, zero past d: read back through the
+    stage permutation they sum to q; for A in registers (f32, int8) the
+    four k of lane t in every k-step of a stage are E/4 contiguous
+    elements of the row, so a thread loads its A as two 16-byte pieces."""
+    q = torch.from_numpy(np.random.default_rng(43).normal(
+        size=(3, 80)).astype(np.float32))
+    terms = fts.query_terms(q, elem_size)
+    e = fts.stage_elems(elem_size)
+    kb = fts.b_blocks(80, elem_size)
+    assert terms.shape == (3, 3, 64 * kb) and terms.dtype == torch.bfloat16
+    perm = fts.stage_perm(elem_size)
+    assert sorted(perm.tolist()) == list(range(e))
+    li = torch.arange(64 * kb)
+    src = (li // e) * e + perm[li % e]
+    back = torch.zeros(3, 64 * kb, dtype=torch.float64)
+    back[:, src] = terms.double().sum(dim=1)
+    assert (back[:, 80:] == 0).all()
+    r = (q.double() - back[:, :80]).abs()
+    assert (r <= 2.0 ** -24 * q.double().abs()).all()
+    if elem_size == 2:
+        assert torch.equal(perm, torch.arange(e))
+        return
+    for t in range(4):
+        ks = [k for k in range(16) if (k % 8) // 2 == t]
+        got = sorted(int(perm[16 * s + k]) for s in range(e // 16)
+                     for k in ks)
+        assert got == list(range(e // 4 * t, e // 4 * (t + 1)))
+
+
+def _emulated_routed(q, q_loc, w, top_c, bufs, w_hat, *, k, scale):
+    """The routed scan by the kernel's arithmetic (scan_dots_plain for
+    the products, the plain spatial term and stable top-k)."""
+    from repro_torch.core import spatial as port_spatial
+    from repro_torch.core.index import topk_stable
+    b = q.shape[0]
+    tc = top_c.long()
+    emb = bufs["emb"][tc].reshape(b, -1, bufs["emb"].shape[-1])
+    loc = bufs["loc"][tc].reshape(b, -1, 2)
+    ids = bufs["ids"][tc].reshape(b, -1)
+    sc = None if scale is None else scale[tc].reshape(b, -1)
+    dots = fts.scan_dots_plain(q[:, None], emb, scale=sc)[:, 0]
+    srel = port_spatial.spatial_relevance_serve(
+        w_hat, port_spatial.s_in_from_locs(q_loc[:, None], loc, DIST_MAX))
+    st = w[:, 0:1] * dots + w[:, 1:2] * srel
+    st = torch.where(ids >= 0, st, torch.full_like(st, fts.NEG_INF))
+    scores, pos = topk_stable(st, k)
+    return scores, torch.gather(ids, 1, pos).to(torch.int32)
+
+
+@pytest.mark.parametrize("data", ["random", "integers"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_scan_products_match_plain_and_reference(precision, data):
+    """The engine scans' product order emulated on the CPU at d 768 (three
+    bf16 terms of q and of f32 rows, f32 sums, the int8 scale after the sum)
+    against ``routed_topk_plain`` and the reference's dense engine: scores
+    within 1e-4 + 1e-5·|s|, ids equal up to ties; on integer data (f32,
+    bf16) equal outright."""
+    exact = data == "integers" and precision != "int8"
+    bufs, q, q_loc, w, top_c, w_hat, _, _ = edge_case_np(
+        np.random.default_rng(44), precision, c=4, cap=96, d=768, b=8, cr=2,
+        edge=data == "integers", boundary=(31, 32, 63, 64))
+    scale = bufs["scale"] if precision == "int8" else None
+    got_s, got_i = _emulated_routed(q, q_loc, w, top_c, bufs, w_hat, k=K,
+                                    scale=scale)
+    want_s, want_i = fts.routed_topk_plain(
+        q, q_loc, w, top_c, bufs["emb"], bufs["loc"], bufs["ids"], w_hat,
+        k=K, dist_max=DIST_MAX, buf_scale=scale)
+    if exact:
+        assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+    assert_topk_match(got_i.numpy(), got_s.numpy(), want_i.numpy(),
+                      want_s.numpy(), atol=1e-4, rtol=1e-5)
+    emb = bufs["emb"]
+    ref_emb = (jnp.asarray(emb.float().numpy()).astype(jnp.bfloat16)
+               if precision == "bf16" else jnp.asarray(emb.numpy()))
+    ref_i, ref_s = ref_engine._routed_topk(
+        jnp.asarray(q.numpy()), jnp.asarray(q_loc.numpy()),
+        jnp.asarray(w.numpy()), jnp.asarray(top_c.numpy()), ref_emb,
+        jnp.asarray(bufs["loc"].numpy()), jnp.asarray(bufs["ids"].numpy()),
+        jnp.asarray(bufs["scale"].numpy()), jnp.asarray(w_hat.numpy()), k=K,
+        backend="dense", interpret=True, dist_max=DIST_MAX, block_n=32,
+        precision=precision)
+    assert_topk_match(got_i.numpy(), got_s.numpy(), np.asarray(ref_i),
+                      np.asarray(ref_s), atol=1e-4, rtol=1e-5)
 
 
 def gather_case_np(rng, precision, *, b, n, d, ties=(), dead=None):
@@ -484,6 +686,11 @@ CUDA_SHAPES = {
                    dead=(1024, 2048)),
     "d16": dict(c=5, cap=1500, d=16, b=24, k=20),
     "d1024": dict(c=4, cap=700, d=1024, b=20, k=24),
+    # 48 pairs on one cluster: more than the widest slot group (32)
+    "hot": dict(c=6, cap=2600, d=768, b=48, k=20, edge=True,
+                boundary=(63, 64, 1023, 1024), routes="hot"),
+    # every pair on two clusters (phase 6's trained routes, U = 2)
+    "two": dict(c=6, cap=1500, d=768, b=64, k=20, routes="two"),
 }
 
 
@@ -495,8 +702,10 @@ def test_cuda_kernels_match_plain(cuda_device, precision, filtered, shape):
     """Both kernels against their plain versions on the card: several row
     chunks with ties across their boundaries, 20 pairs on a cluster (two
     slot groups), all-padding chunks, k above a chunk's live rows, a
-    filter that passes fewer than k rows, d 16 and d 1024. Exact
-    (integer) cases must give equal ids, ties included."""
+    filter that passes fewer than k rows, d 16 and d 1024, a cluster
+    holding more pairs than the widest slot group and a batch whose pairs
+    all land on two clusters. Exact (integer) cases must give equal ids,
+    ties included."""
     cs = dict(CUDA_SHAPES[shape])
     k = cs.pop("k")
     case = edge_case_np(np.random.default_rng(7), precision, cr=2, **cs)
@@ -527,6 +736,19 @@ def test_cuda_kernels_match_plain(cuda_device, precision, filtered, shape):
                       want[0].cpu(), atol=1e-4, rtol=1e-5)
     if exact:
         assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_cuda_scan_smem_is_the_mirror(cuda_device):
+    """The built library's engine-scan layout (``fts_scan_smem``) equals
+    ``scan_smem``, the mirror the launch shapes above are checked on."""
+    lib = fts._lib()
+    for d in (16, 768, fts.D_MAX):
+        for k in (1, 20, 300, fts.K_MAX):
+            for elem in (1, 2, 4):
+                sh = fts.launch_shape(cap=19072, d=d, k=k, elem_size=elem)
+                assert lib.fts_scan_smem(d, k, elem, sh["slots"], sh["stages"],
+                                         sh["wgs"]) == sh["smem_bytes"]
 
 
 @pytest.mark.cuda
@@ -618,14 +840,16 @@ def test_cuda_gather_edge_shapes(cuda_device, precision):
 
 
 def edge_case_np(rng, precision, *, c, cap, d, b, cr, edge=False,
-                 boundary=(), dead=None, t=50):
+                 boundary=(), dead=None, t=50, routes=None):
     """Buffers and queries from numpy, as torch CPU tensors. ``edge``
     makes f32/bf16 data small integers at one location (exact, often tied
     scores); the rows at ``boundary`` of clusters 2.. are all 2s against
     non-negative queries (the top score, tied across chunk boundaries);
     cluster 0 is padding over rows ``dead`` and cluster 1 keeps 5 live
-    rows. Routes put b·cr/c pairs on each cluster. The filters include
-    one that passes a handful of rows. Returns ``(buffers, q, q_loc, w,
+    rows. Routes put b·cr/c pairs on each cluster; ``routes`` "hot" sends
+    every query's first route to cluster 2, "two" every pair to clusters
+    2 and 3 (cr 2). The filters include one that passes a handful of
+    rows. Returns ``(buffers, q, q_loc, w,
     top_c, w_hat, q_filt, exact)``."""
     exact = edge and precision != "int8"
     if exact:
@@ -656,6 +880,12 @@ def edge_case_np(rng, precision, *, c, cap, d, b, cr, edge=False,
     w = rng.uniform(0.2, 1.0, (b, 2)).astype(np.float32)
     top_c = np.stack([np.roll(np.arange(c), -(i % c))[:cr]
                       for i in range(b)]).astype(np.int32)
+    if routes == "hot":
+        top_c[:, 1] = np.where(top_c[:, 0] == 2, top_c[:, 1], top_c[:, 0])
+        top_c[:, 0] = 2
+        top_c[:, 1] = np.where(top_c[:, 1] == 2, 3, top_c[:, 1])
+    elif routes == "two":
+        top_c[:] = (2, 3)
     w_hat = np.cumsum(rng.uniform(size=t)).astype(np.float32)
     fvals, _ = ref_filters.compile_filters(_tight_specs(b), b)
     return (bufs, torch.from_numpy(q), torch.from_numpy(q_loc),
