@@ -12,8 +12,10 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    and print each build's time and ptxas register/spill lines;
    ``cuobjdump -sass`` of the flash library must show HGMMA (``wgmma``)
    in each bf16 and fp16 instantiation of the forward
-   (``flash_fwd_kernel``) and of the backward's two kernels, and no
-   ``flash_tc_kernel`` (the forward's old ``mma.sync`` body); that of the
+   (``flash_fwd_kernel``) and of the backward's two kernels, HGMMA and a
+   TMA load (UTMALDG) in each f32 forward (``flash_fwd_f32_kernel``, D
+   16–128), and no ``flash_tc_kernel`` (the forward's old ``mma.sync``
+   body) or ``flash_f32_kernel`` (its old CUDA-core f32 body); that of the
    scan library must show HGMMA and a TMA load (UTMALDG) in every
    instantiation of the engine scans' ``engine_scan_kernel`` (3 tiers ×
    filtered or not × 3 slot widths), and none of the earlier CUDA-core
@@ -64,6 +66,15 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    ``dlrm-mlperf`` widths (F 27, d 128; a 39,060-row table, bags of 16)
    for B 512 and 262,144. Each output is checked against the plain
    version, then kernel, plain version and one library call are timed.
+   Flash's bound takes its FLOPs at the bf16 peak in both dtypes (the f32
+   body's products run on ``wgmma`` in three bf16 terms); the f32 layer
+   also prints the CUDA cores' 67 TFLOP/s bound and the split's floor (12
+   products of 2·D flops a pair), and the f32 body must have launched.
+   The f32 body is then launched whole at ``FLASH_F32_FULL``'s shapes
+   (qwen2-7b 8 × 4,096, gemma3-27b's local layer 2 × 8,192, and qwen2-7b
+   1 × 5,000, whose last chunk of heads is partial), its output and lse
+   held against the plain version within ``FLASH_TOL``'s 2e-5 on the
+   first and the last sequence.
    Flash attention in bf16 and fp16 must also stay within one rounding of
    the plain version on the inputs widened to f32 (``FLASH_ONE_ROUNDING``),
    at every small shape and both main shapes; SDPA's distance under the
@@ -142,7 +153,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    ``wal.torn_tail`` and ``ckpt.mid_save`` (inside ``checkpoint``);
    ``api.recover(..., device="cuda")`` answers at cr = c on ``cuda-cm``
    bit-equal to a server that never crashed and applied the surviving
-   records. (f) 1,024 standing queries; 8 insert batches of 64 notify
+   records. (f) 256 standing queries; 8 insert batches of 64 notify
    the pairs a plain oracle on a CPU copy finds, scores within 1e-4.
    Every flush must launch one base scan plus one routed delta scan
    while the delta holds rows (``FlushProbe``); no breaker trips, no
@@ -153,7 +164,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    flags with 131,072 objects, 4,096 queries, c 16 (n / 10k), cr 2, int8,
    16,384 Zipf(1.05) requests closed loop at concurrency 64 and 32 churn
    rounds with the WAL (``CLI_ARGS``; the CLI's model is its own 4L / d 64),
-   its training cut from the CLI's default 300 + 600 steps to 100 + 200
+   its training cut from the CLI's default 300 + 600 steps to 50 + 100
    for the script's time (``CLI_TRAIN_ARGS``);
    then a restart on the same directories that loads the snapshot, replays
    the WAL and runs an open loop at half the first run's QPS. Build s,
@@ -178,8 +189,8 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
 9. The sharded query phase on phase 3's index (``SHARD_COUNTS``: 1, 2,
    4 and 8 LOGICAL shards on this one card, placed by an explicit device
    list; overhead, not scale-out). The launch counters are zeroed before
-   and read after the main path: 4,096 queries (batch 256, k 20, cr 2)
-   through ``Searcher.query`` on each placement of the int8 tier on
+   and read after the main path: 1,024 queries (``SHARD_QUERIES``, batch
+   256, k 20, cr 2) through ``Searcher.query`` on each placement of the int8 tier on
    ``cuda``, ``cuda-cm`` and ``auto`` and of the f32 tier at S 4 on
    ``cuda``, ids equal to the unsharded searchers' up to ties, beside
    their walls; per S the parts' bytes and the device memory added (the
@@ -191,8 +202,8 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    its host replica (bit-equal; the replica scan timed beside the device
    scan); ``mine_negatives_sharded`` and ``_dense`` on phase 6's 131,072
    objects against ``mine_negatives`` (up to ties), timed; ``--mesh 1``
-   through the command line at phase 8's flags (training cut to 30 + 30
-   steps), and a mesh wider than the host's cards refused. With no fault
+   through the command line at phase 8's flags (training cut to 10 + 10
+   steps, 1,024 requests), and a mesh wider than the host's cards refused. With no fault
    injected no as-served run may hedge a scan (the hedge floor: a device
    scan is hedged only when it took longer than a scan of the shard's host
    replica would, the part's bytes at the measured pinned-to-card copy
@@ -259,7 +270,8 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    ``FLASH_BWD_SMALL`` (causal, window, MHA and GQA up to 8 query heads a
    KV head, ragged S across several 128-row tiles, a window straddling
    tile boundaries, D 16 to 128), then stablelm-1.6b's layer (8 × 4,096, 32 / 32 heads, D 64) and
-   gemma3-27b's local layer (2 × 8,192, window 1,024) in bf16; the
+   gemma3-27b's local layer (2 × 8,192, window 1,024) in bf16 and
+   stablelm's again in f32 (its bound at the CUDA cores' 67 TFLOP/s); the
    forward's output bit-equal with and without lse; the kernel given lse
    + ``FLASH_BWD_FAULT`` must fail the gate; once through
    ``FlashAttentionFn`` under autograd; timed beside the bound, the plain
@@ -280,8 +292,9 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    dlrm-mlperf at full widths and B 65,536, tables capped at
    ``DLRM_TRAIN_MAX_ROWS``: one dot forward and backward launch a step,
    rows/s. (g) gatedgcn, xdeepfm, bert4rec and mind at full widths and
-   the recsys models at their train_batch of 65,536 (``OTHER_TRAIN``:
-   microbatches where memory needs them), moonshot at full widths with 2
+   the recsys models at their train_batch of 65,536 (bert4rec at 16,384,
+   cut for the script's time; ``OTHER_TRAIN``: microbatches where memory
+   needs them), moonshot at full widths with 2
    of 48 layers at 8 × 4,096, a few steps each. (e)–(g)
    run ``launch.train.main`` in process. The launches of (d)–(g) are the
    backward kernels' main-path counts (``train_launches`` on the forward
@@ -339,8 +352,9 @@ phase 10's and 11's paths and ``substrate_shapes``, and the two backward
 kernels with ``launches`` on phase 12's), then as its last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
 
-``--compare`` times, on trees that share its wrappers: the 16-bit flash
-forward at the model layers of phases 10–12 beside SDPA, the flash and
+``--compare`` times, on trees that share its wrappers: the flash forward
+at the model layers of phases 10–12 beside SDPA, in bf16 and (phase 4's
+qwen2-7b layer and three of them) in f32, the flash and
 dot backward kernels at phase 12's shapes, the gather scan on its full-width
 copies, the two engine scans on one chunk at four route skews and the
 int8 full fan-out, and the query wall of 4,096 queries against the int8
@@ -351,6 +365,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1230,6 +1245,57 @@ def one_rounding_excess(out, q, k, v, *, causal, window):
             / (rel * want.abs() + 1e-4)).max().item()
 
 
+# the f32 body at full width, launched whole with lse: phase 10's qwen2-7b
+# prompt (8 × 4,096; 8 chunks of 28 heads) and gemma3-27b's local layer
+# (2 × 8,192, window 1,024; 16 chunks of 4), and qwen2-7b at 1 × 5,000,
+# whose 28 heads go in chunks of 21 (the last one partial)
+FLASH_F32_FULL = {"qwen2-7b/8x4096": (8, 4096, 28, 4, 128, 0),
+                  "gemma3-27b-local/2x8192": (2, 8192, 32, 16, 128, 1024),
+                  "qwen2-7b/1x5000": (1, 5000, 28, 4, 128, 0)}
+
+
+def flash_f32_full_width(dev):
+    """The f32 body at ``FLASH_F32_FULL``'s shapes, causal, its output and
+    lse held against the plain version within ``FLASH_TOL`` (raises) on
+    the first and the last sequence (the launch's first and last chunk of
+    heads), a block of KV heads at a time with at most ``HELD_SCORES``
+    scores → ``{shape: record}``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    tol = FLASH_TOL["float32"]
+    out = {}
+    for name, (b, s, h, kv, d, w) in FLASH_F32_FULL.items():
+        q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev)
+                   for n in (h, kv, kv))
+        o, lse = fa._launch(q, k, v, True, w, True)
+        grp = h // kv
+        per = max(1, HELD_SCORES // (grp * s * s))
+        eo = el = 0.0
+        for i in sorted({0, b - 1}):
+            for j0 in range(0, kv, per):
+                j1 = min(kv, j0 + per)
+                hs = slice(j0 * grp, j1 * grp)
+                want, want_lse = fa.flash_attention_plain(
+                    q[i:i + 1, :, hs], k[i:i + 1, :, j0:j1],
+                    v[i:i + 1, :, j0:j1], causal=True, window=w,
+                    return_lse=True)
+                eo = max(eo, (o[i:i + 1, :, hs] - want).abs().max().item())
+                el = max(el, (lse[i:i + 1, hs] - want_lse).abs().max().item())
+                del want, want_lse
+        chunk = fa.forward_launch_shape(d, torch.float32).chunk(b, s, h, kv)
+        out[name] = dict(shape=[b, s, h, kv, d], window=w, chunk=chunk,
+                         max_abs_err=eo, lse_max_abs_err=el)
+        log(f"phase 4 flash f32 at full width {name} (chunks of {chunk} of "
+            f"{b * h} heads), sequences 0 and {b - 1} against the plain "
+            f"version: max |Δ| o {eo:.3g}, lse {el:.3g} (gate {tol})")
+        if not (eo < tol and el < tol):
+            raise AssertionError(f"flash f32 {name}: max |Δ| o {eo}, lse "
+                                 f"{el} >= {tol}")
+        del q, k, v, o, lse
+    return out
+
+
 def one_rounding_check(out, q, k, v, *, causal, window, what):
     x = one_rounding_excess(out, q, k, v, causal=causal, window=window)
     if not x <= 1.0:
@@ -1239,11 +1305,14 @@ def one_rounding_check(out, q, k, v, *, causal, window, what):
 
 
 def flash_sass_check(lib_path):
-    """→ {function: tensor-core instruction count} for the 16-bit flash
-    instantiations in the built library; raises unless each of the
-    forward's (``flash_fwd_kernel``) and the backward's two kernels' has
-    HGMMA (``wgmma``) instructions, or if the old ``mma.sync`` forward
-    (``flash_tc_kernel``) is still there."""
+    """→ {kernel/dtype: HGMMA counts per head dim} for the flash forward
+    and backward instantiations in the built library; raises unless each
+    16-bit instantiation of the forward (``flash_fwd_kernel``) and of the
+    backward's two kernels has HGMMA (``wgmma``) instructions, and each f32
+    forward (``flash_fwd_f32_kernel``, D 16–128) has both HGMMA and a TMA
+    load (UTMALDG); or if the old ``mma.sync`` forward
+    (``flash_tc_kernel``) or the CUDA-core f32 forward
+    (``flash_f32_kernel``) is still built."""
     import re
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1254,23 +1323,33 @@ def flash_sass_check(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = 0
+            counts[name] = [0, 0]
         elif name and re.search(r"\bHGMMA\b", line):
-            counts[name] += 1
-    old = [name for name in counts if "flash_tc_kernel" in name]
+            counts[name][0] += 1
+        elif name and re.search(r"\bUTMALDG\b", line):
+            counts[name][1] += 1
+    old = [name for name in counts
+           if "flash_tc_kernel" in name or "flash_f32_kernel" in name]
     if old:
-        raise AssertionError(f"the mma.sync forward is still built: {old}")
+        raise AssertionError(f"an earlier forward is still built: {old}")
     found = {}
     for tag, mangled in (("bfloat16", "13__nv_bfloat16"), ("float16", "6__half")):
         for kern in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                      "flash_bwd_dq_kernel"):
-            fns = {name: c for name, c in counts.items()
+            fns = {name: c[0] for name, c in counts.items()
                    if kern in name and mangled in name}
             if len(fns) != 4 or min(fns.values()) == 0:
                 raise AssertionError(f"flash {kern} {tag}: HGMMA per "
                                      f"instantiation {fns}; want them in "
                                      f"all four head dims")
             found[f"{kern}/{tag}"] = sorted(fns.values())
+    fns = {name: tuple(c) for name, c in counts.items()
+           if "flash_fwd_f32_kernel" in name}
+    if len(fns) != 4 or min(min(c) for c in fns.values()) == 0:
+        raise AssertionError(f"flash_fwd_f32_kernel (HGMMA, UTMALDG) per "
+                             f"instantiation {fns}; want both in all four "
+                             f"head dims")
+    found["flash_fwd_f32_kernel/float32"] = sorted(fns.values())
     return found
 
 
@@ -1641,8 +1720,8 @@ def phase4(dev, ctx):
     torch.cuda.synchronize()
     counts = kops.launch_counts()
     log(f"phase 4 main path: launches {counts}")
-    for name in ("gather", "flash_attention", "dot_interaction",
-                 "embedding_bag"):
+    for name in ("gather", "flash_attention", "flash_attention_f32",
+                 "dot_interaction", "embedding_bag"):
         if counts[name] == 0:
             raise AssertionError(f"kernel {name} not launched on the main path")
     for key, o in out.items():
@@ -1728,21 +1807,38 @@ def phase4(dev, ctx):
         del lib_out
         pairs = int(mask.sum()) * c["h"]
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        peak = BF16_FLOPS_PER_S if dt == "bfloat16" else F32_FLOPS_PER_S
-        rec.update(roof(nbytes, 4 * c["d"] * pairs, peak),
+        # both bodies' products run on wgmma: the bound at the bf16 peak
+        rec.update(roof(nbytes, 4 * c["d"] * pairs, BF16_FLOPS_PER_S),
                    library_err=lib_err)
+        if dt == "float32":
+            # beside it the CUDA cores' bound the earlier f32 body was read
+            # against, and the floor of the three-term split: 12 products
+            # of 2·D flops a pair at the wgmma rate
+            rec["bound_cuda_core_ms"] = roof(
+                nbytes, 4 * c["d"] * pairs, F32_FLOPS_PER_S)["bound_ms"]
+            rec["split_floor_ms"] = 24 * c["d"] * pairs / BF16_FLOPS_PER_S \
+                * 1e3
         fk[f"{name}/{dt}"] = rec
+        f32_bounds = (f"; at 67 TFLOP/s {rec['bound_cuda_core_ms']:.4f} ms,"
+                      f" the split's floor {rec['split_floor_ms']:.4f} ms"
+                      if dt == "float32" else "")
         log(f"phase 4 flash {name} {dt}: {rec['ms']:.3f} ms vs plain "
             f"{rec['plain_ms']:.3f} ms, SDPA {rec['library_ms']:.3f} ms "
             f"(|Δ| {lib_err:.3g}); bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}, {rec['flops'] / 1e9:.2f} GFLOP); max|err| "
+            f"({rec['bound_by']}, {rec['flops'] / 1e9:.2f} GFLOP{f32_bounds});"
+            f" max|err| "
             f"{e:.3g}; |err| / one-rounding bound: kernel "
             f"{rec.get('one_rounding', 'n/a')}, SDPA "
             f"{rec.get('library_one_rounding', 'n/a')}")
         del qt, kt, vt, mask
-    err["flash_attention"] = max(err["flash_attention"],
-                                 *(r["err"] for r in fk.values()))
-    rep["flash_attention"] = dict(main="qwen2-7b/bfloat16", shapes=fk)
+    f32_full = flash_f32_full_width(dev)
+    err["flash_attention"] = max(
+        err["flash_attention"], *(r["err"] for r in fk.values()),
+        *(max(r["max_abs_err"], r["lse_max_abs_err"])
+          for r in f32_full.values()))
+    rep["flash_attention"] = dict(
+        main="qwen2-7b/bfloat16", shapes=fk,
+        f32_launches=counts["flash_attention_f32"], f32_full_width=f32_full)
 
     # ---- dot interaction and embedding bag ------------------------------------
     dk, ek = {}, {}
@@ -2701,7 +2797,8 @@ CHURN_INSERT, CHURN_DELETE, CHURN_QUERIES = 64, 16, 128
 CHURN_ID0 = 10_000_000           # ids of the inserted rows
 CRASH_POINTS = ("write.pre_publish", "write.post_publish", "wal.torn_tail",
                 "ckpt.mid_save")
-N_SUBS = 1024                    # standing queries on the int8 server
+N_SUBS = 256                     # standing queries on the int8 server
+                                 # (1,024 registered in 22 s: cut for time)
 SUB_BATCHES = 8                  # insert batches of 64 dispatched to them
 SUB_ID0 = 20_000_000
 SUB_TOL = 1e-4                   # card against the CPU oracle
@@ -3457,7 +3554,7 @@ CLI_ARGS = ["--objects", "131072", "--queries", "4096", "--clusters", "16",
             "--concurrency", "64"]
 # phase 8 (a) cuts the CLI's training from its defaults (300 + 600 steps)
 # for the script's time
-CLI_TRAIN_ARGS = ["--train-steps", "100", "--index-steps", "200"]
+CLI_TRAIN_ARGS = ["--train-steps", "50", "--index-steps", "100"]
 CLI_REQUESTS = 16_384            # the closed-loop run, with churn
 CLI_CHURN = 32
 CLI_OPEN_RATE = 0.5              # of the first run's QPS
@@ -3968,7 +4065,8 @@ def phase8(dev, wctx, retriever, trained_corpus):
 
 SHARD_COUNTS = (1, 2, 4, 8)
 SHARD_BACKENDS = ("cuda", "cuda-cm", "auto")
-SHARD_QUERIES = 4096             # per run, at every shard count
+SHARD_QUERIES = 1024             # per run, at every shard count (cut
+                                 # from 4,096 for the script's time)
 SHARD_K, SHARD_CR, SHARD_BATCH = 20, 2, 256
 P9_PLAIN_SUB = 32                # queries per slice of a shard's plain scan
 FAULT_S = 4                      # the lost-shard, recovery and hedging runs
@@ -3976,8 +4074,8 @@ LOST_SHARD, SLOW_SHARD = 1, 2
 SLOW_SLEEP_S = 0.25              # the straggler's delay per device scan
 N_MINE_Q = 256                   # phase 6's training queries mined
 MINE_SHARDS = 8                  # mine_negatives_sharded's corpus blocks
-CLI_MESH_ARGS = CLI_ARGS + ["--train-steps", "30", "--index-steps", "30",
-                            "--requests", "4096", "--mode", "closed",
+CLI_MESH_ARGS = CLI_ARGS + ["--train-steps", "10", "--index-steps", "10",
+                            "--requests", "1024", "--mode", "closed",
                             "--mesh", "1"]
 
 
@@ -4362,7 +4460,7 @@ def p9_mining(dev, retriever, trained_corpus):
 
 def p9_cli(dev, tmp):
     """``--mesh 1`` through the command line at phase 8's flags (training
-    cut to 30 + 30 steps): the mesh line printed, the quality queries'
+    cut to 10 + 10 steps, 1,024 requests): the mesh line printed, the quality queries'
     ids equal to an unsharded searcher's over the same snapshot; and on
     this host a mesh wider than its cards raises."""
     import os
@@ -4798,13 +4896,16 @@ def decode_check(model, toks, gen, what):
     decode attention) and those roundings grow over the layers, so the
     served run is held to ``DECODE_BF16_GATE`` instead (``decode_gate``)."""
     import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import transformer as tf
     cfg = dataclasses.replace(model.cfg, compute_dtype="float32")
     twin = tf.LM(cfg, model.embed.data, list(model.blocks), model.final_norm,
                  None if model.unembed is None else model.unembed.data)
     b, p = toks.shape
     steps = gen.shape[1]
+    fa.launches["flash_attention_f32"] = 0
     logits, cache = tf.lm_prefill(twin, toks, max_len=p + steps)
+    f32_launches = fa.launches["flash_attention_f32"]
     for i in range(steps):
         logits, cache = tf.lm_decode_step(
             twin, cache, gen[:, i:i + 1],
@@ -4816,6 +4917,7 @@ def decode_check(model, toks, gen, what):
                              f"logits are not finite")
     rec["faults"] = decode_faults(twin, toks, gen, want, p + steps)
     decode_gate(rec, rec["faults"], f"{what} f32 twin", DECODE_F32_GATE)
+    rec["f32_flash_launches"] = f32_launches
     return rec
 
 
@@ -4830,7 +4932,7 @@ def lm_prefill_held(model, toks, max_len, first, what):
     from repro_torch.models import transformer as tf
     cfg = model.cfg
     b, s = toks.shape
-    fa.launches["flash_attention"] = 0
+    fa.launches["flash_attention"] = fa.launches["flash_attention_f32"] = 0
     with FlashTap(first.values()) as tap:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4848,6 +4950,7 @@ def lm_prefill_held(model, toks, max_len, first, what):
             for kind, i in first.items()}
     rec = dict(batch=b, seq=s, cache_len=max_len, wall_ms=wall * 1e3,
                tokens_per_s=b * s / wall, flash_launches=n_launch,
+               f32_flash_launches=fa.launches["flash_attention_f32"],
                held_one_rounding=held,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"{what} (B {b} × S {s}, cache {max_len}): {wall * 1e3:.1f} ms, "
@@ -6025,6 +6128,8 @@ def phase11(dev):
                           ogb_products=p11_ogb(dev, cfg),
                           molecule=p11_molecule(dev, cfg))
     rec["adafactor"] = p11_adafactor(dev)
+    rec["f32_flash_launches"] = sum(r["prefill"]["f32_flash_launches"]
+                                    for r in rec["lm"].values())
     rec["peak_gb"] = max([r["peak_gb"] for r in rec["lm"].values()]
                          + [r["peak_gb"] for r in rec["gnn"].values()])
     return rec
@@ -6061,11 +6166,14 @@ FLASH_BWD_SMALL = [(2, 100, 4, 4, 64, True, 0), (1, 77, 4, 2, 64, True, 0),
                    (1, 333, 4, 2, 32, True, 0), (1, 300, 4, 4, 16, False, 0),
                    (1, 257, 4, 2, 32, False, 40)]
 # stablelm-1.6b's layer at the trainer's 8 × 4,096 and gemma3-27b's local
-# layer at 2 × 8,192 (window 1,024), bf16
+# layer at 2 × 8,192 (window 1,024), bf16; stablelm's again in f32 (the
+# CUDA-core backward, read at the 67 TFLOP/s f32 peak)
 FLASH_BWD_MAIN = {"stablelm-1.6b": dict(b=8, s=4096, h=32, kv=32, d=64,
                                         window=0),
                   "gemma3-27b-local": dict(b=2, s=8192, h=32, kv=16, d=128,
-                                           window=1024)}
+                                           window=1024),
+                  "stablelm-1.6b/f32": dict(b=8, s=4096, h=32, kv=32, d=64,
+                                            window=0, dtype="float32")}
 BWD_PLAIN_SCORES = 1 << 27       # f32 scores per block of the plain backward
 DOT_BWD = dict(b=65_536, f=27, d=128)   # dlrm-mlperf's train_batch, f32
 # (c): every family's reduced config, its gradients on the card against the
@@ -6099,8 +6207,10 @@ DLRM_TRAIN_ARGS = ["--arch", "dlrm-mlperf", "--full", "--batch", "65536",
 # The recsys models at their train_batch (65,536 rows), in as many
 # microbatches as the card needs: xdeepfm's CIN outer products take 20 GB
 # a layer at 65,536 rows; bert4rec's softmax over 1,000,002 items takes
-# 80 MB a row, so 512 microbatches of 128 rows, one step (33.9 s on an
-# NVIDIA H100 80GB HBM3 at 700 W, its first step as long as its second);
+# 80 MB a row, so microbatches of 128 rows, one step, and 16,384 rows of
+# the 65,536 (128 microbatches): at 65,536 its step took 33.9–34.7 s on an
+# NVIDIA H100 80GB HBM3 at 700 W, its first step as long as its second,
+# and the script sits near its time limit;
 # mind's in-batch softmax is (B, B), 17 GB, and would change with
 # microbatches, so one. moonshot with MOE_TRAIN_LAYERS of its 48 layers at
 # the 4,096-token training sequence, as (d), in 4 microbatches. gatedgcn
@@ -6110,7 +6220,7 @@ OTHER_STEPS = 4
 OTHER_TRAIN = {
     "gatedgcn": [],
     "xdeepfm": ["--batch", "65536", "--microbatch", "4"],
-    "bert4rec": ["--batch", "65536", "--microbatch", "512", "--steps", "1"],
+    "bert4rec": ["--batch", "16384", "--microbatch", "128", "--steps", "1"],
     "mind": ["--batch", "65536"],
     "moonshot-v1-16b-a3b": ["--batch", "8", "--seq-len", "4096",
                             "--microbatch", "4"]}
@@ -6210,8 +6320,9 @@ def sdpa_backward_ms(q, k, v, do, kw):
 def p12_flash(dev):
     """(a) The flash backward kernel against its plain version: the small
     shapes in f32 / bf16 / fp16 (and once through ``FlashAttentionFn``
-    under autograd), then stablelm's and gemma3's local layer in bf16,
-    timed beside its bound, the plain version and SDPA."""
+    under autograd), then stablelm's and gemma3's local layer in bf16 and
+    stablelm's in f32, timed beside its bound, the plain version and
+    SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -6254,6 +6365,7 @@ def p12_flash(dev):
         r, (o, lse) = flash_bwd_gate(q, k, v, do, kw, name)
         r["shape"] = [b, s, h, kv, d]
         r["window"] = w
+        r["dtype"] = dt = c.get("dtype", "bfloat16")
         r["ms"] = flash_bwd_ms(q, k, v, o, lse, do, kw)
         r["forward_lse_ms"] = time_ms(lambda: fa._launch(
             q, k, v, True, w, True), reps=3)
@@ -6266,11 +6378,14 @@ def p12_flash(dev):
         pairs = causal_pairs(s, w) * h * b
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
             + lse.numel() * 4
-        # 5 products of 2·d flops per unmasked pair: S again, dP, dV, dK, dQ
-        r.update(roof(nbytes, 10 * d * pairs, BF16_FLOPS_PER_S))
+        # 5 products of 2·d flops per unmasked pair: S again, dP, dV, dK,
+        # dQ; on wgmma in 16 bits, on the CUDA cores in f32
+        r.update(roof(nbytes, 10 * d * pairs, F32_FLOPS_PER_S
+                      if dt == "float32" else BF16_FLOPS_PER_S))
         r["x_bound"] = r["ms"] / r["bound_ms"]
         rec["main"][name] = r
-        record(f"phase 12 (a) flash backward {name} {b}×{s} H {h}/{kv} D {d}"
+        record(f"phase 12 (a) flash backward {name} {dt} {b}×{s} H {h}/{kv} "
+               f"D {d}"
                f" w {w}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f}, "
                f"×{r['x_bound']:.1f}; plain {r['plain_ms']:.1f}, SDPA "
                f"backward {r['library_ms']:.3f}); excess "
@@ -6284,12 +6399,13 @@ def p12_flash(dev):
 
 
 def flash_bwd_main_inputs(g, dev, c):
-    """q, k, v, dO in bf16 from ``g`` and the mask's keywords of one
-    ``FLASH_BWD_MAIN`` shape."""
+    """q, k, v, dO in the shape's dtype (bf16 unless it names one) from
+    ``g`` and the mask's keywords of one ``FLASH_BWD_MAIN`` shape."""
     import torch
     b, s, h, kv, d = (c[x] for x in ("b", "s", "h", "kv", "d"))
+    dtype = getattr(torch, c.get("dtype", "bfloat16"))
     q, k, v, do = (torch.randn(b, s, n, d, generator=g, device=dev,
-                               dtype=torch.bfloat16) for n in (h, kv, kv, h))
+                               dtype=dtype) for n in (h, kv, kv, h))
     return q, k, v, do, dict(causal=True, window=c["window"])
 
 
@@ -6435,7 +6551,8 @@ def p12_grads(dev):
             raise AssertionError(f"phase 12 (c) {arch}: launches {launches},"
                                  f" want {want}")
         rec[arch] = dict(loss=gl, leaves=len(gg), worst_over_tol=worst,
-                         launches={k: launches[k] for k in want})
+                         launches={k: launches[k] for k in want},
+                         f32_flash_launches=launches["flash_attention_f32"])
     record(f"phase 12 (c) gradients on the card = the CPU's for "
            f"{len(rec)} families, every leaf nonzero: " + ", ".join(
                f"{a} {r['leaves']} leaves ×{r['worst_over_tol']:.2f}"
@@ -7428,7 +7545,8 @@ def p14_work(p3, p4, p12, shapes):
         rows.append((f"flash_attention_backward (phase 12, {key})",
                      fa.backward_work(b, s, h, kv, dh, causal=True,
                                       window=rec["window"],
-                                      dtype=torch.bfloat16), rec))
+                                      dtype=getattr(torch, rec["dtype"])),
+                     rec))
     b, f, dd = p12["dot"]["shape"]
     rows.append(("dot_interaction_backward (phase 12)",
                  di.backward_work(b, f, dd), p12["dot"]))
@@ -7488,7 +7606,7 @@ def phase14(dev, p3, p4, p12, p13, shapes):
     return rec
 
 
-# --compare's 16-bit forward shapes (PERF.md §6 row 4), bf16, causal:
+# --compare's forward shapes (PERF.md §6 row 4), bf16, causal:
 # (b, s, h, kv, d, window, with_lse) of phase 10's qwen2-7b and gemma3-27b
 # layers, phase 11's moonshot and kimi layers and phase 12's stablelm-1.6b
 # forward (the trainer's, writing lse)
@@ -7499,6 +7617,13 @@ FWD_COMPARE = {"qwen2-7b/1x32768": (1, 32_768, 28, 4, 128, 0, False),
                "moonshot-v1-16b-a3b/8x4096": (8, 4096, 16, 16, 128, 0, False),
                "kimi-k2-1t-a32b/2x4096": (2, 4096, 64, 8, 128, 0, False),
                "stablelm-1.6b/8x4096/lse": (8, 4096, 32, 32, 64, 0, True)}
+# and the f32 body's: phase 4's qwen2-7b layer and three of the above, f32
+FWD_COMPARE_F32 = {"qwen2-7b/1x2048": (1, 2048, 28, 4, 128, 0, False),
+                   "qwen2-7b/8x4096": FWD_COMPARE["qwen2-7b/8x4096"],
+                   "gemma3-27b-local/2x8192":
+                       FWD_COMPARE["gemma3-27b-local/2x8192"],
+                   "stablelm-1.6b/8x4096/lse":
+                       FWD_COMPARE["stablelm-1.6b/8x4096/lse"]}
 
 
 # --compare's route skews of the engine scans (``two``: the stand-in for
@@ -7508,8 +7633,9 @@ COMPARE_SKEWS = ("router", "uniform", "zipf1.05", "two")
 
 def compare(dev):
     """``--compare``: timings only, for two trees compared in turns on one
-    card (parent / change / change / parent). The 16-bit flash forward at
-    ``FWD_COMPARE``'s shapes beside SDPA (``forward_turns``), the backward
+    card (parent / change / change / parent). The flash forward at
+    ``FWD_COMPARE``'s and ``FWD_COMPARE_F32``'s shapes beside SDPA
+    (``forward_turns``), the backward
     kernels at phase 12's shapes (``backward_turns``), then the scans
     (``scan_turns``): the gather scan on its full-width copies, the routed
     and cluster-major kernels on one 256-query chunk at ``COMPARE_SKEWS``,
@@ -7522,22 +7648,26 @@ def compare(dev):
 
 
 def forward_turns(dev, turns=2, reps=10):
-    """For ``--compare``: the 16-bit flash forward at ``FWD_COMPARE``'s
-    shapes on seeded bf16 inputs, timed ``turns`` times each (CUDA events
-    over ``reps`` launches), each turn beside SDPA on the same inputs (K/V
-    expanded to the query heads outside the timing, the window's mask
-    where there is one), with the bound of ``flash_attention.work``. It
-    calls only ``ops.flash_attention`` and ``flash_attention._launch`` with
-    lse, which older trees share."""
+    """For ``--compare``: the flash forward at ``FWD_COMPARE``'s shapes on
+    seeded bf16 inputs and at ``FWD_COMPARE_F32``'s on f32 ones, timed
+    ``turns`` times each (CUDA events over ``reps`` launches), each turn
+    beside SDPA on the same inputs (K/V expanded to the query heads outside
+    the timing, the window's mask where there is one), with the bound of
+    ``flash_attention.work`` at the bf16 peak (both bodies run on
+    ``wgmma``). It calls only ``ops.flash_attention`` and
+    ``flash_attention._launch`` with lse, which older trees share."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops as kops
     g = torch.Generator(device=dev).manual_seed(SEED + 13)
     out = {}
-    for name, (b, s, h, kv, d, w, with_lse) in FWD_COMPARE.items():
+    shapes = [(name, torch.bfloat16, c) for name, c in FWD_COMPARE.items()]
+    shapes += [(f"f32/{name}", torch.float32, c)
+               for name, c in FWD_COMPARE_F32.items()]
+    for name, dtype, (b, s, h, kv, d, w, with_lse) in shapes:
         q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev,
-                               dtype=torch.bfloat16) for n in (h, kv, kv))
+                               dtype=dtype) for n in (h, kv, kv))
         if with_lse:
             run = lambda: fa._launch(q, k, v, True, w, True)  # noqa: E731
         else:
@@ -7556,8 +7686,12 @@ def forward_turns(dev, turns=2, reps=10):
             rec["ms"].append(time_ms(run, reps=reps))
             rec["library_ms"].append(time_ms(lib, reps=reps))
         flops, nbytes = fa.work(b, s, h, kv, d, causal=True, window=w,
-                                dtype=torch.bfloat16, with_lse=with_lse)
+                                dtype=dtype, with_lse=with_lse)
         rec.update(roof(nbytes, flops, BF16_FLOPS_PER_S))
+        if dtype == torch.float32:   # as phase 4 prints them
+            rec["bound_cuda_core_ms"] = roof(nbytes, flops,
+                                             F32_FLOPS_PER_S)["bound_ms"]
+            rec["split_floor_ms"] = 6 * flops / BF16_FLOPS_PER_S * 1e3
         rec["x_bound"] = min(rec["ms"]) / rec["bound_ms"]
         rec["x_library"] = min(rec["ms"]) / min(rec["library_ms"])
         out[name] = rec
@@ -7723,7 +7857,8 @@ def backward_rows(p12):
     main_f = flash["stablelm-1.6b"]
     fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
               "x_bound", "shape", "window", "excess", "fault_excess",
-              "library_fwd_ms", "library_fwd_bwd_ms", "forward_lse_ms")
+              "library_fwd_ms", "library_fwd_bwd_ms", "forward_lse_ms",
+              "dtype")
     dot = p12["dot"]
     return [
         {"name": "flash_attention_backward", "route": "cuda",
@@ -7788,15 +7923,19 @@ def main() -> int:
         f"side by side in {time.perf_counter() - t0:.1f} s with loading")
     for name, info in infos.items():
         log(f"phase 0: {name} nvcc {info['seconds']:.1f} s -> {info['path']}")
+        entry = "?"
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {entry}:", line.strip())
     if compare_only:
         log(json.dumps({"card": card, "compare": compare(dev)}))
         return 0
     sass = flash_sass_check(infos["flash_attention"]["path"])
-    log(f"phase 0: flash_attention SASS, tensor-core instructions per "
-        f"16-bit instantiation (D 16..128): {sass}")
+    log(f"phase 0: flash_attention SASS, HGMMA per 16-bit instantiation "
+        f"and (HGMMA, UTMALDG) per f32 forward (D 16..128): {sass}")
     sass = scan_sass_check(infos["fused_topk_score"]["path"])
     log(f"phase 0: fused_topk_score SASS, (HGMMA, UTMALDG) per "
         f"engine_scan_kernel instantiation: {sass}")
@@ -7960,11 +8099,24 @@ def main() -> int:
                                       "routed_bit_equal", "err", "x_bound",
                                       "one_rounding", "library_one_rounding",
                                       "library_over_kernel", "l2_bound_ms",
+                                      "bound_cuda_core_ms", "split_floor_ms",
                                       "l2_rates", "l2_rate_by",
                                       "share_of_bound")}
                        for key, rec in r["shapes"].items()}}
         if "library_note" in r:
             entry["library_note"] = r["library_note"]
+        if name == "flash_attention":
+            # the f32 body's own launches on each phase's path, and its
+            # full-width launches against the plain version
+            entry["f32_launches"] = {
+                "phase 4": r["f32_launches"],
+                "phase 10 decode checks": sum(
+                    rec["decode_vs_prefill"]["f32_flash_launches"]
+                    for rec in p10["lm"].values()),
+                "phase 11": p11["f32_flash_launches"],
+                "phase 12 (c)": sum(g["f32_flash_launches"]
+                                    for g in p12["grads"].values())}
+            entry["f32_full_width"] = r["f32_full_width"]
         if name != "gather":
             entry.update(substrate_row(name, p10, p11))
             entry["bench_launches"] = p4["launches"][name]

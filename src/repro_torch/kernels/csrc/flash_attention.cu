@@ -12,7 +12,7 @@
 // contiguous range.
 //
 // What bounds it on an H100: operations, 4·D flops per unmasked (q, k) pair
-// per head against a few bytes per pair. Two forward bodies:
+// per head against a few bytes per pair. Two forward bodies, both on wgmma:
 //
 // * bf16 / fp16 (flash_fwd_kernel): Hopper's TMA, mbarriers and wgmma, warp
 //   specialised. A block owns 128 query rows of one head: warpgroup 0 loads
@@ -51,13 +51,39 @@
 //   read from HBM about once: 132 blocks of as many heads evicted them from
 //   the 50 MB L2 and made a multi-head layer re-read them (moonshot, 16 KV
 //   heads: −15% on an H100).
-// * f32 (flash_f32_kernel): f32 FMAs on the CUDA cores (67 TFLOP/s peak):
-//   TF32 tensor cores would break the 2e-5 contract, and wgmma has no full
-//   f32 input. A block owns 64 query rows and walks the 64-key tiles; Q
-//   (pre-scaled, as the reference scales q) and Kᵀ are staged transposed so
-//   a thread reads 4 query rows and 4 keys as two float4 per step of d and
-//   keeps a 4×4 score tile; P goes back to shared memory in Kᵀ's place; each
-//   thread accumulates 4 rows × D/16 output columns.
+// * f32 (flash_fwd_f32_kernel): the same machinery, with every f32 operand
+//   carried as three bf16 terms, x = x_hi + x_mid + x_lo (each the rounded
+//   residue of the last; fused_topk_score.cu's split), so the products run
+//   on wgmma at the bf16 rate and stay exact in f32. bf16 and not TF32:
+//   wgmma reads an MN-major (transposed) B, as P·V needs V, only in 16 bits,
+//   and 3×TF32 keeps fewer bits. S = Q·Kᵀ and O += P·V each sum six
+//   products: hi·hi, hi·mid, mid·hi, hi·lo, lo·hi, mid·mid (prod_a /
+//   prod_b). What the other three add is below an f32 rounding: with the
+//   six the emulation in tests/test_torch_ops.py stays within 2e-6 of the
+//   attention in f64, and dropping any one of the 2^-16 products costs
+//   over 5× that, in the 2e-5 contract's range. The emulation sums in f32
+//   to nearest, so it bounds the split and the products only: on an H100
+//   (probes/flash_f32_gates.py, "isolate") the body's error against f64
+//   attention is the plain version's with one key tile and grows with
+//   the tiles, and with V = 1 (O = Σ P's terms × 1, exact but for the
+//   sums) o falls short of 1 by 1.3e-6 on average at S 2,048 (9e-8 at S
+//   64): wgmma's own f32 accumulation, not the products kept, makes most
+//   of the 3e-6–6e-6 it reads against the plain version. So 12 products
+//   of 2·D flops a pair where the bound counts 4·D: the floor is 6× the
+//   bound at the wgmma rate. Shared memory decides the rest: three terms of
+//   a 128-key K and V tile take 192 KB a stage at D 128, so
+//   (a) one small pass (flash_split3_kernel) writes K and V as rows of
+//       three terms (3·D bf16), which TMA loads as three 16-bit tiles;
+//   (b) the key tile is 64, a stage K's and V's three terms (96 KB at D
+//       128: 2 stages; 4 below);
+//   (c) Q·scale (pre-scaled, as the reference scales q) is read once and
+//       split into its terms in registers, wgmma's A operand (96 registers
+//       at D 128); P is split in registers as the 16-bit body splits it.
+//   With Q's registers a warpgroup cannot hold S(j) and P(j−1) at once, so
+//   it runs S, softmax, P·V in turn and the other warpgroup's products run
+//   under its softmax (no ping-pong barriers). The softmax is the 16-bit
+//   body's, with p = 2^((s − m)·log2 e) (the difference first: exact where
+//   it matters) on pre-scaled scores.
 //
 // The backward (flash_attention_backward) replaces no Pallas kernel: the
 // reference differentiates its jnp path. From the forward's o and row lse it
@@ -103,7 +129,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// Helpers of the 16-bit kernels
+// Helpers of the wgmma kernels
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -139,170 +165,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // keys per tile
-constexpr int kThreads = 256;          // 16 × 16 threads: ty owns 4 rows, tx 4 keys
-constexpr int PAD = BQ + 4;            // row stride of Qᵀ, Kᵀ and Pᵀ (floats)
-
-// reduce over the 16 threads of a half-warp (lanes that share ty)
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int D>
-constexpr size_t f32_smem_bytes() {
-  return (size_t(D) * PAD + size_t(D > BK ? D : BK) * PAD + size_t(BK) * (D + 4)) * 4;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int S,
-                 int H, int KV, int causal, int window, float scale) {
-  constexpr int VSTR = D + 4;          // row stride of V (floats)
-  constexpr int CPT = D / 16;          // output columns per thread
-  extern __shared__ __align__(16) float sm[];
-  float* qt = sm;                                  // [D][PAD]  Qᵀ·scale
-  float* kt = qt + D * PAD;                        // [max(D, BK)][PAD]  Kᵀ, then Pᵀ
-  float* vs = kt + (D > BK ? D : BK) * PAD;        // [BK][VSTR]  V
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int kvh = h / (H / KV);
-  const size_t q_stride = size_t(H) * D, kv_stride = size_t(KV) * D;
-  const float* qb = q + (size_t(b) * S * H + h) * D;
-  const float* kb = k + (size_t(b) * S * KV + kvh) * D;
-  const float* vb = v + (size_t(b) * S * KV + kvh) * D;
-
-  for (int e = tid; e < BQ * D; e += kThreads) {
-    const int r = e / D, c = e % D, s = q0 + r;
-    qt[c * PAD + r] = s < S ? __fmul_rn(qb[size_t(s) * q_stride + c], scale) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.f;
-  }
-
-  const int n_tiles = (S + BK - 1) / BK;
-  for (int kt_i = 0; kt_i < n_tiles; ++kt_i) {
-    const int k0 = kt_i * BK;
-    if (causal && k0 > q0 + BQ - 1) break;                 // this and later tiles dead
-    if (window > 0 && q0 - (k0 + BK - 1) >= window) continue;
-    __syncthreads();                   // the last tile's readers of Pᵀ and V are done
-    for (int e = tid; e < BK * D; e += kThreads) {
-      const int r = e / D, c = e % D, s = k0 + r;
-      float kv_k = 0.f, kv_v = 0.f;
-      if (s < S) {
-        kv_k = kb[size_t(s) * kv_stride + c];
-        kv_v = vb[size_t(s) * kv_stride + c];
-      }
-      kt[c * PAD + r] = kv_k;
-      vs[r * VSTR + c] = kv_v;
-    }
-    __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + c * PAD + ty * 4);
-      const float4 bb = *reinterpret_cast<const float4*>(kt + c * PAD + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(av[i], bv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pq = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int pk = k0 + tx * 4 + j;
-        bool ok = pk < S;
-        if (causal) ok = ok && pq >= pk;
-        if (window > 0) ok = ok && pq - pk < window;
-        sc[i][j] = ok ? sc[i][j] : kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = expf(sc[i][j] - m_new);
-        sum += sc[i][j];
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + half_sum(sum);
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) acc[i][cc] *= corr;
-      m[i] = m_new;
-    }
-
-    __syncthreads();                   // every thread is done reading Kᵀ: Pᵀ takes its place
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(kt + (tx * 4 + j) * PAD + ty * 4) =
-          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float4 pp = *reinterpret_cast<const float4*>(kt + j * PAD + ty * 4);
-      const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
-      float vv[CPT];
-      if constexpr (CPT % 4 == 0) {
-#pragma unroll
-        for (int c4 = 0; c4 < CPT / 4; ++c4) {
-          const float4 x = *reinterpret_cast<const float4*>(vs + j * VSTR + tx * CPT + 4 * c4);
-          vv[4 * c4] = x.x; vv[4 * c4 + 1] = x.y; vv[4 * c4 + 2] = x.z; vv[4 * c4 + 3] = x.w;
-        }
-      } else {
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) vv[cc] = vs[j * VSTR + tx * CPT + cc];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = fmaf(pv[i], vv[cc], acc[i][cc]);
-    }
-  }
-
-  float* ob = o + (size_t(b) * S * H + h) * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    if (s >= S) continue;
-    const float li = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int cc = 0; cc < CPT; ++cc) ob[size_t(s) * q_stride + tx * CPT + cc] = acc[i][cc] / li;
-    if (lse && tx == 0) lse[(size_t(b) * H + h) * S + s] = m[i] + logf(li);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Backward: dQ, dK, dV from q, k, v, o, dO and the forward's row lse
@@ -356,7 +218,7 @@ flash_bwd_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// Hopper building blocks of the 16-bit kernels: mbarriers, TMA, named barriers, wgmma
+// Hopper building blocks of the wgmma kernels: mbarriers, TMA, named barriers, wgmma
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -523,6 +385,14 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint3
   }
 FA_WGMMA(__nv_bfloat16, "bf16")
 FA_WGMMA(__half, "f16")
+// d (64×64, f32) = A·B + (acc ? d : 0), A (64×16 bf16) from registers, B (16×64) K-major
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                           int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FA_R32
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+               : FA_D32(0) : FA_A, "l"(db), "r"(acc));
+}
 #undef FA_WGMMA
 #undef FA_A
 #undef FA_D64
@@ -806,6 +676,248 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         *reinterpret_cast<uint32_t*>(ob + size_t(s) * q_stride + i * 8 + 2 * t4) =
             pack2(T(), oa[4 * i + 2 * rr] / li, oa[4 * i + 2 * rr + 1] / li, nullptr);
       if (lse && t4 == 0) lse[(size_t(b) * H + h) * S + s] = m[rr] * scale + logf(li);
+    }
+  }
+}
+
+// The f32 forward: q, k and v in three bf16 terms each, S = Q·Kᵀ and O += P·V as sums of six
+// bf16 products on wgmma (flash_fwd_f32_kernel). 128 query rows of one head a block, key
+// tiles of 64 streamed through a ring of f32_stages<D>() stages, each holding K's three terms
+// and then V's, each [NH][64][SW] as Tile16 lays a 16-bit tile out (TMA fills zeros past S);
+// then the barriers, from a 1024-byte aligned start. Q stays in registers.
+constexpr int F32_BQ = 128;            // query rows per block, 64 per consumer warpgroup
+constexpr int F32_BK = 64;             // keys per tile
+
+template <int D>
+__host__ __device__ constexpr int f32_stages() { return D == 128 ? 2 : 4; }
+
+template <int D>
+constexpr size_t f32_smem_bytes() {
+  return 1024 + f32_stages<D>() * 6 * size_t(F32_BK) * D * 2 + 128;
+}
+
+// (x, y) → their bf16 terms x_hi = RN(x), x_mid = RN(x − x_hi), x_lo = RN(x − x_hi − x_mid),
+// each a packed pair with x in the low half: both differences are exact, and what the terms
+// leave out is below 2^-24 |x| (fused_topk_score.cu split_q_kernel's rule)
+__device__ __forceinline__ void split3(float x, float y, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  float2 h, m;
+  hi = pack2(__nv_bfloat16(), x, y, &h);
+  const float rx = __fsub_rn(x, h.x), ry = __fsub_rn(y, h.y);
+  mid = pack2(__nv_bfloat16(), rx, ry, &m);
+  lo = pack2(__nv_bfloat16(), __fsub_rn(rx, m.x), __fsub_rn(ry, m.y), nullptr);
+}
+
+// The six products kept of the nine, (A's term, B's term) with 0 = hi, 1 = mid, 2 = lo: every
+// pair down to the 2^-16 terms, smallest first. What is dropped (mid·lo, lo·mid, lo·lo) is
+// below 2^-23 of |a|·|b|, an f32 rounding.
+__host__ __device__ constexpr int prod_a(int p) { return p == 0 ? 2 : p == 1 ? 0 : p <= 3 ? 1 : 0; }
+__host__ __device__ constexpr int prod_b(int p) {
+  return p == 1 ? 2 : p == 2 || p == 4 ? 1 : 0;
+}
+
+// k and v (n4 float4 each, rows of D) → rows of 3·D bf16: the row's x_hi, x_mid and x_lo;
+// k's rows first, then v's (blockIdx.y)
+__global__ void __launch_bounds__(256)
+flash_split3_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                    __nv_bfloat16* __restrict__ out, long n4, int D) {
+  const float4* const x = reinterpret_cast<const float4*>(blockIdx.y ? v : k);
+  __nv_bfloat16* const ob = out + (blockIdx.y ? 12 * n4 : 0);
+  for (long i = long(blockIdx.x) * blockDim.x + threadIdx.x; i < n4;
+       i += long(gridDim.x) * blockDim.x) {
+    const float4 a = x[i];
+    const long row = 4 * i / D;
+    const int col = int(4 * i - row * D);
+    uint32_t hi[2], mid[2], lo[2];
+    split3(a.x, a.y, hi[0], mid[0], lo[0]);
+    split3(a.z, a.w, hi[1], mid[1], lo[1]);
+    __nv_bfloat16* const p = ob + row * 3 * D + col;
+    *reinterpret_cast<uint2*>(p) = make_uint2(hi[0], hi[1]);
+    *reinterpret_cast<uint2*>(p + D) = make_uint2(mid[0], mid[1]);
+    *reinterpret_cast<uint2*>(p + 2 * D) = make_uint2(lo[0], lo[1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, int KV, int causal, int window,
+                     float scale, int BH, int chunk) {
+  using L = Tile16<D>;
+  constexpr int STAGES = f32_stages<D>();
+  constexpr int PLANE = F32_BK * D * 2;           // one term of a K or V tile
+  constexpr int STAGE = 6 * PLANE;                // K's three terms, then V's
+  constexpr int KS = D / 16;                      // 16-deep k-steps of Q·Kᵀ
+  constexpr int NS = F32_BK / 2;                  // scores a thread holds per tile
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  unsigned char* const stages = align1024(f32_smem);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(stages + STAGES * STAGE);
+  uint64_t* const empty = full + STAGES;
+
+  // the 16-bit body's launch order: heads in chunks, each chunk heaviest causal tile first
+  const int tiles = (S + F32_BQ - 1) / F32_BQ;
+  const int c0 = blockIdx.x / (chunk * tiles) * chunk;
+  const int nh = min(chunk, BH - c0), r = blockIdx.x - c0 * tiles;
+  const int bh = c0 + r % nh, q0 = (tiles - 1 - r / nh) * F32_BQ;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  int t_hi = (S - 1) / F32_BK;
+  if (causal) t_hi = min(t_hi, (q0 + F32_BQ - 1) / F32_BK);
+  int t_lo = 0;
+  if (window > 0) {
+    const int x = q0 - window - F32_BK + 1;       // live iff k0 > x
+    if (x >= 0) t_lo = x / F32_BK + 1;
+  }
+  const int n_steps = t_hi - t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      for (int step = 0; step < n_steps; ++step) {
+        const int st = step % STAGES;
+        mbar_wait(empty + st, ((step / STAGES) & 1) ^ 1);
+        const int k0 = (t_lo + step) * F32_BK;
+        unsigned char* const sp = stages + st * STAGE;
+        mbar_arrive_tx(full + st, STAGE);
+        for (int t = 0; t < 3; ++t)
+          for (int hb = 0; hb < L::NH; ++hb) {
+            const int col = t * D + hb * L::SW / 2, at = hb * F32_BK * L::SW;
+            tma_load_4d(sp + t * PLANE + at, tk, col, kvh, k0, b, full + st);
+            tma_load_4d(sp + (3 + t) * PLANE + at, tv, col, kvh, k0, b, full + st);
+          }
+      }
+    }
+  } else {
+    regs_inc<240>();
+    const int c = threadIdx.x / 128 - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row0 = q0 + 64 * c + warp * 16 + g;   // this thread's rows: row0, row0 + 8
+    const size_t q_stride = size_t(H) * D;
+    // Q·scale (the reference scales q) in three terms, as wgmma's A fragments: k-step kk,
+    // register r holds row row0 + 8·(r & 1), columns 16·kk + 8·(r >> 1) + 2·t4 and + 1
+    uint32_t qa[3][KS][4];
+    {
+      const float* const qb = q + (size_t(b) * S * H + h) * D;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int rg = 0; rg < 4; ++rg) {
+          const int s = row0 + 8 * (rg & 1), col = 16 * kk + 8 * (rg >> 1) + 2 * t4;
+          const float2 x = s < S ? *reinterpret_cast<const float2*>(qb + size_t(s) * q_stride + col)
+                                 : make_float2(0.f, 0.f);
+          split3(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale), qa[0][kk][rg], qa[1][kk][rg],
+                 qa[2][kk][rg]);
+        }
+    }
+    float oa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oa[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // m: the row's largest scaled score
+
+    // No branch sits between a wgmma and its wait; the mask's is on the block's values.
+    // The other consumer warpgroup's products run under this one's softmax.
+    for (int step = 0; step < n_steps; ++step) {
+      const int st = step % STAGES, k0 = (t_lo + step) * F32_BK;
+      const unsigned char* const kt = stages + st * STAGE;
+      const unsigned char* const vt = kt + 3 * PLANE;
+      float sc[NS];
+      mbar_wait(full + st, (step / STAGES) & 1);
+      wgmma_fence();
+      // each product over all of D before the next, smallest first: the small terms are
+      // summed while the accumulator is still small
+#pragma unroll
+      for (int p = 0; p < 6; ++p)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_rs_k(sc, qa[prod_a(p)][kk], desc_k<D>(kt + prod_b(p) * PLANE, F32_BK, 0, kk),
+                     kk + p);
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(sc);
+      reg_fence(qa[0]);
+      reg_fence(qa[1]);
+      reg_fence(qa[2]);
+
+      // the mask, then the online softmax: p = 2^((s − m_new)·log2 e), corr = 2^((m −
+      // m_new)·log2 e). Element i is row row0 + 8·((i >> 1) & 1), key k0 + 8·(i >> 2) + 2·t4
+      // + (i & 1). A row that has seen only masked keys keeps m = -1e30 and takes p = 0 on
+      // them (its sums stay 0); the reference's p = 1 there is wiped by its first real key.
+      if (k0 + F32_BK > S || (causal && k0 + F32_BK - 1 > q0) ||
+          (window > 0 && q0 + F32_BQ - 1 - k0 >= window)) {
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          sc[i] = visible(row0 + ((i >> 1) & 1) * 8, k0 + (i >> 2) * 8 + 2 * t4 + (i & 1), S,
+                          causal, window) ? sc[i] : kNegInf;
+      }
+      float corr[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = m[rr];
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * rr], sc[4 * j + 2 * rr + 1]));
+        mx = quad_max(mx);
+        corr[rr] = exp2_ftz((m[rr] - mx) * kLog2e);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * rr + e;
+            sc[i] = mx == kNegInf ? 0.f : exp2_ftz((sc[i] - mx) * kLog2e);
+            sum += sc[i];
+          }
+        l[rr] = l[rr] * corr[rr] + quad_sum(sum);
+        m[rr] = mx;
+      }
+
+      // O = O·corr + Σ P_a·V_b over the six products: P's three terms as A from registers
+      // (the accumulator's layout is the A fragment's), V's terms MN-major from the tile
+      uint32_t pa[3][F32_BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < F32_BK / 16; ++j)
+#pragma unroll
+        for (int rg = 0; rg < 4; ++rg)
+          split3(sc[8 * j + 2 * rg], sc[8 * j + 2 * rg + 1], pa[0][j][rg], pa[1][j][rg],
+                 pa[2][j][rg]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) oa[i] *= corr[(i >> 1) & 1];
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < F32_BK / 16; ++j)
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+          wgmma_rs_t(__nv_bfloat16(), oa, pa[prod_a(p)][j],
+                     desc_mn<D>(vt + prod_b(p) * PLANE, F32_BK, j));
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(oa);
+      reg_fence(pa[0]);
+      reg_fence(pa[1]);
+      reg_fence(pa[2]);
+      mbar_arrive(empty + st);
+    }
+
+    float* const ob = o + (size_t(b) * S * H + h) * D;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int s = row0 + rr * 8;
+      if (s >= S) continue;
+      const float li = fmaxf(l[rr], 1e-30f);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(ob + size_t(s) * q_stride + i * 8 + 2 * t4) =
+            make_float2(oa[4 * i + 2 * rr] / li, oa[4 * i + 2 * rr + 1] / li);
+      if (lse && t4 == 0) lse[(size_t(b) * H + h) * S + s] = m[rr] + logf(li);
     }
   }
 }
@@ -1162,14 +1274,15 @@ EncodeTiledFn encode_tiled() {
 CUtensorMapDataType map_type(__nv_bfloat16) { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
 CUtensorMapDataType map_type(__half) { return CU_TENSOR_MAP_DATA_TYPE_FLOAT16; }
 
-// (B, S, heads, D) 16-bit → boxes of `rows` rows × SW bytes of one head, swizzled as Tile16;
-// rows past S read as zeros
+// (B, S, heads, width) 16-bit → boxes of `rows` rows × SW bytes of one head, swizzled as
+// Tile16 (width D, or 3·D for the f32 body's three terms a row); rows past S read as zeros
 template <typename T, int D>
-bool rows_map(CUtensorMap* m, const void* p, int B, int S, int heads, int rows) {
+bool rows_map(CUtensorMap* m, const void* p, int B, int S, int heads, int rows, int width = D) {
   using L = Tile16<D>;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(S), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(D) * 2, cuuint64_t(heads) * D * 2,
-                                 cuuint64_t(S) * heads * D * 2};
+  const cuuint64_t dims[4] = {cuuint64_t(width), cuuint64_t(heads), cuuint64_t(S),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(width) * 2, cuuint64_t(heads) * width * 2,
+                                 cuuint64_t(S) * heads * width * 2};
   const cuuint32_t box[4] = {cuuint32_t(L::SW / 2), 1, cuuint32_t(rows), 1},
                    unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swz = L::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -1374,19 +1487,34 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
-           int KV, int causal, int window, int chunk, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch, int B,
+           int S, int H, int KV, int causal, int window, int chunk, float scale,
+           cudaStream_t stream) {
   float* lse_f = static_cast<float*>(lse);
   if constexpr (sizeof(T) == 4) {
-    constexpr size_t smem = f32_smem_bytes<D>();
-    cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    // K's and V's three terms a row into the scratch (flash_split3_kernel), then the forward
+    const long n4 = long(B) * S * KV * D / 4;
+    __nv_bfloat16* const kp = static_cast<__nv_bfloat16*>(scratch);
+    __nv_bfloat16* const vp = kp + 12 * n4;
+    CUtensorMap mk, mv;
+    if (!scratch || chunk < 1 || chunk > B * H || !encode_tiled() ||
+        !rows_map<__nv_bfloat16, D>(&mk, kp, B, S, KV, F32_BK, 3 * D) ||
+        !rows_map<__nv_bfloat16, D>(&mv, vp, B, S, KV, F32_BK, 3 * D))
+      return int(cudaErrorInvalidValue);
+    const long split_blocks = (n4 + 255) / 256;
+    flash_split3_kernel<<<dim3(unsigned(split_blocks < 8192 ? split_blocks : 8192), 2), 256, 0,
+                          stream>>>(static_cast<const float*>(k), static_cast<const float*>(v),
+                                    kp, n4, D);
+    cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return int(e);
-    const dim3 grid((S + BQ - 1) / BQ, B * H);
-    flash_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse_f, S, H, KV, causal, window,
-        scale);
+    constexpr size_t smem = f32_smem_bytes<D>();
+    e = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+    const unsigned blocks = unsigned(B) * H * ((S + F32_BQ - 1) / F32_BQ);
+    flash_fwd_f32_kernel<D><<<blocks, FWD_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), mk, mv, static_cast<float*>(o), lse_f, S, H, KV, causal,
+        window, scale, B * H, chunk);
   } else {
     CUtensorMap mq, mk, mv;
     if (chunk < 1 || chunk > B * H || !encode_tiled() || !rows_map<T, D>(&mq, q, B, S, H, FWD_BQ) ||
@@ -1458,9 +1586,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 }
 
 template <typename T>
-int by_dim(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S, int H,
-           int KV, int D, int causal, int window, int chunk, float scale, cudaStream_t stream) {
-#define FLASH_FWD(DD) launch<T, DD>(q, k, v, o, lse, B, S, H, KV, causal, window, chunk, scale, stream)
+int by_dim(const void* q, const void* k, const void* v, void* o, void* lse, void* scratch, int B,
+           int S, int H, int KV, int D, int causal, int window, int chunk, float scale,
+           cudaStream_t stream) {
+#define FLASH_FWD(DD)                                                                   \
+  launch<T, DD>(q, k, v, o, lse, scratch, B, S, H, KV, causal, window, chunk, scale, stream)
   switch (D) {
     case 16: return FLASH_FWD(16);
     case 32: return FLASH_FWD(32);
@@ -1492,36 +1622,39 @@ int bwd_by_dim(const void* q, const void* k, const void* v, const void* o, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and o alike).
-// D in {16, 32, 64, 128}; H a multiple of KV; B·H at most 65,535; for the
-// 16-bit dtypes q, k and v 16-byte aligned. lse: null, or (B, H, S) f32 that
+// D in {16, 32, 64, 128}; H a multiple of KV; B·H at most 65,535; q, k and v
+// 16-byte aligned. lse: null, or (B, H, S) f32 that
 // receives each row's log-sum-exp of its scaled scores, m + log(max(l, 1e-30)).
-// chunk: the 16-bit body's query heads a chunk of its launch order, 1..B·H (flash_attention.py
-// ForwardLaunch.chunk); the f32 body ignores it
+// chunk: the query heads a chunk of the launch order, 1..B·H (flash_attention.py
+// ForwardLaunch.chunk). scratch: f32 only, 6·B·S·KV·D bf16, 16-byte aligned (K's and V's
+// three terms a row); null for the 16-bit dtypes
 extern "C" int flash_attention(const void* q, const void* k, const void* v, int dtype, int B,
                                int S, int H, int KV, int D, int causal, int window, int chunk,
-                               float scale, void* o, void* lse, void* stream) {
+                               float scale, void* o, void* lse, void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return by_dim<float>(q, k, v, o, lse, B, S, H, KV, D, causal, window, chunk, scale, s);
+      return by_dim<float>(q, k, v, o, lse, scratch, B, S, H, KV, D, causal, window, chunk,
+                           scale, s);
     case 1:
-      return by_dim<__nv_bfloat16>(q, k, v, o, lse, B, S, H, KV, D, causal, window, chunk,
-                                   scale, s);
+      return by_dim<__nv_bfloat16>(q, k, v, o, lse, nullptr, B, S, H, KV, D, causal, window,
+                                   chunk, scale, s);
     case 2:
-      return by_dim<__half>(q, k, v, o, lse, B, S, H, KV, D, causal, window, chunk, scale, s);
+      return by_dim<__half>(q, k, v, o, lse, nullptr, B, S, H, KV, D, causal, window, chunk,
+                            scale, s);
   }
   return int(cudaErrorInvalidValue);
 }
 
 // The forward's launch shape for dtype and D, as flash_attention.py's forward_launch_shape
-// mirrors it: out[0..4] = query rows a block, keys a tile, ring stages (0: the f32 body has
-// no ring), threads a block, dynamic shared memory bytes. Returns 0, or an error for another D or dtype.
+// mirrors it: out[0..4] = query rows a block, keys a tile, ring stages, threads a block,
+// dynamic shared memory bytes. Returns 0, or an error for another D or dtype.
 extern "C" int flash_forward_shape(int dtype, int D, int* out) {
   switch (D) {
 #define FLASH_SHAPE(DD)                                                                    \
   case DD:                                                                                 \
     if (dtype == 0) {                                                                      \
-      out[0] = BQ, out[1] = BK, out[2] = 0, out[3] = kThreads;                             \
+      out[0] = F32_BQ, out[1] = F32_BK, out[2] = f32_stages<DD>(), out[3] = FWD_THREADS;   \
       out[4] = int(f32_smem_bytes<DD>());                                                  \
     } else {                                                                               \
       out[0] = FWD_BQ, out[1] = FWD_BK, out[2] = fwd_stages<DD>(), out[3] = FWD_THREADS;   \

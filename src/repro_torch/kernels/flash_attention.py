@@ -7,10 +7,14 @@ kernel ``repro/kernels/flash_attention.py::flash_attention`` with the
 same contract: ``q (B, S, H, D)``, ``k``/``v (B, S, KV, D)``, head ``h``
 reads KV head ``h // (H // KV)``, f32 accumulation, output in q's dtype,
 masked scores at the finite ``NEG_INF`` and ``l`` floored at 1e-30. Bound
-by operations: bf16/fp16 inputs run a Hopper kernel (TMA loads by a
-producer warpgroup, ``wgmma`` products in two consumer warpgroups that
-ping-pong, f32 accumulation, P split into two 16-bit parts so P·V keeps
-f32 precision); f32 inputs run f32 FMAs on the CUDA cores.
+by operations, both bodies on Hopper's TMA and ``wgmma`` (TMA loads by a
+producer warpgroup, products in two consumer warpgroups, f32
+accumulation). bf16/fp16 inputs: the warpgroups ping-pong, and P is split
+into two 16-bit parts so P·V keeps f32 precision. f32 inputs: q, k, v and
+P are carried as three bf16 terms each (x = hi + mid + lo) and S = Q·Kᵀ
+and O += P·V each sum the six products down to the 2^-16 terms, within
+the f32 contract of 2e-5; a small pass first writes K and V as rows of
+their three terms (the launch's bf16 scratch), and the key tile is 64.
 :func:`forward_launch_shape` mirrors each body's launch. For a CPU tensor
 it runs :func:`flash_attention_plain`; any other device raises.
 
@@ -45,8 +49,11 @@ from repro_torch.kernels import meta
 
 NEG_INF = -1e30
 
-# kernel launches since the last reset (kernels.ops.reset_launch_counts)
-launches = {"flash_attention": 0, "flash_attention_backward": 0}
+# kernel launches since the last reset (kernels.ops.reset_launch_counts);
+# ``flash_attention_f32`` counts the forward's launches of its f32 body,
+# which ``flash_attention`` counts too
+launches = {"flash_attention": 0, "flash_attention_f32": 0,
+            "flash_attention_backward": 0}
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -54,8 +61,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 def _bind(lib) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention.argtypes = [ptr, ptr, ptr] + [i32] * 9 + [f32, ptr,
-                                                                  ptr, ptr]
+    lib.flash_attention.argtypes = [ptr, ptr, ptr] + [i32] * 9 + [f32] + [
+        ptr] * 4
     lib.flash_attention.restype = i32
     lib.flash_attention_backward.argtypes = ([ptr] * 6 + [i32] * 8 + [f32]
                                              + [ptr] * 5)
@@ -67,9 +74,12 @@ def _bind(lib) -> None:
 _lib = build.KernelLibrary("flash_attention", ["flash_attention.cu"], _bind)
 
 
-# the 16-bit forward's ring of K and V tiles, by head dim (flash_attention.cu
-# fwd_stages): three 64 KB stages at D 128, four below
+# the forward's ring of K and V tiles, by head dim (flash_attention.cu
+# fwd_stages / f32_stages): in 16 bits three 64 KB stages at D 128, four
+# below; in f32 (three bf16 terms of K and V, 64 keys) two 96 KB stages at
+# D 128, four below
 _FWD_STAGES = {16: 4, 32: 4, 64: 4, 128: 3}
+_F32_STAGES = {16: 4, 32: 4, 64: 4, 128: 2}
 SMEM_LIMIT = 232_448             # dynamic shared memory a block may use (227 KB)
 FWD_CHUNK_BYTES = 24 << 20       # K and V of a chunk of heads, kept in the L2
 
@@ -78,11 +88,10 @@ FWD_CHUNK_BYTES = 24 << 20       # K and V of a chunk of heads, kept in the L2
 class ForwardLaunch:
     """One forward body's launch, as ``flash_attention.cu`` makes it:
     ``rows`` query rows of one head a block over key tiles of ``key_tile``,
-    a ring of ``stages`` K/V stages (0 for the f32 body), ``threads`` a
-    block, ``smem_bytes`` of dynamic shared memory. The 16-bit grid is one
-    dimension: the heads in chunks (:meth:`chunk`), each chunk's query
-    tiles heaviest first across its heads; the f32 grid is ``(tiles,
-    B·H)``."""
+    a ring of ``stages`` K/V stages, ``threads`` a block, ``smem_bytes`` of
+    dynamic shared memory. The grid is one dimension: the heads in chunks
+    (:meth:`chunk`), each chunk's query tiles heaviest first across its
+    heads."""
     dtype: torch.dtype
     d: int
     rows: int
@@ -91,20 +100,24 @@ class ForwardLaunch:
     threads: int
     smem_bytes: int
 
+    @property
+    def kv_bytes(self) -> int:
+        """Bytes the kernel loads per element of K or V: 2 in 16 bits, 6
+        in f32 (its three bf16 terms)."""
+        return 6 if self.dtype == torch.float32 else 2
+
     def chunk(self, b: int, s: int, h: int, kv: int) -> int:
-        """Query heads a chunk of the 16-bit launch order, which
-        :func:`_launch` passes to the kernel: the KV groups whose K and V
-        fit in ``FWD_CHUNK_BYTES`` (at least one), at most B·H."""
-        groups = max(1, FWD_CHUNK_BYTES // (s * self.d * 2 * 2))
+        """Query heads a chunk of the launch order, which :func:`_launch`
+        passes to the kernel: the KV groups whose K and V (as loaded,
+        :attr:`kv_bytes`) fit in ``FWD_CHUNK_BYTES`` (at least one), at
+        most B·H."""
+        groups = max(1, FWD_CHUNK_BYTES // (s * self.d * self.kv_bytes * 2))
         return min(groups * (h // kv), b * h)
 
     def blocks(self, b: int, s: int, h: int, kv: int):
         """``(batch, head, first query row)`` of every block, in launch
-        order (the linear block index; x first in the f32 body's grid)."""
+        order (the linear block index)."""
         tiles = -(-s // self.rows)
-        if self.dtype == torch.float32:
-            return [(y // h, y % h, x * self.rows) for y in range(b * h)
-                    for x in range(tiles)]
         chunk, out = self.chunk(b, s, h, kv), []
         for c0 in range(0, b * h, chunk):
             nh = min(chunk, b * h - c0)
@@ -134,10 +147,12 @@ def forward_launch_shape(d: int, dtype) -> ForwardLaunch:
     its rows, key tile, stages, threads and shared memory)."""
     if d not in HEAD_DIMS or dtype not in _DTYPE:
         raise ValueError(f"no forward body for D={d}, {dtype}")
-    if dtype == torch.float32:       # f32_smem_bytes: Qᵀ, Kᵀ (or Pᵀ), V
-        pad = 64 + 4
-        smem = (d * pad + max(d, 64) * pad + 64 * (d + 4)) * 4
-        return ForwardLaunch(dtype, d, 64, 64, 0, 256, smem)
+    if dtype == torch.float32:
+        # f32_smem_bytes: alignment slack, the ring (K's and V's three terms
+        # of 64 keys a stage), the barriers; Q stays in registers
+        stages = _F32_STAGES[d]
+        smem = 1024 + stages * 6 * 64 * d * 2 + 128
+        return ForwardLaunch(dtype, d, 128, 64, stages, 384, smem)
     stages = _FWD_STAGES[d]
     # fwd_smem_bytes: alignment slack, Q (128 rows), the ring, the barriers
     smem = 1024 + 128 * d * 2 + stages * 2 * 128 * d * 2 + 128
@@ -288,9 +303,9 @@ def _check(q, k, v, *more):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.element_size() == 2 and x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (TMA "
-                             f"loads)")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (TMA and "
+                             f"vector loads)")
     return b, s, h, n_kv, d
 
 
@@ -309,15 +324,24 @@ def _launch(q, k, v, causal: bool, window: int, with_lse: bool):
             with_lse=with_lse))
         return out, lse
     chunk = forward_launch_shape(d, q.dtype).chunk(b, s, h, n_kv)
-    with meta.launch_range("flash_attention"):
+    # the f32 body's scratch: K's and V's three bf16 terms a row
+    scratch = (torch.empty(6 * b * s * n_kv * d, dtype=torch.bfloat16,
+                           device=q.device)
+               if q.dtype == torch.float32 else None)
+    # the f32 body is counted and traced under its own name too
+    f32 = "flash_attention_f32" if q.dtype == torch.float32 else None
+    with meta.launch_range("flash_attention"), meta.launch_range(f32):
         err = _lib().flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPE[q.dtype], b, s,
             h, n_kv, d, int(causal), int(window), chunk, 1.0 / math.sqrt(d),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches["flash_attention"] += 1
+    if f32:
+        launches[f32] += 1
     return out, lse
 
 

@@ -64,10 +64,11 @@ def record(name: str, work: Tuple[int, int]) -> None:
         counter.add(name, flops, nbytes)
 
 
-def launch_range(name: str):
+def launch_range(name):
     """A ``record_function`` range ``twin::<name>`` around a launch while
-    ``torch.profiler`` records, else a context that does nothing."""
-    if torch.autograd._profiler_enabled():
+    ``torch.profiler`` records, else (or for ``name`` None) a context that
+    does nothing."""
+    if name is not None and torch.autograd._profiler_enabled():
         return torch.profiler.record_function(RANGE_PREFIX + name)
     return contextlib.nullcontext()
 

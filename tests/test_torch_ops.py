@@ -16,6 +16,7 @@ dot-interaction kernel's tiling and launch shape, and the flash forward's
 launch shape, are plain Python, tested here.
 """
 import inspect
+import math
 
 import numpy as np
 import jax.numpy as jnp
@@ -235,6 +236,13 @@ def test_flash_forward_launch_shape(d, dtype):
     assert sh.stages >= 2 and sh.threads == 384 and sh.rows == 128
     assert sh.smem_bytes == (1024 + sh.rows * d * 2
                              + sh.stages * 2 * sh.key_tile * d * 2 + 128)
+    _check_launch_order(sh, d)
+
+
+def _check_launch_order(sh, d):
+    """``sh``'s launch order and key tiles over ragged, GQA, windowed and
+    chunk-splitting shapes (see test_flash_forward_launch_shape)."""
+    from repro_torch.kernels import flash_attention as fa
     for b, s, h, kv, causal, window in [
             (2, 333, 7, 7, True, 0), (1, 129, 8, 1, False, 0),
             (3, 257, 2, 1, True, 127), (1, 513, 4, 2, True, 1),
@@ -248,8 +256,8 @@ def test_flash_forward_launch_shape(d, dtype):
             for t in range(tiles)]
         chunk = sh.chunk(b, s, h, kv)
         assert chunk == b * h or chunk % (h // kv) == 0
-        assert (chunk == h // kv
-                or chunk // (h // kv) * s * d * 4 <= fa.FWD_CHUNK_BYTES)
+        assert (chunk == h // kv or chunk // (h // kv) * s * d * 2
+                * sh.kv_bytes <= fa.FWD_CHUNK_BYTES)
         for c0 in range(0, b * h, chunk):
             part = order[c0 * tiles:(c0 + min(chunk, b * h - c0)) * tiles]
             assert {bb * h + hh for bb, hh, _ in part} == set(
@@ -267,18 +275,159 @@ def test_flash_forward_launch_shape(d, dtype):
             assert list(kt) == sorted(set(t_of[seen].tolist()))
 
 
-def test_flash_forward_launch_shape_f32():
-    """The f32 body: 64-row blocks, no ring, its grid (tiles, B·H)."""
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_forward_launch_shape_f32(d):
+    """The f32 body (three bf16 terms on ``wgmma``): 128-row blocks over
+    64-key tiles, a ring of K's and V's three terms (two 96 KB stages at D
+    128, four below) that fits the 227 KB a block may have, Q in
+    registers; its launch order is the 16-bit body's, its chunks counting
+    the 6 bytes an element of K and V it loads."""
     from repro_torch.kernels import flash_attention as fa
-    for d in fa.HEAD_DIMS:
-        sh = fa.forward_launch_shape(d, torch.float32)
-        assert (sh.rows, sh.key_tile, sh.stages, sh.threads) == (64, 64, 0,
-                                                                 256)
-        assert sh.smem_bytes <= fa.SMEM_LIMIT
-        order = sh.blocks(2, 130, 3, 1)
-        assert order[3 * 5 + 2] == (1, 2, 128) and len(set(order)) == 18
+    sh = fa.forward_launch_shape(d, torch.float32)
+    assert (sh.rows, sh.key_tile, sh.threads, sh.kv_bytes) == (128, 64, 384,
+                                                               6)
+    assert sh.stages == (2 if d == 128 else 4)
+    assert sh.smem_bytes == 1024 + sh.stages * 6 * 64 * d * 2 + 128
+    assert sh.smem_bytes <= fa.SMEM_LIMIT
+    order = sh.blocks(2, 130, 3, 1)
+    assert order[:2] == [(0, 0, 128), (0, 1, 128)] and len(set(order)) == 12
+    _check_launch_order(sh, d)
     with pytest.raises(ValueError):
-        fa.forward_launch_shape(48, torch.bfloat16)
+        fa.forward_launch_shape(48, torch.float32)
+
+
+# The f32 body's arithmetic (flash_attention.cu flash_fwd_f32_kernel),
+# emulated in torch on the CPU: q·scale, k, v and P in three bf16 terms
+# each, S = Q·Kᵀ and O = P·V the sums of the products kept, in f32.
+# (A's term, B's term), 0 = hi, 1 = mid, 2 = lo: the kernel's six
+# (prod_a / prod_b), every pair down to the 2^-16 terms.
+F32_PRODUCTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def _split3(x):
+    """f32 ``x`` → its bf16 terms as f32: hi = RN(x), mid = RN(x − hi),
+    lo = RN(x − hi − mid) (both differences exact)."""
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    return hi, mid, (r - mid).to(torch.bfloat16).float()
+
+
+def _f32_body(q, k, v, *, causal, window, products=F32_PRODUCTS):
+    """``(o, lse)`` as the f32 body computes them, the softmax taken over
+    the whole row (the kernel's online softmax over 64-key tiles rescales
+    the same terms); each product's terms are exact in f32. The sums are
+    torch's, to nearest, so this bounds the split and the products only:
+    on the card most of the body's error comes from ``wgmma``'s own f32
+    accumulation, which falls short as the key tiles grow (the source
+    note of ``flash_attention.cu``)."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qt = _split3(q.reshape(b, s, kv, h // kv, d) * (1.0 / math.sqrt(d)))
+    kt, vt = _split3(k), _split3(v)
+    sc = sum(torch.einsum("bqkgd,bjkd->bkgqj", qt[i], kt[j])
+             for i, j in products)
+    mask = fa.attention_mask(s, s, causal=causal, window=window)
+    sc = torch.where(mask, sc, torch.tensor(fa.NEG_INF))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    lsum = p.sum(-1, keepdim=True)
+    pt = _split3(p)
+    o = sum(torch.einsum("bkgqj,bjkd->bkgqd", pt[i], vt[j])
+            for i, j in products) / lsum.clamp(min=1e-30)
+    return (o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d),
+            (m + torch.log(lsum)).reshape(b, h, s))
+
+
+@pytest.mark.parametrize("scale", [1e-25, 1e-7, 1.0, 3e5, 1e30])
+def test_f32_split_is_exact(scale):
+    """hi + mid + lo == x for seeded f32 at tiny to large magnitudes; each
+    term is a bf16 value, the next at most 2^-8 of the last. (Exact while
+    lo stays a normal bf16, |x| above about 2^-110: below that what lo
+    drops is under 2^-133.)"""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.normal(size=4096) * scale).astype(np.float32))
+    hi, mid, lo = _split3(x)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+    for t in (hi, mid, lo):
+        assert torch.equal(t.to(torch.bfloat16).float(), t)
+    assert (mid.abs() <= hi.abs() * 2 ** -8).all()
+    assert (lo.abs() <= mid.abs() * 2 ** -8).all()
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
+    (2, 256, 4, 2, 32, True, 0),
+    (1, 128, 4, 4, 64, True, 64),
+    (2, 200, 2, 1, 16, True, 0),
+    (1, 256, 8, 2, 32, True, 100),
+    (1, 64, 2, 2, 32, False, 0),
+])
+def test_f32_body_matches_reference(b, s, h, kv, d, causal, window):
+    """The emulated f32 body against the reference's Pallas kernel in
+    interpret mode (o) and against the log-sum-exp of the reference's
+    scaled, masked scores (lse), at the f32 tolerance 2e-5 of
+    test_flash_matches_reference, with a margin of at least 5× for what
+    the emulation models (the split and the six products; not the card's
+    accumulation, see ``_f32_body``)."""
+    import jax
+    q, k, v = _qkv(np.random.default_rng(0), b, s, h, kv, d)
+    want = np.asarray(ref_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, block_q=64, block_k=64, interpret=True))
+    qg = jnp.asarray(q).reshape(b, s, kv, h // kv, d) * (1.0 / math.sqrt(d))
+    sc = jnp.einsum("bqkgd,bjkd->bkgqj", qg, jnp.asarray(k),
+                    precision=jax.lax.Precision.HIGHEST)
+    pos = np.arange(s)
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
+    want_lse = np.asarray(jax.nn.logsumexp(
+        jnp.where(mask, sc, -1e30), axis=-1)).reshape(b, h, s)
+    o, lse = _f32_body(*(torch.from_numpy(x) for x in (q, k, v)),
+                       causal=causal, window=window)
+    np.testing.assert_allclose(o.numpy(), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=2e-5, atol=2e-5)
+    assert np.abs(o.numpy() - want).max() < 4e-6
+    assert np.abs(lse.numpy() - want_lse).max() < 4e-6
+
+
+@pytest.mark.parametrize("drop", [(2, 0), (0, 2), (1, 1)])
+def test_f32_body_keeps_the_fewest_products(drop):
+    """Against the attention in f64: the six products miss by < 2e-6, the
+    nine by as much, and dropping any one of the 2^-16 products costs at
+    least 5× that (in the 2e-5 contract's range), so six is the fewest
+    that hold it with margin."""
+    q, k, v = (torch.from_numpy(x) for x in
+               _qkv(np.random.default_rng(0), 1, 192, 4, 2, 64))
+    kw = dict(causal=True, window=0)
+    exact, exact_lse = _f64_attention(q, k, v, **kw)
+    o6, l6 = _f32_body(q, k, v, **kw)
+    o9, _ = _f32_body(q, k, v, products=[(i, j) for i in range(3)
+                                         for j in range(3)], **kw)
+    o5, _ = _f32_body(q, k, v, products=[p for p in F32_PRODUCTS
+                                         if p != drop], **kw)
+    e6, e9, e5 = ((o.double() - exact).abs().max().item()
+                  for o in (o6, o9, o5))
+    assert e6 < 2e-6 and (l6.double() - exact_lse).abs().max() < 2e-6
+    assert e9 < 2e-6
+    assert e5 > 5 * e6
+
+
+def _f64_attention(q, k, v, *, causal, window):
+    """``(o, lse)`` in f64, from the f32 inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.double().reshape(b, s, kv, h // kv, d) / math.sqrt(d)
+    sc = torch.einsum("bqkgd,bjkd->bkgqj", qg, k.double())
+    mask = fa.attention_mask(s, s, causal=causal, window=window)
+    sc = torch.where(mask, sc, torch.tensor(-1e30, dtype=torch.float64))
+    o = torch.einsum("bkgqj,bjkd->bkgqd", torch.softmax(sc, -1), v.double())
+    return (o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d),
+            torch.logsumexp(sc, -1).reshape(b, h, s))
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +576,8 @@ def test_cpu_tensors_never_launch_and_counters_cover_every_kernel():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "routed": 0, "cluster_major": 0, "gather": 0, "flash_attention": 0,
-        "flash_attention_backward": 0, "dot_interaction": 0,
+        "flash_attention_f32": 0, "flash_attention_backward": 0,
+        "dot_interaction": 0,
         "dot_interaction_backward": 0, "embedding_bag": 0}
     ops.dot_interaction(torch.ones(2, 3, 4))
     ops.embedding_bag(torch.ones(5, 4), torch.zeros(2, 3, dtype=torch.int32))
