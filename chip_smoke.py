@@ -14,8 +14,11 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    in each bf16 and fp16 instantiation of the forward
    (``flash_fwd_kernel``) and of the backward's two kernels, HGMMA and a
    TMA load (UTMALDG) in each f32 forward (``flash_fwd_f32_kernel``, D
-   16–128), and no ``flash_tc_kernel`` (the forward's old ``mma.sync``
-   body) or ``flash_f32_kernel`` (its old CUDA-core f32 body); that of the
+   16–128) and in each f32 backward kernel (``flash_bwd_dkdv_f32_kernel``,
+   ``flash_bwd_dq_f32_kernel``, D 16–128), and no ``flash_tc_kernel`` (the
+   forward's old ``mma.sync`` body), ``flash_f32_kernel`` (its old
+   CUDA-core f32 body) or ``flash_bwd_dkdv_f32`` / ``flash_bwd_dq_f32``
+   (the old CUDA-core f32 backward); that of the
    scan library must show HGMMA and a TMA load (UTMALDG) in every
    instantiation of the engine scans' ``engine_scan_kernel`` (3 tiers ×
    filtered or not × 3 slot widths), and none of the earlier CUDA-core
@@ -79,8 +82,9 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    the plain version on the inputs widened to f32 (``FLASH_ONE_ROUNDING``),
    at every small shape and both main shapes; SDPA's distance under the
    same rule is printed for the record. The flash library's forward launch
-   (``flash_forward_shape``) must equal ``forward_launch_shape``'s, the
-   mirror the CPU tests check. Dot interaction and bmm + triangle
+   (``flash_forward_shape``) must equal ``forward_launch_shape``'s and its
+   backward launches (``flash_backward_shape``) ``backward_launch_shape``'s,
+   the mirrors the CPU tests check. Dot interaction and bmm + triangle
    are timed in turns over several rounds, and the medians kept. The
    card's L2 and HBM read rates are measured (``memory_rates``, a
    streaming probe), and embedding bag gets an L2 bound: its gathered row
@@ -256,7 +260,7 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    (16 layers, d 70): ``minibatch_lg`` (a reddit-size graph, its CSR and a
    1,024-seed (15, 10) sample, generation, CSR, sampling and forward timed
    apart), ``ogb_products`` full batch with the edges cut to what fits
-   (every layer held against the CPU on its first 50,000 nodes) and a
+   (every layer held against the CPU on its first 25,000 nodes) and a
    128-graph ``molecule`` batch, each forward and loss against the CPU.
    (d) one ``adafactor_update`` of a (64, 2,048, 1,408) leaf in f32 and
    bf16 against the CPU. Phase 3 also reads ``max_memory_allocated``
@@ -270,8 +274,11 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    ``FLASH_BWD_SMALL`` (causal, window, MHA and GQA up to 8 query heads a
    KV head, ragged S across several 128-row tiles, a window straddling
    tile boundaries, D 16 to 128), then stablelm-1.6b's layer (8 × 4,096, 32 / 32 heads, D 64) and
-   gemma3-27b's local layer (2 × 8,192, window 1,024) in bf16 and
-   stablelm's again in f32 (its bound at the CUDA cores' 67 TFLOP/s); the
+   gemma3-27b's local layer (2 × 8,192, window 1,024, D 128) in bf16 and
+   in f32 (all bounds at the bf16 peak, the f32 kernels' products running
+   on ``wgmma`` in three bf16 terms; the f32 rows also print the CUDA
+   cores' 67 TFLOP/s bound and the split's floor, ``F32_BWD_PRODUCTS``
+   products of 2·D flops a pair); the
    forward's output bit-equal with and without lse; the kernel given lse
    + ``FLASH_BWD_FAULT`` must fail the gate; once through
    ``FlashAttentionFn`` under autograd; timed beside the bound, the plain
@@ -281,7 +288,8 @@ Needs one CUDA device and the CUDA toolkit (``nvcc``). Phases:
    (LMs in f32, stablelm with remat): loss and every gradient leaf on the
    card against the same port code on the CPU (``GRAD_TOL``, TF32 off),
    every leaf's card gradient nonzero, the twins' forward and backward
-   launched. (d) ``python -m repro_torch.launch.train`` (``TRAIN_ARGS``:
+   launched, the LMs' backward through the f32 kernels
+   (``flash_attention_backward_f32``, one launch a layer). (d) ``python -m repro_torch.launch.train`` (``TRAIN_ARGS``:
    stablelm-1.6b full, 24 layers, remat, 8 × 4,096 in 2 microbatches, 6
    steps) as a subprocess: the loss falls, flash launches 2 forwards and
    one backward per layer and microbatch, step ms and its forward /
@@ -1309,10 +1317,12 @@ def flash_sass_check(lib_path):
     and backward instantiations in the built library; raises unless each
     16-bit instantiation of the forward (``flash_fwd_kernel``) and of the
     backward's two kernels has HGMMA (``wgmma``) instructions, and each f32
-    forward (``flash_fwd_f32_kernel``, D 16–128) has both HGMMA and a TMA
-    load (UTMALDG); or if the old ``mma.sync`` forward
-    (``flash_tc_kernel``) or the CUDA-core f32 forward
-    (``flash_f32_kernel``) is still built."""
+    forward (``flash_fwd_f32_kernel``) and f32 backward
+    (``flash_bwd_dkdv_f32_kernel``, ``flash_bwd_dq_f32_kernel``), D
+    16–128, has both HGMMA and a TMA load (UTMALDG); or if the old
+    ``mma.sync`` forward (``flash_tc_kernel``), the CUDA-core f32 forward
+    (``flash_f32_kernel``) or the CUDA-core f32 backward
+    (``flash_bwd_dkdv_f32``, ``flash_bwd_dq_f32``) is still built."""
     import re
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1329,9 +1339,10 @@ def flash_sass_check(lib_path):
         elif name and re.search(r"\bUTMALDG\b", line):
             counts[name][1] += 1
     old = [name for name in counts
-           if "flash_tc_kernel" in name or "flash_f32_kernel" in name]
+           if "flash_tc_kernel" in name or "flash_f32_kernel" in name
+           or re.search(r"flash_bwd_(dkdv|dq)_f32I", name)]
     if old:
-        raise AssertionError(f"an earlier forward is still built: {old}")
+        raise AssertionError(f"an earlier flash kernel is still built: {old}")
     found = {}
     for tag, mangled in (("bfloat16", "13__nv_bfloat16"), ("float16", "6__half")):
         for kern in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
@@ -1343,13 +1354,14 @@ def flash_sass_check(lib_path):
                                      f"instantiation {fns}; want them in "
                                      f"all four head dims")
             found[f"{kern}/{tag}"] = sorted(fns.values())
-    fns = {name: tuple(c) for name, c in counts.items()
-           if "flash_fwd_f32_kernel" in name}
-    if len(fns) != 4 or min(min(c) for c in fns.values()) == 0:
-        raise AssertionError(f"flash_fwd_f32_kernel (HGMMA, UTMALDG) per "
-                             f"instantiation {fns}; want both in all four "
-                             f"head dims")
-    found["flash_fwd_f32_kernel/float32"] = sorted(fns.values())
+    for kern in ("flash_fwd_f32_kernel", "flash_bwd_dkdv_f32_kernel",
+                 "flash_bwd_dq_f32_kernel"):
+        fns = {name: tuple(c) for name, c in counts.items() if kern in name}
+        if len(fns) != 4 or min(min(c) for c in fns.values()) == 0:
+            raise AssertionError(f"{kern} (HGMMA, UTMALDG) per "
+                                 f"instantiation {fns}; want both in all "
+                                 f"four head dims")
+        found[f"{kern}/float32"] = sorted(fns.values())
     return found
 
 
@@ -1489,6 +1501,14 @@ def phase4_checks(dev):
                 raise AssertionError(f"flash forward {dtype} D {d}: the "
                                      f"library's launch {got} is not "
                                      f"forward_launch_shape's {sh}")
+            want = tuple((x.rows, x.tile, x.stages, x.threads, x.smem_bytes,
+                          int(x.split))
+                         for x in fa.backward_launch_shape(d, dtype))
+            got = fa.kernel_backward_shape(d, dtype)
+            if got != want:
+                raise AssertionError(f"flash backward {dtype} D {d}: the "
+                                     f"library's launches {got} are not "
+                                     f"backward_launch_shape's {want}")
     for dtype, shapes in ((torch.float32, ((128, 27, 16), (256, 27, 128),
                                            (64, 8, 8), (32, 5, 6),
                                            (70, 2, 128), (70, 3, 36),
@@ -5395,8 +5415,9 @@ GNN_LOSS_RTOL = 1e-4
 GNN_MEMORY_SHARE = 0.85          # ogb_products' edge cut
 OGB_TRIAL_EDGES = (4_000_000, 8_000_000)
 OGB_EDGE_STEP = 1_000_000        # the cut's edge count is a multiple of it
-OGB_SLICE = 50_000               # nodes held against the CPU, layer by
-                                 # layer (its host time bounds the slice)
+OGB_SLICE = 25_000               # nodes held against the CPU, layer by
+                                 # layer (its host time bounds the slice:
+                                 # 50,000 took 59.5 s on a slow host)
 ADAFACTOR_SHAPE = (64, 2048, 1408)   # a moonshot expert stack
 ADAFACTOR_LR = 1e-2
 
@@ -6166,14 +6187,22 @@ FLASH_BWD_SMALL = [(2, 100, 4, 4, 64, True, 0), (1, 77, 4, 2, 64, True, 0),
                    (1, 333, 4, 2, 32, True, 0), (1, 300, 4, 4, 16, False, 0),
                    (1, 257, 4, 2, 32, False, 40)]
 # stablelm-1.6b's layer at the trainer's 8 × 4,096 and gemma3-27b's local
-# layer at 2 × 8,192 (window 1,024), bf16; stablelm's again in f32 (the
-# CUDA-core backward, read at the 67 TFLOP/s f32 peak)
+# layer at 2 × 8,192 (window 1,024), bf16; both again in f32 (the f32
+# kernels, three bf16 terms on wgmma: D 64 in the split shape, D 128 in the
+# alternate one), read at the bf16 peak with the 67 TFLOP/s bound and the
+# split's floor beside it
 FLASH_BWD_MAIN = {"stablelm-1.6b": dict(b=8, s=4096, h=32, kv=32, d=64,
                                         window=0),
                   "gemma3-27b-local": dict(b=2, s=8192, h=32, kv=16, d=128,
                                            window=1024),
                   "stablelm-1.6b/f32": dict(b=8, s=4096, h=32, kv=32, d=64,
-                                            window=0, dtype="float32")}
+                                            window=0, dtype="float32"),
+                  "gemma3-27b-local/f32": dict(b=2, s=8192, h=32, kv=16,
+                                               d=128, window=1024,
+                                               dtype="float32")}
+# the f32 backward's products: six bf16 products for each of S, dP, dV, dK
+# and dQ, S and dP in both kernels, each 2·d flops a pair
+F32_BWD_PRODUCTS = 42
 BWD_PLAIN_SCORES = 1 << 27       # f32 scores per block of the plain backward
 DOT_BWD = dict(b=65_536, f=27, d=128)   # dlrm-mlperf's train_batch, f32
 # (c): every family's reduced config, its gradients on the card against the
@@ -6318,11 +6347,11 @@ def sdpa_backward_ms(q, k, v, do, kw):
 
 
 def p12_flash(dev):
-    """(a) The flash backward kernel against its plain version: the small
-    shapes in f32 / bf16 / fp16 (and once through ``FlashAttentionFn``
-    under autograd), then stablelm's and gemma3's local layer in bf16 and
-    stablelm's in f32, timed beside its bound, the plain version and
-    SDPA."""
+    """(a) The flash backward kernels against their plain version: the
+    small shapes in f32 / bf16 / fp16 (and once through
+    ``FlashAttentionFn`` under autograd), then stablelm's and gemma3's
+    local layer in bf16 and in f32, timed beside the bound, the plain
+    version and SDPA."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -6379,15 +6408,25 @@ def p12_flash(dev):
         nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
             + lse.numel() * 4
         # 5 products of 2·d flops per unmasked pair: S again, dP, dV, dK,
-        # dQ; on wgmma in 16 bits, on the CUDA cores in f32
-        r.update(roof(nbytes, 10 * d * pairs, F32_FLOPS_PER_S
-                      if dt == "float32" else BF16_FLOPS_PER_S))
+        # dQ; all on wgmma, the f32 ones in three bf16 terms: the bound at
+        # the bf16 peak
+        r.update(roof(nbytes, 10 * d * pairs, BF16_FLOPS_PER_S))
+        f32_bounds = ""
+        if dt == "float32":
+            # beside it the CUDA cores' bound the earlier f32 kernels were
+            # read against, and the split's floor at the wgmma rate
+            r["bound_cuda_core_ms"] = roof(
+                nbytes, 10 * d * pairs, F32_FLOPS_PER_S)["bound_ms"]
+            r["split_floor_ms"] = (F32_BWD_PRODUCTS * 2 * d * pairs
+                                   / BF16_FLOPS_PER_S * 1e3)
+            f32_bounds = (f"; at 67 TFLOP/s {r['bound_cuda_core_ms']:.3f}, "
+                          f"the split's floor {r['split_floor_ms']:.3f}")
         r["x_bound"] = r["ms"] / r["bound_ms"]
         rec["main"][name] = r
         record(f"phase 12 (a) flash backward {name} {dt} {b}×{s} H {h}/{kv} "
                f"D {d}"
                f" w {w}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f}, "
-               f"×{r['x_bound']:.1f}; plain {r['plain_ms']:.1f}, SDPA "
+               f"×{r['x_bound']:.1f}{f32_bounds}; plain {r['plain_ms']:.1f}, SDPA "
                f"backward {r['library_ms']:.3f}); excess "
                f"{max(r['excess'].values()):.3f}, planted fault "
                f"{min(r['fault_excess'].values()):.2f}")
@@ -6504,7 +6543,8 @@ def p12_grads(dev):
     """(c) Every family's reduced config (LMs in f32, stablelm with remat):
     loss and every gradient leaf on the card against the same port code on
     the CPU, TF32 off; every leaf's card gradient nonzero; the flash and
-    dot twins' forward and backward launched."""
+    dot twins' forward and backward launched (the LMs' flash backward
+    through its f32 kernels, one launch a layer)."""
     import copy
     import torch
     from repro_torch.configs import get_config, reduced
@@ -6543,8 +6583,10 @@ def p12_grads(dev):
                             else "wk.b")
         want = {}
         if cfg.family == "lm":
+            # in f32: the f32 forward and backward kernels
             want = {"flash_attention": cfg.n_layers * (2 if cfg.remat else 1),
-                    "flash_attention_backward": cfg.n_layers}
+                    "flash_attention_backward": cfg.n_layers,
+                    "flash_attention_backward_f32": cfg.n_layers}
         elif arch == "dlrm-mlperf":
             want = {"dot_interaction": 1, "dot_interaction_backward": 1}
         if any(launches[k] != n for k, n in want.items()):
@@ -6552,7 +6594,9 @@ def p12_grads(dev):
                                  f" want {want}")
         rec[arch] = dict(loss=gl, leaves=len(gg), worst_over_tol=worst,
                          launches={k: launches[k] for k in want},
-                         f32_flash_launches=launches["flash_attention_f32"])
+                         f32_flash_launches=launches["flash_attention_f32"],
+                         f32_flash_backward_launches=launches[
+                             "flash_attention_backward_f32"])
     record(f"phase 12 (c) gradients on the card = the CPU's for "
            f"{len(rec)} families, every leaf nonzero: " + ", ".join(
                f"{a} {r['leaves']} leaves ×{r['worst_over_tol']:.2f}"
@@ -7858,7 +7902,7 @@ def backward_rows(p12):
     fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
               "x_bound", "shape", "window", "excess", "fault_excess",
               "library_fwd_ms", "library_fwd_bwd_ms", "forward_lse_ms",
-              "dtype")
+              "dtype", "bound_cuda_core_ms", "split_floor_ms")
     dot = p12["dot"]
     return [
         {"name": "flash_attention_backward", "route": "cuda",
@@ -7872,7 +7916,14 @@ def backward_rows(p12):
          "library_note": "SDPA forward + backward minus SDPA forward",
          "shape": "stablelm-1.6b",
          "shapes": {k: {f: r[f] for f in fields if f in r}
-                    for k, r in flash.items()}},
+                    for k, r in flash.items()},
+         # the f32 kernels' launches (counted under
+         # flash_attention_backward_f32 too) on the paths that run them
+         "f32_launches": {
+             "phase 12 (c)": sum(g["f32_flash_backward_launches"]
+                                 for g in p12["grads"].values()),
+             "phase 12 (d)-(g)": p12["launches"][
+                 "flash_attention_backward_f32"]}},
         {"name": "dot_interaction_backward", "route": "cuda",
          "source": csrc + "dot_interaction.cu",
          "replaces": "src/repro/kernels/dot_interaction.py:26",
@@ -7928,14 +7979,18 @@ def main() -> int:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 entry = m.group(1)
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "C7518" in line):
+                # C7518: ptxas serialised a kernel's wgmma (a branch that
+                # differs between warpgroups sits between one and its wait)
                 log(f"  ptxas {entry}:", line.strip())
     if compare_only:
         log(json.dumps({"card": card, "compare": compare(dev)}))
         return 0
     sass = flash_sass_check(infos["flash_attention"]["path"])
     log(f"phase 0: flash_attention SASS, HGMMA per 16-bit instantiation "
-        f"and (HGMMA, UTMALDG) per f32 forward (D 16..128): {sass}")
+        f"and (HGMMA, UTMALDG) per f32 forward and backward kernel (D "
+        f"16..128): {sass}")
     sass = scan_sass_check(infos["fused_topk_score"]["path"])
     log(f"phase 0: fused_topk_score SASS, (HGMMA, UTMALDG) per "
         f"engine_scan_kernel instantiation: {sass}")

@@ -115,7 +115,37 @@
 //   bound counts 5: S and dP twice, dV, dK and dQ split. A row-dot kernel
 //   first writes Dvec and lse·log2 e in rows padded to a multiple of 4 (TMA
 //   boxes start 16-byte aligned).
-// * f32: the CUDA cores, 32-row tiles (flash_bwd_dkdv_f32, flash_bwd_dq_f32).
+// * f32 (flash_bwd_dkdv_f32_kernel, flash_bwd_dq_f32_kernel): the 16-bit
+//   kernels' shape with every operand in three bf16 terms, as the f32 forward
+//   carries them. A pass (flash_split3_kernel) writes q·scale, k, v and dO as
+//   rows of 3·D bf16 into the launch's scratch (12·B·S·(H + KV)·D bytes), which
+//   TMA loads as 16-bit tiles; P and dS are split in registers (split3 on the
+//   accumulator, whose layout is the A fragment's). S, dP, dV, dK and dQ each
+//   sum the forward's six products (prod_a / prod_b): 42 products of 2·D flops
+//   a pair where the bound counts 10·D, so the floor is 8.4× the bound at the
+//   wgmma rate. The emulation in tests/test_torch_autograd.py decided it: with
+//   six each the gradients hold the CPU tests' f32 contract (1e-5 + 1e-5·|g|)
+//   against jax.vjp and against the backward in f64 (0.07–0.11 of it, the
+//   plain f32 backward 0.10–0.12); against the formulas in f64 on the same
+//   f32 operands the six miss by < 1e-6, and dropping any one 2^-16 product
+//   of any of the five costs over 10× that; the three products down to the
+//   2^-8 terms would hold the card's gate (FLASH_BWD_REL) 8× over but miss
+//   the f32 contract 2.3–2.9×. Shared
+//   memory decides the tiles (b32_rows / b32_tile / b32_stages): a block keeps
+//   its own two operands' three terms resident (dK/dV: K and V; dQ: Q·scale
+//   and dO) and streams the other two's through the ring. From D 64 down it
+//   keeps 128 rows and its two consumer warpgroups own 64 each and read every
+//   64-row tile, as the 16-bit kernels do (192 KB at D 64: two stages). At D
+//   128 the three terms of 128 resident rows of two operands alone take 192
+//   KB, so a block keeps 64 rows, both warpgroups own all of them and take
+//   alternate 32-row tiles (two 48 KB stages), and warpgroup 1's sums are added
+//   to warpgroup 0's through shared memory at the end, a fixed order. P =
+//   2^((S·scale − lse)·log2 e), the difference first as the f32 forward takes
+//   it, with the rows' lse (not times log2 e) in the padded layout. A
+//   warpgroup runs S and dP, then P and dS, then dV and dK (or dQ) in turn:
+//   the other warpgroup's products run under its exponentials and splits.
+//   Blocks launch a head's blocks in a row, heaviest causal block first, so
+//   the blocks in flight stream a few heads' tiles from the L2.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -175,9 +205,9 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // Dvec[b, h, s] = Σ_d dO[b, s, h, d]·O[b, s, h, d] in f32, rows S4 apart, the padding
-// s in [S, S4) written 0. With lse_copy,
-// also lse·log2 e written into that padded layout: the 16-bit kernels load both by TMA,
-// whose boxes start 16-byte aligned, and take P = 2^(S·scale·log2 e − lse·log2 e).
+// s in [S, S4) written 0. With lse_copy, also lse written into that padded layout (times
+// log2 e in 16 bits): the kernels load both by TMA, whose boxes start 16-byte aligned, and
+// take P = 2^(S·scale·log2 e − lse·log2 e) in 16 bits, 2^((S·scale − lse)·log2 e) in f32.
 // 16-bit rows: D/8 lanes a row, 16 bytes each; f32: a warp a row.
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -207,7 +237,8 @@ flash_bwd_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     const int h = int(r % H), s = int((r / H) % S), b = int(r / (long(H) * S));
     const size_t at = (size_t(b) * H + h) * S4 + s;
     dvec[at] = acc;
-    if (lse_copy) lse_copy[at] = lse[(size_t(b) * H + h) * S + s] * kLog2e;
+    if (lse_copy)
+      lse_copy[at] = lse[(size_t(b) * H + h) * S + s] * (sizeof(T) == 2 ? kLog2e : 1.f);
     // the row's padding is read by the TMA boxes: zero, so that a masked P (0) times
     // dP − Dvec stays 0 whatever the scratch held before
     for (int p = S; s == S - 1 && p < S4; ++p) {
@@ -340,6 +371,13 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint3
 #define FA_WGMMA(T, TY)                                                                      \
   /* d (64×N, f32) = A·B + (acc ? d : 0), A (64×16) and B (16×N) read from shared memory, */ \
   /* K-major */                                                                              \
+  __device__ __forceinline__ void wgmma_ss(T, float (&d)[16], uint64_t da, uint64_t db,      \
+                                           int acc) {                                        \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " FA_R16         \
+                 ", %16, %17, p, 1, 1, 0, 0;\n}\n"                                           \
+                 : FA_D16(0) : "l"(da), "l"(db), "r"(acc));                                  \
+  }                                                                                          \
   __device__ __forceinline__ void wgmma_ss(T, float (&d)[32], uint64_t da, uint64_t db,      \
                                            int acc) {                                        \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                \
@@ -716,26 +754,47 @@ __host__ __device__ constexpr int prod_b(int p) {
   return p == 1 ? 2 : p == 2 || p == 4 ? 1 : 0;
 }
 
-// k and v (n4 float4 each, rows of D) → rows of 3·D bf16: the row's x_hi, x_mid and x_lo;
-// k's rows first, then v's (blockIdx.y)
+// Up to four f32 tensors (rows of D, n4 float4 each), each times its scale (rounded once),
+// → rows of 3·D bf16: the row's x_hi, x_mid and x_lo; blockIdx.y picks the tensor
+struct Split3Jobs {
+  const float* src[4];
+  __nv_bfloat16* dst[4];
+  long n4[4];
+  float scale[4];
+};
+
+// element y of a parameter array by selects (an index unknown at compile time would copy
+// the array to local memory)
+template <typename X>
+__device__ __forceinline__ X pick4(const X (&a)[4], unsigned y) {
+  return y == 0 ? a[0] : y == 1 ? a[1] : y == 2 ? a[2] : a[3];
+}
+
 __global__ void __launch_bounds__(256)
-flash_split3_kernel(const float* __restrict__ k, const float* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, long n4, int D) {
-  const float4* const x = reinterpret_cast<const float4*>(blockIdx.y ? v : k);
-  __nv_bfloat16* const ob = out + (blockIdx.y ? 12 * n4 : 0);
+flash_split3_kernel(const Split3Jobs jobs, int D) {
+  const float4* const x = reinterpret_cast<const float4*>(pick4(jobs.src, blockIdx.y));
+  __nv_bfloat16* const ob = pick4(jobs.dst, blockIdx.y);
+  const long n4 = pick4(jobs.n4, blockIdx.y);
+  const float sc = pick4(jobs.scale, blockIdx.y);
   for (long i = long(blockIdx.x) * blockDim.x + threadIdx.x; i < n4;
        i += long(gridDim.x) * blockDim.x) {
     const float4 a = x[i];
     const long row = 4 * i / D;
     const int col = int(4 * i - row * D);
     uint32_t hi[2], mid[2], lo[2];
-    split3(a.x, a.y, hi[0], mid[0], lo[0]);
-    split3(a.z, a.w, hi[1], mid[1], lo[1]);
+    split3(__fmul_rn(a.x, sc), __fmul_rn(a.y, sc), hi[0], mid[0], lo[0]);
+    split3(__fmul_rn(a.z, sc), __fmul_rn(a.w, sc), hi[1], mid[1], lo[1]);
     __nv_bfloat16* const p = ob + row * 3 * D + col;
     *reinterpret_cast<uint2*>(p) = make_uint2(hi[0], hi[1]);
     *reinterpret_cast<uint2*>(p + D) = make_uint2(mid[0], mid[1]);
     *reinterpret_cast<uint2*>(p + 2 * D) = make_uint2(lo[0], lo[1]);
   }
+}
+
+// the split pass's grid: a thread a float4, at most 8,192 blocks (the loop strides the rest)
+unsigned split_blocks(long n4) {
+  const long blocks = (n4 + 255) / 256;
+  return unsigned(blocks < 8192 ? blocks : 8192);
 }
 
 template <int D>
@@ -1293,196 +1352,454 @@ bool rows_map(CUtensorMap* m, const void* p, int B, int S, int heads, int rows, 
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// n f32 values → boxes of 64 (zeros past n)
-bool vec_map(CUtensorMap* m, const void* p, size_t n) {
+// n f32 values → boxes of `box` (zeros past n)
+bool vec_map(CUtensorMap* m, const void* p, size_t n, int box_n = 64) {
   const cuuint64_t dims[1] = {cuuint64_t(n)}, strides[1] = {4};
-  const cuuint32_t box[1] = {64}, unit[1] = {1};
+  const cuuint32_t box[1] = {cuuint32_t(box_n)}, unit[1] = {1};
   return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(p), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// f32 backward on the CUDA cores: 32-row tiles, 256 threads; a thread computes 4 scores
-// (one row, 4 columns) and owns D/8 output columns of one row, strided by 8.
-constexpr int FB = 32;
-constexpr int FB_THREADS = 256;
+// The f32 backward on wgmma: q·scale, k, v and dO in three bf16 terms each (written as rows
+// of 3·D bf16 by flash_split3_kernel into the launch's scratch, loaded by TMA as 16-bit
+// tiles), P and dS split into theirs in registers; each of S, dP, dV, dK and dQ sums the
+// forward's six products (prod_a / prod_b). A block keeps `rows` rows of its own operands
+// resident (dK/dV: K and V; dQ: Q·scale and dO) and streams tiles of `tile` rows of the
+// other two through a ring of `stages`. From D 64 down the two consumer warpgroups own 64
+// resident rows each and both read every tile (split); at D 128 the three terms of 128
+// resident rows of two operands alone take 192 KB, so a block keeps 64 rows, both
+// warpgroups own all of them, take alternate tiles of 32 rows and add their two sums in
+// shared memory at the end, warpgroup 0's first (a fixed order).
+constexpr int B32_THREADS = 384;       // a producer warpgroup, two consumer warpgroups
 
 template <int D>
-constexpr size_t f32_bwd_smem_bytes() {  // four FB × D tiles, two FB × FB, two FB vectors
-  return (size_t(4) * FB * (D + 1) + 2 * FB * (FB + 1) + 2 * FB) * 4;
+__host__ __device__ constexpr bool b32_split() { return D <= 64; }
+template <int D>
+__host__ __device__ constexpr int b32_rows() { return b32_split<D>() ? 128 : 64; }
+template <int D>
+__host__ __device__ constexpr int b32_tile() { return D == 128 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr int b32_stages() { return D >= 64 ? 2 : 4; }
+
+// the resident operands' six planes, then per stage the streamed operands' six planes (and
+// for dK/dV 1024 bytes: the tile's lse and Dvec, the next stage's alignment), the barriers
+template <int D>
+constexpr size_t b32_smem_bytes(bool dkdv) {
+  return 1024 + 6 * size_t(b32_rows<D>()) * D * 2 +
+         b32_stages<D>() * (6 * size_t(b32_tile<D>()) * D * 2 + (dkdv ? 1024 : 0)) + 128;
 }
 
-template <int D>
-__global__ void __launch_bounds__(FB_THREADS)
-flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ dvec,
-                   float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KV,
-                   int causal, int window, float scale) {
-  constexpr int R = D + 1;
-  extern __shared__ __align__(16) float sm[];
-  float* ks = sm;                      // [FB][R]
-  float* vs = ks + FB * R;             // [FB][R]
-  float* qs = vs + FB * R;             // [FB][R]  Q·scale
-  float* gs = qs + FB * R;             // [FB][R]  dO
-  float* ps = gs + FB * R;             // [FB][FB + 1]  Pᵀ (key, query)
-  float* ds = ps + FB * (FB + 1);      // [FB][FB + 1]  dSᵀ
-  float* ls = ds + FB * (FB + 1);      // [FB]  lse
-  float* dl = ls + FB;                 // [FB]  Dvec
-
-  const int tid = threadIdx.x, sr = tid >> 3, sc0 = (tid & 7) * 4, oc = tid & 7;
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV, G = H / KV;
-  const int k0 = blockIdx.y * FB;
-  const size_t q_stride = size_t(H) * D, kv_stride = size_t(KV) * D;
-  const float* kb = k + (size_t(b) * S * KV + kvh) * D;
-  const float* vb = v + (size_t(b) * S * KV + kvh) * D;
-  for (int e = tid; e < FB * D; e += FB_THREADS) {
-    const int r = e / D, c = e % D, s = k0 + r;
-    ks[r * R + c] = s < S ? kb[size_t(s) * kv_stride + c] : 0.f;
-    vs[r * R + c] = s < S ? vb[size_t(s) * kv_stride + c] : 0.f;
+// the alternate mode's end: warpgroup 1's sums `x` of the shared rows through shared memory
+// (every tile consumed by then) into warpgroup 0's, added after its own; c is the warpgroup
+template <int N>
+__device__ __forceinline__ void b32_add_sums(float (&x)[N], float* red, int c, int at0) {
+  const int tid = threadIdx.x & 127;
+  if (c == 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[(at0 + i) * 128 + tid] = x[i];
   }
+  bar_sync256(1);
+  if (c == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] += red[(at0 + i) * 128 + tid];
+  }
+}
+
+// dK, dV of `rows` keys of one KV head: warpgroup 0 loads (one thread: K's and V's terms
+// once, then Q·scale's and dO's terms, lse and Dvec of each (query head, query tile) step
+// into the ring); warpgroups 1 and 2 keep their sums in registers (no atomics).
+template <int D>
+__global__ void __launch_bounds__(B32_THREADS, 1)
+flash_bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tlse,
+                          const __grid_constant__ CUtensorMap tdvec, float* __restrict__ dk,
+                          float* __restrict__ dv, int S, int S4, int H, int KV, int causal,
+                          int window) {
+  using L = Tile16<D>;
+  constexpr bool SPLIT = b32_split<D>();
+  constexpr int R = b32_rows<D>(), TQ = b32_tile<D>(), STAGES = b32_stages<D>();
+  constexpr int RP = R * D * 2;                   // one term of the resident K or V
+  constexpr int TP = TQ * D * 2;                  // one term of a streamed Q or dO tile
+  constexpr int STAGE = 6 * TP + 1024;            // Q's terms, dO's terms, lse, Dvec
+  constexpr int KS = D / 16, NT = TQ / 2;         // k-steps over D; scores a thread holds
+  extern __shared__ __align__(1024) unsigned char b32_smem[];
+  unsigned char* const ks = align1024(b32_smem);  // K's terms [3][NH][R][SW]
+  unsigned char* const vs = ks + 3 * RP;          // V's terms
+  unsigned char* const stages = vs + 3 * RP;
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(stages + STAGES * STAGE);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + STAGES;
+
+  // a KV head's key blocks in a row, the heaviest causal block (the first keys) first: the
+  // blocks in flight stream a few heads' Q and dO, which stay in the L2
+  const int nkb = (S + R - 1) / R;
+  const int bk = blockIdx.x / nkb, k0 = (blockIdx.x % nkb) * R;
+  const int b = bk / KV, kvh = bk % KV, G = H / KV;
+  // live query tiles [i_lo, i_lo + n_i): some query of the tile sees some key of the block
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(S - 1, k0 + FB - 2 + window) : S - 1;
+  const int q_hi = window > 0 ? min(S - 1, k0 + R - 2 + window) : S - 1;
+  const int i_lo = q_lo / TQ, n_i = q_hi / TQ - i_lo + 1, n_steps = G * n_i;
 
-  float dka[D / 8], dva[D / 8];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) dka[j] = dva[j] = 0.f;
-  for (int hg = 0; hg < G; ++hg) {
-    const int h = kvh * G + hg;
-    const float* qb = q + (size_t(b) * S * H + h) * D;
-    const float* gb = dout + (size_t(b) * S * H + h) * D;
-    for (int i = q_lo / FB; i <= q_hi / FB; ++i) {
-      const int q0 = i * FB;
-      __syncthreads();                 // the last tile's readers are done
-      for (int e = tid; e < FB * D; e += FB_THREADS) {
-        const int r = e / D, c = e % D, s = q0 + r;
-        qs[r * R + c] = s < S ? __fmul_rn(qb[size_t(s) * q_stride + c], scale) : 0.f;
-        gs[r * R + c] = s < S ? gb[size_t(s) * q_stride + c] : 0.f;
-      }
-      if (tid < FB) {
-        const size_t at = (size_t(b) * H + h) * S + q0 + tid;
-        ls[tid] = q0 + tid < S ? lse[at] : 0.f;
-        dl[tid] = q0 + tid < S ? dvec[at] : 0.f;
-      }
-      __syncthreads();
-      float s4[4] = {0.f, 0.f, 0.f, 0.f}, p4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int c = 0; c < D; ++c) {
-        const float kc = ks[sr * R + c], vc = vs[sr * R + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s4[j] = fmaf(qs[(sc0 + j) * R + c], kc, s4[j]);
-          p4[j] = fmaf(gs[(sc0 + j) * R + c], vc, p4[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cq = sc0 + j;
-        const float p = visible(q0 + cq, k0 + sr, S, causal, window) ? expf(s4[j] - ls[cq])
-                                                                     : 0.f;
-        ps[sr * (FB + 1) + cq] = p;
-        ds[sr * (FB + 1) + cq] = p * (p4[j] - dl[cq]);
-      }
-      __syncthreads();
-      for (int cq = 0; cq < FB; ++cq) {
-        const float p = ps[sr * (FB + 1) + cq], dsv = ds[sr * (FB + 1) + cq];
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          dva[j] = fmaf(p, gs[cq * R + oc + 8 * j], dva[j]);
-          dka[j] = fmaf(dsv, qs[cq * R + oc + 8 * j], dka[j]);
-        }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, SPLIT ? 256 : 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(kv_full, 6 * RP);
+      for (int t = 0; t < 3; ++t)
+        for (int hb = 0; hb < L::NH; ++hb)
+          for (int r = 0; r < R / 64; ++r) {
+            const int col = t * D + hb * L::SW / 2, at = t * RP + (hb * R + r * 64) * L::SW;
+            tma_load_4d(ks + at, tk, col, kvh, k0 + r * 64, b, kv_full);
+            tma_load_4d(vs + at, tv, col, kvh, k0 + r * 64, b, kv_full);
+          }
+      for (int step = 0; step < n_steps; ++step) {
+        const int st = step % STAGES;
+        mbar_wait(empty + st, ((step / STAGES) & 1) ^ 1);
+        const int h = kvh * G + step / n_i, s0 = (i_lo + step % n_i) * TQ;
+        unsigned char* const sp = stages + st * STAGE;
+        mbar_arrive_tx(full + st, 6 * TP + 2 * TQ * 4);
+        for (int t = 0; t < 3; ++t)
+          for (int hb = 0; hb < L::NH; ++hb) {
+            const int col = t * D + hb * L::SW / 2, at = t * TP + hb * TQ * L::SW;
+            tma_load_4d(sp + at, tq, col, h, s0, b, full + st);
+            tma_load_4d(sp + 3 * TP + at, tdo, col, h, s0, b, full + st);
+          }
+        const int at = (b * H + h) * S4 + s0;
+        tma_load_1d(sp + 6 * TP, tlse, at, full + st);
+        tma_load_1d(sp + 6 * TP + TQ * 4, tdvec, at, full + st);
       }
     }
-  }
-  const int s = k0 + sr;
-  if (s < S) {
+  } else {
+    regs_inc<240>();
+    const int c = threadIdx.x / 128 - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = SPLIT ? 64 * c : 0;             // this warpgroup's resident rows
+    const int kw0 = k0 + r0;                       // its keys
+    const int key0 = kw0 + warp * 16 + g;          // this thread's keys: key0, key0 + 8
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const size_t at = (size_t(b) * S * KV + kvh) * D + size_t(s) * kv_stride + oc + 8 * j;
-      dk[at] = dka[j];
-      dv[at] = dva[j];
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    // split: every step; alternate: warpgroup c takes steps c, c + 2, …
+    for (int step = SPLIT ? 0 : c; step < n_steps; step += SPLIT ? 1 : 2) {
+      const int st = step % STAGES;
+      const int q0 = (i_lo + step % n_i) * TQ;
+      const unsigned char* const qs = stages + st * STAGE;   // Q·scale's terms
+      const unsigned char* const gs = qs + 3 * TP;           // dO's terms
+      const float* const lt = reinterpret_cast<const float*>(qs + 6 * TP);
+      const float* const dt = lt + TQ;
+      mbar_wait(full + st, (step / STAGES) & 1);
+      const bool dead = kw0 >= S || (causal && kw0 > q0 + TQ - 1) ||
+                        (window > 0 && q0 - (kw0 + 63) >= window);
+      if (!dead) {
+        // Sᵀ = K·(Q·scale)ᵀ and dPᵀ = V·dOᵀ, 64 keys × TQ queries, six products each over all
+        // of D, smallest first, both operands' terms from shared memory
+        float sc[NT], dp[NT];
+        wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            wgmma_ss(__nv_bfloat16(), sc, desc_k<D>(ks + prod_a(p) * RP, R, r0, kk),
+                     desc_k<D>(qs + prod_b(p) * TP, TQ, 0, kk), p + kk);
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            wgmma_ss(__nv_bfloat16(), dp, desc_k<D>(vs + prod_a(p) * RP, R, r0, kk),
+                     desc_k<D>(gs + prod_b(p) * TP, TQ, 0, kk), p + kk);
+        wgmma_commit();
+        wgmma_wait();
+        reg_fence(sc);
+        reg_fence(dp);
+
+        // Pᵀ = exp(Sᵀ − lse) (0 where masked), dSᵀ = Pᵀ ∘ (dPᵀ − Dvec); element i is key
+        // key0 + 8·((i >> 1) & 1), query q0 + 8·(i >> 2) + 2·t4 + (i & 1), whose lse and
+        // Dvec are lv[u], dvv[u], u = 2·(i >> 2) + (i & 1)
+        float lv[NT / 2], dvv[NT / 2];
+#pragma unroll
+        for (int c8 = 0; c8 < TQ / 8; ++c8) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lt + c8 * 8 + 2 * t4);
+          const float2 d2 = *reinterpret_cast<const float2*>(dt + c8 * 8 + 2 * t4);
+          lv[2 * c8] = l2.x;
+          lv[2 * c8 + 1] = l2.y;
+          dvv[2 * c8] = d2.x;
+          dvv[2 * c8 + 1] = d2.y;
+        }
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          sc[i] = exp2_ftz((sc[i] - lv[2 * (i >> 2) + (i & 1)]) * kLog2e);
+        if (q0 + TQ - 1 >= S || kw0 + 63 >= S || (causal && kw0 + 63 > q0) ||
+            (window > 0 && q0 + TQ - 1 - kw0 >= window)) {
+#pragma unroll
+          for (int i = 0; i < NT; ++i)
+            sc[i] = visible(q0 + (i >> 2) * 8 + 2 * t4 + (i & 1), key0 + ((i >> 1) & 1) * 8, S,
+                            causal, window) ? sc[i] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < NT; ++i) dp[i] = sc[i] * (dp[i] - dvv[2 * (i >> 2) + (i & 1)]);
+
+        // dV += Pᵀ·dO, dK += dSᵀ·(Q·scale): Pᵀ's and dSᵀ's terms as A from registers (the
+        // accumulator's layout is the A fragment's), dO's and Q's terms as MN-major B from
+        // the very tiles the first products read K-major
+        uint32_t pa[3][TQ / 16][4], sa[3][TQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < TQ / 16; ++j)
+#pragma unroll
+          for (int rg = 0; rg < 4; ++rg) {
+            split3(sc[8 * j + 2 * rg], sc[8 * j + 2 * rg + 1], pa[0][j][rg], pa[1][j][rg],
+                   pa[2][j][rg]);
+            split3(dp[8 * j + 2 * rg], dp[8 * j + 2 * rg + 1], sa[0][j][rg], sa[1][j][rg],
+                   sa[2][j][rg]);
+          }
+        reg_fence(dka);
+        reg_fence(dva);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < TQ / 16; ++j)
+#pragma unroll
+          for (int p = 0; p < 6; ++p)
+            wgmma_rs_t(__nv_bfloat16(), dva, pa[prod_a(p)][j],
+                       desc_mn<D>(gs + prod_b(p) * TP, TQ, j));
+#pragma unroll
+        for (int j = 0; j < TQ / 16; ++j)
+#pragma unroll
+          for (int p = 0; p < 6; ++p)
+            wgmma_rs_t(__nv_bfloat16(), dka, sa[prod_a(p)][j],
+                       desc_mn<D>(qs + prod_b(p) * TP, TQ, j));
+        wgmma_commit();
+        wgmma_wait();
+        reg_fence(dka);
+        reg_fence(dva);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          reg_fence(pa[t]);
+          reg_fence(sa[t]);
+        }
+      }
+      mbar_arrive(empty + st);
+    }
+
+    if constexpr (!SPLIT) {
+      float* const red = reinterpret_cast<float*>(stages);
+      bar_sync256(1);                               // every tile consumed
+      b32_add_sums(dka, red, c, 0);
+      b32_add_sums(dva, red, c, D / 2);
+    }
+    if (SPLIT || c == 0) {
+      const size_t kv_stride = size_t(KV) * D;
+      float* const dkb = dk + (size_t(b) * S * KV + kvh) * D;
+      float* const dvb = dv + (size_t(b) * S * KV + kvh) * D;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int s = key0 + rr * 8;
+        if (s >= S) continue;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          const size_t at = size_t(s) * kv_stride + i * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(dkb + at) =
+              make_float2(dka[4 * i + 2 * rr], dka[4 * i + 2 * rr + 1]);
+          *reinterpret_cast<float2*>(dvb + at) =
+              make_float2(dva[4 * i + 2 * rr], dva[4 * i + 2 * rr + 1]);
+        }
+      }
     }
   }
 }
 
+// dQ of `rows` query rows of one head: warpgroup 0 loads (Q·scale's and dO's terms once, then
+// the live tiles of K's and V's terms through the ring); warpgroups 1 and 2 compute.
 template <int D>
-__global__ void __launch_bounds__(FB_THREADS)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ dvec,
-                 float* __restrict__ dq, int S, int H, int KV, int causal, int window,
-                 float scale) {
-  constexpr int R = D + 1;
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;                      // [FB][R]  Q·scale
-  float* gs = qs + FB * R;             // [FB][R]  dO
-  float* ks = gs + FB * R;             // [FB][R]
-  float* vs = ks + FB * R;             // [FB][R]
-  float* ds = vs + FB * R;             // [FB][FB + 1]  dS (query, key)
+__global__ void __launch_bounds__(B32_THREADS, 1)
+flash_bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse4,
+                        const float* __restrict__ dvec, float* __restrict__ dq, int S, int S4,
+                        int H, int KV, int causal, int window, float scale) {
+  using L = Tile16<D>;
+  constexpr bool SPLIT = b32_split<D>();
+  constexpr int R = b32_rows<D>(), TK = b32_tile<D>(), STAGES = b32_stages<D>();
+  constexpr int RP = R * D * 2;                   // one term of the resident Q·scale or dO
+  constexpr int TP = TK * D * 2;                  // one term of a streamed K or V tile
+  constexpr int STAGE = 6 * TP;                   // K's terms, V's terms
+  constexpr int KS = D / 16, NT = TK / 2;
+  extern __shared__ __align__(1024) unsigned char b32_smem[];
+  unsigned char* const qs = align1024(b32_smem);  // Q·scale's terms [3][NH][R][SW]
+  unsigned char* const gs = qs + 3 * RP;          // dO's terms
+  unsigned char* const stages = gs + 3 * RP;
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(stages + STAGES * STAGE);
+  uint64_t* const full = q_full + 1;
+  uint64_t* const empty = full + STAGES;
 
-  const int tid = threadIdx.x, sr = tid >> 3, sc0 = (tid & 7) * 4, oc = tid & 7;
-  const int q0 = blockIdx.y * FB;
-  const int b = blockIdx.x / H, h = blockIdx.x % H, kvh = h / (H / KV);
-  const size_t q_stride = size_t(H) * D, kv_stride = size_t(KV) * D;
-  const float* qb = q + (size_t(b) * S * H + h) * D;
-  const float* gb = dout + (size_t(b) * S * H + h) * D;
-  const float* kb = k + (size_t(b) * S * KV + kvh) * D;
-  const float* vb = v + (size_t(b) * S * KV + kvh) * D;
-  for (int e = tid; e < FB * D; e += FB_THREADS) {
-    const int r = e / D, c = e % D, s = q0 + r;
-    qs[r * R + c] = s < S ? __fmul_rn(qb[size_t(s) * q_stride + c], scale) : 0.f;
-    gs[r * R + c] = s < S ? gb[size_t(s) * q_stride + c] : 0.f;
-  }
-  const int pq = q0 + sr;
-  const size_t at = (size_t(b) * H + h) * S + pq;
-  const float lr = pq < S ? lse[at] : 0.f, dr = pq < S ? dvec[at] : 0.f;
-
-  int t_hi = (S - 1) / FB;
-  if (causal) t_hi = min(t_hi, (q0 + FB - 1) / FB);
+  // a head's query blocks in a row, the heaviest causal block (the last rows) first, and the
+  // heads of a KV group in a row: the blocks in flight share a few K and V heads in the L2
+  const int nqb = (S + R - 1) / R;
+  const int bh = blockIdx.x / nqb, q0 = (nqb - 1 - blockIdx.x % nqb) * R;
+  const int b = bh / H, h = bh % H, kvh = h / (H / KV);
+  int t_hi = (S - 1) / TK;                        // live key tiles, the forward's predicate
+  if (causal) t_hi = min(t_hi, (q0 + R - 1) / TK);
   int t_lo = 0;
   if (window > 0) {
-    const int x = q0 - window - FB + 1;
-    if (x >= 0) t_lo = x / FB + 1;
+    const int x = q0 - window - TK + 1;
+    if (x >= 0) t_lo = x / TK + 1;
   }
-  float dqa[D / 8];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) dqa[j] = 0.f;
-  for (int it = t_lo; it <= t_hi; ++it) {
-    const int kt0 = it * FB;
-    __syncthreads();
-    for (int e = tid; e < FB * D; e += FB_THREADS) {
-      const int r = e / D, c = e % D, s = kt0 + r;
-      ks[r * R + c] = s < S ? kb[size_t(s) * kv_stride + c] : 0.f;
-      vs[r * R + c] = s < S ? vb[size_t(s) * kv_stride + c] : 0.f;
+  const int n_steps = t_hi - t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, SPLIT ? 256 : 128);
     }
-    __syncthreads();
-    float s4[4] = {0.f, 0.f, 0.f, 0.f}, p4[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float qc = qs[sr * R + c], gc = gs[sr * R + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s4[j] = fmaf(qc, ks[(sc0 + j) * R + c], s4[j]);
-        p4[j] = fmaf(gc, vs[(sc0 + j) * R + c], p4[j]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(q_full, 6 * RP);
+      for (int t = 0; t < 3; ++t)
+        for (int hb = 0; hb < L::NH; ++hb)
+          for (int r = 0; r < R / 64; ++r) {
+            const int col = t * D + hb * L::SW / 2, at = t * RP + (hb * R + r * 64) * L::SW;
+            tma_load_4d(qs + at, tq, col, h, q0 + r * 64, b, q_full);
+            tma_load_4d(gs + at, tdo, col, h, q0 + r * 64, b, q_full);
+          }
+      for (int step = 0; step < n_steps; ++step) {
+        const int st = step % STAGES;
+        mbar_wait(empty + st, ((step / STAGES) & 1) ^ 1);
+        const int kt0 = (t_lo + step) * TK;
+        unsigned char* const sp = stages + st * STAGE;
+        mbar_arrive_tx(full + st, STAGE);
+        for (int t = 0; t < 3; ++t)
+          for (int hb = 0; hb < L::NH; ++hb) {
+            const int col = t * D + hb * L::SW / 2, at = t * TP + hb * TK * L::SW;
+            tma_load_4d(sp + at, tk, col, kvh, kt0, b, full + st);
+            tma_load_4d(sp + 3 * TP + at, tv, col, kvh, kt0, b, full + st);
+          }
       }
     }
+  } else {
+    regs_inc<240>();
+    const int c = threadIdx.x / 128 - 1, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = SPLIT ? 64 * c : 0;             // this warpgroup's resident rows
+    const int qw0 = q0 + r0;
+    const int row0 = qw0 + warp * 16 + g;          // this thread's rows: row0, row0 + 8
+    float lr[2], dr[2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p = visible(pq, kt0 + sc0 + j, S, causal, window) ? expf(s4[j] - lr) : 0.f;
-      ds[sr * (FB + 1) + sc0 + j] = p * (p4[j] - dr);
+    for (int rr = 0; rr < 2; ++rr) {
+      const int s = row0 + rr * 8;
+      lr[rr] = s < S ? lse4[(size_t(b) * H + h) * S4 + s] : 0.f;
+      dr[rr] = s < S ? dvec[(size_t(b) * H + h) * S4 + s] : 0.f;
     }
-    __syncthreads();
-    for (int kc = 0; kc < FB; ++kc) {
-      const float dsv = ds[sr * (FB + 1) + kc];
+    float dqa[D / 2];
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) dqa[j] = fmaf(dsv, ks[kc * R + oc + 8 * j], dqa[j]);
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    for (int step = SPLIT ? 0 : c; step < n_steps; step += SPLIT ? 1 : 2) {
+      const int st = step % STAGES;
+      const int kt0 = (t_lo + step) * TK;
+      const unsigned char* const kt = stages + st * STAGE;   // K's terms
+      const unsigned char* const vt = kt + 3 * TP;           // V's terms
+      mbar_wait(full + st, (step / STAGES) & 1);
+      const bool dead = qw0 >= S || (causal && kt0 > qw0 + 63) ||
+                        (window > 0 && qw0 - (kt0 + TK - 1) >= window);
+      if (!dead) {
+        // S = (Q·scale)·Kᵀ and dP = dO·Vᵀ, 64 rows × TK keys
+        float sc[NT], dp[NT];
+        wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            wgmma_ss(__nv_bfloat16(), sc, desc_k<D>(qs + prod_a(p) * RP, R, r0, kk),
+                     desc_k<D>(kt + prod_b(p) * TP, TK, 0, kk), p + kk);
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+#pragma unroll
+          for (int kk = 0; kk < KS; ++kk)
+            wgmma_ss(__nv_bfloat16(), dp, desc_k<D>(gs + prod_a(p) * RP, R, r0, kk),
+                     desc_k<D>(vt + prod_b(p) * TP, TK, 0, kk), p + kk);
+        wgmma_commit();
+        wgmma_wait();
+        reg_fence(sc);
+        reg_fence(dp);
+
+        // dS = P ∘ (dP − Dvec), P = exp(S − lse); element i is row row0 + 8·((i >> 1) & 1),
+        // key kt0 + 8·(i >> 2) + 2·t4 + (i & 1)
+#pragma unroll
+        for (int i = 0; i < NT; ++i) sc[i] = exp2_ftz((sc[i] - lr[(i >> 1) & 1]) * kLog2e);
+        if (qw0 + 63 >= S || kt0 + TK - 1 >= S || (causal && kt0 + TK - 1 > qw0) ||
+            (window > 0 && qw0 + 63 - kt0 >= window)) {
+#pragma unroll
+          for (int i = 0; i < NT; ++i)
+            sc[i] = visible(row0 + ((i >> 1) & 1) * 8, kt0 + (i >> 2) * 8 + 2 * t4 + (i & 1), S,
+                            causal, window) ? sc[i] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < NT; ++i) dp[i] = sc[i] * (dp[i] - dr[(i >> 1) & 1]);
+
+        // dQ += dS·K: dS's terms as A from registers, K's as MN-major B from its tile
+        uint32_t sa[3][TK / 16][4];
+#pragma unroll
+        for (int j = 0; j < TK / 16; ++j)
+#pragma unroll
+          for (int rg = 0; rg < 4; ++rg)
+            split3(dp[8 * j + 2 * rg], dp[8 * j + 2 * rg + 1], sa[0][j][rg], sa[1][j][rg],
+                   sa[2][j][rg]);
+        reg_fence(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < TK / 16; ++j)
+#pragma unroll
+          for (int p = 0; p < 6; ++p)
+            wgmma_rs_t(__nv_bfloat16(), dqa, sa[prod_a(p)][j],
+                       desc_mn<D>(kt + prod_b(p) * TP, TK, j));
+        wgmma_commit();
+        wgmma_wait();
+        reg_fence(dqa);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) reg_fence(sa[t]);
+      }
+      mbar_arrive(empty + st);
     }
-  }
-  if (pq < S) {
+
+    if constexpr (!SPLIT) {
+      bar_sync256(1);                               // every tile consumed
+      b32_add_sums(dqa, reinterpret_cast<float*>(stages), c, 0);
+    }
+    if (SPLIT || c == 0) {
+      const size_t q_stride = size_t(H) * D;
+      float* const dqb = dq + (size_t(b) * S * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) dq[(size_t(b) * S * H + h) * D + size_t(pq) * q_stride +
-                                       oc + 8 * j] = dqa[j] * scale;
+      for (int rr = 0; rr < 2; ++rr) {
+        const int s = row0 + rr * 8;
+        if (s >= S) continue;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i)
+          *reinterpret_cast<float2*>(dqb + size_t(s) * q_stride + i * 8 + 2 * t4) =
+              make_float2(dqa[4 * i + 2 * rr] * scale, dqa[4 * i + 2 * rr + 1] * scale);
+      }
+    }
   }
 }
 
@@ -1501,10 +1818,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, void
         !rows_map<__nv_bfloat16, D>(&mk, kp, B, S, KV, F32_BK, 3 * D) ||
         !rows_map<__nv_bfloat16, D>(&mv, vp, B, S, KV, F32_BK, 3 * D))
       return int(cudaErrorInvalidValue);
-    const long split_blocks = (n4 + 255) / 256;
-    flash_split3_kernel<<<dim3(unsigned(split_blocks < 8192 ? split_blocks : 8192), 2), 256, 0,
-                          stream>>>(static_cast<const float*>(k), static_cast<const float*>(v),
-                                    kp, n4, D);
+    const Split3Jobs jobs = {{static_cast<const float*>(k), static_cast<const float*>(v)},
+                             {kp, vp}, {n4, n4}, {1.f, 1.f}};
+    flash_split3_kernel<<<dim3(split_blocks(n4), 2), 256, 0, stream>>>(jobs, D);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return int(e);
     constexpr size_t smem = f32_smem_bytes<D>();
@@ -1531,36 +1847,73 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, void
   return int(cudaGetLastError());
 }
 
+// The f32 backward after the row-dot pass: q·scale, k, v and dO into the scratch as rows of
+// their three bf16 terms (flash_split3_kernel), then the two kernels
+template <int D>
+int launch_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
+                   const float* lse4, const float* dvec, void* scratch, float* dq, float* dk,
+                   float* dv, int B, int S, int S4, int H, int KV, int causal, int window,
+                   float scale, cudaStream_t stream) {
+  using BF = __nv_bfloat16;
+  const long nq4 = long(B) * S * H * D / 4, nk4 = long(B) * S * KV * D / 4;
+  BF* const q3 = static_cast<BF*>(scratch);
+  BF* const k3 = q3 + 12 * nq4;
+  BF* const v3 = k3 + 12 * nk4;
+  BF* const g3 = v3 + 12 * nk4;
+  constexpr int R = b32_rows<D>(), TT = b32_tile<D>();
+  const size_t nv = size_t(B) * H * S4;
+  // dK/dV: K and V resident (boxes of 64 rows), Q and dO streamed; dQ the other way round
+  CUtensorMap rk, rv, sq, sdo, ml, md, rq, rdo, sk, sv;
+  if (!scratch || !encode_tiled() || !rows_map<BF, D>(&rk, k3, B, S, KV, 64, 3 * D) ||
+      !rows_map<BF, D>(&rv, v3, B, S, KV, 64, 3 * D) ||
+      !rows_map<BF, D>(&sq, q3, B, S, H, TT, 3 * D) ||
+      !rows_map<BF, D>(&sdo, g3, B, S, H, TT, 3 * D) || !vec_map(&ml, lse4, nv, TT) ||
+      !vec_map(&md, dvec, nv, TT) || !rows_map<BF, D>(&rq, q3, B, S, H, 64, 3 * D) ||
+      !rows_map<BF, D>(&rdo, g3, B, S, H, 64, 3 * D) ||
+      !rows_map<BF, D>(&sk, k3, B, S, KV, TT, 3 * D) ||
+      !rows_map<BF, D>(&sv, v3, B, S, KV, TT, 3 * D))
+    return int(cudaErrorInvalidValue);
+  const Split3Jobs jobs = {{q, k, v, dout}, {q3, k3, v3, g3}, {nq4, nk4, nk4, nq4},
+                           {scale, 1.f, 1.f, 1.f}};
+  flash_split3_kernel<<<dim3(split_blocks(nq4 > nk4 ? nq4 : nk4), 4), 256, 0, stream>>>(jobs, D);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  constexpr size_t smem_kv = b32_smem_bytes<D>(true), smem_q = b32_smem_bytes<D>(false);
+  if ((e = cudaFuncSetAttribute(flash_bwd_dkdv_f32_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_kv))) ||
+      (e = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_q))))
+    return int(e);
+  flash_bwd_dkdv_f32_kernel<D><<<unsigned(B) * KV * ((S + R - 1) / R), B32_THREADS, smem_kv,
+                                 stream>>>(sq, rk, rv, sdo, ml, md, dk, dv, S, S4, H, KV, causal,
+                                           window);
+  if ((e = cudaGetLastError())) return int(e);
+  flash_bwd_dq_f32_kernel<D><<<unsigned(B) * H * ((S + R - 1) / R), B32_THREADS, smem_q,
+                               stream>>>(rq, sk, sv, rdo, lse4, dvec, dq, S, S4, H, KV, causal,
+                                         window, scale);
+  return int(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int S, int H,
-               int KV, int causal, int window, float scale, cudaStream_t stream) {
+               const void* lse, void* dvec, void* scratch, void* dq, void* dk, void* dv, int B,
+               int S, int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
           *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(dout);
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(dvec);
-  // 16-bit: Dvec and a copy of lse in rows of S4 (S rounded up to 4) for the TMA loads
-  const int S4 = sizeof(T) == 2 ? (S + 3) / 4 * 4 : S;
-  float* const lse4 = sizeof(T) == 2 ? df + size_t(B) * H * S4 : nullptr;
+  // Dvec and a copy of lse in rows of S4 (S rounded up to 4) for the TMA loads
+  const int S4 = (S + 3) / 4 * 4;
+  float* const lse4 = df + size_t(B) * H * S4;
   const long threads = long(B) * S * H * (sizeof(T) == 2 ? D / 8 : 32);
   flash_bwd_rowdot_kernel<T><<<unsigned((threads + 255) / 256), 256, 0, stream>>>(
       static_cast<const T*>(o), gt, lf, df, lse4, B, S, H, D, S4);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
   if constexpr (sizeof(T) == 4) {
-    constexpr size_t smem = f32_bwd_smem_bytes<D>();
-    if ((e = cudaFuncSetAttribute(flash_bwd_dkdv_f32<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))) ||
-        (e = cudaFuncSetAttribute(flash_bwd_dq_f32<D>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem))))
-      return int(e);
-    const int tiles = (S + FB - 1) / FB;
-    flash_bwd_dkdv_f32<D><<<dim3(B * KV, tiles), FB_THREADS, smem, stream>>>(
-        qt, kt, vt, gt, lf, df, static_cast<float*>(dk), static_cast<float*>(dv), S, H, KV,
-        causal, window, scale);
-    if ((e = cudaGetLastError())) return int(e);
-    flash_bwd_dq_f32<D><<<dim3(B * H, tiles), FB_THREADS, smem, stream>>>(
-        qt, kt, vt, gt, lf, df, static_cast<float*>(dq), S, H, KV, causal, window, scale);
+    return launch_bwd_f32<D>(qt, kt, vt, gt, lse4, df, scratch, static_cast<float*>(dq),
+                             static_cast<float*>(dk), static_cast<float*>(dv), B, S, S4, H, KV,
+                             causal, window, scale, stream);
   } else {
     CUtensorMap mq, mk, mv, mdo, ml, md;
     if (!encode_tiled() || !rows_map<T, D>(&mq, q, B, S, H, 64) ||
@@ -1603,12 +1956,13 @@ int by_dim(const void* q, const void* k, const void* v, void* o, void* lse, void
 
 template <typename T>
 int bwd_by_dim(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int S, int H,
-               int KV, int D, int causal, int window, float scale, cudaStream_t stream) {
-#define FLASH_BWD(DD)                                                                       \
-  case DD:                                                                                  \
-    return launch_bwd<T, DD>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, S, H, KV, causal, \
-                             window, scale, stream);
+               const void* lse, void* dvec, void* scratch, void* dq, void* dk, void* dv, int B,
+               int S, int H, int KV, int D, int causal, int window, float scale,
+               cudaStream_t stream) {
+#define FLASH_BWD(DD)                                                                     \
+  case DD:                                                                                \
+    return launch_bwd<T, DD>(q, k, v, o, dout, lse, dvec, scratch, dq, dk, dv, B, S, H, KV, \
+                             causal, window, scale, stream);
   switch (D) {
     FLASH_BWD(16)
     FLASH_BWD(32)
@@ -1670,26 +2024,59 @@ extern "C" int flash_forward_shape(int dtype, int D, int* out) {
   return int(cudaErrorInvalidValue);
 }
 
+// The backward's two kernels' launch shapes for dtype and D, as flash_attention.py's
+// backward_launch_shape mirrors them: out[0..5] the dK/dV kernel's resident rows a block
+// (keys), streamed tile rows (queries), ring stages, threads a block, dynamic shared memory
+// bytes and whether its two consumer warpgroups split the resident rows (1) or take
+// alternate tiles of the same rows (0); out[6..11] the same of the dQ kernel (resident query
+// rows, streamed keys). Returns 0, or an error for another D or dtype.
+extern "C" int flash_backward_shape(int dtype, int D, int* out) {
+  switch (D) {
+#define FLASH_BWD_SHAPE(DD)                                                                \
+  case DD:                                                                                 \
+    for (int kind = 0; kind < 2; ++kind) {                                                 \
+      int* const o = out + 6 * kind;                                                       \
+      if (dtype == 0) {                                                                    \
+        o[0] = b32_rows<DD>(), o[1] = b32_tile<DD>(), o[2] = b32_stages<DD>();             \
+        o[3] = B32_THREADS, o[4] = int(b32_smem_bytes<DD>(kind == 0));                     \
+        o[5] = b32_split<DD>();                                                            \
+      } else {                                                                             \
+        o[0] = 128, o[1] = 64, o[2] = BWD_STAGES, o[3] = BWD_THREADS;                      \
+        o[4] = int(kind == 0 ? dkdv_smem_bytes<DD>() : dq_smem_bytes<DD>()), o[5] = 1;     \
+      }                                                                                    \
+    }                                                                                      \
+    return dtype >= 0 && dtype <= 2 ? 0 : int(cudaErrorInvalidValue);
+    FLASH_BWD_SHAPE(16)
+    FLASH_BWD_SHAPE(32)
+    FLASH_BWD_SHAPE(64)
+    FLASH_BWD_SHAPE(128)
+#undef FLASH_BWD_SHAPE
+  }
+  return int(cudaErrorInvalidValue);
+}
+
 // The backward: dq (B, S, H, D), dk and dv (B, S, KV, D) in the inputs' dtype from q, k,
 // v, the forward's o and lse (B, H, S) f32, and dout (like o); dvec is f32 scratch of
 // 2·B·H·S4 values, S4 = S rounded up to a multiple of 4. Same shapes, dtypes and alignment
-// as flash_attention (o and dout too).
+// as flash_attention (o and dout too). scratch: f32 only, 6·B·S·(H + KV)·D bf16, 16-byte
+// aligned (q·scale's, k's, v's and dO's three terms a row); null for the 16-bit dtypes
 extern "C" int flash_attention_backward(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
                                         int dtype, int B, int S, int H, int KV, int D,
                                         int causal, int window, float scale, void* dvec,
-                                        void* dq, void* dk, void* dv, void* stream) {
+                                        void* scratch, void* dq, void* dk, void* dv,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return bwd_by_dim<float>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, S, H, KV, D,
-                               causal, window, scale, s);
+      return bwd_by_dim<float>(q, k, v, o, dout, lse, dvec, scratch, dq, dk, dv, B, S, H, KV,
+                               D, causal, window, scale, s);
     case 1:
-      return bwd_by_dim<__nv_bfloat16>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, S, H, KV,
-                                       D, causal, window, scale, s);
+      return bwd_by_dim<__nv_bfloat16>(q, k, v, o, dout, lse, dvec, nullptr, dq, dk, dv, B, S,
+                                       H, KV, D, causal, window, scale, s);
     case 2:
-      return bwd_by_dim<__half>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, S, H, KV, D,
-                                causal, window, scale, s);
+      return bwd_by_dim<__half>(q, k, v, o, dout, lse, dvec, nullptr, dq, dk, dv, B, S, H, KV,
+                                D, causal, window, scale, s);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -22,10 +22,14 @@ The backward (:func:`flash_attention_backward`, kernels in the same
 source) replaces no Pallas kernel: the reference differentiates its jnp
 path. From the forward's output and its row log-sum-exp ``lse (B, H, S)``
 f32 it recomputes P, takes ``Dvec = rowsum(dO∘O)`` and returns dQ, dK, dV
-in the inputs' dtype, f32 sums rounded once; in 16 bits two kernels built
-on TMA, mbarriers and ``wgmma`` (a dK/dV pass over 128-key blocks and a dQ
-pass over 128-row blocks, P and dS split in two 16-bit parts), in f32 the
-CUDA cores. :class:`FlashAttentionFn`
+in the inputs' dtype, f32 sums rounded once, in two kernels built on TMA,
+mbarriers and ``wgmma`` (a dK/dV pass over blocks of keys and a dQ pass
+over blocks of query rows): in 16 bits P and dS split in two 16-bit parts;
+in f32 q·scale, k, v, dO, P and dS in three bf16 terms each and six
+products for each of S, dP, dV, dK and dQ, after a pass that writes the
+four inputs' terms into the launch's scratch.
+:func:`backward_launch_shape` mirrors both kernels' launch.
+:class:`FlashAttentionFn`
 joins the two for autograd: :func:`flash_attention` goes through it
 whenever autograd needs a gradient of q, k or v, and only then has the
 forward write ``lse``.
@@ -50,10 +54,11 @@ from repro_torch.kernels import meta
 NEG_INF = -1e30
 
 # kernel launches since the last reset (kernels.ops.reset_launch_counts);
-# ``flash_attention_f32`` counts the forward's launches of its f32 body,
-# which ``flash_attention`` counts too
+# ``flash_attention_f32`` and ``flash_attention_backward_f32`` count the f32
+# launches, which ``flash_attention`` and ``flash_attention_backward`` count
+# too
 launches = {"flash_attention": 0, "flash_attention_f32": 0,
-            "flash_attention_backward": 0}
+            "flash_attention_backward": 0, "flash_attention_backward_f32": 0}
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -65,10 +70,11 @@ def _bind(lib) -> None:
         ptr] * 4
     lib.flash_attention.restype = i32
     lib.flash_attention_backward.argtypes = ([ptr] * 6 + [i32] * 8 + [f32]
-                                             + [ptr] * 5)
+                                             + [ptr] * 6)
     lib.flash_attention_backward.restype = i32
-    lib.flash_forward_shape.argtypes = [i32, i32, ctypes.POINTER(i32)]
-    lib.flash_forward_shape.restype = i32
+    for name in ("flash_forward_shape", "flash_backward_shape"):
+        getattr(lib, name).argtypes = [i32, i32, ctypes.POINTER(i32)]
+        getattr(lib, name).restype = i32
 
 
 _lib = build.KernelLibrary("flash_attention", ["flash_attention.cu"], _bind)
@@ -167,6 +173,105 @@ def kernel_forward_shape(d: int, dtype):
     if err:
         raise RuntimeError(f"flash_forward_shape failed: cudaError {err}")
     return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardLaunch:
+    """One backward kernel's launch, as ``flash_attention.cu`` makes it:
+    ``kind`` "dkdv" keeps ``rows`` keys of one KV head resident and streams
+    tiles of ``tile`` query rows of each query head of its group; "dq"
+    keeps ``rows`` query rows of one head and streams tiles of ``tile``
+    keys. A ring of ``stages``, ``threads`` a block, ``smem_bytes`` of
+    dynamic shared memory; ``split``: the two consumer warpgroups own 64
+    resident rows each and read every tile, else they own the same rows
+    and take alternate tiles (the f32 kernels at D 128)."""
+    kind: str
+    dtype: torch.dtype
+    d: int
+    rows: int
+    tile: int
+    stages: int
+    threads: int
+    smem_bytes: int
+    split: bool
+
+    def blocks(self, b: int, s: int, h: int, kv: int):
+        """``(batch, head, first resident row)`` of every block in launch
+        order; the head is the KV head for "dkdv". In 16 bits a grid of
+        (heads, blocks), heads fastest; in f32 one dimension, a head's
+        blocks in a row. Heaviest causal block first: dK/dV's first keys,
+        dQ's last rows."""
+        heads = b * (kv if self.kind == "dkdv" else h)
+        n = -(-s // self.rows)
+        first = ((lambda i: i * self.rows) if self.kind == "dkdv"
+                 else (lambda i: (n - 1 - i) * self.rows))
+        per = h if self.kind == "dq" else kv
+        if self.dtype == torch.float32:
+            order = [(x, i) for x in range(heads) for i in range(n)]
+        else:
+            order = [(x, i) for i in range(n) for x in range(heads)]
+        return [(x // per, x % per, first(i)) for x, i in order]
+
+    def tiles(self, r0: int, s: int, *, causal: bool, window: int):
+        """The streamed tiles of the block whose resident rows start at
+        ``r0``: those some of its rows may see."""
+        if self.kind == "dkdv":
+            lo = r0 if causal else 0
+            hi = min(s - 1, r0 + self.rows - 2 + window) if window > 0 \
+                else s - 1
+            return range(lo // self.tile, hi // self.tile + 1)
+        t_hi = (s - 1) // self.tile
+        if causal:
+            t_hi = min(t_hi, (r0 + self.rows - 1) // self.tile)
+        t_lo = 0
+        if window > 0:
+            x = r0 - window - self.tile + 1
+            if x >= 0:
+                t_lo = x // self.tile + 1
+        return range(t_lo, t_hi + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_launch_shape(d: int, dtype):
+    """``(dkdv, dq)``: the backward kernels' launches for head dim ``d`` and
+    ``dtype``, a mirror of ``flash_attention.cu`` (``flash_backward_shape``
+    there gives them). 16 bits: 128 resident rows, 64-row tiles, three
+    stages. f32 (three bf16 terms of each operand): from D 64 down as 16
+    bits with four stages below D 64 and two at D 64; at D 128 64 resident
+    rows and alternate 32-row tiles, two stages."""
+    if d not in HEAD_DIMS or dtype not in _DTYPE:
+        raise ValueError(f"no backward kernels for D={d}, {dtype}")
+    out = []
+    for kind in ("dkdv", "dq"):
+        if dtype == torch.float32:
+            split = d <= 64
+            rows, tile = (128 if split else 64), (32 if d == 128 else 64)
+            stages = 2 if d >= 64 else 4
+            # b32_smem_bytes: alignment slack, the resident operands' six
+            # bf16 planes, per stage the streamed ones' six (and dK/dV's
+            # lse and Dvec, 1024 bytes), the barriers
+            smem = (1024 + 6 * rows * d * 2 + stages * (
+                6 * tile * d * 2 + (1024 if kind == "dkdv" else 0)) + 128)
+        else:
+            split, rows, tile, stages = True, 128, 64, 3
+            # dkdv_smem_bytes / dq_smem_bytes: K and V (or Q and dO) of 128
+            # rows, per stage two 64-row tiles (and dK/dV's lse and Dvec)
+            smem = (1024 + 4 * 64 * d * 2 + stages * (
+                2 * 64 * d * 2 + (1024 if kind == "dkdv" else 0)) + 128)
+        out.append(BackwardLaunch(kind, dtype, d, rows, tile, stages, 384,
+                                  smem, split))
+    return tuple(out)
+
+
+def kernel_backward_shape(d: int, dtype):
+    """``flash_backward_shape`` of the built library (needs the card's
+    toolkit) → two ``(rows, tile, stages, threads, smem_bytes, split)``:
+    dK/dV's, dQ's."""
+    out = (ctypes.c_int * 12)()
+    err = _lib().flash_backward_shape(_DTYPE[dtype], d, out)
+    if err:
+        raise RuntimeError(f"flash_backward_shape failed: cudaError {err}")
+    return tuple(out[:6]), tuple(out[6:])
 
 
 def attention_mask(sq: int, sk: int, *, causal: bool, window: int,
@@ -348,9 +453,13 @@ def _launch(q, k, v, causal: bool, window: int, with_lse: bool):
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0):
     """``(dq, dk, dv)`` of the attention that gave ``o`` and ``lse`` (B, H,
-    S) f32, for the output gradient ``do``: the backward kernel for a CUDA
+    S) f32, for the output gradient ``do``: the backward kernels for a CUDA
     tensor, :func:`flash_attention_backward_plain` for a CPU one, the meta
-    path (:func:`backward_work` recorded) for a meta one."""
+    path (:func:`backward_work` recorded) for a meta one. A launch takes
+    scratch device memory besides its outputs: Dvec and a copy of lse, 8
+    bytes a row of each head; in f32 also the three bf16 terms of q·scale,
+    k, v and dO, 12·B·S·(H + KV)·D bytes (1.6 GB at stablelm-1.6b's 8 ×
+    4,096 layer)."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do,
                                               causal=causal, window=window)
@@ -367,20 +476,29 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
             b, s, h, n_kv, d, causal=causal, window=window, dtype=q.dtype))
         return dq, dk, dv
     # the kernels' scratch: Dvec and a copy of lse, rows padded to a multiple
-    # of 4 (16-byte aligned TMA boxes)
+    # of 4 (16-byte aligned TMA boxes); in f32 the four inputs' three bf16
+    # terms a row
     dvec = torch.empty(2 * b * h * (-(-s // 4) * 4), dtype=torch.float32,
                        device=q.device)
-    with meta.launch_range("flash_attention_backward"):
+    f32 = q.dtype == torch.float32
+    terms = (torch.empty(6 * b * s * (h + n_kv) * d, dtype=torch.bfloat16,
+                         device=q.device) if f32 else None)
+    name = "flash_attention_backward_f32" if f32 else None
+    with meta.launch_range("flash_attention_backward"), \
+            meta.launch_range(name):
         err = _lib().flash_attention_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), _DTYPE[q.dtype], b, s, h, n_kv, d,
             int(causal), int(window), 1.0 / math.sqrt(d), dvec.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if terms is None else terms.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_backward launch failed: "
                            f"cudaError {err}")
     launches["flash_attention_backward"] += 1
+    if name:
+        launches[name] += 1
     return dq, dk, dv
 
 

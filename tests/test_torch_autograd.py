@@ -12,7 +12,11 @@ the forward's f32 output: the reference's softmax VJP reads no rounded
 output, while the kernels' Dvec = rowsum(dO∘O) reads the output they
 saved, whose rounding (2^-9 of O) moves a gradient near zero by up to a
 few 1e-3 — the cuda cases hold the kernels to the plain version on that
-same rounded output. ``FlashAttentionFn`` and ``DotInteractionFn`` —
+same rounded output. The f32 backward kernels' arithmetic (operands in
+three bf16 terms, six products for each of S, dP, dV, dK and dQ) is
+emulated (``_f32_backward``) and held to ``jax.vjp`` at ``F32`` and to the
+backward in f64, which also shows that each product kept is needed.
+``FlashAttentionFn`` and ``DotInteractionFn`` —
 the autograd Functions the layers use — must give the plain backward's
 gradients, and torch autograd's of the plain forward at ``F32``. The plain
 forward's ``lse`` is held to a float64 log-sum-exp. ``lm_forward`` with
@@ -38,7 +42,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tf
 
-from test_torch_common import ref_on_cpu
+from test_torch_common import f64_attention, ref_on_cpu, split3
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2 ** -7, atol=1e-4)
@@ -163,6 +167,145 @@ def test_flash_plain_lse(case):
     mx = sc.max(-1, keepdims=True)
     want = (mx + np.log(np.exp(sc - mx).sum(-1, keepdims=True)))[..., 0]
     np.testing.assert_allclose(lse.numpy(), want, **F32)
+
+
+# The f32 backward kernels' arithmetic (flash_attention.cu
+# flash_bwd_dkdv_f32_kernel / flash_bwd_dq_f32_kernel), emulated in torch on
+# the CPU: q·scale, k, v, dO, P and dS in three bf16 terms each, S, dP, dV,
+# dK and dQ the sums of the products kept. (A's term, B's term), 0 = hi, 1 =
+# mid, 2 = lo: the kernels' six for each (prod_a / prod_b), every pair down
+# to the 2^-16 terms; THREE_PRODUCTS, those down to the 2^-8 terms.
+F32_BWD_PRODUCTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+THREE_PRODUCTS = ((1, 0), (0, 1), (0, 0))
+BWD_PRODUCTS_OF = ("s", "dp", "dv", "dk", "dq")
+
+
+def _f32_backward(q, k, v, o, lse, do, *, causal, window, products=None,
+                  sums=torch.float32, split=None):
+    """``(dq, dk, dv)`` as the f32 backward kernels compute them from f32
+    inputs and the forward's ``o`` and ``lse``: ``products`` maps S, dP,
+    dV, dK or dQ to the products it keeps (the kernels' six by default);
+    each product's terms are exact, P and dS are split from their f32
+    values, the sums are torch's in ``sums``, to nearest (so this bounds
+    the split and the products, not ``wgmma``'s accumulation). ``split``
+    replaces the three-term split (``WHOLE``: none, the operands as
+    given)."""
+    keep = {x: F32_BWD_PRODUCTS for x in BWD_PRODUCTS_OF}
+    keep.update(products or {})
+    split = split or (lambda x: split3(x.float()))
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+
+    def prod(eq, a, c, what):
+        at, ct = split(a), split(c)
+        return sum(torch.einsum(eq, at[i].to(sums), ct[j].to(sums))
+                   for i, j in keep[what])
+    qg = q.reshape(b, s, kv, g, d) * (1.0 / math.sqrt(d))
+    dog = do.reshape(b, s, kv, g, d)
+    sc = prod("bqkgd,bjkd->bkgqj", qg, k, "s")
+    mask = fa.attention_mask(s, s, causal=causal, window=window)
+    p = torch.where(mask, torch.exp(sc - lse.reshape(b, kv, g, s)[
+        ..., None].to(sums)), torch.zeros((), dtype=sums))
+    dvec = (dog * o.reshape(b, s, kv, g, d)).sum(-1)
+    dp = prod("bqkgd,bjkd->bkgqj", dog, v, "dp")
+    ds = p * (dp - dvec.permute(0, 2, 3, 1)[..., None].to(sums))
+    dq = prod("bkgqj,bjkd->bqkgd", ds, k, "dq") * (1.0 / math.sqrt(d))
+    return (dq.reshape(b, s, h, d), prod("bkgqj,bqkgd->bjkd", ds, qg, "dk"),
+            prod("bkgqj,bqkgd->bjkd", p, dog, "dv"))
+
+
+# the backward's formulas with the operands whole (in ``sums``)
+WHOLE = dict(split=lambda x: (x,),
+             products={x: ((0, 0),) for x in BWD_PRODUCTS_OF})
+
+
+def _f64_backward(q, k, v, do, *, causal, window):
+    """The exact backward: its formulas in f64 from the attention in
+    f64."""
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    o, lse = f64_attention(q, k, v, causal=causal, window=window)
+    return _f32_backward(q, k, v, o, lse, do, causal=causal, window=window,
+                         sums=torch.float64, **WHOLE)
+
+
+def _f32_contract_excess(got, want):
+    """max |got − want| / (atol + rtol·|want|) at ``F32``: ≤ 1 holds it."""
+    return max(float(((g.double() - w.double()).abs()
+                      / (F32["atol"] + F32["rtol"] * w.double().abs())).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("case", [(1, 192, 4, 2, 64, True, 0),
+                                  (1, 256, 2, 2, 128, True, 0),
+                                  (2, 200, 2, 1, 32, True, 40),
+                                  (1, 130, 4, 2, 16, False, 17)])
+def test_f32_backward_body_matches_reference_vjp(case):
+    """The emulated f32 backward kernels against ``jax.vjp`` of the
+    reference's oracle at ``F32``, on the forward's own o and lse."""
+    causal, window = case[5], case[6]
+    q, k, v, do = _flash_inputs(case, 4)
+    with ref_on_cpu():
+        _, vjp = jax.vjp(lambda a, b, c: flash_attention_ref(
+            a, b, c, causal=causal, window=window),
+            *(jnp.asarray(x) for x in (q, k, v)))
+        want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                      window=window, return_lse=True)
+    got = _f32_backward(tq, tk, tv, o, lse, tdo, causal=causal,
+                        window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), **F32, err_msg=name)
+
+
+@pytest.mark.parametrize("what", BWD_PRODUCTS_OF)
+@pytest.mark.parametrize("drop", [(2, 0), (0, 2), (1, 1)])
+def test_f32_backward_keeps_the_fewest_products(what, drop):
+    """Against the backward's formulas in f64 on the kernels' own f32
+    operands (q·scale rounded to f32, the forward's o and lse), sums in f64
+    (so only the split and the products count): the six products of each
+    of S, dP, dV, dK and dQ miss by e < 1e-6, and dropping any one of the
+    2^-16 products of any of them costs at least 5× e."""
+    case = (1, 128, 4, 2, 32, True, 0)
+    q, k, v, do = (torch.from_numpy(x) for x in _flash_inputs(case, 4))
+    kw = dict(causal=True, window=0)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    exact = _f32_backward(q, k, v, o, lse, do, sums=torch.float64, **WHOLE,
+                          **kw)
+
+    def miss(products):
+        got = _f32_backward(q, k, v, o, lse, do, products=products,
+                            sums=torch.float64, **kw)
+        return max(float((g - w).abs().max()) for g, w in zip(got, exact))
+    e6 = miss(None)
+    assert e6 < 1e-6
+    assert miss({what: [p for p in F32_BWD_PRODUCTS if p != drop]}) > 5 * e6
+
+
+@pytest.mark.parametrize("case", [(1, 192, 4, 2, 64, True, 0),
+                                  (1, 128, 2, 1, 128, True, 30)])
+def test_f32_backward_needs_the_six_products(case):
+    """With f32 sums, as the card sums: against the exact backward (f64)
+    the six products of each hold the CPU's f32 contract (``F32``) with
+    the margin the plain f32 backward has; the three products down to the
+    2^-8 terms for all five miss it."""
+    causal, window = case[5], case[6]
+    q, k, v, do = (torch.from_numpy(x) for x in _flash_inputs(case, 4))
+    kw = dict(causal=causal, window=window)
+    exact = _f64_backward(q, k, v, do, **kw)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    six = _f32_contract_excess(_f32_backward(q, k, v, o, lse, do, **kw),
+                               exact)
+    plain = _f32_contract_excess(fa.flash_attention_backward_plain(
+        q, k, v, o, lse, do, **kw), exact)
+    three = _f32_contract_excess(_f32_backward(
+        q, k, v, o, lse, do, products={x: THREE_PRODUCTS
+                                       for x in BWD_PRODUCTS_OF}, **kw),
+        exact)
+    assert six <= max(0.25, 2 * plain)
+    assert three > 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +540,8 @@ def test_cuda_flash_backward_matches_plain(cuda_device, case, dtype):
     got = torch.autograd.grad(out, leaves, do)
     assert ops.launch_counts()["flash_attention"] == 1
     assert ops.launch_counts()["flash_attention_backward"] == 1
+    assert ops.launch_counts()["flash_attention_backward_f32"] == int(
+        dtype == torch.float32)
     _, lse = fa._launch(q, k, v, causal, window, True)
     want = fa.flash_attention_backward_plain(
         q.float(), k.float(), v.float(), out.detach().float(), lse,
@@ -410,12 +555,14 @@ def test_cuda_flash_backward_matches_plain(cuda_device, case, dtype):
 @pytest.mark.parametrize("case", [(1, 333, 2, 2, 64, True, 0),
                                   (2, 301, 4, 2, 128, True, 0),
                                   (1, 333, 4, 2, 32, False, 40)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_cuda_flash_backward_ignores_what_the_scratch_held(cuda_device, case,
                                                            dtype):
-    """At a ragged S the 16-bit kernels read Dvec and lse in rows padded to a
+    """At a ragged S the kernels read Dvec and lse in rows padded to a
     multiple of 4: a NaN left in the caching allocator's block of that
-    size must not reach dK or dV."""
+    size must not reach dK or dV (nor, in f32, one left where the inputs'
+    three bf16 terms go: the split pass writes every term)."""
     b, s, h, _, d, causal, window = case
     q, k, v, do = (torch.from_numpy(x).to(cuda_device).to(dtype)
                    for x in _flash_inputs(case, 5))

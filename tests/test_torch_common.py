@@ -5,6 +5,7 @@ handed to the reference as numpy / jax arrays and to the port as torch
 CPU tensors, so both packages see bit-identical inputs.
 """
 import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -33,6 +34,30 @@ def ref_on_cpu():
     """Run the reference's jax on the CPU (on a machine where jax also
     sees a GPU, its f32 products there default to TF32)."""
     return jax.default_device(jax.devices("cpu")[0])
+
+
+def split3(x):
+    """f32 ``x`` → its bf16 terms as f32: hi = RN(x), mid = RN(x − hi),
+    lo = RN(x − hi − mid) (both differences exact): the split of the
+    f32 flash kernels (flash_attention.cu ``split3``)."""
+    hi = x.to(torch.bfloat16).float()
+    r = x - hi
+    mid = r.to(torch.bfloat16).float()
+    return hi, mid, (r - mid).to(torch.bfloat16).float()
+
+
+def f64_attention(q, k, v, *, causal, window):
+    """``(o, lse)`` of flash attention in f64, from the (f32) inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.double().reshape(b, s, kv, h // kv, d) / math.sqrt(d)
+    sc = torch.einsum("bqkgd,bjkd->bkgqj", qg, k.double())
+    mask = fa.attention_mask(s, s, causal=causal, window=window)
+    sc = torch.where(mask, sc, torch.tensor(-1e30, dtype=torch.float64))
+    o = torch.einsum("bkgqj,bjkd->bkgqd", torch.softmax(sc, -1), v.double())
+    return (o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d),
+            torch.logsumexp(sc, -1).reshape(b, h, s))
 
 
 def corpora(**kw):

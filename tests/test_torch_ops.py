@@ -27,6 +27,8 @@ from repro.kernels import ops as ref_ops
 from repro_torch.kernels import ops
 
 from test_torch_common import assert_topk_match
+from test_torch_common import f64_attention as _f64_attention
+from test_torch_common import split3 as _split3
 
 DIST_MAX = 1.414
 
@@ -296,21 +298,61 @@ def test_flash_forward_launch_shape_f32(d):
         fa.forward_launch_shape(48, torch.float32)
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_backward_launch_shape(d, dtype):
+    """The backward kernels' launches (``backward_launch_shape``, the
+    mirror of flash_attention.cu): each fits the 227 KB a block may have
+    with its resident rows and ring (in f32 three bf16 terms of each: 128
+    resident rows split between the two consumer warpgroups from D 64
+    down, 64 shared rows and alternate 32-row tiles at D 128); every
+    block's resident rows are launched once, a head's blocks heaviest
+    causal block first (dK/dV's first keys, dQ's last rows); and each
+    block's streamed tiles hold every row its resident rows see or are
+    seen by, none that none does."""
+    from repro_torch.kernels import flash_attention as fa
+    dkdv, dq = fa.backward_launch_shape(d, dtype)
+    terms = 3 if dtype == torch.float32 else 1
+    for sh in (dkdv, dq):
+        assert sh.smem_bytes <= fa.SMEM_LIMIT and sh.threads == 384
+        assert sh.rows % 64 == 0 and sh.tile % 16 == 0 and sh.stages >= 2
+        assert sh.smem_bytes > 2 * terms * 2 * d * (sh.rows
+                                                    + sh.stages * sh.tile)
+        assert sh.split == (dtype != torch.float32 or d <= 64)
+        assert sh.rows == (128 if sh.split else 64)
+    for b, s, h, kv, causal, window in [
+            (2, 333, 4, 2, True, 0), (1, 129, 8, 1, False, 0),
+            (1, 257, 2, 1, True, 127), (1, 300, 4, 4, True, 1),
+            (1, 200, 3, 3, False, 40)]:
+        mask = fa.attention_mask(s, s, causal=causal, window=window)
+        for sh, heads in ((dkdv, kv), (dq, h)):
+            order = sh.blocks(b, s, h, kv)
+            n = -(-s // sh.rows)
+            assert sorted(order) == [(bb, hh, i * sh.rows) for bb in range(b)
+                                     for hh in range(heads)
+                                     for i in range(n)]
+            for bb in range(b):
+                for hh in range(heads):
+                    r0s = [r0 for x, y, r0 in order if (x, y) == (bb, hh)]
+                    assert r0s == sorted(r0s, reverse=sh.kind == "dq")
+            # resident rows × streamed rows: keys × queries for dK/dV
+            pairs = mask.T if sh.kind == "dkdv" else mask
+            t_of = torch.arange(s) // sh.tile
+            for r0 in range(0, s, sh.rows):
+                seen = pairs[r0:r0 + sh.rows].any(0)
+                assert list(sh.tiles(r0, s, causal=causal, window=window)
+                            ) == sorted(set(t_of[seen].tolist()))
+    with pytest.raises(ValueError):
+        fa.backward_launch_shape(48, dtype)
+
+
 # The f32 body's arithmetic (flash_attention.cu flash_fwd_f32_kernel),
 # emulated in torch on the CPU: q·scale, k, v and P in three bf16 terms
 # each, S = Q·Kᵀ and O = P·V the sums of the products kept, in f32.
 # (A's term, B's term), 0 = hi, 1 = mid, 2 = lo: the kernel's six
 # (prod_a / prod_b), every pair down to the 2^-16 terms.
 F32_PRODUCTS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
-
-
-def _split3(x):
-    """f32 ``x`` → its bf16 terms as f32: hi = RN(x), mid = RN(x − hi),
-    lo = RN(x − hi − mid) (both differences exact)."""
-    hi = x.to(torch.bfloat16).float()
-    r = x - hi
-    mid = r.to(torch.bfloat16).float()
-    return hi, mid, (r - mid).to(torch.bfloat16).float()
 
 
 def _f32_body(q, k, v, *, causal, window, products=F32_PRODUCTS):
@@ -414,20 +456,6 @@ def test_f32_body_keeps_the_fewest_products(drop):
     assert e6 < 2e-6 and (l6.double() - exact_lse).abs().max() < 2e-6
     assert e9 < 2e-6
     assert e5 > 5 * e6
-
-
-def _f64_attention(q, k, v, *, causal, window):
-    """``(o, lse)`` in f64, from the f32 inputs."""
-    from repro_torch.kernels import flash_attention as fa
-    b, s, h, d = q.shape
-    kv = k.shape[2]
-    qg = q.double().reshape(b, s, kv, h // kv, d) / math.sqrt(d)
-    sc = torch.einsum("bqkgd,bjkd->bkgqj", qg, k.double())
-    mask = fa.attention_mask(s, s, causal=causal, window=window)
-    sc = torch.where(mask, sc, torch.tensor(-1e30, dtype=torch.float64))
-    o = torch.einsum("bkgqj,bjkd->bkgqd", torch.softmax(sc, -1), v.double())
-    return (o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d),
-            torch.logsumexp(sc, -1).reshape(b, h, s))
 
 
 # ---------------------------------------------------------------------------
@@ -577,7 +605,7 @@ def test_cpu_tensors_never_launch_and_counters_cover_every_kernel():
     assert ops.launch_counts() == {
         "routed": 0, "cluster_major": 0, "gather": 0, "flash_attention": 0,
         "flash_attention_f32": 0, "flash_attention_backward": 0,
-        "dot_interaction": 0,
+        "flash_attention_backward_f32": 0, "dot_interaction": 0,
         "dot_interaction_backward": 0, "embedding_bag": 0}
     ops.dot_interaction(torch.ones(2, 3, 4))
     ops.embedding_bag(torch.ones(5, 4), torch.zeros(2, 3, dtype=torch.int32))
@@ -698,6 +726,18 @@ def test_cuda_flash_forward_shape_is_the_mirror(cuda_device):
             sh = fa.forward_launch_shape(d, dtype)
             assert fa.kernel_forward_shape(d, dtype) == (
                 sh.rows, sh.key_tile, sh.stages, sh.threads, sh.smem_bytes)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_shape_is_the_mirror(cuda_device):
+    """The built library's backward launches equal
+    ``backward_launch_shape``."""
+    from repro_torch.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in fa.HEAD_DIMS:
+            assert fa.kernel_backward_shape(d, dtype) == tuple(
+                (x.rows, x.tile, x.stages, x.threads, x.smem_bytes,
+                 int(x.split)) for x in fa.backward_launch_shape(d, dtype))
 
 
 @pytest.mark.cuda
