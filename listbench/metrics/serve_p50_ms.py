@@ -1,0 +1,13 @@
+"""serve_p50_ms (ms): median latency of the open loop's requests, each
+timed from when it fell due, over every request answered."""
+import numpy as np
+
+MOVES = None
+READS = "the harness's due and answer times of each request"
+
+
+def read(ctx):
+    lat = ctx["window"].get("latency_ms")
+    if lat is None or not len(lat):
+        return None
+    return float(np.percentile(lat, 50))
